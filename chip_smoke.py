@@ -1,29 +1,48 @@
-"""Smoke run of the s2t_tpu_torch serving slice on one NVIDIA H100.
+"""Smoke run of the s2t_tpu_torch serving and training slices on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
 Phases (any failure ends the run with a non-zero exit):
-  1. build   every CUDA source of s2t_tpu_torch/csrc with nvcc (sm_90a);
-  2. kernel  the attention kernel against its plain PyTorch version on the
-             card at the s/m/l head plans, T' = 250 and 1000, ragged lengths
-             with a 0-length row, fp32 and bf16, native (B, T, H, D) and
-             head-major strided layouts; times kernel, plain version and
+  1. build   every CUDA source of s2t_tpu_torch/csrc with nvcc (sm_90a), one
+             process per source, all started together;
+  2. kernel  the attention forward (K1f) against its plain PyTorch version on
+             the card at the s/m/l head plans, T' = 250 and 1000, ragged
+             lengths with a 0-length row, fp32 and bf16, native (B, T, H, D)
+             and head-major strided layouts; times kernel, plain version and
              torch's scaled_dot_product_attention (a yardstick only);
-  3. serve   s2t_transformer_s at full width (seeded random weights) answers
+  3. grad    K1f with dropout 0 / 0.15 and its log-sum-exp, and the attention
+             backward (K1b), against the plain version and its autograd
+             backward with the same seed, at the same head plans, dtypes and
+             layouts; the kept share of the dropout mask; K1b times at the
+             training shape beside the backward of scaled_dot_product_attention;
+  4. ctc     the CTC alpha (K3) and beta/gradient (K4) kernels against their
+             plain versions at the training shape (B=40, T'=250, S=59) and a
+             long one (T'=1000, S=401), ragged lengths, repeated labels, an
+             infeasible and a 0-frame row; times beside torch's ctc_loss;
+  5. serve   s2t_transformer_s at full width (seeded random weights) answers
              the four fixture wavs with beam 5 through the hub, fp32, on the
              card (kernel) and on the CPU (plain): encoder outputs within
              ENC_ATOL and identical top-beam tokens, or a printed near-tie;
-  4. speed   the same model in bf16 on 64 synthetic 10 s waveforms;
-  5. summary the kernels line, the card's name and power limit, and the
+  6. speed   the same model in bf16 on 64 synthetic 10 s waveforms;
+  7. train   s2t_transformer_m at full width, fp32, dropout 0: 3 steps of the
+             port's Trainer on the card (kernels) and on the CPU (plain),
+             per-step loss / ctc_loss / gnorm and the parameters after 3 steps;
+  8. train   s2t_transformer_m in bf16 at the bench shape (B=40, T=1000, U=30,
+     speed   V=10000, preset dropouts, ctc_weight 0.3): one warm-up step, 20
+             timed steps, steps/s, frames/s, tokens/s, MFU, and one profiled
+             step (device busy share, top device ops, each kernel's share);
+  9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
-The kernel launch counter is set to 0 before the serving runs of phases 3-4
-(the main path) and read after them: 12 launches per encode.
+The launch counters are set to 0 before each main-path run and read after
+it: serving (phases 5-6) launches K1f 12 times per encode; a training step
+(phases 7-8) launches K1f 12, K1b 12, K3 1 and K4 1 times.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -32,10 +51,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from s2t_tpu_torch.config import OptimizationConfig
+from s2t_tpu_torch.criterions.build import build_criterion
 from s2t_tpu_torch.hub import GeneratorHub
-from s2t_tpu_torch.models.s2t_transformer import s2t_transformer_s
+from s2t_tpu_torch.models.s2t_transformer import (
+    S2TTransformerModel, s2t_transformer_m, s2t_transformer_s)
 from s2t_tpu_torch.ops import _build
-from s2t_tpu_torch.ops.attention_cuda import fused_attention, fused_attention_plain
+from s2t_tpu_torch.ops.attention_cuda import (
+    fused_attention, fused_attention_bwd, fused_attention_fwd, fused_attention_plain, keep_mask)
+from s2t_tpu_torch.ops.ctc import _extend_labels, _lattice_logp, _transition_mask
+from s2t_tpu_torch.ops.ctc_cuda import (
+    NEG_INF, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain)
+from s2t_tpu_torch.trainer import Trainer
+from s2t_tpu_torch.utils.flops import s2t_train_flops
 
 ROOT = Path(__file__).resolve().parent
 WAVS = [str(ROOT / "tests" / "fixtures" / "audio" / f"utt{i}.wav") for i in range(4)]
@@ -47,6 +75,19 @@ KERNEL_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # fp32 serving, card (kernel, cuBLAS, cuDNN without TF32) vs CPU (plain):
 # 12 encoder layers summed in another order
 ENC_ATOL = 1e-3
+# attention backward, kernel vs autograd through the plain version (in f32 on the
+# same inputs), relative to the largest entry of the reference gradient: fp32 sums
+# in another order; bf16 adds one rounding of each output and Delta = rowsum(dO o O)
+# taken from the bf16 forward output, each ~2^-8 relative
+GRAD_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LSE_ATOL = 1e-4  # log-sum-exp in f32 of f32-accumulated scores (|lse| < ~20)
+KEPT_SHARE_TOL = 0.005  # kept share of the dropout mask vs 1 - k/256, absolute
+# CTC kernels vs plain: the same f32 operations in the same order per state
+CTC_ATOL = {"alpha": 1e-3, "demit": 1e-5}
+# fp32 training card vs CPU over 3 steps (the same f32 math, reductions in another
+# order through 18 layers): loss and ctc_loss relative, gnorm relative
+TRAIN_RTOL = {"loss": 1e-4, "ctc_loss": 1e-4, "gnorm": 1e-3}
+TRAIN_LAUNCHES = {"attention_fwd": 12, "attention_bwd": 12, "ctc_alpha": 1, "ctc_beta_grad": 1}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32 without tensor cores
 GEN = dict(beam_size=5, max_len_a=0.0, max_len_b=100, lenpen=1.0)
@@ -159,6 +200,225 @@ def phase_kernel():
 
 
 # --------------------------------------------------------------------------- #
+def counters():
+    return {"attention_fwd": fused_attention, "attention_bwd": fused_attention_bwd,
+            "ctc_alpha": ctc_alpha, "ctc_beta_grad": ctc_beta_grad}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in f32."""
+    want = want.float()
+    return (got.float() - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+def attention_bwd_bound(B, T, H, D, lengths, dtype):
+    """K1b: q, k, v, o, dO read and dq, dk, dv written once, lse / Delta (B, H, T)
+    f32; the flops of its five products (S, dP, dV, dK, dQ) over the keys these
+    lengths need."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = 8 * B * T * H * D * elem + 2 * 4 * B * H * T + 4 * B
+    kv = [min(int(n), T) if n > 0 else T for n in lengths]
+    flops = 10 * H * D * T * sum(kv)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def grad_case(B, T, H, D, dtype, layout, lengths, rate, seed, time_it=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, T, H, D) if layout == "native" else (B, H, T, D)
+    qkv = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
+    if layout == "head_major":
+        qkv = [a.transpose(1, 2) for a in qkv]
+    q, k, v = qkv
+    do = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+    mask = torch.arange(T, device="cuda")[None, :] < torch.as_tensor(lengths, device="cuda")[:, None]
+    lens = mask.sum(-1, dtype=torch.int32)
+    rate_u8 = min(int(round(rate * 256)), 255)
+    dseed = torch.randint(0, 2 ** 62, (1,), generator=g, device="cuda")
+    out, lse = fused_attention_fwd(q, k, v, lens, rate_u8, dseed, with_lse=True)
+    dq, dk, dv = fused_attention_bwd(q, k, v, out, do, lse, lens, rate_u8, dseed)
+    qf, kf, vf = (a.detach().float().requires_grad_() for a in (q, k, v))
+    ref = fused_attention_plain(qf, kf, vf, mask, rate, dseed)
+    ref.backward(do.float())
+    with torch.no_grad():
+        bias = torch.where(mask[:, None, None, :], 0.0, -1e9)
+        lse_ref = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) / math.sqrt(D) + bias, -1)
+        rows = lens > 0  # a 0-length row's lse is rounded away by the -1e9 bias
+        lse_err = (lse[rows] - lse_ref[rows]).abs().max().item()
+    torch.cuda.synchronize()
+    res = {"B": B, "T": T, "H": H, "D": D, "dtype": str(dtype).split(".")[-1], "layout": layout,
+           "dropout": rate, "out_rel_err": rel_err(out, ref), "lse_err": lse_err,
+           "dq_rel_err": rel_err(dq, qf.grad), "dk_rel_err": rel_err(dk, kf.grad),
+           "dv_rel_err": rel_err(dv, vf.grad),
+           "grad_max_abs_err": max((a.float() - b).abs().max().item()
+                                   for a, b in ((dq, qf.grad), (dk, kf.grad), (dv, vf.grad))),
+           "rtol": GRAD_RTOL[dtype]}
+    if time_it:
+        res["fwd_ms"] = cuda_ms(lambda: fused_attention_fwd(q, k, v, lens, rate_u8, dseed, True))
+        res["ms"] = cuda_ms(lambda: fused_attention_bwd(q, k, v, out, do, lse, lens, rate_u8, dseed))
+        qp, kp, vp = (a.detach().requires_grad_() for a in (q, k, v))
+        plain_out = fused_attention_plain(qp, kp, vp, mask, rate, dseed)
+        res["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(plain_out, (qp, kp, vp), do,
+                                                              retain_graph=True), iters=5)
+        qt, kt, vt = (a.detach().transpose(1, 2).requires_grad_() for a in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias.to(dtype))
+        dot = do.transpose(1, 2)
+        res["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                                retain_graph=True))
+        res["bound_ms"], res["bound_by"] = attention_bwd_bound(B, T, H, D, lengths, dtype)
+    return res
+
+
+def check_grad_case(r):
+    bad = [key for key in ("out_rel_err", "dq_rel_err", "dk_rel_err", "dv_rel_err")
+           if not r[key] <= r["rtol"]]
+    if bad or not r["lse_err"] <= LSE_ATOL:
+        raise AssertionError(f"attention kernels disagree with the plain version ({bad}): {r}")
+
+
+def phase_attention_grad():
+    rng = np.random.default_rng(1)
+    cases = []
+    B, T = 16, 250
+    lengths = rng.integers(1, T + 1, size=B)
+    lengths[0], lengths[1] = T, 0
+    for H, D in [(4, 64), (8, 64), (16, 64)]:  # s, m, l head plans
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.15):
+                for layout in ("native", "head_major"):
+                    cases.append((B, T, H, D, dtype, layout, lengths, rate))
+    for D in (32, 128):  # the other head dims the kernels take
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((8, T, 4, D, dtype, "native", lengths[:8], 0.15))
+    long_lengths = np.array([1000, 0, 731, 402])
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((4, 1000, 8, 64, dtype, "native", long_lengths, 0.15))
+    results = []
+    for i, c in enumerate(cases):
+        r = grad_case(*c, seed=100 + i)
+        results.append(r)
+        log(f"[grad] B={r['B']} T={r['T']} H={r['H']} D={r['D']} {r['dtype']:<8} {r['layout']:<10} "
+            f"p={r['dropout']:<4} rel err out {r['out_rel_err']:.2e} dq {r['dq_rel_err']:.2e} "
+            f"dk {r['dk_rel_err']:.2e} dv {r['dv_rel_err']:.2e} (rtol {r['rtol']}; max abs "
+            f"{r['grad_max_abs_err']:.2e}) lse {r['lse_err']:.2e} (atol {LSE_ATOL})")
+        check_grad_case(r)
+    # the kept share of the kernel's dropout mask over a large tensor (the training
+    # shape): with Q = K = 0 every probability is 1/T, and with V = 1 each output is
+    # (kept keys / T) / (1 - k/256); the plain version's mask gives the same share
+    k_u8, (B, T, H, D) = 38, (40, 250, 8, 64)  # k = round(0.15 * 256)
+    zeros = torch.zeros((B, T, H, D), device="cuda")
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    dseed = torch.tensor([20241016], device="cuda")
+    out, _ = fused_attention_fwd(zeros, zeros, torch.ones_like(zeros), lens, k_u8, dseed)
+    share = out.mean().item() * (1 - k_u8 / 256)
+    plain_share = keep_mask(dseed, B, H, T, k_u8).float().mean().item()
+    log(f"[grad] kept share at p=0.15 over {B}x{H}x{T}x{T}: kernel {share:.6f}, plain "
+        f"{plain_share:.6f} (1 - k/256 = {1 - k_u8 / 256:.6f}, tolerance {KEPT_SHARE_TOL})")
+    if not (abs(share - (1 - k_u8 / 256)) <= KEPT_SHARE_TOL and abs(share - plain_share) < 1e-5):
+        raise AssertionError("the dropout mask keeps the wrong share")
+    # the training shape of s2t_transformer_m: bf16, B=40, T'=250, H=8, D=64, p=0.1
+    main = grad_case(40, 250, 8, 64, torch.bfloat16, "native", [250] * 40, 0.1,
+                     seed=99, time_it=True)
+    log(f"[grad] training shape {json.dumps(main)}")
+    check_grad_case(main)
+    return results, share, main
+
+
+def ctc_bounds(B, T, S, lengths):
+    """K3 reads emit for the frames below each length and writes every alpha row;
+    K4 reads emit and alphas for those frames and writes every gradient row."""
+    used = sum(min(int(n), T) for n in lengths)
+    k3 = (4 * S * (used + B * T) + 4 * B * S + 4 * B) / HBM_BYTES_PER_S * 1e3
+    k4 = (4 * S * (2 * used + B * T) + 2 * 4 * B * S + 8 * B) / HBM_BYTES_PER_S * 1e3
+    return k3, k4
+
+
+def ctc_case(B, T, U, V, seed, time_it=False):
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(3, V, size=(B, U))
+    labels[0, 1::2] = labels[0, 0::2][: U // 2]  # repeated labels
+    labels[1] = 5  # U repeats need 2U - 1 frames: infeasible in U + 1
+    label_lengths = rng.integers(U // 2, U + 1, size=B)
+    input_lengths = rng.integers(max(T // 2, U + 2), T + 1, size=B)
+    label_lengths[:2] = U
+    input_lengths[0], input_lengths[1], input_lengths[-1] = T, U + 1, 0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(B, T, V, generator=g, device="cuda")
+    labels_t = torch.as_tensor(labels, device="cuda")
+    ext = _extend_labels(labels_t, 0)
+    S = ext.shape[1]
+    emit = _lattice_logp(logits, ext, normalized=False).transpose(0, 1).contiguous()
+    skip = torch.where(_transition_mask(ext, 0), 0.0, NEG_INF).float().contiguous()
+    lens = torch.as_tensor(input_lengths, dtype=torch.int32, device="cuda")
+    ll = torch.as_tensor(label_lengths, device="cuda")
+    state = torch.arange(S, device="cuda")[None, :]
+    final = torch.where((state == 2 * ll[:, None] - 1) | (state == 2 * ll[:, None]),
+                        0.0, NEG_INF).float().contiguous()
+    alphas = ctc_alpha(emit, skip, lens)
+    alphas_p = ctc_alpha_plain(emit, skip, lens)
+
+    def logz(a):
+        last = a[-1]
+        a_label = torch.where(ll > 0, last.gather(1, (2 * ll - 1).clamp(min=0)[:, None])[:, 0],
+                              NEG_INF)
+        return torch.logaddexp(a_label, last.gather(1, (2 * ll)[:, None])[:, 0])
+
+    lz, lz_p = logz(alphas), logz(alphas_p)
+    demit = ctc_beta_grad(emit, alphas_p, skip, final, lens, lz_p.contiguous())
+    demit_p = ctc_beta_grad_plain(emit, alphas_p, skip, final, lens, lz_p)
+    torch.cuda.synchronize()
+    reach = alphas_p > -1e29
+    feasible = torch.as_tensor((input_lengths >= 2 * label_lengths - 1) & (input_lengths > 0),
+                               device="cuda") & (lz_p > -1e29)
+    res = {"B": B, "T": T, "S": S,
+           "alpha_err": (alphas - alphas_p)[reach].abs().max().item(),
+           "unreached_agree": bool(torch.equal(alphas > -1e29, reach)),
+           "nll_err": (lz - lz_p)[feasible].abs().max().item(),
+           "infeasible_nll_over_5e29": bool((-lz_p[1]).item() > 5e29),
+           "demit_err": (demit - demit_p).abs().max().item(), "atol": CTC_ATOL}
+    if time_it:
+        res["alpha_ms"] = cuda_ms(lambda: ctc_alpha(emit, skip, lens))
+        res["alpha_plain_ms"] = cuda_ms(lambda: ctc_alpha_plain(emit, skip, lens), iters=3, warmup=1)
+        res["beta_ms"] = cuda_ms(lambda: ctc_beta_grad(emit, alphas, skip, final, lens, lz))
+        res["beta_plain_ms"] = cuda_ms(
+            lambda: ctc_beta_grad_plain(emit, alphas, skip, final, lens, lz), iters=3, warmup=1)
+        lp = torch.log_softmax(logits, dim=-1).transpose(0, 1).detach().requires_grad_()
+        args = (labels_t, lens.clamp(min=1).long(), ll)  # the library refuses 0 frames
+
+        def lib():
+            return torch.nn.functional.ctc_loss(lp, *args, reduction="sum", zero_infinity=True)
+
+        res["library_fwd_ms"] = cuda_ms(lib)
+        res["library_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(lib(), lp))
+        res["library_bwd_ms"] = res["library_fwd_bwd_ms"] - res["library_fwd_ms"]
+        res["alpha_bound_ms"], res["beta_bound_ms"] = ctc_bounds(B, T, S, input_lengths)
+        res["chain_steps"] = int(min(input_lengths.max(), T)) - 1
+    return res
+
+
+def phase_ctc():
+    cases = [ctc_case(40, 250, 29, 10000, seed=7, time_it=True),  # the training shape
+             ctc_case(8, 1000, 200, 10000, seed=8)]
+    for r in cases:
+        log(f"[ctc] {json.dumps(r)}")
+        if not (r["alpha_err"] <= CTC_ATOL["alpha"] and r["nll_err"] <= CTC_ATOL["alpha"]
+                and r["demit_err"] <= CTC_ATOL["demit"] and r["unreached_agree"]
+                and r["infeasible_nll_over_5e29"]):
+            raise AssertionError(f"CTC kernels disagree with their plain versions: {r}")
+    return cases
+
+
+# --------------------------------------------------------------------------- #
 def rescore(model, gen, features, lengths, tokens):
     """Cumulative log-prob of each hypothesis prefix under teacher forcing:
     the same scores the beam accumulates (its bans never touch a chosen token)."""
@@ -241,14 +501,19 @@ def synced_s(fn) -> float:
     return time.perf_counter() - t0
 
 
-def device_profile(fn):
+def device_profile(fn, kernels=()):
     """Run ``fn`` once under torch.profiler: device busy ms (union of the
-    kernel and copy intervals) and the aten ops with the most device time."""
+    kernel and copy intervals), the aten ops with the most device time, the
+    device ms of the CUDA kernels whose names contain each of ``kernels``, and
+    the synchronised wall ms of the call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
@@ -261,10 +526,14 @@ def device_profile(fn):
         else:
             end = max(end, e)
     busy_us += end - start
-    ops = sorted(((a.key, a.self_device_time_total / 1e3) for a in prof.key_averages()
+    averages = prof.key_averages()
+    ops = sorted(((a.key, a.self_device_time_total / 1e3) for a in averages
                   if a.key.startswith("aten::") and a.self_device_time_total > 0),
                  key=lambda kv: -kv[1])
-    return busy_us / 1e3, ops[:6]
+    kernel_ms = {name: sum(a.self_device_time_total for a in averages if name in a.key) / 1e3
+                 for name in kernels}
+    return {"busy_ms": busy_us / 1e3, "top_ops": ops[:8], "kernel_ms": kernel_ms,
+            "wall_ms": wall_ms}
 
 
 def phase_speed(n_timed: int = 3, B: int = 64, seconds: float = 10.0):
@@ -293,7 +562,8 @@ def phase_speed(n_timed: int = 3, B: int = 64, seconds: float = 10.0):
     if not torch.isfinite(enc["encoder_out"]).all():
         raise AssertionError("non-finite encoder output")
     beam_s = synced_s(lambda: hub.generator.generate(batch))
-    busy_ms, top_ops = device_profile(lambda: hub.generator.generate(batch))
+    prof = device_profile(lambda: hub.generator.generate(batch))
+    busy_ms, top_ops = prof["busy_ms"], prof["top_ops"]
     encodes += 3
     wall = float(np.median(walls))
     res = {"batch": B, "audio_s_per_request": seconds, "wall_s": walls,
@@ -304,6 +574,130 @@ def phase_speed(n_timed: int = 3, B: int = 64, seconds: float = 10.0):
            "top_aten_ops_device_ms": top_ops}
     log(f"[speed] bf16 untuned first measurement: {json.dumps(res)}")
     return encodes, res
+
+
+# --------------------------------------------------------------------------- #
+CRITERION = ("label_smoothed_cross_entropy_with_ctc", {"ctc": {"ctc_weight": 0.3}})
+KERNEL_NAMES = ("attention_fwd_kernel", "delta_kernel", "dkdv_kernel", "dq_kernel",
+                "ctc_alpha_kernel", "ctc_beta_grad_kernel")
+
+
+def train_batch(rng, B, T, U, V, lengths):
+    """A seeded batch as bench.py section B makes it (transcript = target[:, :-1])."""
+    targets = rng.integers(4, V, size=(B, U)).astype(np.int32)
+    targets[:, -1] = 2
+    prev = np.roll(targets, 1, axis=1)
+    prev[:, 0] = 2
+    return {
+        "features": rng.normal(size=(B, T, 80)).astype(np.float32),
+        "feat_lengths": np.asarray(lengths, np.int32),
+        "prev_tokens": prev,
+        "target": targets,
+        "transcript": targets[:, :-1],
+        "transcript_lengths": np.full((B,), U - 1, np.int32),
+        "ntokens": np.float32(B * U),
+    }
+
+
+def check_step_launches(counts, steps=1):
+    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"{steps} training step(s) launched {counts}, expected {want}")
+
+
+def phase_train_parity(steps: int = 3):
+    """fp32 s2t_transformer_m, dropout 0: the port's Trainer on the card and on
+    the CPU from the same seeded weights and batches."""
+    cfg = s2t_transformer_m(vocab_size=10000, max_target_positions=1024, dropout=0.0,
+                            attention_dropout=0.0, activation_dropout=0.0)
+    opt = OptimizationConfig(lr=2e-3, warmup_updates=3, clip_norm=10.0, adam_eps=1e-6)
+    rng = np.random.default_rng(0)
+    batches = [train_batch(rng, 4, 1000, 30, 10000, [1000, 873, 640, 412]) for _ in range(steps)]
+    runs, launches = {}, {k: 0 for k in TRAIN_LAUNCHES}
+    for device in ("cuda", "cpu"):
+        model = S2TTransformerModel(cfg, device=device, seed=0, for_training=True)
+        trainer = Trainer(model, build_criterion(*CRITERION), opt, device=device, seed=1)
+        metrics, t0 = [], time.perf_counter()
+        for batch in batches:
+            reset_counts()  # the main path: one training step on the card
+            m = trainer.train_step(batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                counts = read_counts()
+                check_step_launches(counts)
+                launches = {k: launches[k] + counts[k] for k in launches}
+            metrics.append({k: float(m[k]) for k in ("loss", "ctc_loss", "gnorm", "lr")})
+        secs = time.perf_counter() - t0
+        runs[device] = (metrics, {n: p.detach().cpu() for n, p in model.named_parameters()})
+        log(f"[train] fp32 {device}: {steps} steps in {secs:.2f} s: {json.dumps(metrics)}")
+    (card, card_p), (host, host_p) = runs["cuda"], runs["cpu"]
+    errs = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in TRAIN_RTOL} for a, b in zip(card, host)]
+    diffs = {n: (card_p[n] - host_p[n]).abs() for n in host_p}
+    worst = sorted(diffs, key=lambda n: -diffs[n].max().item())[:3]
+    param_err = diffs[worst[0]].max().item()
+    n_params = sum(d.numel() for d in diffs.values())
+    over = sum(int((d > 1e-5).sum()) for d in diffs.values())
+    # Adam's first updates are ~lr * sign(g): an entry whose gradient is near 0 and
+    # flips sign between the devices (float32 noise, or a ReLU input within rounding
+    # of 0 that passes on one device and not the other) moves up to 2 lr apart per step
+    param_bound = 2 * sum(m["lr"] for m in host)
+    res = {"steps": steps, "card": card, "cpu": host, "rel_err": errs, "rtol": TRAIN_RTOL,
+           "max_param_diff": param_err, "param_bound": param_bound,
+           "worst_params": {n: diffs[n].max().item() for n in worst},
+           "share_of_entries_over_1e-5": over / n_params,
+           "launches_per_step": TRAIN_LAUNCHES}
+    log(f"[train] fp32 card vs CPU: rel err per step {json.dumps(errs)} (rtol {TRAIN_RTOL}); "
+        f"max param difference after {steps} steps {param_err:.3e} (bound 2 sum(lr) = "
+        f"{param_bound:.3e}; worst {json.dumps(res['worst_params'])}, {over} of {n_params} "
+        f"entries differ by more than 1e-5); launches per step {TRAIN_LAUNCHES}")
+    if any(not e[k] <= TRAIN_RTOL[k] for e in errs for k in TRAIN_RTOL) or \
+            not param_err <= param_bound:
+        raise AssertionError("fp32 training disagrees between the card and the CPU")
+    return res, launches
+
+
+def phase_train_speed(n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000):
+    """bf16 s2t_transformer_m at the bench.py section B shape and optimizer."""
+    cfg = s2t_transformer_m(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
+    model = S2TTransformerModel(cfg, device="cuda", seed=0, for_training=True)
+    trainer = Trainer(model, build_criterion(*CRITERION),
+                      OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
+                      device="cuda", seed=1)
+    batch = train_batch(np.random.default_rng(0), B, T, U, V, [T] * B)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}  # device-resident, as bench
+    reset_counts()  # the main path: 1 warm-up + n_timed timed + 1 profiled step
+    losses = [trainer.train_step(batch)["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        losses.append(trainer.train_step(batch)["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = device_profile(lambda: losses.append(trainer.train_step(batch)["loss"]), KERNEL_NAMES)
+    counts = read_counts()
+    check_step_launches(counts, n_timed + 2)
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all() or not losses.max() > losses.min():
+        raise AssertionError(f"bf16 training loss is not finite or does not move: {losses}")
+    flops = s2t_train_flops(B, T, U, d_model=cfg.encoder_embed_dim, ffn=cfg.encoder_ffn_embed_dim,
+                            enc_layers=cfg.encoder_layers, dec_layers=cfg.decoder_layers, vocab=V)
+    steps_per_s = n_timed / wall
+    step_ms = wall / n_timed * 1e3
+    res = {"batch": B, "frames": T, "target_tokens": U, "vocab": V, "timed_steps": n_timed,
+           "wall_s": wall, "step_ms": step_ms, "steps_per_s": steps_per_s,
+           "frames_per_s": steps_per_s * B * T, "tokens_per_s": steps_per_s * B * U,
+           "model_flops_per_step": flops, "mfu_vs_989_tflops": flops * steps_per_s / 989e12,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_first_last": [losses[0].item(), losses[-1].item()],
+           "profiled_step_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
+           "device_busy_share_of_profiled_step": prof["busy_ms"] / prof["wall_ms"],
+           "device_busy_share_of_timed_step": prof["busy_ms"] / step_ms,
+           "top_aten_ops_device_ms": prof["top_ops"],
+           "kernel_device_ms": prof["kernel_ms"],
+           "kernel_share_of_busy": {k: v / prof["busy_ms"] for k, v in prof["kernel_ms"].items()}}
+    log(f"[train speed] bf16 untuned first measurement: {json.dumps(res)}")
+    return res, counts
 
 
 # --------------------------------------------------------------------------- #
@@ -322,28 +716,75 @@ def main(argv=None) -> int:
 
     phase_build()
     cases, main_shape = phase_kernel()
+    grad_cases, kept_share, grad_main = phase_attention_grad()
+    ctc_cases = phase_ctc()
+
+    reset_counts()
     encodes = phase_serve_parity()
     more, speed = phase_speed()
     encodes += more
-    launches = fused_attention.launches
-    if launches != 12 * encodes:
-        raise AssertionError(f"kernel launched {launches} times for {encodes} encodes, "
-                             f"expected {12 * encodes}")
-    log(f"[main path] attention_fwd launches {launches} over {encodes} encodes "
-        f"({launches // encodes} per encode)")
+    serve_launches = fused_attention.launches
+    if serve_launches != 12 * encodes:
+        raise AssertionError(f"serving launched the attention kernel {serve_launches} times for "
+                             f"{encodes} encodes, expected {12 * encodes}")
+    log(f"[main path] serving: attention_fwd launches {serve_launches} over {encodes} encodes "
+        f"({serve_launches // encodes} per encode)")
+    parity, parity_launches = phase_train_parity()
+    train_speed, speed_launches = phase_train_speed()
+    train_launches = {k: parity_launches[k] + speed_launches[k] for k in TRAIN_LAUNCHES}
+    steps = train_launches["ctc_alpha"]
+    log(f"[main path] training: {json.dumps(train_launches)} over {steps} steps "
+        f"({json.dumps(TRAIN_LAUNCHES)} per step)")
 
+    ctc_main = ctc_cases[0]
     kernels = [{
         "name": "attention_fwd",
         "route": "cuda",
         "source": "s2t_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "s2t_tpu/ops/attention_pallas.py:100",
-        "launches": launches,
+        "launches": serve_launches + train_launches["attention_fwd"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+    }, {
+        "name": "attention_bwd",
+        "route": "cuda",
+        "source": "s2t_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "s2t_tpu/ops/attention_pallas.py:116",
+        "launches": train_launches["attention_bwd"],
+        "max_abs_err": grad_main["grad_max_abs_err"],
+        "ms": grad_main["ms"],
+        "plain_ms": grad_main["plain_ms"],
+        "bound_ms": grad_main["bound_ms"],
+        "bound_by": grad_main["bound_by"],
+        "library_ms": grad_main["library_ms"],
+    }, {
+        "name": "ctc_alpha",
+        "route": "cuda",
+        "source": "s2t_tpu_torch/csrc/ctc_lattice.cu",
+        "replaces": "s2t_tpu/ops/ctc_pallas.py:59",
+        "launches": train_launches["ctc_alpha"],
+        "max_abs_err": ctc_main["alpha_err"],
+        "ms": ctc_main["alpha_ms"],
+        "plain_ms": ctc_main["alpha_plain_ms"],
+        "bound_ms": ctc_main["alpha_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": ctc_main["library_fwd_ms"],
+    }, {
+        "name": "ctc_beta_grad",
+        "route": "cuda",
+        "source": "s2t_tpu_torch/csrc/ctc_lattice.cu",
+        "replaces": "s2t_tpu/ops/ctc_pallas.py:82",
+        "launches": train_launches["ctc_beta_grad"],
+        "max_abs_err": ctc_main["demit_err"],
+        "ms": ctc_main["beta_ms"],
+        "plain_ms": ctc_main["beta_plain_ms"],
+        "bound_ms": ctc_main["beta_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": ctc_main["library_bwd_ms"],
     }]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -351,8 +792,10 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "kernels": kernels, "kernel_cases": cases, "serving_shape": main_shape,
-            "speed": speed, "nvidia_smi": smi.stdout.strip(),
-            "wall_s": time.perf_counter() - t_start}, indent=1))
+            "grad_cases": grad_cases, "kept_share": kept_share, "training_shape": grad_main,
+            "ctc_cases": ctc_cases, "speed": speed, "train_parity": parity,
+            "train_speed": train_speed, "train_launches": train_launches,
+            "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0])

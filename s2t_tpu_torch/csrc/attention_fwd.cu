@@ -1,8 +1,9 @@
-// Encoder self-attention forward for Hopper (sm_90a): softmax(Q K^T / sqrt(D) + bias) V
-// with bias = -1e9 on key columns >= the row's length, non-causal, no dropout.
+// Encoder self-attention forward for Hopper (sm_90a): dropout(softmax(Q K^T / sqrt(D) + bias)) V
+// with bias = -1e9 on key columns >= the row's length, non-causal, uint8-threshold
+// attention dropout, and optionally the per-row log-sum-exp for the backward.
 //
 // Replaces: s2t_tpu/ops/attention_pallas.py:_fwd_kernel (reached through
-// _pallas_attention_padded) and its native-layout twin _fwd_kernel_btd, at dropout 0.
+// _pallas_attention_padded) and its native-layout twin _fwd_kernel_btd.
 //
 // Bound on this card: at the serving shapes (T' = 250 frames after subsampling, D = 64)
 // the function moves 4*B*T*H*D elements and does 4*B*H*T*T_kv*D flops; in bf16 that is
@@ -28,11 +29,19 @@
 //     -1e9 of the dense path; for a row with length >= 1 their weight is exactly 0 in
 //     f32, so key tiles at or past the length are skipped.  A 0-length row sees only
 //     biased keys and, like the dense path, averages V over all T keys.
+//   * attention dropout: the row sum l uses the undropped probabilities; the tile
+//     written for the P.V product is dropped and rescaled in registers with bits from
+//     the counter-based hash of dropout_hash.cuh (key = seed, counter = (b, h, query,
+//     key)), so the backward regenerates the same mask and nothing is stored;
+//   * lse (B, H, T) f32 = m + log(l), the natural-log normaliser of the biased scaled
+//     scores, is written when the caller passes a buffer (training).
 // The products are plain f32 FMAs (no tensor cores yet): right and simple first.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -63,9 +72,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     const int* __restrict__ lengths, int T_len,
-                     Strides sq, Strides sk, Strides sv, Strides so, float scale) {
+                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                     const int* __restrict__ lengths, const long long* __restrict__ seed,
+                     int T_len, int rate_u8, Strides sq, Strides sk, Strides sv, Strides so,
+                     float scale, float keep_scale) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [D][PAD]   query tile, transposed
   float* Ks = Qs + D * PAD;                     // [D][PAD]   key tile, transposed
@@ -81,6 +91,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int len = lengths[b];
   const int kv_end = len > 0 ? min(len, T_len) : T_len;
+  const uint32_t stream =
+      rate_u8 > 0 ? s2t_dropout_stream((unsigned long long)seed[0], b * gridDim.y + h) : 0u;
 
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
@@ -169,6 +181,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m_i[r] = m_new;
 #pragma unroll
       for (int j = 0; j < DC; ++j) acc[r][j] *= alpha;
+      if (rate_u8 > 0) {
+        const int qrow = m0 + 4 * ty + r;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const bool keep = s2t_dropout_keep(stream, qrow, n0 + tx + 8 * c, rate_u8);
+          s[r][c] = keep ? s[r][c] * keep_scale : 0.f;
+        }
+      }
     }
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -196,6 +216,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = m0 + 4 * ty + r;
     if (t < T_len) {
       const float inv = 1.f / l_i[r];
+      if (lse != nullptr && tx == 0) {
+        lse[((long long)b * gridDim.y + h) * T_len + t] = m_i[r] + logf(l_i[r]);
+      }
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
         ob[(long long)t * so.t + tx + 8 * jj] = from_f32<T>(acc[r][jj] * inv);
@@ -204,29 +227,37 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+struct Args {
+  const void *q, *k, *v;
+  void *o;
+  float* lse;
+  const int* lengths;
+  const long long* seed;
+  int B, T_len, H, rate_u8;
+  Strides sq, sk, sv, so;
+  float scale, keep_scale;
+};
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* lengths,
-                   int B, int T_len, int H, Strides sq, Strides sk, Strides sv, Strides so,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + BM - 1) / BM, H, B);
+  const dim3 grid((a.T_len + BM - 1) / BM, a.H, a.B);
   attention_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lengths, T_len, sq, sk, sv, so, scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o), a.lse, a.lengths, a.seed, a.T_len, a.rate_u8, a.sq, a.sk, a.sv,
+      a.so, a.scale, a.keep_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-                       const int* lengths, int B, int T_len, int H, Strides sq, Strides sk,
-                       Strides sv, Strides so, float scale, cudaStream_t stream) {
+cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lengths, B, T_len, H, sq, sk, sv, so, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lengths, B, T_len, H, sq, sk, sv, so, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lengths, B, T_len, H, sq, sk, sv, so, scale, stream);
+    case 32: return launch<T, 32>(a, stream);
+    case 64: return launch<T, 64>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -234,24 +265,24 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
 }  // namespace
 
 // q, k, v, o: (B, T, H, D) with element strides (b, t, h) and a unit head-dim stride;
-// lengths: (B,) int32 on the device; dtype_code 0 = float32, 1 = bfloat16.
+// lse: (B, H, T) float32 or null; lengths: (B,) int32 on the device; seed: one int64 on
+// the device (read only when rate_u8 > 0); dtype_code 0 = float32, 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int s2t_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                 const void* lengths, int B, int T_len, int H, int D,
-                                 int dtype_code, long long sq_b, long long sq_t, long long sq_h,
-                                 long long sk_b, long long sk_t, long long sk_h, long long sv_b,
-                                 long long sv_t, long long sv_h, long long so_b, long long so_t,
-                                 long long so_h, float scale, void* stream) {
-  const Strides sq{sq_b, sq_t, sq_h}, sk{sk_b, sk_t, sk_h}, sv{sv_b, sv_t, sv_h},
-      so{so_b, so_t, so_h};
-  const int* len = static_cast<const int*>(lengths);
+extern "C" int s2t_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                 const void* lengths, const void* seed, int B, int T_len, int H,
+                                 int D, int dtype_code, int rate_u8, long long sq_b,
+                                 long long sq_t, long long sq_h, long long sk_b, long long sk_t,
+                                 long long sk_h, long long sv_b, long long sv_t, long long sv_h,
+                                 long long so_b, long long so_t, long long so_h, float scale,
+                                 float keep_scale, void* stream) {
+  if (rate_u8 < 0 || rate_u8 > 255 || (rate_u8 > 0 && seed == nullptr)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<const int*>(lengths),
+               static_cast<const long long*>(seed), B, T_len, H, rate_u8,
+               Strides{sq_b, sq_t, sq_h}, Strides{sk_b, sk_t, sk_h}, Strides{sv_b, sv_t, sv_h},
+               Strides{so_b, so_t, so_h}, scale, keep_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0) {
-    return dispatch_d<float>(D, q, k, v, o, len, B, T_len, H, sq, sk, sv, so, scale, st);
-  }
-  if (dtype_code == 1) {
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, len, B, T_len, H, sq, sk, sv, so, scale, st);
-  }
+  if (dtype_code == 0) return dispatch_d<float>(D, a, st);
+  if (dtype_code == 1) return dispatch_d<__nv_bfloat16>(D, a, st);
   return cudaErrorInvalidValue;
 }
 

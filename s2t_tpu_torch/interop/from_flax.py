@@ -11,6 +11,10 @@ params)``); no jax is imported here.  Layouts:
 Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
 ``convs.{i}``, and the tied ``shared_embed`` table -> the decoder's
 ``embed_tokens``.  Any leaf left unmapped on either side raises.
+
+``state_dict_to_flax`` is the inverse: a port state dict (after training,
+say) as the nested flax tree, so it can be compared leaf by leaf with a JAX
+``TrainState.params``.
 """
 
 from __future__ import annotations
@@ -90,3 +94,50 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
             f"{k} port {tuple(own[k].shape)} vs JAX {tuple(sd[k].shape)}" for k in bad))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _flax_module_path(name: str, shared_embed: bool) -> tuple:
+    if name == "decoder.embed_tokens" and shared_embed:
+        return ("shared_embed",)
+    return tuple(re.sub(r"\b(layer|conv)s\.(\d+)\b", r"\1\2", name).split("."))
+
+
+def _flax_leaf(module: str, name: str, arr: np.ndarray):
+    if name == "bias":
+        return "bias", arr
+    if name != "weight":
+        raise KeyError(name)
+    if module.endswith("embed_tokens"):
+        return "embedding", arr
+    if arr.ndim == 1:
+        return "scale", arr
+    if arr.ndim == 2:
+        return "kernel", arr.T
+    if arr.ndim == 3:
+        return "kernel", arr.transpose(2, 1, 0)
+    raise KeyError(name)
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
+                       shared_embed: bool = False) -> Dict:
+    """Port state dict -> nested flax params of float32 numpy arrays.
+    ``shared_embed``: the model ties its CTC head to the decoder embedding
+    (``share_ctc_and_embed``), which flax keeps as a top-level
+    ``shared_embed`` table.  Raises on a leaf it cannot map."""
+    tree: Dict = {}
+    unmapped = []
+    for key, val in state_dict.items():
+        module, _, name = key.rpartition(".")
+        arr = val.detach().float().cpu().numpy()
+        try:
+            leaf, out = _flax_leaf(module, name, arr)
+        except KeyError:
+            unmapped.append(key)
+            continue
+        node = tree
+        for part in _flax_module_path(module, shared_embed):
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(out)
+    if unmapped:
+        raise KeyError(f"port parameters with no flax counterpart: {unmapped}")
+    return tree

@@ -1,8 +1,10 @@
 """S2T Transformer encoder-decoder (counterpart of s2t_tpu/models/s2t_transformer.py).
 
-The plain serving path of the s/m/l presets: Conv1d-GLU subsampler ->
-scaled features + sinusoidal positions -> pre- or post-norm Transformer
-encoder with "abs" attention -> CTC head, and a Transformer decoder on top.
+The plain path of the s/m/l presets: Conv1d-GLU subsampler -> scaled
+features + sinusoidal positions -> pre- or post-norm Transformer encoder with
+"abs" attention -> CTC head, and a Transformer decoder on top, for serving
+and for training (``forward(..., train=True, generator=g)``: every dropout
+site of the JAX modules, drawn from the step's generator).
 ``S2TTransformerConfig`` keeps the JAX config's field names and defaults so a
 config crosses over field by field; a field that selects a branch the port
 does not have raises ``NotImplementedError`` naming it.
@@ -21,6 +23,7 @@ from torch import nn
 from s2t_tpu_torch.device import resolve_device, torch_dtype
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.modules.ctc_head import CTCHead
+from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
 from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding
 from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling
@@ -144,9 +147,10 @@ class S2TTransformerConfig:
         return torch_dtype(self.dtype_str)
 
 
-# fields the port reads, plus the training-only ones that are inert at inference
-# (dropout rates, remat, layerdrop, and mixup / oracle knobs that only act when
-# their switch below is on); every other field must keep its default
+# fields the port reads, plus knobs that only act when a switch that must keep its
+# default is on (mixup / oracle / compression / inter-CTC sharing, remat_policy);
+# encoder_layerdrop > 0 and checkpoint_activations raise when training
+# (_check_trainable); every other field must keep its default
 _PORTED_FIELDS = frozenset({
     "input_feat_per_channel", "input_channels", "subsampling_layers", "subsampling_filter",
     "subsampling_kernel", "subsampling_stride", "subsampling_activation",
@@ -168,6 +172,18 @@ _PORTED_FIELDS = frozenset({
     "cnn_module_norm", "conv_module_bias", "pipeline_microbatches", "init_mask_weight",
     "subsampling_padding", "ctc_layer", "xctc_layer", "compression_norm", "compression_pos",
 })
+
+
+def _check_trainable(cfg: S2TTransformerConfig) -> None:
+    """Training knobs the port has not ported raise instead of being ignored."""
+    if cfg.encoder_layerdrop > 0:
+        raise NotImplementedError(
+            f"S2TTransformerConfig.encoder_layerdrop={cfg.encoder_layerdrop} is not ported to "
+            "s2t_tpu_torch training")
+    if cfg.checkpoint_activations:
+        raise NotImplementedError(
+            "S2TTransformerConfig.checkpoint_activations=True (remat) is not ported to "
+            "s2t_tpu_torch training")
 
 
 def check_supported(cfg: S2TTransformerConfig) -> None:
@@ -204,12 +220,14 @@ class S2TTransformerEncoder(nn.Module):
         )
         self.layers = nn.ModuleList([
             S2TEncoderLayer(D, cfg.encoder_ffn_embed_dim, cfg.encoder_attention_heads,
-                            cfg.enc_act, cfg.encoder_normalize_before)
+                            cfg.enc_act, cfg.encoder_normalize_before, cfg.dropout,
+                            cfg.attention_dropout, cfg.activation_dropout)
             for _ in range(cfg.encoder_layers)
         ])
         self.final_norm = layer_norm(D) if cfg.encoder_normalize_before else None
         self.ctc_head = (
-            CTCHead(D, cfg.ctc_vocab_size, tied=cfg.share_ctc_and_embed) if cfg.use_ctc else None
+            CTCHead(D, cfg.ctc_vocab_size, tied=cfg.share_ctc_and_embed, dropout=cfg.dropout)
+            if cfg.use_ctc else None
         )
         self.register_buffer(
             "positions",
@@ -218,31 +236,42 @@ class S2TTransformerEncoder(nn.Module):
         )
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor,
-                embedding: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                embedding: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         cfg = self.cfg
+        # the positions table is in the compute dtype
         x, lengths = self.subsample(features.to(self.positions.dtype), lengths)
         if not cfg.encoder_no_scale_embedding:
             x = x * math.sqrt(cfg.encoder_embed_dim)
         T = x.shape[1]
         # fairseq table: valid frame i gets absolute position pad+1+i
-        x = x + self.positions[:T][None]
+        x = dropout(x + self.positions[:T][None], cfg.dropout, generator)
         valid = lengths_to_mask(lengths, T)
         for layer in self.layers:
-            x = layer(x, valid)
+            x = layer(x, valid, generator=generator)
         if self.final_norm is not None and cfg.encoder_apply_final_norm:
             x = self.final_norm(x)
-        ctc_logits = None if self.ctc_head is None else self.ctc_head(x, embedding)
+        ctc_logits = None if self.ctc_head is None else self.ctc_head(x, embedding, generator)
         return {"encoder_out": x, "encoder_lengths": lengths, "ctc_logits": ctc_logits}
 
 
 class S2TTransformerModel(nn.Module):
     """Encoder-decoder speech model.  Built on CPU from ``seed`` with an
     explicit ``torch.Generator`` (so the same seed gives the same weights on
-    every device), then moved to ``device`` in ``cfg.dtype``."""
+    every device), then moved to ``device``.
 
-    def __init__(self, cfg: S2TTransformerConfig, device="cuda", seed: int = 0):
+    For serving (the default) the parameters are stored in ``cfg.dtype``,
+    frozen, in eval mode.  ``for_training=True`` keeps float32 master
+    parameters that require grad and computes in ``cfg.dtype`` (the layers
+    cast their weights at use, ``modules/cast.py``), as the flax modules keep
+    float32 params and compute in ``dtype``."""
+
+    def __init__(self, cfg: S2TTransformerConfig, device="cuda", seed: int = 0,
+                 for_training: bool = False):
         super().__init__()
         check_supported(cfg)
+        if for_training:
+            _check_trainable(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.encoder = S2TTransformerEncoder(cfg)
@@ -257,11 +286,21 @@ class S2TTransformerModel(nn.Module):
             share_input_output_embed=cfg.share_decoder_input_output_embed,
             max_positions=cfg.max_target_positions,
             pad_id=cfg.pad_id,
+            dropout=cfg.dropout,
+            attention_dropout=cfg.attention_dropout,
+            activation_dropout=cfg.activation_dropout,
         )
         self.init_weights(seed)
-        self.to(device=device, dtype=cfg.dtype)
-        self.eval()
-        self.requires_grad_(False)
+        if for_training:
+            self.to(device=device)
+            for mod in self.modules():  # the positions tables set the compute dtype
+                for name, buf in mod._buffers.items():
+                    if buf is not None and buf.is_floating_point():
+                        mod._buffers[name] = buf.to(cfg.dtype)
+        else:
+            self.to(device=device, dtype=cfg.dtype)
+            self.eval()
+            self.requires_grad_(False)
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -287,10 +326,19 @@ class S2TTransformerModel(nn.Module):
     def _ctc_embedding(self):
         return self.decoder.embed_tokens.weight if self.cfg.share_ctc_and_embed else None
 
-    def forward(self, features, feat_lengths, prev_tokens) -> Dict[str, Any]:
-        enc = self.encode(features, feat_lengths)
+    def forward(self, features, feat_lengths, prev_tokens, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Teacher-forced forward.  ``train=True`` applies every dropout with
+        bits from ``generator`` (on the model's device); otherwise no dropout."""
+        if train:
+            _check_trainable(self.cfg)
+            if generator is None:
+                raise ValueError("train=True needs the step's torch.Generator")
+        else:
+            generator = None
+        enc = self.encoder(features, feat_lengths, self._ctc_embedding(), generator)
         enc_mask = lengths_to_mask(enc["encoder_lengths"], enc["encoder_out"].shape[1])
-        logits = self.decoder(prev_tokens, enc["encoder_out"], enc_mask)
+        logits = self.decoder(prev_tokens, enc["encoder_out"], enc_mask, generator)
         return {"decoder_logits": logits, **enc}
 
     # --- inference-facing methods (used by the generator) -------------------

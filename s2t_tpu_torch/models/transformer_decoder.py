@@ -2,8 +2,10 @@
 (counterpart of s2t_tpu/models/transformer_decoder.py).
 
 Entry points: ``forward`` (teacher-forced, (B, U) tokens -> (B, U, V)
-logits) and ``step`` (one incremental decode step on a cache from
-``init_cache``).  Sinusoidal positions, tied or separate output projection.
+logits; with a ``generator`` it trains: embedding dropout after the
+positions, :102/:151, and the layers' dropouts) and ``step`` (one incremental
+decode step on a cache from ``init_cache``).  Sinusoidal positions, tied or
+separate output projection.  The positions table sets the compute dtype.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import torch
 from torch import nn
 
 from s2t_tpu_torch.modules.attention import causal_bias, padding_bias
+from s2t_tpu_torch.modules.cast import Linear
+from s2t_tpu_torch.modules.dropout import dropout as drop
 from s2t_tpu_torch.modules.layers import TransformerDecoderLayer, layer_norm
 from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding
 
@@ -23,21 +27,24 @@ class TransformerDecoder(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int = 256, ffn_dim: int = 2048,
                  num_layers: int = 6, num_heads: int = 4, activation: str = "relu",
                  normalize_before: bool = True, share_input_output_embed: bool = True,
-                 max_positions: int = 1024, pad_id: int = 1):
+                 max_positions: int = 1024, pad_id: int = 1, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
         self.embed_dim = embed_dim
+        self.dropout = dropout
         self.num_heads = num_heads
         self.normalize_before = normalize_before
         self.pad_id = pad_id
         self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
         self.layers = nn.ModuleList([
-            TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before)
+            TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
+                                    dropout, attention_dropout, activation_dropout)
             for _ in range(num_layers)
         ])
         self.final_norm = layer_norm(embed_dim) if normalize_before else None
         self.output_proj = (
             None if share_input_output_embed
-            else nn.Linear(embed_dim, vocab_size, bias=False)
+            else Linear(embed_dim, vocab_size, bias=False)
         )
         self.register_buffer(
             "positions",
@@ -46,9 +53,9 @@ class TransformerDecoder(nn.Module):
         )
 
     def _embed(self, tokens: torch.Tensor, pos_offset: int) -> torch.Tensor:
-        x = self.embed_tokens(tokens) * math.sqrt(self.embed_dim)
-        T = tokens.shape[1]
-        return x + self.positions[pos_offset:pos_offset + T].to(x.dtype)[None]
+        pos = self.positions[pos_offset:pos_offset + tokens.shape[1]]
+        x = self.embed_tokens(tokens).to(pos.dtype) * math.sqrt(self.embed_dim)
+        return x + pos[None]
 
     def _output(self, x: torch.Tensor) -> torch.Tensor:
         if self.output_proj is None:
@@ -56,26 +63,29 @@ class TransformerDecoder(nn.Module):
         return self.output_proj(x)
 
     def forward_features(self, prev_tokens: torch.Tensor, encoder_out: torch.Tensor,
-                         encoder_valid_mask: torch.Tensor) -> torch.Tensor:
+                         encoder_valid_mask: torch.Tensor,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Hidden states before the output projection: (B, U, D)."""
         U = prev_tokens.shape[1]
-        x = self._embed(prev_tokens, 0)
+        x = drop(self._embed(prev_tokens, 0), self.dropout, generator)
         self_bias = causal_bias(U, x.dtype, x.device) + padding_bias(prev_tokens != self.pad_id, x.dtype)
         cross_bias = padding_bias(encoder_valid_mask, x.dtype)
         for layer in self.layers:
-            x, _ = layer(x, encoder_out, self_bias, cross_bias)
+            x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x
 
-    def forward(self, prev_tokens, encoder_out, encoder_valid_mask) -> torch.Tensor:
+    def forward(self, prev_tokens, encoder_out, encoder_valid_mask,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced forward: (B, U) tokens -> (B, U, V) logits."""
-        return self._output(self.forward_features(prev_tokens, encoder_out, encoder_valid_mask))
+        return self._output(self.forward_features(prev_tokens, encoder_out, encoder_valid_mask,
+                                                  generator))
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """Zeroed KV cache: per layer (B, max_len, H, Dh) k/v tensors in the
-        model's dtype and device."""
-        ref = self.embed_tokens.weight
+        model's compute dtype and device."""
+        ref = self.positions
         shape = (batch_size, max_len, self.num_heads, self.embed_dim // self.num_heads)
         return {
             f"layer{i}": {

@@ -3,8 +3,11 @@
 
 Encoder self-attention with a pure padding mask goes to the fused kernel
 (``ops/attention_cuda.py``) under the condition of the JAX module
-(attention.py:264-269); there is no sequence-length gate.  Everything else is
-plain PyTorch, as the JAX package leaves it to XLA.
+(attention.py:264-269); there is no sequence-length gate.  It gets the
+attention-dropout rate and a seed drawn from the step's generator
+(attention.py:286-289); the dense path drops its probabilities with
+``modules/dropout.py`` (attention.py:468).  Everything else is plain PyTorch,
+as the JAX package leaves it to XLA.
 
 Incremental decoding: ``cache`` = {"k": (N, L, H, Dh), "v": ...} is updated
 IN PLACE at ``cache_index`` (the JAX module returns a new cache), and the
@@ -20,6 +23,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from s2t_tpu_torch.modules.cast import Linear
+from s2t_tpu_torch.modules.dropout import dropout as drop
 from s2t_tpu_torch.ops.attention_cuda import fused_attention
 
 NEG = -1e9
@@ -45,18 +50,25 @@ def dot_attention_weights(q, k, bias, dtype):
     return torch.softmax(scores.float(), dim=-1).to(dtype)
 
 
+def kernel_seed(generator: torch.Generator) -> torch.Tensor:
+    """A (1,) int64 dropout seed for the fused kernel, drawn on the generator's
+    device (no host sync)."""
+    return torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device)
+
+
 class MultiHeadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.dropout = dropout
+        self.q_proj = Linear(embed_dim, embed_dim)
+        self.k_proj = Linear(embed_dim, embed_dim)
+        self.v_proj = Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
 
     def _split(self, x):
         B, T, _ = x.shape
@@ -97,11 +109,13 @@ class MultiHeadAttention(nn.Module):
         cache_index: Optional[int] = None,
         valid_mask: Optional[torch.Tensor] = None,
         kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Returns (output (B, Tq, D), cache).
 
         Incremental mode: pass ``cache`` and ``cache_index`` (a Python int);
-        query then has Tq == 1 and key/value are the new step only."""
+        query then has Tq == 1 and key/value are the new step only.
+        ``generator``: the training step's; None means no dropout."""
         q = self._split(self.q_proj(query))
         if kv_override is not None:
             k, v = kv_override
@@ -116,7 +130,10 @@ class MultiHeadAttention(nn.Module):
             if q.shape[1] == k.shape[1]:
                 # encoder self-attention with a pure padding mask: the fused
                 # kernel (the (B, H, T, T) probabilities never reach memory)
-                return self.out_proj(self._merge(fused_attention(q, k, v, valid_mask))), None
+                rate = self.dropout if generator is not None else 0.0
+                seed = kernel_seed(generator) if rate > 0 else None
+                out = fused_attention(q, k, v, valid_mask, rate, seed)
+                return self.out_proj(self._merge(out)), None
             bias = padding_bias(valid_mask, q.dtype)
 
         if cache is not None:
@@ -129,6 +146,6 @@ class MultiHeadAttention(nn.Module):
             if bias is not None:
                 bias = bias[..., :i + 1]
 
-        w = dot_attention_weights(q, k, bias, q.dtype)
+        w = drop(dot_attention_weights(q, k, bias, q.dtype), self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out_proj(self._merge(out)), cache

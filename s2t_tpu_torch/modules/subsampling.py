@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from s2t_tpu_torch.modules.cast import Conv1d
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
 
@@ -47,7 +48,7 @@ class Conv1dSubsampling(nn.Module):
         convs = []
         for i in range(num_layers):
             ch = out_dim if i == num_layers - 1 else filters
-            convs.append(nn.Conv1d(
+            convs.append(Conv1d(
                 in_dim, ch * 2 if self.glu else ch, kernel_size, stride,
                 padding=(kernel_size - 1) // 2,
             ))

@@ -2,10 +2,10 @@
 
 Each ``s2t_tpu_torch/csrc/<name>.cu`` is compiled on first use by its own
 ``nvcc`` process into ``s2t_tpu_torch/_build/lib<name>-<hash>.so``; the hash
-covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  The sources have a plain C interface (no PyTorch
-headers), which keeps a build to seconds.  Pointers and the stream are passed
-as ``ctypes.c_void_p``.  A failed build raises with the compiler's output.
+covers the source, the shared ``*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  The sources have a plain C
+interface (no PyTorch headers), which keeps a build to seconds.  Pointers and
+the stream are passed as ``ctypes.c_void_p``.  A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -46,8 +46,10 @@ def sources() -> Tuple[str, ...]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared headers, e.g. dropout_hash.cuh
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
