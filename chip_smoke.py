@@ -1,4 +1,4 @@
-"""Smoke run of the s2t_tpu_torch serving and training slices on one NVIDIA H100.
+"""Smoke run of the s2t_tpu_torch serving, training and raw-audio slices on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -31,11 +31,25 @@ Phases (any failure ends the run with a non-zero exit):
      speed   V=10000, preset dropouts, ctc_weight 0.3): one warm-up step, 20
              timed steps, steps/s, frames/s, tokens/s, MFU, and one profiled
              step (device busy share, top device ops, each kernel's share);
+ 10. fbank   the Kaldi fbank (K5) against fbank_plain over every frame and
+             against fbank_numpy over each row's frames: silence, a square
+             wave, a DC offset, the fixture wavs and ragged lengths 399 ...
+             123457 padded to 160,000 samples; times at B=40 x 10 s;
+ 11. train   cli.train trains s2t_transformer_m at full width in bf16 from a
+     audio   seeded corpus of 16-bit wavs (80 train / 16 dev, 4-12 s, V=10000):
+             K5 then utterance CMVN + SpecAugment inside the step, label-smoothed
+             CE + CTC, 3 epochs with validation and checkpoints, then a 4th
+             epoch resumed from checkpoint_last.pt; one profiled step; one
+             fp32 forward_fn + criterion pass card vs CPU;
+ 12. generate cli.generate beam-5 decodes 8 dev utterances as fbank_numpy
+             features from phase 11's checkpoint_last.pt;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
 it: serving (phases 5-6) launches K1f 12 times per encode; a training step
-(phases 7-8) launches K1f 12, K1b 12, K3 1 and K4 1 times.
+(phases 7-8) launches K1f 12, K1b 12, K3 1 and K4 1 times; a raw-audio
+forward (phase 11, train or valid) adds K5 once; decoding (phase 12)
+launches K1f 12 times per encode.
 """
 
 from __future__ import annotations
@@ -45,12 +59,14 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from s2t_tpu_torch.cli.train import step_batch
 from s2t_tpu_torch.config import OptimizationConfig
 from s2t_tpu_torch.criterions.build import build_criterion
 from s2t_tpu_torch.hub import GeneratorHub
@@ -62,8 +78,10 @@ from s2t_tpu_torch.ops.attention_cuda import (
 from s2t_tpu_torch.ops.ctc import _extend_labels, _lattice_logp, _transition_mask
 from s2t_tpu_torch.ops.ctc_cuda import (
     NEG_INF, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain)
+from s2t_tpu_torch.ops.fbank_cuda import fbank, mel_bin_ranges
 from s2t_tpu_torch.trainer import Trainer
 from s2t_tpu_torch.utils.flops import s2t_train_flops
+from s2t_tpu_torch.utils.masking import lengths_to_mask
 
 ROOT = Path(__file__).resolve().parent
 WAVS = [str(ROOT / "tests" / "fixtures" / "audio" / f"utt{i}.wav") for i in range(4)]
@@ -202,7 +220,7 @@ def phase_kernel():
 # --------------------------------------------------------------------------- #
 def counters():
     return {"attention_fwd": fused_attention, "attention_bwd": fused_attention_bwd,
-            "ctc_alpha": ctc_alpha, "ctc_beta_grad": ctc_beta_grad}
+            "ctc_alpha": ctc_alpha, "ctc_beta_grad": ctc_beta_grad, "fbank": fbank}
 
 
 def reset_counts() -> None:
@@ -600,7 +618,7 @@ def train_batch(rng, B, T, U, V, lengths):
 
 
 def check_step_launches(counts, steps=1):
-    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
+    want = {**{k: 0 for k in counters()}, **{k: n * steps for k, n in TRAIN_LAUNCHES.items()}}
     if counts != want:
         raise AssertionError(f"{steps} training step(s) launched {counts}, expected {want}")
 
@@ -701,6 +719,384 @@ def phase_train_speed(n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30
 
 
 # --------------------------------------------------------------------------- #
+# K5 against fbank_plain (fbank_torch: float64 frames and DFT through cuFFT, the
+# power rounded to f32 once, an f32 mel matmul and log) and against fbank_numpy
+# (the same precisions on the host): the tolerance of tests/test_fbank_pallas.py,
+# |err| <= FBANK_ATOL + FBANK_RTOL |ref|.  All three round a float64 power to f32
+# (direct DFT or FFT change only its last float64 bits), so they differ by about
+# an f32 ulp of the mel sums under the log; the bound is the parity tests' own,
+# which the JAX formulations' f32 DFT sums of 400 int16-scale samples (about
+# five digits) still meet
+FBANK_ATOL, FBANK_RTOL = 5e-4, 1e-4
+FBANK_RAGGED = (399, 400, 401, 559, 560, 8037, 123457)
+FBANK_N = 160000  # the timing shape: 40 rows of 10 s, T = 998
+
+
+def fbank_bound(B, N, n_mels=80):
+    """Least time for one fbank call: the samples read and the features written
+    once, and the operations of the FFT formulation (the fewest known for the
+    function): per frame preprocessing (mean, preemphasis, window: 5 per sample),
+    a 512-point real FFT (2.5 N log2 N), the power (3 per bin), the mel product
+    over the nonzero weights of the Kaldi triangles (2 per weight, 501 weights
+    for 80 bins) and the log, at the f32 rate (no tensor cores: see fbank.cu).
+    Returns (bound ms, what bounds it, {"bytes_ms", "operations_ms"})."""
+    _, lo, hi = mel_bin_ranges(n_mels)
+    T = 1 + (N - 400) // 160 if N >= 400 else 0
+    nbytes = 4 * B * N + 4 * B * T * n_mels + 4 * B + 4 * B
+    per_frame = 5 * 400 + 2.5 * 512 * 9 + 3 * 257 + 2 * int((hi - lo).sum()) + n_mels
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, B * T * per_frame / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes_ms": t_bytes * 1e3, "operations_ms": t_ops * 1e3})
+
+
+def fbank_rows():
+    """The content rows (silence, a +-32767 square wave, a DC offset of 1000 with
+    sigma 1 noise, the four fixture wavs) and the ragged rows (noise of sigma 2000
+    at FBANK_RAGGED lengths): [(name, waveform)]."""
+    from s2t_tpu_torch.data.dataset import load_waveform
+
+    rng = np.random.default_rng(10)
+    n = np.arange(32000)
+    rows = [("silence", np.zeros(16000, np.float32)),
+            ("square", np.where((n // 50) % 2 == 0, 32767.0, -32767.0).astype(np.float32)),
+            ("dc1000", (1000.0 + rng.normal(size=24000)).astype(np.float32))]
+    rows += [(Path(w).stem, load_waveform(w)) for w in WAVS]
+    rows += [(f"len{L}", (rng.normal(size=L) * 2000.0).astype(np.float32)) for L in FBANK_RAGGED]
+    return rows
+
+
+def fbank_check(got, want):
+    """(max |err|, worst err / (atol + rtol |want|)) over two f32 tensors."""
+    err = (got.float() - want.float()).abs()
+    return err.max().item(), (err / (FBANK_ATOL + FBANK_RTOL * want.float().abs())).max().item()
+
+
+def phase_fbank():
+    from s2t_tpu_torch.data.audio.fbank import fbank_numpy
+    from s2t_tpu_torch.ops.fbank_cuda import fbank_plain
+
+    rows = fbank_rows()
+    wave = np.zeros((len(rows), FBANK_N), np.float32)
+    for i, (_, w) in enumerate(rows):
+        wave[i, : len(w)] = w
+    lengths = torch.as_tensor([len(w) for _, w in rows], device="cuda")
+    wave_t = torch.from_numpy(wave).cuda()
+    got, flens = fbank(wave_t, lengths)
+    plain, plain_flens = fbank_plain(wave_t, lengths)
+    torch.cuda.synchronize()
+    if not torch.equal(flens, plain_flens):
+        raise AssertionError(f"K5 frame lengths {flens.tolist()} != plain {plain_flens.tolist()}")
+    report, worst = [], 0.0
+    for i, (name, w) in enumerate(rows):
+        ref = torch.from_numpy(fbank_numpy(w))
+        n = int(flens[i])
+        if n != ref.shape[0]:
+            raise AssertionError(f"row {name}: {n} frames, fbank_numpy has {ref.shape[0]}")
+        err_p, ratio_p = fbank_check(got[i], plain[i])  # all T frames, the padded tail included
+        err_n, ratio_n = fbank_check(got[i, :n].cpu(), ref) if n else (0.0, 0.0)
+        worst = max(worst, ratio_p, ratio_n)
+        report.append({"row": name, "samples": len(w), "frames": n, "vs_plain": err_p,
+                       "vs_numpy": err_n})
+        log(f"[fbank] {name:<9} {len(w):>6} samples {n:>4} frames: max |err| vs plain "
+            f"{err_p:.3e} (all {got.shape[1]} frames), vs fbank_numpy {err_n:.3e}")
+    silent = got[0, flens[0]:].unique()  # the silent tail is log(EPSILON) in every formulation
+    log(f"[fbank] silent frames give {silent.tolist()}; worst err / (atol + rtol |ref|) = "
+        f"{worst:.3f} (atol {FBANK_ATOL}, rtol {FBANK_RTOL})")
+    if not worst <= 1.0:
+        raise AssertionError(f"K5 disagrees with fbank_plain / fbank_numpy: {report}")
+
+    # the timing shape: 40 rows of 10 s of sigma-2000 noise
+    B = 40
+    g = torch.Generator(device="cuda").manual_seed(11)
+    wave_t = torch.randn((B, FBANK_N), generator=g, device="cuda") * 2000.0
+    lengths = torch.full((B,), FBANK_N, device="cuda")
+    got, _ = fbank(wave_t, lengths)
+    plain, _ = fbank_plain(wave_t, lengths)
+    err, ratio = fbank_check(got, plain)
+    if not ratio <= 1.0:
+        raise AssertionError(f"K5 disagrees with fbank_plain at the timing shape: max |err| {err}")
+    res = {"B": B, "N": FBANK_N, "T": got.shape[1], "max_abs_err": err, "err_ratio": ratio,
+           "rows": report,
+           "ms": cuda_ms(lambda: fbank(wave_t, lengths)),
+           "plain_ms": cuda_ms(lambda: fbank_plain(wave_t, lengths), iters=10)}
+    res["bound_ms"], res["bound_by"], res["bound_parts"] = fbank_bound(B, FBANK_N)
+    log(f"[fbank] timing shape {json.dumps({k: v for k, v in res.items() if k != 'rows'})}")
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# phases 11-12: the raw-audio training path through the task, data and CLI layers
+CORPUS = {"train": 80, "dev": 16}
+SYMBOLS = 9996  # + the 4 special symbols: V = 10000, the bench's vocabulary
+TEST_UTTS = 8
+# fairseq's LibriSpeech ("lb") SpecAugment policy, the recipes' train transforms
+SPECAUGMENT = {"time_warp_W": 0, "freq_mask_N": 1, "freq_mask_F": 27, "time_mask_N": 1,
+               "time_mask_T": 100, "time_mask_p": 1.0}
+# fp32 forward_fn + criterion, card (kernels) vs CPU (plain): every output and loss,
+# max |err| over max(1, max |CPU|); test_torch_task.py holds the CPU path to JAX at 1e-4
+FORWARD_RTOL = 1e-4
+
+
+def write_wav(path: Path, samples: np.ndarray) -> None:
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.clip(np.rint(samples), -32768, 32767).astype("<i2").tobytes())
+
+
+def write_corpus(root: Path, seed: int = 0) -> None:
+    """A seeded raw-audio corpus: 16-bit wavs of 4-12 s (sigma-2000 noise),
+    targets of 10-30 words drawn from a Zipf(1.1) law over SYMBOLS words (so a
+    model can learn something from the text alone), ``src_text`` = the target
+    words for CTC, and ``dict.txt``."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(SYMBOLS)]
+    (root / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    p = 1.0 / np.arange(1, SYMBOLS + 1) ** 1.1
+    p /= p.sum()
+    for split, n in CORPUS.items():
+        lines = ["id\taudio\tn_frames\ttgt_text\tsrc_text"]
+        for i in range(n):
+            samples = int(rng.integers(4 * 16000, 12 * 16000 + 1))
+            write_wav(root / f"{split}{i}.wav", rng.normal(size=samples) * 2000.0)
+            text = " ".join(words[j] for j in rng.choice(SYMBOLS, size=int(rng.integers(10, 31)),
+                                                         p=p))
+            lines.append(f"{split}{i}\t{split}{i}.wav\t{samples}\t{text}\t{text}")
+        (root / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+
+
+def audio_cfg(root: Path, max_epoch: int, dtype: str = "bfloat16"):
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    return from_dict(TrainConfig, {
+        "task": "speech_to_text",
+        "arch": "s2t_transformer_m",  # full width; the preset's dropouts
+        "criterion": CRITERION[0],
+        "criterion_cfg": CRITERION[1],
+        "model": {"dtype_str": dtype},
+        # with use_audio_input the size columns and caps count samples
+        "dataset": {"data": str(root), "max_tokens": 6_400_000,
+                    "max_source_positions": 200_000},
+        "optimization": {"max_epoch": max_epoch, "lr": 2e-3, "warmup_updates": 4,
+                         "clip_norm": 10.0},
+        "checkpoint": {"save_dir": str(root / "ckpt"), "keep_last_epochs": 2},
+        "common": {"seed": 1, "log_interval": 1},
+        "generation": {"beam": 5, "max_len_b": 100, "scoring": "wer", "post_process": None},
+    })
+
+
+def audio_task(cfg, use_audio: bool = True):
+    """The task from a data config built in Python (no config.yaml to read)."""
+    from s2t_tpu_torch.data.dataset import S2TDataConfig
+    from s2t_tpu_torch.data.dictionary import Dictionary
+    from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
+
+    data_cfg = S2TDataConfig(use_audio_input=use_audio, transforms={
+        "_train": {"transforms": ["utterance_cmvn", "specaugment"], "specaugment": SPECAUGMENT},
+        "_eval": {"transforms": ["utterance_cmvn"]}})
+    return SpeechToTextTask(cfg, data_cfg, Dictionary.load(Path(cfg.dataset.data) / "dict.txt"))
+
+
+def check_counts(counts, want, what):
+    if counts != want:
+        raise AssertionError(f"{what} launched {counts}, expected {want}")
+
+
+def path_counts(train_steps, forwards):
+    """Launches of a run of ``train_steps`` train steps and ``forwards`` forwards
+    in all (train + valid): K5, K1f and K3 once per forward (K1f per encoder
+    layer), K1b and K4 per train step."""
+    return {"attention_fwd": 12 * forwards, "attention_bwd": 12 * train_steps,
+            "ctc_alpha": forwards, "ctc_beta_grad": train_steps, "fbank": forwards}
+
+
+def to_device(batch, device):
+    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in step_batch(batch).items()}
+
+
+def phase_train_audio(root: Path):
+    from s2t_tpu_torch.cli import train as cli_train
+
+    t0 = time.perf_counter()
+    write_corpus(root)
+    corpus_s = time.perf_counter() - t0
+    cfg = audio_cfg(root, max_epoch=3)
+    task = audio_task(cfg)
+    reset_counts()  # the main path: cli.train from raw audio, 3 epochs
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, task=task, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = out["trainer"].step
+    valid_ds = task.datasets[cfg.dataset.valid_subset]
+    n_valid = len(task.get_batch_iterator(valid_ds, max_tokens=cfg.dataset.max_tokens,
+                                          seed=cfg.common.seed, shuffle=False))
+    check_counts(counts, path_counts(steps, steps + n_valid * len(out["history"])),
+                 f"cli.train ({steps} steps, {len(out['history'])} validations of {n_valid} batch)")
+    losses = [r["loss"] for r in out["train_log"]]
+    valid = [h["loss"] for h in out["history"]]
+    epoch_mean = [np.mean([r["loss"] for r in out["train_log"] if r["epoch"] == e])
+                  for e in (1, 3)]
+    if not (np.isfinite(losses).all() and np.isfinite(valid).all() and valid[-1] < valid[0]
+            and epoch_mean[1] < epoch_mean[0]):
+        raise AssertionError(f"raw-audio training: losses not finite or not falling: train "
+                             f"{losses}, valid {valid}")
+    ckpt = Path(cfg.checkpoint.save_dir)
+    files = sorted(p.name for p in ckpt.glob("*.pt"))
+    want = {"checkpoint_last.pt", "checkpoint_best.pt", "checkpoint3.pt", "checkpoint2.pt"}
+    if not want <= set(files) or "checkpoint1.pt" in files:  # keep_last_epochs 2
+        raise AssertionError(f"checkpoint files {files}, expected {sorted(want)} and no "
+                             "checkpoint1.pt")
+    log(f"[train audio] 3 epochs, {steps} steps in {wall:.2f} s: train losses "
+        f"{[round(x, 4) for x in losses]}, valid {[round(x, 4) for x in valid]}; launches "
+        f"{json.dumps(counts)}; checkpoints {files}")
+    timing = out["timing"]
+
+    # a 4th epoch resumes from checkpoint_last.pt: step and epoch continue
+    cfg4 = audio_cfg(root, max_epoch=4)
+    task4 = audio_task(cfg4)
+    reset_counts()  # the main path: the resumed run
+    out4 = cli_train.main(cfg4, task=task4, device="cuda")
+    torch.cuda.synchronize()
+    counts4 = read_counts()
+    steps4 = out4["trainer"].step - steps
+    log4 = out4["train_log"]
+    epochs4 = [h["epoch"] for h in out4["history"]]
+    if not (log4 and log4[0]["step"] == steps + 1 and steps4 > 0 and epochs4 == [3, 4]
+            and all(r["epoch"] == 4 for r in log4)):
+        raise AssertionError(f"the resumed run did not continue at step {steps + 1} in epoch 4: "
+                             f"train log {log4}, validated epochs {epochs4}")
+    check_counts(counts4, path_counts(steps4, steps4 + n_valid * len(epochs4)), "resumed cli.train")
+    log(f"[train audio] resumed at step {log4[0]['step']} in epoch 4: {steps4} steps, losses "
+        f"{[round(r['loss'], 4) for r in log4]}, validated epochs {epochs4}; launches "
+        f"{json.dumps(counts4)}")
+    launches = {k: counts[k] + counts4[k] for k in counts}
+
+    # where a step from raw audio spends its time: the host (wav reads, collation),
+    # the step, and one profiled step on the device
+    trainer = out4["trainer"]
+    train_ds = task4.datasets[cfg4.dataset.train_subset]
+    t0 = time.perf_counter()
+    batch = next(iter(task4.get_batch_iterator(train_ds, max_tokens=cfg4.dataset.max_tokens,
+                                               seed=1, shuffle=False,
+                                               buffer_size=1).next_epoch_itr()))
+    host_batch_s = time.perf_counter() - t0
+    prof = device_profile(lambda: trainer.train_step(step_batch(batch)),
+                          KERNEL_NAMES + ("fbank_kernel",))
+    res = {"corpus_write_s": corpus_s, "train_steps": steps, "resumed_steps": steps4,
+           "wall_s": wall, "valid_batches": n_valid, "train_losses": losses,
+           "valid_losses": valid, "timing": timing,
+           "steps_per_s_in_step": steps / timing["step_s"],
+           "steps_per_s_with_data": steps / (timing["step_s"] + timing["data_s"]),
+           "data_wait_share": timing["data_s"] / (timing["step_s"] + timing["data_s"]),
+           "host_batch_s": host_batch_s, "batch_shape": list(batch["features"].shape),
+           "profiled_step_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
+           "device_busy_share_of_profiled_step": prof["busy_ms"] / prof["wall_ms"],
+           "fbank_share_of_busy": prof["kernel_ms"]["fbank_kernel"] / prof["busy_ms"],
+           "kernel_device_ms": prof["kernel_ms"], "top_aten_ops_device_ms": prof["top_ops"]}
+    res["host_batch_share_of_step"] = host_batch_s / (host_batch_s + prof["wall_ms"] / 1e3)
+
+    res["fp32_forward"] = forward_card_vs_cpu(task, valid_ds, cfg)
+    log(f"[train audio] {json.dumps({k: v for k, v in res.items() if 'losses' not in k})}")
+    return res, launches
+
+
+def forward_card_vs_cpu(task, valid_ds, cfg):
+    """One fp32 forward_fn + criterion pass on a dev batch from the same weights,
+    card (K5, K1f, K3) vs CPU (their plain versions): the encoder output and the
+    CTC logits over each row's valid frames, the decoder logits over its target
+    tokens, elementwise, and the two summed losses."""
+    cfg32 = audio_cfg(Path(cfg.dataset.data), max_epoch=3, dtype="float32")
+    batch = next(iter(task.get_batch_iterator(valid_ds, max_tokens=cfg.dataset.max_tokens,
+                                              seed=1, shuffle=False).next_epoch_itr()))
+    outs, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        t = audio_task(cfg32)
+        model = t.build_model(device=device, seed=0)
+        if model.device.type != device:
+            raise AssertionError(f"the fp32 model was built on {model.device}, not {device}")
+        b = to_device(batch, device)
+        reset_counts()  # a check of the card's pass, not the main path
+        with torch.no_grad():
+            out = t.forward_fn()(model, b, train=False)
+            loss, _, logs = t.build_criterion()(out, b)
+        counts = read_counts()
+        if device == "cuda":
+            check_counts(counts, path_counts(0, 1), "the fp32 card forward")
+        outs[device] = {k: v.cpu() for k, v in out.items() if v is not None}
+        losses[device] = {"loss": float(loss), "ctc_loss": float(logs["ctc_loss"])}
+        del model
+    card, cpu = outs["cuda"], outs["cpu"]
+    if not torch.equal(card["encoder_lengths"], cpu["encoder_lengths"]):
+        raise AssertionError(f"encoder lengths card {card['encoder_lengths'].tolist()} != CPU "
+                             f"{cpu['encoder_lengths'].tolist()}")
+    frames = lengths_to_mask(cpu["encoder_lengths"], cpu["encoder_out"].shape[1])
+    tokens = torch.as_tensor(np.asarray(batch["target"])) != task.tgt_dict.pad()
+    err = {"encoder_out": rel_err(card["encoder_out"][frames], cpu["encoder_out"][frames]),
+           "ctc_logits": rel_err(card["ctc_logits"][frames], cpu["ctc_logits"][frames]),
+           "decoder_logits": rel_err(card["decoder_logits"][tokens],
+                                     cpu["decoder_logits"][tokens])}
+    err.update({k: abs(losses["cuda"][k] - losses["cpu"][k]) / abs(losses["cpu"][k])
+                for k in losses["cpu"]})
+    res = {"batch_shape": list(batch["features"].shape), "valid_frames": int(frames.sum()),
+           "target_tokens": int(tokens.sum()), **losses, "rel_err": err}
+    log(f"[train audio] fp32 forward_fn + criterion on a dev batch "
+        f"{tuple(batch['features'].shape)}: card {losses['cuda']}, CPU {losses['cpu']}; "
+        f"rel err (max |err| / max(1, max |CPU|)) {err} (limit {FORWARD_RTOL})")
+    if not all(v <= FORWARD_RTOL for v in err.values()):
+        raise AssertionError("the raw-audio forward disagrees between the card and the CPU")
+    return res
+
+
+def phase_generate(root: Path):
+    """Decode TEST_UTTS dev utterances, as fbank_numpy features, with cli.generate
+    from phase 11's checkpoint_last.pt."""
+    from s2t_tpu_torch.cli import generate as cli_generate
+    from s2t_tpu_torch.data.audio.fbank import fbank_numpy
+    from s2t_tpu_torch.data.dataset import load_waveform
+    from s2t_tpu_torch.utils.checkpoint import load_checkpoint
+
+    rows = (root / "dev.tsv").read_text().splitlines()[1:TEST_UTTS + 1]
+    lines = ["id\taudio\tn_frames\ttgt_text"]
+    for row in rows:
+        uid, wav, _, text, _ = row.split("\t")
+        feats = fbank_numpy(load_waveform(wav, str(root)))
+        np.save(root / f"{uid}.npy", feats)
+        lines.append(f"{uid}\t{uid}.npy\t{feats.shape[0]}\t{text}")
+    (root / "test.tsv").write_text("\n".join(lines) + "\n")
+    cfg = audio_cfg(root, max_epoch=3)
+    cfg.dataset.gen_subset = "test"
+    cfg.generation.results_path = str(root / "gen")
+    task = audio_task(cfg, use_audio=False)
+    tree, meta = load_checkpoint(Path(cfg.checkpoint.save_dir) / "checkpoint_last.pt")
+    reset_counts()  # the main path: cli.generate
+    out = cli_generate.main(cfg, tree["params"], task=task, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    encodes = len(task.get_batch_iterator(task.datasets["test"], max_tokens=cfg.dataset.max_tokens,
+                                          shuffle=False))
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * encodes},
+                 "cli.generate")
+    text = (Path(cfg.generation.results_path) / "generate-test.txt").read_text().splitlines()
+    for tag in ("T", "H", "D"):
+        n = sum(line.startswith(f"{tag}-") for line in text)
+        if n != TEST_UTTS:
+            raise AssertionError(f"generate-test.txt has {n} {tag}- lines, expected {TEST_UTTS}")
+    score = [line for line in text if line.startswith("Generate test with beam=5: WER: ")]
+    if len(score) != 1:
+        raise AssertionError(f"generate-test.txt has no WER line: {text[-1]!r}")
+    res = {"checkpoint_step": meta["step"], "utterances": out["n_utts"], "score": score[0],
+           "gen_time_s": out["gen_time"], "utts_per_s": out["utts_per_sec"], "rtf": out["rtf"],
+           "launches": counts, "first_lines": text[:3]}
+    log(f"[generate] {json.dumps(res)}")
+    return res, counts
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -736,13 +1132,23 @@ def main(argv=None) -> int:
     log(f"[main path] training: {json.dumps(train_launches)} over {steps} steps "
         f"({json.dumps(TRAIN_LAUNCHES)} per step)")
 
+    fbank_main = phase_fbank()
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_") as tmp:
+        audio, audio_launches = phase_train_audio(Path(tmp))
+        generate, gen_launches = phase_generate(Path(tmp))
+    log(f"[main path] raw-audio training (2 runs): {json.dumps(audio_launches)}; generate: "
+        f"{json.dumps(gen_launches)}")
+    path_launches = {k: train_launches.get(k, 0) + audio_launches[k] + gen_launches[k]
+                     for k in counters()}
+    path_launches["attention_fwd"] += serve_launches
+
     ctc_main = ctc_cases[0]
     kernels = [{
         "name": "attention_fwd",
         "route": "cuda",
         "source": "s2t_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "s2t_tpu/ops/attention_pallas.py:100",
-        "launches": serve_launches + train_launches["attention_fwd"],
+        "launches": path_launches["attention_fwd"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -754,7 +1160,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "s2t_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "s2t_tpu/ops/attention_pallas.py:116",
-        "launches": train_launches["attention_bwd"],
+        "launches": path_launches["attention_bwd"],
         "max_abs_err": grad_main["grad_max_abs_err"],
         "ms": grad_main["ms"],
         "plain_ms": grad_main["plain_ms"],
@@ -766,7 +1172,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "s2t_tpu_torch/csrc/ctc_lattice.cu",
         "replaces": "s2t_tpu/ops/ctc_pallas.py:59",
-        "launches": train_launches["ctc_alpha"],
+        "launches": path_launches["ctc_alpha"],
         "max_abs_err": ctc_main["alpha_err"],
         "ms": ctc_main["alpha_ms"],
         "plain_ms": ctc_main["alpha_plain_ms"],
@@ -778,13 +1184,25 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "s2t_tpu_torch/csrc/ctc_lattice.cu",
         "replaces": "s2t_tpu/ops/ctc_pallas.py:82",
-        "launches": train_launches["ctc_beta_grad"],
+        "launches": path_launches["ctc_beta_grad"],
         "max_abs_err": ctc_main["demit_err"],
         "ms": ctc_main["beta_ms"],
         "plain_ms": ctc_main["beta_plain_ms"],
         "bound_ms": ctc_main["beta_bound_ms"],
         "bound_by": "bytes",
         "library_ms": ctc_main["library_bwd_ms"],
+    }, {
+        "name": "fbank",
+        "route": "cuda",
+        "source": "s2t_tpu_torch/csrc/fbank.cu",
+        "replaces": "s2t_tpu/ops/fbank_pallas.py:64",
+        "launches": path_launches["fbank"],
+        "max_abs_err": fbank_main["max_abs_err"],
+        "ms": fbank_main["ms"],
+        "plain_ms": fbank_main["plain_ms"],
+        "bound_ms": fbank_main["bound_ms"],
+        "bound_by": fbank_main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the Kaldi fbank
     }]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -794,7 +1212,8 @@ def main(argv=None) -> int:
             "kernels": kernels, "kernel_cases": cases, "serving_shape": main_shape,
             "grad_cases": grad_cases, "kept_share": kept_share, "training_shape": grad_main,
             "ctc_cases": ctc_cases, "speed": speed, "train_parity": parity,
-            "train_speed": train_speed, "train_launches": train_launches,
+            "train_speed": train_speed, "train_launches": train_launches, "fbank": fbank_main,
+            "train_audio": audio, "generate": generate, "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,195 @@
+"""Training CLI (counterpart of s2t_tpu/cli/train.py:29-389).
+
+Usage:
+    python -m s2t_tpu_torch.cli.train DATA_DIR --config conf.yaml \
+        [--device cpu] optimization.lr=0.002 arch=s2t_transformer_m
+
+Stacked ``--config`` files merge left to right; trailing ``key.path=value``
+pairs override everything.  Training runs on the card unless ``--device cpu``
+is given.  Each epoch trains, validates (every scalar log of the criterion),
+saves ``checkpoint<epoch>.pt`` / ``checkpoint_last.pt`` / ``checkpoint_best.pt``
+and checks patience; ``checkpoint.save_interval_updates`` adds mid-epoch
+saves.  A run resumes from ``checkpoint.restore_file`` in ``save_dir`` with
+the optimizer and the epoch iterator's state unless they are reset.
+
+Settings the port does not have raise ``NotImplementedError`` before
+anything is built (``config.check_train_supported``), among them the
+validation-time decoding of ``eval.eval_wer`` / ``eval_bleu`` /
+``eval_ctc_wer``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import time
+from pathlib import Path
+from typing import Any, Dict
+
+logger = logging.getLogger("s2t_tpu_torch.train")
+
+# batch keys the step does not read
+_HOST_KEYS = ("ids", "nsentences")
+# validation logs summed raw and reported as they are, not per sample
+_COUNTERS = {"n_correct", "total", "ntokens", "nsentences"}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("data", nargs="?", default=None)
+    p.add_argument("--config", action="append", default=[], help="YAML config (repeatable)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("overrides", nargs="*", default=[], help="key.path=value overrides")
+    return p.parse_args(argv)
+
+
+def build_cfg(args):
+    from s2t_tpu_torch.config import TrainConfig, apply_overrides, from_dict, load_yaml_stack
+
+    d = apply_overrides(load_yaml_stack(args.config), args.overrides)
+    cfg = from_dict(TrainConfig, d)
+    if args.data:
+        cfg.dataset.data = args.data
+    return cfg
+
+
+def step_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v for k, v in batch.items() if k not in _HOST_KEYS}
+
+
+def validate(cfg, task, trainer, valid_ds) -> Dict[str, float]:
+    """Sample-size-weighted mean of every scalar log over the valid split."""
+    itr = task.get_batch_iterator(valid_ds, max_tokens=cfg.dataset.max_tokens,
+                                  seed=cfg.common.seed, shuffle=False).next_epoch_itr()
+    tot: Dict[str, float] = {}
+    n = 0.0
+    for batch in itr:
+        logs = trainer.valid_step(step_batch(batch))
+        tot["loss"] = tot.get("loss", 0.0) + float(logs["loss"])
+        tot["nll_loss"] = tot.get("nll_loss", 0.0) + float(logs.get("nll_loss", logs["loss"]))
+        for k, v in logs.items():
+            if k not in ("loss", "nll_loss", "sample_size"):
+                tot[k] = tot.get(k, 0.0) + float(v)
+        n += float(logs["sample_size"])
+    out = {k: (v if k in _COUNTERS else v / max(n, 1.0)) for k, v in tot.items()}
+    if "n_correct" in out and out.get("total", 0) > 0:
+        out["accuracy"] = out["n_correct"] / out["total"]
+    return out
+
+
+def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
+    """Train as configured.  ``task``: a prebuilt task (for a data config made
+    in Python); default ``setup_task(cfg)``.  Returns the validation history,
+    the per-step train logs, host-clock timings and the task, model and trainer."""
+    from s2t_tpu_torch.config import check_train_supported
+    from s2t_tpu_torch.tasks import setup_task
+    from s2t_tpu_torch.trainer import Trainer
+    from s2t_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
+    from s2t_tpu_torch.utils.progress import ProgressLogger
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s")
+    check_train_supported(cfg)
+    task = task or setup_task(cfg)
+    train_ds = task.load_dataset(cfg.dataset.train_subset, is_train=True)
+    valid_ds = task.load_dataset(cfg.dataset.valid_subset)
+    model = task.build_model(device=device, for_training=True)
+    trainer = Trainer(model, task.build_criterion(), cfg.optimization, device=device,
+                      seed=cfg.common.seed, forward_fn=task.forward_fn())
+    epoch_itr = task.get_batch_iterator(
+        train_ds, max_tokens=cfg.dataset.max_tokens, seed=cfg.common.seed,
+        shuffle=cfg.dataset.shuffle, buffer_size=cfg.dataset.data_buffer_size)
+    ck = cfg.checkpoint
+    ckpt = CheckpointManager(
+        ck.save_dir, keep_last_epochs=ck.keep_last_epochs,
+        keep_interval_updates=ck.keep_interval_updates,
+        keep_best_checkpoints=ck.keep_best_checkpoints, best_metric=ck.best_checkpoint_metric,
+        maximize_best=ck.maximize_best_checkpoint_metric, async_save=ck.async_save)
+
+    last = Path(ck.save_dir) / (ck.restore_file + ".pt")
+    if last.exists():
+        tree, meta = load_checkpoint(last)
+        trainer.load_state_dict(tree, params_only=ck.reset_optimizer)
+        if not ck.reset_dataloader and "epoch_itr" in meta:
+            epoch_itr.load_state_dict(meta["epoch_itr"])
+        logger.info("resumed from %s at step %d", last, trainer.step)
+    logger.info("arch %s | %s parameters | device %s", cfg.arch,
+                f"{sum(p.numel() for p in model.parameters()):,}", trainer.device)
+
+    progress = ProgressLogger(cfg.common.log_format, cfg.common.tensorboard_logdir,
+                              cfg.common.wandb_project, cfg.common.azureml_logging)
+    max_epoch = cfg.optimization.max_epoch or math.inf
+    max_update = cfg.optimization.max_update or math.inf
+    patience_left = cfg.optimization.patience
+    best_val = None
+    history, train_log = [], []
+    timing = {"data_s": 0.0, "step_s": 0.0, "valid_s": 0.0, "save_s": 0.0}
+
+    def save(**kw):
+        t0 = time.perf_counter()
+        ckpt.save(trainer.state_dict(), trainer.step, epoch_itr.epoch,
+                  extra_meta={"epoch_itr": epoch_itr.state_dict()}, **kw)
+        timing["save_s"] += time.perf_counter() - t0
+
+    while epoch_itr.epoch <= max_epoch and trainer.step < max_update:
+        itr = iter(epoch_itr.next_epoch_itr())
+        t_log = time.time()
+        interval: Dict[str, float] = {}
+        interval_n = 0
+        while True:
+            t0 = time.perf_counter()
+            batch = next(itr, None)
+            t1 = time.perf_counter()
+            timing["data_s"] += t1 - t0
+            if batch is None:
+                break
+            metrics = trainer.train_step(step_batch(batch))
+            row = {k: float(metrics[k]) for k in ("loss", "gnorm", "lr")}
+            timing["step_s"] += time.perf_counter() - t1
+            train_log.append({"step": trainer.step, "epoch": epoch_itr.epoch, **row})
+            interval_n += 1
+            for k in ("loss", "gnorm"):
+                interval[k] = interval.get(k, 0.0) + row[k]
+            if trainer.step % cfg.common.log_interval == 0:
+                ups = interval_n / (time.time() - t_log + 1e-9)
+                progress.log({"loss": interval["loss"] / interval_n,
+                              "gnorm": interval["gnorm"] / interval_n, "lr": row["lr"],
+                              "ups": ups}, trainer.step, "train", epoch_itr.epoch)
+                interval, interval_n, t_log = {}, 0, time.time()
+            if ck.save_interval_updates > 0 and trainer.step % ck.save_interval_updates == 0:
+                save(end_of_epoch=False)
+            if trainer.step >= max_update:
+                break
+
+        t0 = time.perf_counter()
+        val = validate(cfg, task, trainer, valid_ds)
+        timing["valid_s"] += time.perf_counter() - t0
+        val_metric = val.get(ck.best_checkpoint_metric, val.get("loss"))
+        progress.log(val, trainer.step, "valid", epoch_itr.epoch)
+        history.append({"epoch": epoch_itr.epoch, "step": trainer.step, **val})
+        if not ck.no_save:
+            save(val_metric=val_metric)
+        better = best_val is None or (val_metric > best_val if ck.maximize_best_checkpoint_metric
+                                      else val_metric < best_val)
+        if better:
+            best_val = val_metric
+            patience_left = cfg.optimization.patience
+        elif cfg.optimization.patience > 0:
+            patience_left -= 1
+            if patience_left <= 0:
+                logger.info("early stop: patience exhausted")
+                break
+        epoch_itr.next_epoch()
+
+    progress.close()
+    return {"history": history, "train_log": train_log, "timing": timing, "task": task,
+            "model": model, "trainer": trainer}
+
+
+def cli_main(argv=None):
+    args = parse_args(argv)
+    main(build_cfg(args), device=args.device)
+
+
+if __name__ == "__main__":
+    cli_main()

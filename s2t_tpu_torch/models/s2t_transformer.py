@@ -27,6 +27,7 @@ from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
 from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding
 from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling
+from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
 
@@ -255,6 +256,7 @@ class S2TTransformerEncoder(nn.Module):
         return {"encoder_out": x, "encoder_lengths": lengths, "ctc_logits": ctc_logits}
 
 
+@register_model("s2t_transformer")
 class S2TTransformerModel(nn.Module):
     """Encoder-decoder speech model.  Built on CPU from ``seed`` with an
     explicit ``torch.Generator`` (so the same seed gives the same weights on
@@ -364,6 +366,7 @@ class S2TTransformerModel(nn.Module):
 # --------------------------------------------------------------------------- #
 
 
+@register_model_architecture("s2t_transformer", "s2t_transformer")
 def base_architecture(**kw) -> S2TTransformerConfig:
     return S2TTransformerConfig(
         encoder_embed_dim=512, encoder_ffn_embed_dim=2048,
@@ -372,6 +375,7 @@ def base_architecture(**kw) -> S2TTransformerConfig:
     ).replace(**kw)
 
 
+@register_model_architecture("s2t_transformer", "s2t_transformer_s")
 def s2t_transformer_s(**kw) -> S2TTransformerConfig:
     return S2TTransformerConfig(
         encoder_embed_dim=256, encoder_ffn_embed_dim=2048,
@@ -380,6 +384,20 @@ def s2t_transformer_s(**kw) -> S2TTransformerConfig:
     ).replace(**kw)
 
 
+@register_model_architecture("s2t_transformer", "s2t_transformer_xs")
+def s2t_transformer_xs(**kw) -> S2TTransformerConfig:
+    return s2t_transformer_s(
+        encoder_layers=6, decoder_layers=3, encoder_ffn_embed_dim=1024,
+        decoder_ffn_embed_dim=1024, dropout=0.3,
+    ).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_transformer_sp")
+def s2t_transformer_sp(**kw) -> S2TTransformerConfig:
+    return s2t_transformer_s(encoder_layers=16).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_transformer_m")
 def s2t_transformer_m(**kw) -> S2TTransformerConfig:
     return S2TTransformerConfig(
         encoder_embed_dim=512, encoder_ffn_embed_dim=2048,
@@ -388,9 +406,20 @@ def s2t_transformer_m(**kw) -> S2TTransformerConfig:
     ).replace(**kw)
 
 
+@register_model_architecture("s2t_transformer", "s2t_transformer_mp")
+def s2t_transformer_mp(**kw) -> S2TTransformerConfig:
+    return s2t_transformer_m(encoder_layers=16).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_transformer_l")
 def s2t_transformer_l(**kw) -> S2TTransformerConfig:
     return S2TTransformerConfig(
         encoder_embed_dim=1024, encoder_ffn_embed_dim=4096,
         encoder_attention_heads=16, decoder_embed_dim=1024,
         decoder_ffn_embed_dim=4096, decoder_attention_heads=16, dropout=0.2,
     ).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_transformer_lp")
+def s2t_transformer_lp(**kw) -> S2TTransformerConfig:
+    return s2t_transformer_l(encoder_layers=16).replace(**kw)

@@ -1,0 +1,166 @@
+"""Speech-to-text task: ASR and end-to-end ST
+(counterpart of s2t_tpu/tasks/speech_to_text.py).
+
+The dictionaries come from the data directory's ``config.yaml`` (or a
+``S2TDataConfig`` built in Python and handed to the constructor), datasets
+are TSV manifests, and the forward adapter runs the feature pipeline inside
+the step: with ``use_audio_input`` the Kaldi fbank through the K5 wrapper
+(``ops/fbank_cuda.fbank``: the kernel on the card, its plain version on the
+CPU), then the split's feature transforms, then the model.
+
+What the port does not have raises ``NotImplementedError`` naming it:
+comma-separated multilingual splits, latency-augmented attention capture,
+the PAE oracle and mixup inputs, CTC-only and Jacobi generation, and
+decoding a ``use_audio_input`` split (the JAX generator feeds such a batch's
+waveforms to the encoder without an fbank, ROADMAP.md section 3).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from s2t_tpu_torch.config import TrainConfig
+from s2t_tpu_torch.data.audio.transforms import CompositeTransform
+from s2t_tpu_torch.data.dataset import S2TDataConfig, SpeechToTextDataset
+from s2t_tpu_torch.data.dictionary import Dictionary
+from s2t_tpu_torch.inference.generator import SequenceGenerator
+from s2t_tpu_torch.ops.fbank_cuda import fbank
+from s2t_tpu_torch.registry import register_task
+from s2t_tpu_torch.tasks.base import Task
+from s2t_tpu_torch.trainer import fold_in
+
+# the JAX step folds its dropout key with 7 for the feature transforms
+TRANSFORM_FOLD = 7
+
+
+def _check_forward_supported(cfg: TrainConfig, model) -> None:
+    mcfg = model.cfg
+    if cfg.criterion.startswith("latency_augmented"):
+        raise NotImplementedError(
+            f"criterion {cfg.criterion!r}: capturing the decoder's cross-attention is not "
+            "ported to s2t_tpu_torch")
+    for name in ("ctc_pae_ground_truth_ratio", "xctc_pae_ground_truth_ratio"):
+        if getattr(mcfg, name, 0.0) > 0:
+            raise NotImplementedError(f"{name} > 0 (the PAE ground-truth oracle) is not ported "
+                                      "to s2t_tpu_torch")
+    if getattr(mcfg, "inter_mixup_ratio_decay", False):
+        raise NotImplementedError("inter_mixup_ratio_decay (mixup's step input) is not ported "
+                                  "to s2t_tpu_torch")
+
+
+@register_task("speech_to_text")
+class SpeechToTextTask(Task):
+    def __init__(self, cfg: TrainConfig, data_cfg: S2TDataConfig, tgt_dict: Dictionary,
+                 src_dict: Optional[Dictionary] = None):
+        super().__init__(cfg)
+        self.data_cfg = data_cfg
+        self.tgt_dict = tgt_dict
+        self.src_dict = src_dict or tgt_dict
+
+    @classmethod
+    def setup(cls, cfg: TrainConfig) -> "SpeechToTextTask":
+        root = Path(cfg.dataset.data)
+        data_cfg_path = root / "config.yaml"
+        data_cfg = (S2TDataConfig.from_yaml(data_cfg_path) if data_cfg_path.exists()
+                    else S2TDataConfig())
+        tgt_dict = Dictionary.load(root / data_cfg.vocab_filename)
+        src_dict = None
+        if data_cfg.src_vocab_filename:
+            src_dict = Dictionary.load(root / data_cfg.src_vocab_filename)
+        return cls(cfg, data_cfg, tgt_dict, src_dict)
+
+    def load_dataset(self, split: str, is_train: bool = False):
+        if "," in split:
+            raise NotImplementedError(
+                f"split {split!r}: comma-separated multilingual splits (temperature "
+                "resampling) are not ported to s2t_tpu_torch")
+        root = Path(self.cfg.dataset.data)
+        ds = SpeechToTextDataset(root / f"{split}.tsv", self.data_cfg, self.tgt_dict,
+                                 self.src_dict, is_train=is_train, root=str(root))
+        self.datasets[split] = ds
+        return ds
+
+    def build_model(self, device="cuda", seed: Optional[int] = None, for_training: bool = False):
+        """The model of ``cfg.arch`` with the task's vocab sizes and feature and
+        position caps.  With ``use_audio_input`` the position cap counts samples,
+        as in the JAX package, so the encoder's sinusoidal table has that many rows."""
+        from s2t_tpu_torch.models.build import build_model
+
+        return build_model(
+            self.cfg.arch or "s2t_transformer_s", self.cfg.model,
+            device=device, seed=self.cfg.common.seed if seed is None else seed,
+            for_training=for_training,
+            vocab_size=len(self.tgt_dict),
+            src_vocab_size=len(self.src_dict),
+            input_feat_per_channel=self.data_cfg.input_feat_per_channel,
+            input_channels=self.data_cfg.input_channels,
+            max_source_positions=self.cfg.dataset.max_source_positions,
+            max_target_positions=self.cfg.dataset.max_target_positions,
+        )
+
+    def forward_fn(self):
+        train_tf = CompositeTransform.from_config_dict(self.data_cfg.get_transforms("train", True))
+        eval_tf = CompositeTransform.from_config_dict(self.data_cfg.get_transforms("eval", False))
+        use_audio = self.data_cfg.use_audio_input
+        n_mels = self.data_cfg.input_feat_per_channel
+        cfg = self.cfg
+
+        def fwd(model, batch, train: bool = False, generator: Optional[torch.Generator] = None):
+            _check_forward_supported(cfg, model)
+            feats, lengths = batch["features"], batch["feat_lengths"]
+            if use_audio:
+                # the fbank inside the step: K5 on the card, its plain version on the CPU
+                feats, lengths = fbank(feats, lengths, num_mel_bins=n_mels)
+            tf = train_tf if train else eval_tf
+            if tf.transforms:
+                tf_gen = None
+                if train and generator is not None:
+                    tf_gen = torch.Generator(device=feats.device).manual_seed(
+                        fold_in(generator.initial_seed(), TRANSFORM_FOLD))
+                feats = tf(feats, lengths, tf_gen)
+            return model(feats, lengths, batch["prev_tokens"], train=train, generator=generator)
+
+        return fwd
+
+    def build_generator(self, model, gen_cfg=None):
+        g = gen_cfg or self.cfg.generation
+        if self.data_cfg.use_audio_input:
+            raise NotImplementedError(
+                "decoding a use_audio_input data config: the JAX generator feeds the "
+                "waveforms to the encoder without an fbank (ROADMAP.md section 3); decode "
+                "a split of fbank features instead")
+        if getattr(model.cfg, "decoder_layers", 1) == 0:
+            raise NotImplementedError("CTCGenerator (encoder-only CTC decoding) is not ported "
+                                      "to s2t_tpu_torch")
+        if g.jacobi:
+            raise NotImplementedError("generation.jacobi (JacobiGenerator) is not ported to "
+                                      "s2t_tpu_torch")
+        return SequenceGenerator(
+            model,
+            beam_size=g.beam,
+            max_len_a=g.max_len_a,
+            max_len_b=g.max_len_b,
+            min_len=g.min_len,
+            lenpen=g.lenpen,
+            temperature=g.temperature,
+            no_repeat_ngram_size=g.no_repeat_ngram_size,
+            eos_id=self.tgt_dict.eos(),
+            pad_id=self.tgt_dict.pad(),
+            max_target_positions=self.cfg.dataset.max_target_positions,
+            infer_ctc_weight=g.infer_ctc_weight,
+            sampling=g.sampling,
+            sampling_topk=g.sampling_topk,
+            sampling_topp=g.sampling_topp,
+            prefix_size=g.prefix_size,
+            diverse_beam_groups=g.diverse_beam_groups,
+            diversity_rate=g.diversity_rate,
+            constraints_mode=g.constraints,
+            kv_cache_dtype=g.kv_cache_dtype,
+        )
+
+    def decode_tokens(self, tokens) -> str:
+        """ids -> detokenised text (for scoring and the output files)."""
+        return self.tgt_dict.string(tokens, bpe_symbol=self.cfg.generation.post_process)

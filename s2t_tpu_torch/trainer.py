@@ -1,9 +1,13 @@
 """Trainer: one training step, forward with dropout -> loss -> backward -> clip ->
-AdamW -> non-finite skip (counterpart of s2t_tpu/trainer.py:57-77, 80-375, without
+AdamW -> non-finite skip, the validation step and the trainer state
+(counterpart of s2t_tpu/trainer.py:57-77, 80-375, 227-275 and 644-651, without
 the mesh, BMUF or quant-noise).
 
-``Trainer(model, criterion, opt_cfg, device, seed).train_step(batch)`` is
-the step ``bench.py`` section B drives through the JAX ``Trainer``:
+``Trainer(model, criterion, opt_cfg, device, seed, forward_fn).train_step(batch)``
+is the step ``bench.py`` section B drives through the JAX ``Trainer``; the
+forward adapter (default ``s2t_forward``; a task's ``forward_fn()`` runs its
+feature pipeline first) is called as ``forward_fn(model, batch, train=...,
+generator=...)``:
 
 * with ``update_freq`` = n > 1 every batch leaf carries a leading axis of n
   micro-batches; their summed losses are backpropagated one by one and the
@@ -19,11 +23,17 @@ from (seed, step) -- and the micro-batch index when n > 1 -- the counterpart
 of ``jax.random.fold_in`` (trainer.py:325, :334), so a step is reproducible.
 The model must be built with ``for_training=True`` (float32 master
 parameters, compute in ``cfg.dtype``).
+
+``valid_step(batch)`` runs the adapter in eval mode without gradients and
+returns the summed loss, the sample size and the criterion's logs.
+``state_dict()`` / ``load_state_dict()`` carry the float32 master
+parameters, both Adam moments, the Adam and non-finite counters and the step,
+as host tensors and ints (``utils/checkpoint.py`` saves them).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -52,7 +62,7 @@ def s2t_forward(model, batch: Dict[str, torch.Tensor], train: bool = False,
 
 class Trainer:
     def __init__(self, model, criterion, opt_cfg: OptimizationConfig, device="cuda",
-                 seed: int = 1):
+                 seed: int = 1, forward_fn: Optional[Callable] = None):
         check_supported(opt_cfg)
         self.device = resolve_device(device)
         params = [p for p in model.parameters() if p.requires_grad]
@@ -63,6 +73,7 @@ class Trainer:
             raise ValueError(f"Trainer: the model's parameters are not on {self.device}")
         self.model = model
         self.criterion = criterion
+        self.forward_fn = forward_fn or s2t_forward
         self.opt_cfg = opt_cfg
         self.seed = seed
         self.schedule = build_lr_schedule(opt_cfg)
@@ -102,7 +113,7 @@ class Trainer:
         loss_sum, size_sum, logs_sum = 0.0, 0.0, {}
         for i, micro in enumerate(micros):
             gen = self._generator(self.step, None if len(micros) == 1 else i)
-            out = s2t_forward(self.model, micro, train=True, generator=gen)
+            out = self.forward_fn(self.model, micro, train=True, generator=gen)
             loss, sample_size, logs = self.criterion(out, micro)
             loss.float().backward()
             loss_sum = loss_sum + loss.detach().float()
@@ -121,3 +132,43 @@ class Trainer:
         }
         self.step += 1
         return metrics
+
+    @torch.no_grad()
+    def valid_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Loss (summed), sample size and the criterion's logs of one batch in
+        eval mode (no dropout, the eval feature transforms)."""
+        self.model.eval()
+        batch = self._to_device(batch)
+        out = self.forward_fn(self.model, batch, train=False, generator=None)
+        loss, sample_size, logs = self.criterion(out, batch)
+        return {"loss": loss.detach().float(),
+                "sample_size": torch.as_tensor(sample_size, dtype=torch.float32), **logs}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Host copies of the master parameters, the Adam moments and counters
+        and the step (the JAX ``TrainState``: step, params, opt_state)."""
+        opt = self.optimizer
+        return {
+            "step": self.step,
+            "params": {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()},
+            "opt_state": {"mu": opt.mu.cpu().clone(), "nu": opt.nu.cpu().clone(),
+                          "count": int(opt.count), "notfinite_count": int(opt.notfinite_count)},
+        }
+
+    def load_state_dict(self, state: Dict[str, Any], params_only: bool = False) -> None:
+        """Restore ``state_dict()``'s output; ``params_only`` keeps the fresh
+        optimizer and step (``checkpoint.reset_optimizer``)."""
+        self.model.load_state_dict(state["params"], strict=True)
+        if params_only:
+            return
+        opt, dev = self.optimizer, self.device
+        opt_state = state["opt_state"]
+        if opt_state["mu"].shape != opt.mu.shape:
+            raise ValueError(f"optimizer state of {opt_state['mu'].numel()} entries does not fit "
+                             f"the model's {opt.mu.numel()} parameters")
+        opt.mu.copy_(opt_state["mu"])
+        opt.nu.copy_(opt_state["nu"])
+        opt.count = torch.tensor(opt_state["count"], dtype=torch.int32, device=dev)
+        opt.notfinite_count = torch.tensor(opt_state["notfinite_count"], dtype=torch.int32,
+                                           device=dev)
+        self.step = int(state["step"])

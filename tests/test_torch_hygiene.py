@@ -1,7 +1,9 @@
 """Boundaries of the s2t_tpu_torch port.
 
 * The port and chip_smoke.py import neither jax, flax nor s2t_tpu (checked
-  in the source and in a fresh interpreter).
+  in the source and in a fresh interpreter), and none of PyYAML,
+  ``tokenizers`` or sacreBLEU at module level (the card's machine may lack
+  them; the modules that need them import them inside the call).
 * Entry points run on the card unless the caller asks for the CPU.
 * The kernel wrappers never hand a non-CPU tensor to the plain version.
 * The differentiable ops keep the autograd graph; training knobs that are
@@ -19,13 +21,19 @@ import torch
 import s2t_tpu_torch
 from s2t_tpu_torch.hub import GeneratorHub
 from s2t_tpu_torch.models.s2t_transformer import S2TTransformerModel, s2t_transformer_s
-from s2t_tpu_torch.ops import _build, attention_cuda, ctc_cuda
+from s2t_tpu_torch.cli import generate as cli_generate
+from s2t_tpu_torch.cli import train as cli_train
+from s2t_tpu_torch.config import OptimizationConfig, TrainConfig, check_train_supported
+from s2t_tpu_torch.models.build import build_model
+from s2t_tpu_torch.ops import _build, attention_cuda, ctc_cuda, fbank_cuda
 from s2t_tpu_torch.ops.ctc import ctc_loss
+from s2t_tpu_torch.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(s2t_tpu_torch.__file__).resolve().parent
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "s2t_tpu")
+OPTIONAL = ("yaml", "tokenizers", "sacrebleu")  # imported inside the calls that need them
 
 
 def _forbidden(name: str) -> bool:
@@ -51,12 +59,30 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_optional_package_at_module_level(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    in_functions = {n for f in ast.walk(tree)
+                    if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef)) for n in ast.walk(f)}
+    bad = []
+    for node in ast.walk(tree):
+        if node in in_functions:
+            continue
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if a.name.split(".")[0] in OPTIONAL]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.split(".")[0] in OPTIONAL:
+            bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad} at module level"
+
+
 def test_imported_modules_pull_in_no_jax():
     code = "\n".join(
         ["import importlib, sys", f"sys.path.insert(0, {str(ROOT)!r})"]
         + [f"importlib.import_module({m!r})" for m in _module_names()]
         + ["import chip_smoke",
-           "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)" % (FORBIDDEN,),
+           "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)"
+           % (FORBIDDEN + OPTIONAL,),
            "assert not bad, bad", "print('clean')"]
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -75,6 +101,16 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GeneratorHub.build(cfg)
     assert S2TTransformerModel(cfg, device="cpu").device.type == "cpu"
+    tiny = dict(vocab_size=16, encoder_layers=1, decoder_layers=1, encoder_embed_dim=32,
+                decoder_embed_dim=32, encoder_ffn_embed_dim=32, decoder_ffn_embed_dim=32,
+                subsampling_filter=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model("s2t_transformer_s", tiny)
+    model = build_model("s2t_transformer_s", tiny, device="cpu", for_training=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, None, OptimizationConfig())
+    assert cli_train.parse_args(["data"]).device == "cuda"
+    assert cli_generate.parse_args(["data"]).device == "cuda"
 
 
 def test_kernel_wrapper_raises_instead_of_falling_back(monkeypatch):
@@ -120,7 +156,8 @@ def _no_library(monkeypatch):
 
     monkeypatch.setattr(_build, "load_library", no_library)
     for mod, name in ((attention_cuda, "fused_attention_plain"),
-                      (ctc_cuda, "ctc_alpha_plain"), (ctc_cuda, "ctc_beta_grad_plain")):
+                      (ctc_cuda, "ctc_alpha_plain"), (ctc_cuda, "ctc_beta_grad_plain"),
+                      (fbank_cuda, "fbank_plain")):
         monkeypatch.setattr(mod, name, plain_must_not_run)
 
 
@@ -137,9 +174,10 @@ def test_training_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
         lambda: attention_cuda.fused_attention_fwd(q, q, q, lengths, with_lse=True),
         lambda: ctc_cuda.ctc_alpha(lattice, rows, lengths),
         lambda: ctc_cuda.ctc_beta_grad(lattice, lattice, rows, rows, lengths, lengths.float()),
+        lambda: fbank_cuda.fbank(torch.empty((2, 800), **meta), lengths),
     ]
     counters = (attention_cuda.fused_attention, attention_cuda.fused_attention_bwd,
-                ctc_cuda.ctc_alpha, ctc_cuda.ctc_beta_grad)
+                ctc_cuda.ctc_alpha, ctc_cuda.ctc_beta_grad, fbank_cuda.fbank)
     before = [f.launches for f in counters]
     for call in calls:
         with pytest.raises(RuntimeError, match="library cannot load"):
@@ -172,3 +210,25 @@ def test_training_with_layerdrop_raises():
     feats, lens = torch.zeros(1, 16, 80), torch.tensor([16])
     with pytest.raises(NotImplementedError, match="encoder_layerdrop"):
         model(feats, lens, torch.tensor([[2, 5]]), train=True, generator=torch.Generator())
+
+
+def test_fbank_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
+    monkeypatch.setattr(_build, "load_library", lambda *_a, **_k: None)
+    meta = dict(device="meta")
+    lengths = torch.empty((2,), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fbank_cuda.fbank(torch.empty((2, 800), **meta), lengths)
+    with pytest.raises(ValueError, match="num_mel_bins"):
+        fbank_cuda.fbank(torch.empty((2, 800), **meta), lengths, num_mel_bins=0)
+
+
+def test_training_cli_refuses_unported_settings():
+    for section, name, value in (("bmuf", "active", True), ("distributed", "fsdp", True),
+                                 ("common", "profile", True), ("eval", "eval_wer", True),
+                                 ("checkpoint", "finetune_from_model", "x.pt"),
+                                 ("optimization", "lr_scheduler", "cosine")):
+        cfg = TrainConfig()
+        setattr(getattr(cfg, section), name, value)
+        with pytest.raises(NotImplementedError, match=name if section != "optimization"
+                           else "cosine"):
+            check_train_supported(cfg)
