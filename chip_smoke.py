@@ -4,7 +4,10 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. build   every CUDA source of s2t_tpu_torch/csrc with nvcc (sm_90a), one
-             process per source, all started together;
+             process per source, all started together, printing each kernel's
+             registers and spills (-Xptxas -v); then cuobjdump -sass counts the
+             tensor-core instructions (HMMA, HGMMA) of every attention kernel
+             and fails if a bf16 kernel (forward, dK/dV, dQ) has none;
   2. kernel  the attention forward (K1f) against its plain PyTorch version on
              the card at the s/m/l head plans, T' = 250 and 1000, ragged
              lengths with a 0-length row, fp32 and bf16, native (B, T, H, D)
@@ -13,8 +16,9 @@ Phases (any failure ends the run with a non-zero exit):
   3. grad    K1f with dropout 0 / 0.15 and its log-sum-exp, and the attention
              backward (K1b), against the plain version and its autograd
              backward with the same seed, at the same head plans, dtypes and
-             layouts; the kept share of the dropout mask; K1b times at the
-             training shape beside the backward of scaled_dot_product_attention;
+             layouts; the kept share of the dropout mask; at the training
+             shape K1f with lse and K1b at p = 0.1 (the main path) and p = 0,
+             beside the backward of scaled_dot_product_attention at p = 0;
   4. ctc     the CTC alpha (K3) and beta/gradient (K4) kernels against their
              plain versions at the training shape (B=40, T'=250, S=59) and a
              long one (T'=1000, S=401), ragged lengths, repeated labels, an
@@ -50,6 +54,10 @@ it: serving (phases 5-6) launches K1f 12 times per encode; a training step
 (phases 7-8) launches K1f 12, K1b 12, K3 1 and K4 1 times; a raw-audio
 forward (phase 11, train or valid) adds K5 once; decoding (phase 12)
 launches K1f 12 times per encode.
+Every kernel and library time is taken twice: ``ms`` with CUDA events around
+back-to-back calls (the call's host work included, which is what a call of a
+few tens of microseconds reads) and ``device_ms``, the device time of the
+call's own kernels (all kernels of a library call) in a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -74,7 +84,8 @@ from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerModel, s2t_transformer_m, s2t_transformer_s)
 from s2t_tpu_torch.ops import _build
 from s2t_tpu_torch.ops.attention_cuda import (
-    fused_attention, fused_attention_bwd, fused_attention_fwd, fused_attention_plain, keep_mask)
+    HEAD_DIMS, fused_attention, fused_attention_bwd, fused_attention_fwd, fused_attention_plain,
+    keep_mask)
 from s2t_tpu_torch.ops.ctc import _extend_labels, _lattice_logp, _transition_mask
 from s2t_tpu_torch.ops.ctc_cuda import (
     NEG_INF, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain)
@@ -87,16 +98,19 @@ ROOT = Path(__file__).resolve().parent
 WAVS = [str(ROOT / "tests" / "fixtures" / "audio" / f"utt{i}.wav") for i in range(4)]
 
 # kernel vs plain: fp32 sums in another order; bf16 output is one rounding of
-# an f32 result (half a bf16 ulp is 1.6e-2 below |x| = 8), held to the plain
-# version evaluated in f32 on the same bf16 inputs
+# an f32 result (half a bf16 ulp is 1.6e-2 below |x| = 8) after P rounded to bf16
+# before P V, as the Pallas kernel rounds it, held to the plain version evaluated
+# in f32 on the same bf16 inputs (tests/test_torch_attention_bf16.py holds the
+# Pallas kernel's own bf16 numerics inside this and GRAD_RTOL)
 KERNEL_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # fp32 serving, card (kernel, cuBLAS, cuDNN without TF32) vs CPU (plain):
 # 12 encoder layers summed in another order
 ENC_ATOL = 1e-3
 # attention backward, kernel vs autograd through the plain version (in f32 on the
 # same inputs), relative to the largest entry of the reference gradient: fp32 sums
-# in another order; bf16 adds one rounding of each output and Delta = rowsum(dO o O)
-# taken from the bf16 forward output, each ~2^-8 relative
+# in another order; bf16 adds one rounding of each output, of P o Z and dS before
+# their products, and Delta = rowsum(dO o O) taken from the bf16 forward output,
+# each ~2^-8 relative
 GRAD_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_ATOL = 1e-4  # log-sum-exp in f32 of f32-accumulated scores (|lse| < ~20)
 KEPT_SHARE_TOL = 0.005  # kept share of the dropout mask vs 1 - k/256, absolute
@@ -106,6 +120,13 @@ CTC_ATOL = {"alpha": 1e-3, "demit": 1e-5}
 # order through 18 layers): loss and ctc_loss relative, gnorm relative
 TRAIN_RTOL = {"loss": 1e-4, "ctc_loss": 1e-4, "gnorm": 1e-3}
 TRAIN_LAUNCHES = {"attention_fwd": 12, "attention_bwd": 12, "ctc_alpha": 1, "ctc_beta_grad": 1}
+# name fragments of each attention wrapper's own kernels in a profiler trace (the
+# bf16 tensor-core kernels and the fp32 FMA kernels both match)
+FWD_KERNELS = ("attention_fwd",)
+BWD_KERNELS = ("delta_", "dkdv_", "dq_")
+# the bf16 kernels whose SASS must hold tensor-core instructions, by library
+MMA_KERNELS = {"attention_fwd": ("attention_fwd_mma_kernel",),
+               "attention_bwd": ("dkdv_mma_kernel", "dq_mma_kernel")}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32 without tensor cores
 GEN = dict(beam_size=5, max_len_a=0.0, max_len_b=100, lenpen=1.0)
@@ -116,6 +137,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Event-timed ms per call of ``iters`` back-to-back calls: the call's host work
+    (checks, allocation, the launch) is inside, so a call of a few tens of
+    microseconds reads its host time; ``device_ms`` reads the card's own."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -126,6 +150,42 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
+    """Device time per call of the CUDA kernels ``fn`` launched, from a torch.profiler
+    trace of ``iters`` calls: the kernels whose names contain one of ``names`` (a
+    hand-written kernel's own), or everything the call ran on the device when
+    ``names`` is None (a library call).  Each name counts its mean duration times
+    its launches per call, so an event the trace drops or doubles moves no sum;
+    device events that start before the trace's first host event are not this
+    trace's and are left out; a trace with no device event is taken again (at
+    most 3 times).  Returns (ms, {name: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        t0 = min((e.time_range.start for e in events if e.device_type == cpu), default=0)
+        spans = {}
+        for e in events:
+            if e.device_type != cuda or e.time_range.start < t0:
+                continue
+            key = e.name if names is None else next((n for n in names if n in e.name), None)
+            if key is not None:
+                spans.setdefault(key, []).append((e.time_range.end - e.time_range.start) / 1e3)
+        if spans:
+            split = {k: float(np.mean(v)) * max(1, round(len(v) / iters)) for k, v in spans.items()}
+            return sum(split.values()), split
+        log(f"[profiler] a trace recorded no device kernel matching {names}: taken again")
+    raise AssertionError(f"three traces recorded no device kernel matching {names}")
 
 
 def attention_bound(B, T, H, D, lengths, dtype):
@@ -141,16 +201,59 @@ def attention_bound(B, T, H, D, lengths, dtype):
 
 
 # --------------------------------------------------------------------------- #
+def kernel_label(mangled: str) -> str:
+    """'attention_fwd_mma_kernel<64>' from a mangled kernel name
+    (_ZN<len><namespace><len><name>[I...Li<D>E...]...); other names as they are."""
+    pos = 3 if mangled.startswith("_ZN") else len(mangled)
+    while pos < len(mangled):
+        digits = re.match(r"\d+", mangled[pos:])
+        if not digits:
+            break
+        start = pos + digits.end()
+        name, pos = mangled[start:start + int(digits.group())], start + int(digits.group())
+        if name.endswith("_kernel"):
+            d = re.match(r"I\w*?Li(\d+)E", mangled[pos:])
+            return name + (f"<{d.group(1)}>" if d else "")
+    return mangled
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = _build.build()
     for name, (secs, out) in built.items():
         log(f"[build] {name}.cu in {secs:.1f} s")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:
+                log(f"[build]   {kernel_label(entry.group(1))}:")
+            elif "registers" in line or "spill" in line:
+                log(f"[build]     {line.strip()}")
     log(f"[build] sources {list(_build.sources())}: {time.perf_counter() - t0:.1f} s "
         f"({len(built)} compiled)")
+    return sass_check()
+
+
+def sass_check():
+    """Count the tensor-core instructions (HMMA, HGMMA) in the SASS of every kernel of
+    the attention libraries with cuobjdump; fail if a bf16 kernel has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for lib in MMA_KERNELS:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            label = kernel_label(body.split("\n", 1)[0].strip())
+            counts[label] = {op: len(re.findall(rf"\b{op}\b", body))
+                             for op in ("HMMA", "HGMMA", "LDSM", "FFMA")}
+            log(f"[sass] {lib}: {label} {json.dumps(counts[label])}")
+    for kernels in MMA_KERNELS.values():
+        for kernel in kernels:
+            found = {k: c for k, c in counts.items() if k.startswith(kernel + "<")}
+            if len(found) != len(HEAD_DIMS) or any(c["HMMA"] + c["HGMMA"] == 0
+                                                    for c in found.values()):
+                raise AssertionError(f"{kernel}: no tensor-core instructions in its SASS for "
+                                     f"every head dim: {found}")
+    return counts
 
 
 def attention_case(B, T, H, D, dtype, layout, lengths, seed, time_it):
@@ -170,10 +273,15 @@ def attention_case(B, T, H, D, dtype, layout, lengths, seed, time_it):
     if time_it:
         bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :]
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
         res["ms"] = cuda_ms(lambda: fused_attention(q, k, v, mask))
+        res["device_ms"] = device_ms(lambda: fused_attention(q, k, v, mask), FWD_KERNELS)[0]
         res["plain_ms"] = cuda_ms(lambda: fused_attention_plain(q, k, v, mask), iters=5)
-        res["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bias))
+        res["library_ms"] = cuda_ms(sdpa)
+        res["library_device_ms"] = device_ms(sdpa)[0]
         res["bound_ms"], res["bound_by"] = attention_bound(B, T, H, D, lengths, dtype)
     return res
 
@@ -201,7 +309,8 @@ def phase_kernel():
             r = attention_case(*c[:7], seed=i, time_it=c[7])
             results.append(r)
             timing = "".join(
-                f" {key}={r[key]:.4f}" for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+                f" {key}={r[key]:.4f}" for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                   "library_device_ms", "bound_ms")
                 if key in r)
             log(f"[kernel] B={r['B']} T={r['T']} H={r['H']} D={r['D']} {r['dtype']:<8} "
                 f"{r['layout']:<10} max_abs_err={r['max_abs_err']:.3e} (atol {r['atol']})"
@@ -281,8 +390,23 @@ def grad_case(B, T, H, D, dtype, layout, lengths, rate, seed, time_it=False):
                                    for a, b in ((dq, qf.grad), (dk, kf.grad), (dv, vf.grad))),
            "rtol": GRAD_RTOL[dtype]}
     if time_it:
-        res["fwd_ms"] = cuda_ms(lambda: fused_attention_fwd(q, k, v, lens, rate_u8, dseed, True))
-        res["ms"] = cuda_ms(lambda: fused_attention_bwd(q, k, v, out, do, lse, lens, rate_u8, dseed))
+        # the forward with lse and the backward at this rate (the main path) and at p = 0,
+        # where the library's backward (no dropout) is the like-for-like yardstick
+        out0, lse0 = fused_attention_fwd(q, k, v, lens, 0, None, with_lse=True)
+        calls = {
+            "fwd": (lambda: fused_attention_fwd(q, k, v, lens, rate_u8, dseed, True), FWD_KERNELS),
+            "fwd_p0": (lambda: fused_attention_fwd(q, k, v, lens, 0, None, True), FWD_KERNELS),
+            "": (lambda: fused_attention_bwd(q, k, v, out, do, lse, lens, rate_u8, dseed),
+                 BWD_KERNELS),
+            "p0": (lambda: fused_attention_bwd(q, k, v, out0, do, lse0, lens, 0, None),
+                   BWD_KERNELS),
+        }
+        for name, (fn, names) in calls.items():
+            pre = f"{name}_" if name else ""
+            res[f"{pre}ms"] = cuda_ms(fn)
+            res[f"{pre}device_ms"], split = device_ms(fn, names)
+            if names is BWD_KERNELS:
+                res[f"{pre}device_ms_by_kernel"] = split
         qp, kp, vp = (a.detach().requires_grad_() for a in (q, k, v))
         plain_out = fused_attention_plain(qp, kp, vp, mask, rate, dseed)
         res["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(plain_out, (qp, kp, vp), do,
@@ -291,8 +415,12 @@ def grad_case(B, T, H, D, dtype, layout, lengths, rate, seed, time_it=False):
         lib_out = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=bias.to(dtype))
         dot = do.transpose(1, 2)
-        res["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                                                retain_graph=True))
+
+        def library():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+        res["library_ms"] = cuda_ms(library)
+        res["library_device_ms"] = device_ms(library)[0]
         res["bound_ms"], res["bound_by"] = attention_bwd_bound(B, T, H, D, lengths, dtype)
     return res
 
@@ -405,9 +533,17 @@ def ctc_case(B, T, U, V, seed, time_it=False):
            "infeasible_nll_over_5e29": bool((-lz_p[1]).item() > 5e29),
            "demit_err": (demit - demit_p).abs().max().item(), "atol": CTC_ATOL}
     if time_it:
-        res["alpha_ms"] = cuda_ms(lambda: ctc_alpha(emit, skip, lens))
+        def alpha():
+            return ctc_alpha(emit, skip, lens)
+
+        def beta():
+            return ctc_beta_grad(emit, alphas, skip, final, lens, lz)
+
+        res["alpha_ms"] = cuda_ms(alpha)
+        res["alpha_device_ms"] = device_ms(alpha, ("ctc_alpha_kernel",))[0]
         res["alpha_plain_ms"] = cuda_ms(lambda: ctc_alpha_plain(emit, skip, lens), iters=3, warmup=1)
-        res["beta_ms"] = cuda_ms(lambda: ctc_beta_grad(emit, alphas, skip, final, lens, lz))
+        res["beta_ms"] = cuda_ms(beta)
+        res["beta_device_ms"] = device_ms(beta, ("ctc_beta_grad_kernel",))[0]
         res["beta_plain_ms"] = cuda_ms(
             lambda: ctc_beta_grad_plain(emit, alphas, skip, final, lens, lz), iters=3, warmup=1)
         lp = torch.log_softmax(logits, dim=-1).transpose(0, 1).detach().requires_grad_()
@@ -419,6 +555,10 @@ def ctc_case(B, T, U, V, seed, time_it=False):
         res["library_fwd_ms"] = cuda_ms(lib)
         res["library_fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(lib(), lp))
         res["library_bwd_ms"] = res["library_fwd_bwd_ms"] - res["library_fwd_ms"]
+        res["library_fwd_device_ms"] = device_ms(lib)[0]
+        loss = lib()
+        res["library_bwd_device_ms"] = device_ms(
+            lambda: torch.autograd.grad(loss, lp, retain_graph=True))[0]
         res["alpha_bound_ms"], res["beta_bound_ms"] = ctc_bounds(B, T, S, input_lengths)
         res["chain_steps"] = int(min(input_lengths.max(), T)) - 1
     return res
@@ -596,8 +736,8 @@ def phase_speed(n_timed: int = 3, B: int = 64, seconds: float = 10.0):
 
 # --------------------------------------------------------------------------- #
 CRITERION = ("label_smoothed_cross_entropy_with_ctc", {"ctc": {"ctc_weight": 0.3}})
-KERNEL_NAMES = ("attention_fwd_kernel", "delta_kernel", "dkdv_kernel", "dq_kernel",
-                "ctc_alpha_kernel", "ctc_beta_grad_kernel")
+KERNEL_NAMES = ("attention_fwd_mma_kernel", "delta_bf16_kernel", "dkdv_mma_kernel",
+                "dq_mma_kernel", "ctc_alpha_kernel", "ctc_beta_grad_kernel")  # the bf16 path
 
 
 def train_batch(rng, B, T, U, V, lengths):
@@ -818,6 +958,7 @@ def phase_fbank():
     res = {"B": B, "N": FBANK_N, "T": got.shape[1], "max_abs_err": err, "err_ratio": ratio,
            "rows": report,
            "ms": cuda_ms(lambda: fbank(wave_t, lengths)),
+           "device_ms": device_ms(lambda: fbank(wave_t, lengths), ("fbank_kernel",))[0],
            "plain_ms": cuda_ms(lambda: fbank_plain(wave_t, lengths), iters=10)}
     res["bound_ms"], res["bound_by"], res["bound_parts"] = fbank_bound(B, FBANK_N)
     log(f"[fbank] timing shape {json.dumps({k: v for k, v in res.items() if k != 'rows'})}")
@@ -1110,7 +1251,7 @@ def main(argv=None) -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    phase_build()
+    sass = phase_build()
     cases, main_shape = phase_kernel()
     grad_cases, kept_share, grad_main = phase_attention_grad()
     ctc_cases = phase_ctc()
@@ -1151,10 +1292,12 @@ def main(argv=None) -> int:
         "launches": path_launches["attention_fwd"],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
+        "device_ms": main_shape["device_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "library_device_ms": main_shape["library_device_ms"],
     }, {
         "name": "attention_bwd",
         "route": "cuda",
@@ -1163,10 +1306,12 @@ def main(argv=None) -> int:
         "launches": path_launches["attention_bwd"],
         "max_abs_err": grad_main["grad_max_abs_err"],
         "ms": grad_main["ms"],
+        "device_ms": grad_main["device_ms"],
         "plain_ms": grad_main["plain_ms"],
         "bound_ms": grad_main["bound_ms"],
         "bound_by": grad_main["bound_by"],
-        "library_ms": grad_main["library_ms"],
+        "library_ms": grad_main["library_ms"],  # its backward at p = 0; K1b at p = 0 in the JSON
+        "library_device_ms": grad_main["library_device_ms"],
     }, {
         "name": "ctc_alpha",
         "route": "cuda",
@@ -1175,10 +1320,12 @@ def main(argv=None) -> int:
         "launches": path_launches["ctc_alpha"],
         "max_abs_err": ctc_main["alpha_err"],
         "ms": ctc_main["alpha_ms"],
+        "device_ms": ctc_main["alpha_device_ms"],
         "plain_ms": ctc_main["alpha_plain_ms"],
         "bound_ms": ctc_main["alpha_bound_ms"],
         "bound_by": "bytes",
         "library_ms": ctc_main["library_fwd_ms"],
+        "library_device_ms": ctc_main["library_fwd_device_ms"],
     }, {
         "name": "ctc_beta_grad",
         "route": "cuda",
@@ -1187,10 +1334,12 @@ def main(argv=None) -> int:
         "launches": path_launches["ctc_beta_grad"],
         "max_abs_err": ctc_main["demit_err"],
         "ms": ctc_main["beta_ms"],
+        "device_ms": ctc_main["beta_device_ms"],
         "plain_ms": ctc_main["beta_plain_ms"],
         "bound_ms": ctc_main["beta_bound_ms"],
         "bound_by": "bytes",
         "library_ms": ctc_main["library_bwd_ms"],
+        "library_device_ms": ctc_main["library_bwd_device_ms"],
     }, {
         "name": "fbank",
         "route": "cuda",
@@ -1199,17 +1348,19 @@ def main(argv=None) -> int:
         "launches": path_launches["fbank"],
         "max_abs_err": fbank_main["max_abs_err"],
         "ms": fbank_main["ms"],
+        "device_ms": fbank_main["device_ms"],
         "plain_ms": fbank_main["plain_ms"],
         "bound_ms": fbank_main["bound_ms"],
         "bound_by": fbank_main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the Kaldi fbank
+        "library_device_ms": None,
     }]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
-            "kernels": kernels, "kernel_cases": cases, "serving_shape": main_shape,
+            "kernels": kernels, "sass": sass, "kernel_cases": cases, "serving_shape": main_shape,
             "grad_cases": grad_cases, "kept_share": kept_share, "training_shape": grad_main,
             "ctc_cases": ctc_cases, "speed": speed, "train_parity": parity,
             "train_speed": train_speed, "train_launches": train_launches, "fbank": fbank_main,

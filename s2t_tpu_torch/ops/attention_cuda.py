@@ -10,7 +10,9 @@ materialising the (B, H, T, T) probabilities.
 * backward ``csrc/attention_bwd.cu`` (K1b/K2b): dQ, dK, dV from Q, K, V, O,
   dO and the log-sum-exp, regenerating the dropout mask.
 
-Design and bound of each kernel are in its source's header note.
+bfloat16 runs on the tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``),
+float32 on f32 FMAs; design and bound of each kernel are in its source's
+header note.
 
 Dropout bits come from a counter-based hash keyed by a 64-bit seed (a (1,)
 int64 tensor on the device) and counted by (batch, head, query, key):
@@ -124,12 +126,16 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return seed
 
 
+def _mma_aligned(t: torch.Tensor) -> bool:
+    """The bf16 kernels copy 16-byte rows with cp.async: the data pointer and the
+    b, t, h strides must be multiples of 16 bytes (8 elements)."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
 def _check(*tensors, what="q/k/v"):
+    """Layout first, then the device, so that a layout the kernels refuse is
+    reported wherever the tensors lie."""
     q = tensors[0]
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError(f"fused_attention: {what} and valid_mask must all be CUDA tensors")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("fused_attention: tensors are on different devices")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(
             f"fused_attention: {what} must share one dtype of float32 or bfloat16, got "
@@ -147,6 +153,16 @@ def _check(*tensors, what="q/k/v"):
         raise ValueError(f"fused_attention: T={T} must be below {MAX_T}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"fused_attention: the head dim of {what} must have stride 1")
+    if q.dtype == torch.bfloat16 and not all(_mma_aligned(t) for t in tensors):
+        raise ValueError(
+            f"fused_attention: bfloat16 {what} must be 16-byte aligned with b/t/h strides "
+            "that are multiples of 8 elements, got "
+            + ", ".join(f"ptr%16={t.data_ptr() % 16} strides={t.stride()}" for t in tensors)
+        )
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"fused_attention: {what} and valid_mask must all be CUDA tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("fused_attention: tensors are on different devices")
 
 
 def _check_mask(valid_mask, B, T, device):
@@ -235,8 +251,8 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, lengths, seed = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not _mma_aligned(do)):
+            do = do.clone(memory_format=torch.contiguous_format)  # a fresh, aligned buffer
         dq, dk, dv = fused_attention_bwd(q, k, v, out, do, lse, lengths, ctx.rate_u8, seed)
         return dq, dk, dv, None, None, None
 
@@ -246,7 +262,8 @@ def fused_attention(q, k, v, valid_mask, dropout_rate: float = 0.0,
     """softmax(QK^T/sqrt(D) + padding_bias) @ V with attention dropout.
 
     q/k/v: (B, T, H, D) float32 or bfloat16, any strides with a unit head-dim
-    stride; valid_mask: (B, T) bool, a contiguous True prefix per row;
+    stride (bfloat16: a 16-byte aligned pointer and b/t/h strides that are
+    multiples of 8 elements); valid_mask: (B, T) bool, a contiguous True prefix per row;
     ``seed``: (1,) int64 tensor on the inputs' device, needed when
     ``dropout_rate`` > 0.  Returns a contiguous (B, T, H, D) tensor in
     q.dtype, differentiable in q, k and v.  A CPU tensor runs
