@@ -24,7 +24,13 @@
 // bf16, on the tensor cores (mma_bf16.cuh), every product an mma.m16n8k16 with f32
 // accumulators:
 //   1. delta_bf16_kernel: Delta (B, H, T) f32 = rowsum(dO o O), D/8 lanes per row, 16-byte
-//      loads; its own small launch, since dK/dV need Delta of every query;
+//      loads; its own small launch, since dK/dV need Delta of every query.  O is the float32
+//      output the forward wrote beside its bf16 O (attention_fwd.cu): for a row whose
+//      probability sits on one key, dP o Z and Delta then agree to f32 rounding and dS
+//      cancels as in the Pallas kernel, which takes Delta as sum dP P from its f32 P; from
+//      the bf16 O it kept ~2^-9 |dO V| per query, 0.038 of dK's scale at D=32, T=100,
+//      p = 0.15 (2e-2 is the tolerance).  A third pass over the key tiles for Delta = sum
+//      dP P before dK/dV would cost more than reading 4 more bytes of O per element once;
 //   2. dkdv_mma_kernel: one CTA of 4 warps per (64-key tile, head, batch row); warp w owns
 //      keys 16w..16w+15 and reads their K and V fragments (A operands) from shared memory
 //      for each query tile (held in registers they cost the third CTA per SM, measured
@@ -456,10 +462,10 @@ struct MmaTiles {
 };
 
 template <int D>
-__global__ void delta_bf16_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+__global__ void delta_bf16_kernel(const float* __restrict__ o, const bf16* __restrict__ dout,
                                   float* __restrict__ delta, int B, int T_len, int H, Strides so,
                                   Strides sdo) {
-  constexpr int LANES = D / 8;  // 16-byte loads of 8 elements; the lanes of a row share a warp
+  constexpr int LANES = D / 8;  // 8 elements a lane; the lanes of a row share a warp
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = i / LANES;
   const int part = (int)(i % LANES);
@@ -469,17 +475,18 @@ __global__ void delta_bf16_kernel(const bf16* __restrict__ o, const bf16* __rest
   const int b = (int)(row / ((long long)H * T_len));
   float acc = 0.f;
   if (in) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * so.b + (long long)t * so.t +
-                                                     h * so.h + 8 * part);
+    const float4* op = reinterpret_cast<const float4*>(o + b * so.b + (long long)t * so.t +
+                                                       h * so.h + 8 * part);
+    const float4 o0 = op[0], o1 = op[1];
     const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * sdo.b + (long long)t * sdo.t +
                                                      h * sdo.h + 8 * part);
-    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
     const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+    const float x[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 x = __bfloat1622float2(op[j]), y = __bfloat1622float2(dp[j]);
-      acc = fmaf(x.x, y.x, acc);
-      acc = fmaf(x.y, y.y, acc);
+      const float2 y = __bfloat1622float2(dp[j]);
+      acc = fmaf(x[2 * j], y.x, acc);
+      acc = fmaf(x[2 * j + 1], y.y, acc);
     }
   }
 #pragma unroll
@@ -781,7 +788,7 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   using Cfg = MmaTiles<D>;
   const long long threads = (long long)a.B * a.T_len * a.H * (D / 8);
   delta_bf16_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
-      static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.delta, a.B, a.T_len,
+      static_cast<const float*>(a.o), static_cast<const bf16*>(a.dout), a.delta, a.B, a.T_len,
       a.H, a.so, a.sdo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -851,11 +858,13 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // q, k, v, o, dout, dq, dk, dv: (B, T, H, D) with element strides (b, t, h) and a unit
-// head-dim stride; lse: (B, H, T) float32 from the forward; delta: (B, H, T) float32
-// scratch; lengths: (B,) int32; seed: one int64 (read only when rate_u8 > 0), all on the
-// device.  dtype_code 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels: q, k,
-// v, o, dout, dq, dk, dv 16-byte aligned with b, t, h strides that are multiples of 8
-// elements, which the wrapper checks).  Returns the first cudaError_t (0 on success).
+// head-dim stride; o is the forward's output in float32 whatever the dtype (for bfloat16
+// the O the forward wrote before its bf16 rounding); lse: (B, H, T) float32 from the
+// forward; delta: (B, H, T) float32 scratch; lengths: (B,) int32; seed: one int64 (read
+// only when rate_u8 > 0), all on the device.  dtype_code 0 = float32 (FMA kernels),
+// 1 = bfloat16 (tensor-core kernels: q, k, v, dout, dq, dk, dv 16-byte aligned with b, t, h
+// strides that are multiples of 8 elements, o 16-byte aligned with strides that are
+// multiples of 4, which the wrapper checks).  Returns the first cudaError_t (0 on success).
 extern "C" int s2t_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, const void* lengths,

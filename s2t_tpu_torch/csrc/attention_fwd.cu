@@ -31,7 +31,12 @@
 //   * P is rounded to bf16 in registers, where the Pallas kernel rounds it
 //     (attention_pallas.py:109-111), and its C fragments are the A operand of the P V
 //     mma; V is read with ldmatrix.trans; O is normalised at the end and written as bf16;
-//   * lse = m ln 2 + ln l, natural log, for the backward.
+//   * lse = m ln 2 + ln l, natural log, for the backward; with it (training) O is also
+//     written in float32, the accumulator after the division by the row sum and before the
+//     bf16 rounding, for the backward's Delta = rowsum(dO o O): from the bf16 O, a row whose
+//     probability sits on one key keeps ~2^-9 |dO V| of dS = P (dP o Z - Delta) per query
+//     where the exact O cancels it to 0 (Delta of the Pallas kernel is sum dP P from its f32
+//     P); 8 more bytes per output element.
 // Shared memory: Q + 2 K + 2 V tiles, 46,080 bytes at D=64; the registers (about 154 a
 // thread at D=64) allow 3 CTAs, 12 warps, per SM.  What bounds it at the main-path
 // shapes: not bytes (about 3x the byte bound) but dispatching the ldmatrix, mma and
@@ -267,9 +272,10 @@ template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, const int* __restrict__ lengths,
-                         const long long* __restrict__ seed, int T_len, int rate_u8, Strides sq,
-                         Strides sk, Strides sv, Strides so, float scale, float keep_scale) {
+                         float* __restrict__ lse, float* __restrict__ o32,
+                         const int* __restrict__ lengths, const long long* __restrict__ seed,
+                         int T_len, int rate_u8, Strides sq, Strides sk, Strides sv, Strides so,
+                         float scale, float keep_scale) {
   static_assert(BM == MMA_WARPS * 16 && BN == 64, "one warp per 16 query rows, 64-key tiles");
   constexpr int LD = s2t_tile_ld<D>();
   constexpr int TILE = BM * LD;
@@ -417,7 +423,6 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
-  bf16* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
@@ -430,8 +435,10 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(ob + (long long)t * so.t + 8 * j + c2) =
-            s2t_pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+        const float o0 = acc[j][2 * r] * inv, o1 = acc[j][2 * r + 1] * inv;
+        const long long at = b * so.b + (long long)t * so.t + h * so.h + 8 * j + c2;
+        *reinterpret_cast<uint32_t*>(o + at) = s2t_pack_bf16(o0, o1);
+        if (o32 != nullptr) *reinterpret_cast<float2*>(o32 + at) = make_float2(o0, o1);
       }
     }
   }
@@ -440,7 +447,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void *o;
-  float* lse;
+  float *lse, *o32;
   const int* lengths;
   const long long* seed;
   int B, T_len, H, rate_u8;
@@ -457,8 +464,8 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.T_len + BM - 1) / BM, a.H, a.B);
   attention_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<bf16*>(a.o), a.lse, a.lengths, a.seed, a.T_len, a.rate_u8, a.sq, a.sk, a.sv,
-      a.so, a.scale, a.keep_scale);
+      static_cast<bf16*>(a.o), a.lse, a.o32, a.lengths, a.seed, a.T_len, a.rate_u8, a.sq, a.sk,
+      a.sv, a.so, a.scale, a.keep_scale);
   return cudaGetLastError();
 }
 
@@ -498,21 +505,24 @@ cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // q, k, v, o: (B, T, H, D) with element strides (b, t, h) and a unit head-dim stride;
-// lse: (B, H, T) float32 or null; lengths: (B,) int32 on the device; seed: one int64 on
-// the device (read only when rate_u8 > 0); dtype_code 0 = float32 (FMA kernel),
-// 1 = bfloat16 (tensor-core kernel: q, k, v, o 16-byte aligned with b, t, h strides that
-// are multiples of 8 elements, which the wrapper checks).
-// Returns the cudaError_t of the launch (0 on success).
+// lse: (B, H, T) float32 or null; o32: null, or for bfloat16 a float32 (B, T, H, D) buffer
+// with o's element strides that receives O before its bf16 rounding; lengths: (B,) int32
+// on the device; seed: one int64 on the device (read only when rate_u8 > 0); dtype_code
+// 0 = float32 (FMA kernel, o32 unused), 1 = bfloat16 (tensor-core kernel: q, k, v, o
+// 16-byte aligned with b, t, h strides that are multiples of 8 elements, which the
+// wrapper checks).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int s2t_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                                 const void* lengths, const void* seed, int B, int T_len, int H,
-                                 int D, int dtype_code, int rate_u8, long long sq_b,
-                                 long long sq_t, long long sq_h, long long sk_b, long long sk_t,
+                                 void* o32, const void* lengths, const void* seed, int B,
+                                 int T_len, int H, int D, int dtype_code, int rate_u8,
+                                 long long sq_b, long long sq_t, long long sq_h, long long sk_b,
+                                 long long sk_t,
                                  long long sk_h, long long sv_b, long long sv_t, long long sv_h,
                                  long long so_b, long long so_t, long long so_h, float scale,
                                  float keep_scale, void* stream) {
   if (rate_u8 < 0 || rate_u8 > 255 || (rate_u8 > 0 && seed == nullptr)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<const int*>(lengths),
-               static_cast<const long long*>(seed), B, T_len, H, rate_u8,
+  const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<float*>(o32),
+               static_cast<const int*>(lengths), static_cast<const long long*>(seed), B, T_len,
+               H, rate_u8,
                Strides{sq_b, sq_t, sq_h}, Strides{sk_b, sk_t, sk_h}, Strides{sv_b, sv_t, sv_h},
                Strides{so_b, so_t, so_h}, scale, keep_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -18,20 +18,42 @@
 // Bound on this card: at the training shape (B=40, T'=250, S=59) the alpha pass moves
 // emit in and alphas out, 2 x 2.36 MB (0.0014 ms at 3.35 TB/s), the beta pass emit and
 // alphas in and the gradient out, 3 x 2.36 MB (0.0021 ms).  Neither is what bounds it: each
-// is a chain of T - 1 dependent steps of a few hundred operations, so its time is the
-// latency of one step (a shared-memory round trip and a barrier) times T.
+// is a chain of T - 1 dependent steps, so its time is at least the latency of one step's
+// dependent arithmetic times T.  chip_smoke.py measures that floor with
+// ctc_chain_floor_kernel, one warp running the step (two shuffles, two logaddexp with the
+// accurate expf and log1pf, an add) on register values with no loads and no stores, and
+// takes the bound as the larger of the two: ~0.26 us a step on an H100, 0.064 ms for 249
+// steps, 50x the bytes.
 //
-// Design.  The TPU kernel walks T inside one program with the whole (B, S) state in
-// VMEM.  Here one CTA per batch row walks T; the S states lie across the threads (a
-// thread takes states tid, tid + blockDim, ... when S > blockDim).  The alpha pass keeps
-// alpha double-buffered in shared memory behind two NEG_INF guard slots, so one barrier
-// per step orders the reads of step t - 1 before the writes of step t.  The beta pass
-// keeps beta per thread and double-buffers z = beta + emit_t, with two NEG_INF guard slots
-// after state S - 1, again one barrier per step.  Rows past a batch row's length are
-// written without any barrier (carried alphas, zero gradients).
+// The TPU kernel walks T inside one program with the whole (B, S) state in VMEM.
+//
+// Alpha (K3), S <= 256: ctc_alpha_warp_kernel<R>, one warp per batch row.  Lane l holds
+// states [l R, l R + R) in registers, R = ceil(S / 32) (1..8, a template parameter the
+// launcher picks); a state's shift-by-1 and shift-by-2 inputs are its own lane's registers
+// or the previous lane's last two states, read with __shfl_up_sync, so a step has no
+// barrier.  The emissions of step t come through cp.async (4-byte copies: rows are B S
+// floats apart) into a ring of PREFETCH slots per lane in shared memory, PREFETCH - 1
+// steps ahead, off the chain; only the lane that copied a slot reads it, after its
+// cp.async.wait_group.  A ring in registers needs the step loop unrolled by its depth;
+// that version ran slower on the card, also with its loads taken out, which points at the
+// instruction stream of the one warp an SM holds rather than at the loads.
+// Alphas go out with plain stores.  Per state the operations and their order are the
+// plain version's, logaddexp with expf and log1pf.  A CTA holds one warp: on an H100 one
+// row a CTA ran within 5 % of two, four and eight (PERF.md).
+//
+// Alpha, S > 256, and beta (K4): ctc_alpha_kernel / ctc_beta_grad_kernel, one CTA per
+// batch row walking T; the S states lie across the threads (a thread takes states tid,
+// tid + blockDim, ... when S > blockDim).  The alpha pass keeps alpha double-buffered in
+// shared memory behind two NEG_INF guard slots, so one barrier per step orders the reads
+// of step t - 1 before the writes of step t.  The beta pass keeps beta per thread and
+// double-buffers z = beta + emit_t, with two NEG_INF guard slots after state S - 1, again
+// one barrier per step.  Rows past a batch row's length are written without any barrier
+// (carried alphas, zero gradients).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_bf16.cuh"  // cp.async
 
 namespace {
 
@@ -40,6 +62,115 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float logaddexp(float a, float b) {
   // jnp.logaddexp for finite inputs: max + log1p(exp(-|a - b|))
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+}
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP_MAX_R = 8;  // states per lane: one warp walks S <= 256
+constexpr int PREFETCH = 16;   // slots of a lane's emission ring: rows in flight ahead
+
+// One alpha step of the R states lane `lane` holds (valid[r]: state l R + r < S; the
+// others stay NEG_INF): new[s] = logaddexp(logaddexp(a[s], a[s-1]), a[s-2] + skip[s]) + e[s].
+template <int R>
+__device__ __forceinline__ void alpha_step(float (&a)[R], const float (&skip)[R],
+                                           const float (&e)[R], const bool (&valid)[R],
+                                           int lane) {
+  // the previous lane's last state, and the one before it (two lanes back when R == 1)
+  float p1 = __shfl_up_sync(FULL, a[R - 1], 1);
+  float p2;
+  if constexpr (R >= 2) {
+    p2 = __shfl_up_sync(FULL, a[R - 2], 1);
+  } else {
+    p2 = __shfl_up_sync(FULL, a[0], 2);
+  }
+  if (lane < 1) p1 = NEG_INF;
+  if (lane < (R >= 2 ? 1 : 2)) p2 = NEG_INF;
+  float nw[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float s1 = r >= 1 ? a[r - 1] : p1;
+    const float s2 = r >= 2 ? a[r - 2] : (r == 1 ? p1 : p2);
+    nw[r] = logaddexp(logaddexp(a[r], s1), s2 + skip[r]) + e[r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) a[r] = valid[r] ? nw[r] : NEG_INF;
+}
+
+template <int R>
+__global__ void ctc_alpha_warp_kernel(const float* __restrict__ emit,
+                                      const float* __restrict__ skip,
+                                      const int* __restrict__ lengths, float* __restrict__ alphas,
+                                      int T_len, int B, int S) {
+  extern __shared__ float ring_s[];  // [PREFETCH][32 R]: each lane's own slots
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  float* ring = ring_s + lane * R;
+  const long long row = (long long)B * S;  // elements per time step
+  const float* e = emit + (long long)b * S + lane * R;
+  float* out = alphas + (long long)b * S + lane * R;
+  const int steps = min(max(lengths[b], 1), T_len);
+
+  bool valid[R];
+  float a[R], sk[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = lane * R + r;
+    valid[r] = s < S;
+    sk[r] = valid[r] ? skip[(long long)b * S + s] : NEG_INF;
+    a[r] = valid[r] && s < 2 ? e[r] : NEG_INF;
+    if (valid[r]) out[r] = a[r];
+  }
+  // the emissions of step t land in slot t % PREFETCH through cp.async, PREFETCH - 1 steps
+  // ahead of their use, one commit group a step (empty past the row's steps)
+  auto fetch = [&](int t) {
+    float* slot = ring + (t % PREFETCH) * 32 * R;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool in = valid[r] && t < steps;
+      s2t_cp_async_4(s2t_smem_addr(slot + r), in ? e + t * row + r : e, in);
+    }
+    s2t_cp_async_commit();
+  };
+  for (int t = 1; t < PREFETCH; ++t) fetch(t);
+  for (int t = 1; t < steps; ++t) {
+    s2t_cp_async_wait<PREFETCH - 2>();  // step t's group has landed
+    float et[R];
+    const float* slot = ring + (t % PREFETCH) * 32 * R;
+#pragma unroll
+    for (int r = 0; r < R; ++r) et[r] = slot[r];
+    fetch(t + PREFETCH - 1);  // into the slot step t - 1 read
+    alpha_step<R>(a, sk, et, valid, lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (valid[r]) out[t * row + r] = a[r];
+  }
+  // frames at or past the length carry alpha unchanged
+  for (int t = steps; t < T_len; ++t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (valid[r]) out[t * row + r] = a[r];
+  }
+}
+
+// The chain floor of one alpha step: `steps - 1` dependent alpha_step<R> on register
+// values (emissions and skips made from the state index), no loads, and one store of the
+// last alpha so the chain is not dead code.  One warp; a measurement for chip_smoke.py.
+template <int R>
+__global__ void ctc_chain_floor_kernel(float* __restrict__ out, int steps, int S) {
+  const int lane = threadIdx.x & 31;
+  bool valid[R];
+  float a[R], sk[R], e[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = lane * R + r;
+    valid[r] = s < S;
+    sk[r] = s % 2 == 1 && s >= 3 ? 0.f : NEG_INF;
+    e[r] = -1.f - 0.25f * (float)(s % 7);
+    a[r] = valid[r] && s < 2 ? e[r] : NEG_INF;
+  }
+  for (int t = 1; t < steps; ++t) alpha_step<R>(a, sk, e, valid, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (valid[r]) out[lane * R + r] = a[r];
 }
 
 __global__ void ctc_alpha_kernel(const float* __restrict__ emit, const float* __restrict__ skip,
@@ -148,15 +279,60 @@ static int threads_for(int S) {
   return t < 32 ? 32 : (t > 256 ? 256 : t);
 }
 
+template <int R>
+static cudaError_t launch_alpha_warp(const float* emit, const float* skip, const int* lengths,
+                                     float* alphas, int T_len, int B, int S,
+                                     cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * PREFETCH * 32 * R;  // <= 16 KB
+  ctc_alpha_warp_kernel<R><<<B, 32, smem, stream>>>(emit, skip, lengths, alphas, T_len, B, S);
+  return cudaGetLastError();
+}
+
 // emit, alphas: (T, B, S) float32; skip: (B, S) float32, 0 where the skip transition
 // s - 2 -> s is allowed and NEG_INF elsewhere; lengths: (B,) int32; all on the device.
+// S <= 256 runs ctc_alpha_warp_kernel, one warp a batch row; a larger S runs
+// ctc_alpha_kernel, one CTA a row.
 extern "C" int s2t_ctc_alpha(const void* emit, const void* skip, const void* lengths,
                              void* alphas, int T_len, int B, int S, void* stream) {
   if (T_len < 1 || B < 1 || S < 1) return cudaErrorInvalidValue;
+  const float* e = static_cast<const float*>(emit);
+  const float* sk = static_cast<const float*>(skip);
+  const int* len = static_cast<const int*>(lengths);
+  float* out = static_cast<float*>(alphas);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((S + 31) / 32) {
+    case 1: return launch_alpha_warp<1>(e, sk, len, out, T_len, B, S, st);
+    case 2: return launch_alpha_warp<2>(e, sk, len, out, T_len, B, S, st);
+    case 3: return launch_alpha_warp<3>(e, sk, len, out, T_len, B, S, st);
+    case 4: return launch_alpha_warp<4>(e, sk, len, out, T_len, B, S, st);
+    case 5: return launch_alpha_warp<5>(e, sk, len, out, T_len, B, S, st);
+    case 6: return launch_alpha_warp<6>(e, sk, len, out, T_len, B, S, st);
+    case 7: return launch_alpha_warp<7>(e, sk, len, out, T_len, B, S, st);
+    case 8: return launch_alpha_warp<8>(e, sk, len, out, T_len, B, S, st);
+    default: break;
+  }
+  static_assert(WARP_MAX_R == 8, "the switch above covers R = 1 .. WARP_MAX_R");
   const size_t smem = sizeof(float) * (size_t)(3 * S + 4);
-  ctc_alpha_kernel<<<B, threads_for(S), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(emit), static_cast<const float*>(skip),
-      static_cast<const int*>(lengths), static_cast<float*>(alphas), T_len, B, S);
+  ctc_alpha_kernel<<<B, threads_for(S), smem, st>>>(e, sk, len, out, T_len, B, S);
+  return cudaGetLastError();
+}
+
+// out: (S,) float32 on the device; one warp runs `steps - 1` dependent alpha steps of an
+// S-state row (S <= 256) on register values.
+extern "C" int s2t_ctc_chain_floor(void* out, int steps, int S, void* stream) {
+  if (steps < 1 || S < 1 || S > 32 * WARP_MAX_R) return cudaErrorInvalidValue;
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((S + 31) / 32) {
+    case 1: ctc_chain_floor_kernel<1><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 2: ctc_chain_floor_kernel<2><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 3: ctc_chain_floor_kernel<3><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 4: ctc_chain_floor_kernel<4><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 5: ctc_chain_floor_kernel<5><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 6: ctc_chain_floor_kernel<6><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 7: ctc_chain_floor_kernel<7><<<1, 32, 0, st>>>(o, steps, S); break;
+    default: ctc_chain_floor_kernel<8><<<1, 32, 0, st>>>(o, steps, S); break;
+  }
   return cudaGetLastError();
 }
 

@@ -6,9 +6,13 @@ with a pure padding mask and uint8-threshold attention dropout, never
 materialising the (B, H, T, T) probabilities.
 
 * forward  ``csrc/attention_fwd.cu`` (K1f/K2f): the output and, when a
-  gradient is needed, the per-row log-sum-exp (B, H, T) f32;
-* backward ``csrc/attention_bwd.cu`` (K1b/K2b): dQ, dK, dV from Q, K, V, O,
-  dO and the log-sum-exp, regenerating the dropout mask.
+  gradient is needed, the per-row log-sum-exp (B, H, T) f32 and the output
+  in f32 (for bf16, O before its rounding);
+* backward ``csrc/attention_bwd.cu`` (K1b/K2b): dQ, dK, dV from Q, K, V, the
+  f32 O, dO and the log-sum-exp, regenerating the dropout mask.  Its
+  Delta = rowsum(dO o O) reads the f32 O: from the bf16 O, a row whose
+  probability sits on one key keeps ~2^-9 |dO V| per query in dS where the
+  exact value is 0.
 
 bfloat16 runs on the tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``),
 float32 on f32 FMAs; design and bound of each kernel are in its source's
@@ -49,10 +53,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FWD_SIGNATURES = {
-    # q, k, v, o, lse, lengths, seed, B, T, H, D, dtype, rate_u8, strides q/k/v/o, scale,
-    # keep_scale, stream
+    # q, k, v, o, lse, o32, lengths, seed, B, T, H, D, dtype, rate_u8, strides q/k/v/o,
+    # scale, keep_scale, stream
     "s2t_attention_fwd": (
-        _I, [_P] * 7 + [_I] * 6 + [_L] * 12 + [_F, _F, _P],
+        _I, [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _P],
     ),
     "s2t_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -128,8 +132,9 @@ def _seed_tensor(seed, device) -> torch.Tensor:
 
 def _mma_aligned(t: torch.Tensor) -> bool:
     """The bf16 kernels copy 16-byte rows with cp.async: the data pointer and the
-    b, t, h strides must be multiples of 16 bytes (8 elements)."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    b, t, h strides must be multiples of 16 bytes (8 bf16 or 4 f32 elements)."""
+    per_16_bytes = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % per_16_bytes == 0 for s in t.stride()[:3])
 
 
 def _check(*tensors, what="q/k/v"):
@@ -185,40 +190,57 @@ def _strides(*tensors):
     return [s for t in tensors for s in t.stride()[:3]]
 
 
-def fused_attention_fwd(q, k, v, lengths, rate_u8: int = 0, seed=None,
-                        with_lse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def fused_attention_fwd(q, k, v, lengths, rate_u8: int = 0, seed=None, with_lse: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Launch K1f on CUDA tensors.  q/k/v: (B, T, H, D), lengths: (B,) int32.
-    Returns (out (B, T, H, D) contiguous, lse (B, H, T) f32 or None)."""
+    Returns (out (B, T, H, D) contiguous, lse (B, H, T) f32, out32), lse and
+    out32 None unless ``with_lse``: out32 is the output in f32 for the
+    backward's Delta, for bf16 a second buffer the kernel writes before the
+    bf16 rounding, for f32 ``out`` itself."""
     lib = _build.load_library("attention_fwd", _FWD_SIGNATURES)
     _check(q, k, v)
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_lse else None
+    lse = out32 = None
+    if with_lse:
+        lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        out32 = out if q.dtype == torch.float32 else torch.empty_like(out, dtype=torch.float32)
     if out.numel() == 0:
-        return out, lse
+        return out, lse, out32
     seed_ptr = _seed_tensor(seed, q.device).data_ptr() if rate_u8 > 0 else None
     keep_scale = 1.0 / (1.0 - rate_u8 / 256.0) if rate_u8 > 0 else 1.0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.s2t_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), lengths.data_ptr(), seed_ptr,
+            None if lse is None else lse.data_ptr(),
+            None if out32 is None or out32 is out else out32.data_ptr(),
+            lengths.data_ptr(), seed_ptr,
             B, T, H, D, _DTYPE_CODES[q.dtype], rate_u8,
             *_strides(q, k, v, out), 1.0 / math.sqrt(D), keep_scale, stream,
         )
     _raise_on(lib, rc, "attention_fwd")
     fused_attention.launches += 1
-    return out, lse
+    return out, lse, out32
 
 
-def fused_attention_bwd(q, k, v, out, do, lse, lengths, rate_u8: int = 0, seed=None):
+def fused_attention_bwd(q, k, v, out32, do, lse, lengths, rate_u8: int = 0, seed=None):
     """Launch K1b on CUDA tensors: (dq, dk, dv), each (B, T, H, D) contiguous
-    in q.dtype.  ``lse`` is the forward's (B, H, T) f32 log-sum-exp."""
+    in q.dtype.  ``out32`` and ``lse`` are the forward's f32 output and
+    (B, H, T) f32 log-sum-exp (``fused_attention_fwd(..., with_lse=True)``)."""
     lib = _build.load_library("attention_bwd", _BWD_SIGNATURES)
-    _check(q, k, v, out, do, what="q/k/v/out/dout")
+    _check(q, k, v, do, what="q/k/v/dout")
     B, T, H, D = q.shape
+    if (out32.dtype != torch.float32 or out32.shape != q.shape or out32.stride(-1) != 1
+            or (q.dtype == torch.bfloat16 and not _mma_aligned(out32))):
+        raise ValueError(f"fused_attention_bwd: out32 must be the forward's float32 output "
+                         f"{tuple(q.shape)} with a unit head-dim stride (16-byte aligned for "
+                         f"bfloat16), got {tuple(out32.shape)} {out32.dtype} {out32.stride()}")
     if lse.shape != (B, H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"fused_attention_bwd: lse must be contiguous ({B}, {H}, {T}) float32")
+    if any(t.device != q.device for t in (out32, lse)):
+        raise ValueError(f"fused_attention_bwd: out32 on {out32.device} and lse on {lse.device} "
+                         f"must lie on the inputs' device {q.device}")
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
     if dq.numel() == 0:
         return dq, dk, dv
@@ -228,10 +250,10 @@ def fused_attention_bwd(q, k, v, out, do, lse, lengths, rate_u8: int = 0, seed=N
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.s2t_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out32.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lengths.data_ptr(), seed_ptr, B, T, H, D, _DTYPE_CODES[q.dtype], rate_u8,
-            *_strides(q, k, v, out, do, dq, dk, dv), 1.0 / math.sqrt(D), keep_scale, stream,
+            *_strides(q, k, v, out32, do, dq, dk, dv), 1.0 / math.sqrt(D), keep_scale, stream,
         )
     _raise_on(lib, rc, "attention_bwd")
     fused_attention_bwd.launches += 1
@@ -242,18 +264,18 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, lengths, rate_u8, seed):
         grad = any(ctx.needs_input_grad[:3])
-        out, lse = fused_attention_fwd(q, k, v, lengths, rate_u8, seed, with_lse=grad)
+        out, lse, out32 = fused_attention_fwd(q, k, v, lengths, rate_u8, seed, with_lse=grad)
         if grad:
-            ctx.save_for_backward(q, k, v, out, lse, lengths, seed)
+            ctx.save_for_backward(q, k, v, out32, lse, lengths, seed)
             ctx.rate_u8 = rate_u8
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse, lengths, seed = ctx.saved_tensors
+        q, k, v, out32, lse, lengths, seed = ctx.saved_tensors
         if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not _mma_aligned(do)):
             do = do.clone(memory_format=torch.contiguous_format)  # a fresh, aligned buffer
-        dq, dk, dv = fused_attention_bwd(q, k, v, out, do, lse, lengths, ctx.rate_u8, seed)
+        dq, dk, dv = fused_attention_bwd(q, k, v, out32, do, lse, lengths, ctx.rate_u8, seed)
         return dq, dk, dv, None, None, None
 
 

@@ -12,6 +12,12 @@ Each wrapper runs its plain version (``ctc_alpha_plain``,
 ``ctc_beta_grad_plain``: the same contracts in torch ops) for a CPU tensor
 and launches its kernel for a CUDA tensor, or raises.  f32 log-space with
 NEG_INF = -1e30, the JAX package's arithmetic.
+
+K3 dispatches on the lattice width: S <= ``WARP_MAX_S`` (256) runs one warp
+per batch row with the states in registers and no barrier
+(``ctc_alpha_warp_kernel``); a wider lattice runs one CTA per row with the
+states across its threads (``ctc_alpha_kernel``).  Both count as K3
+launches.
 """
 
 from __future__ import annotations
@@ -23,11 +29,13 @@ import torch
 from s2t_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+WARP_MAX_S = 256  # the widest lattice one warp walks (8 states a lane)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "s2t_ctc_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "s2t_ctc_beta_grad": (_I, [_P] * 7 + [_I, _I, _I, _P]),
+    "s2t_ctc_chain_floor": (_I, [_P, _I, _I, _P]),
     "s2t_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -112,6 +120,18 @@ def ctc_alpha(emit: torch.Tensor, skip: torch.Tensor, lengths: torch.Tensor) -> 
                 alphas.data_ptr(), T, B, S, _stream(emit))
     ctc_alpha.launches += 1
     return alphas
+
+
+def ctc_chain_floor(steps: int, S: int, device) -> None:
+    """Launch the chain-floor measurement: one warp runs ``steps - 1``
+    dependent alpha steps of an S-state row (S <= ``WARP_MAX_S``) on register
+    values, with no loads.  Its device time is the least a chain of that many
+    steps can take; it is no kernel of the training path and counts no
+    launch."""
+    lib = _build.load_library("ctc_lattice", _SIGNATURES)
+    out = torch.empty((S,), dtype=torch.float32, device=device)
+    with torch.cuda.device(out.device):
+        _launch(lib, lib.s2t_ctc_chain_floor, out.data_ptr(), steps, S, _stream(out))
 
 
 def ctc_beta_grad(emit, alphas, skip, final, lengths, logz) -> torch.Tensor:

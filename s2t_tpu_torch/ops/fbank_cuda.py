@@ -11,9 +11,12 @@ Frames past a row's length are computed from the zero padding, as
 
 ``fbank`` runs ``fbank_plain`` (``fbank_torch`` of ``data/audio/fbank.py``
 at 16 kHz, 25 ms / 10 ms frames) for a CPU tensor and launches K5 for a CUDA
-tensor, or raises.  The kernel takes the 16 kHz, 400 / 160 / 512 geometry
-only, up to 65535 rows, and any mel bin count whose weighted FFT bins fit one
-pass of its 256 threads (every count does for the Kaldi banks from 20 Hz).
+tensor, or raises.  K5 takes each frame's 512-point real DFT as a float64
+FFT (a packed 256-point complex transform, 16 x 16 four-step, then the split
+into the real spectrum).  The kernel takes the 16 kHz, 400 / 160 / 512
+geometry only, up to 65535 rows, and any mel bin count whose weighted FFT
+bins fit the 256 power entries it keeps a frame (every count does for the
+Kaldi banks from 20 Hz).
 """
 
 from __future__ import annotations
@@ -29,12 +32,12 @@ from s2t_tpu_torch.data.audio.fbank import fbank_torch, kaldi_mel_banks, povey_w
 from s2t_tpu_torch.ops import _build
 
 WS, SH, NFFT = 400, 160, 512
-MAX_BINS = 256  # DFT bins one pass of the kernel's threads covers
+MAX_BINS = 256  # power entries the kernel keeps a frame
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # wave, window, mel, mel_lo, mel_hi, out, B, N, T, n_mels, k0, nk, stream
-    "s2t_fbank": (_I, [_P] * 6 + [_I] * 6 + [_P]),
+    # wave, window, twiddles, mel_w, mel_lo, mel_hi, out, B, N, T, n_mels, k0, nk, stream
+    "s2t_fbank": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     "s2t_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -56,10 +59,33 @@ def mel_bin_ranges(num_mel_bins: int) -> Tuple[np.ndarray, np.ndarray, np.ndarra
     return mel, lo, hi
 
 
+def fft_twiddles() -> np.ndarray:
+    """(513, 2) float64 (cos, sin) pairs the kernel reads: 2 pi k / 512 for
+    k = 0..256 (the split into the real spectrum), then 2 pi n1 k2 / 256 at
+    row 257 + 16 k2 + n1 (the 16 x 16 four-step's twiddles, in the order the
+    threads n1 of a frame read them)."""
+    k = np.arange(NFFT // 2 + 1)
+    k2, n1 = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    angle = np.concatenate([np.pi * k / 256, np.pi * (n1 * k2).ravel() / 128])
+    return np.stack([np.cos(angle), np.sin(angle)], axis=1)
+
+
+def mel_weights(mel: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """(W, n) float32, W = max(hi - lo): row j holds the weight filter m gives
+    FFT bin lo[m] + j (0 past hi[m]), so the kernel's thread m reads its
+    filter's nonzero weights alone and a warp's reads are contiguous."""
+    width = hi - lo
+    out = np.zeros((max(int(width.max()), 1), mel.shape[1]), np.float32)
+    for m in range(mel.shape[1]):
+        out[: width[m], m] = mel[lo[m]:hi[m], m]
+    return out
+
+
 @lru_cache(maxsize=8)
 def _constants(num_mel_bins: int, device: str):
-    """Window, mel matrix and filter ranges on the device, with the bin range
-    [k0, k0 + nk) the kernel computes."""
+    """Window (float64 of the float32 povey window), twiddles, compact mel
+    weights and filter ranges on the device, with the bin range [k0, k0 + nk)
+    the kernel computes."""
     mel, lo, hi = mel_bin_ranges(num_mel_bins)
     used = hi > lo
     k0 = int(lo[used].min()) if used.any() else 1
@@ -69,10 +95,9 @@ def _constants(num_mel_bins: int, device: str):
     if nk > MAX_BINS:
         raise ValueError(f"fbank: num_mel_bins={num_mel_bins} weighs {nk} FFT bins; the kernel "
                          f"covers at most {MAX_BINS}")
-    # kaldi_mel_banks returns a transposed (Fortran-ordered) array: the kernel reads
-    # row-major (k, m)
+    window = povey_window(WS).astype(np.float64)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (povey_window(WS), mel, lo, hi)) + (k0, nk)
+                 for a in (window, fft_twiddles(), mel_weights(mel, lo, hi), lo, hi)) + (k0, nk)
 
 
 def _check(waveforms, lengths, num_mel_bins):
@@ -104,10 +129,11 @@ def fbank(waveforms: torch.Tensor, lengths: torch.Tensor,
     if B == 0 or T == 0:
         return out, frame_lengths
     wave = waveforms.contiguous()
-    window, mel, lo, hi, k0, nk = _constants(num_mel_bins, str(waveforms.device))
+    window, twiddles, mel_w, lo, hi, k0, nk = _constants(num_mel_bins, str(waveforms.device))
     with torch.cuda.device(waveforms.device):
-        rc = lib.s2t_fbank(wave.data_ptr(), window.data_ptr(), mel.data_ptr(), lo.data_ptr(),
-                           hi.data_ptr(), out.data_ptr(), B, N, T, num_mel_bins, k0, nk,
+        rc = lib.s2t_fbank(wave.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
+                           mel_w.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), B, N,
+                           T, num_mel_bins, k0, nk,
                            torch.cuda.current_stream(waveforms.device).cuda_stream)
     if rc != 0:
         msg = lib.s2t_cuda_error_string(rc).decode()

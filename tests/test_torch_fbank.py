@@ -11,7 +11,17 @@ own frames, at the tolerance of tests/test_fbank_pallas.py: atol 5e-4, rtol
 to float32 once before the float32 mel product and log; the bound is set by
 the JAX formulations, whose float32 DFT sums of 400 int16-scale samples keep
 about five digits under the log.  Frame lengths must be equal.
+
+K5's FFT (``csrc/fbank.cu``) is emulated step by step in numpy float64 (the
+packing of the 400 real samples into 256 complex points, the 16 x 16
+four-step with its radix-16 DFTs built from radix-4 butterflies, the
+wrapper's twiddle tables and the transpose through a buffer with rows of 17,
+and the split into the 257 bins of the real spectrum with Z[256 - k] taken
+from the partner thread) and held to ``np.fft.rfft`` of the same frames at
+1e-12 relative.
 """
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,9 +32,12 @@ from s2t_tpu.data.audio.fbank import fbank_jax, fbank_numpy
 from s2t_tpu.ops.fbank_pallas import fbank_pallas
 from s2t_tpu_torch.data.audio.fbank import EPSILON, fbank_torch, speed_perturb_numpy
 from s2t_tpu_torch.data.audio.fbank import fbank_numpy as port_fbank_numpy
+from s2t_tpu_torch.data.audio.fbank import povey_window
+from s2t_tpu_torch.data.dataset import load_waveform
 from s2t_tpu_torch.ops import fbank_cuda
 
 ATOL, RTOL = 5e-4, 1e-4
+WAVS = [str(Path(__file__).parent / "fixtures" / "audio" / f"utt{i}.wav") for i in range(4)]
 LENGTHS = [399, 400, 8000, 6320, 8000]
 N = 8000
 
@@ -103,3 +116,97 @@ def test_mel_ranges_cover_every_weight():
         assert not mel[outside, m].any()
     # the bins the kernel computes: 1..255 (DC and Nyquist carry no weight)
     assert lo[lo < hi].min() == 1 and hi.max() == 256 <= 1 + fbank_cuda.MAX_BINS
+
+
+# ---- K5's FFT, as fbank.cu computes it -------------------------------------------------
+RADIX, LDX = 16, 17  # 256 = 16 x 16; rows of the kernel's transpose buffer
+_TW = fbank_cuda.fft_twiddles()
+TWIDDLES = _TW[:, 0] + 1j * _TW[:, 1]  # e^{i theta} of the kernel's (cos, sin) rows
+
+
+def _rotate(a, cs):
+    """a e^{-i theta}, the kernel's product by a (cos, sin) row."""
+    return a * np.conj(cs)
+
+
+def _dft4(x0, x1, x2, x3):
+    t0, t1, t2, t3 = x0 + x2, x0 - x2, x1 + x3, -1j * (x1 - x3)
+    return t0 + t2, t1 + t3, t0 - t2, t1 - t3
+
+
+def _dft16(x):
+    """fbank.cu dft16 on (..., 16): radix-4 over m2 (n = m1 + 4 m2), W16^{m1 l2},
+    radix-4 over m1, then the 4 x 4 index transpose to natural order."""
+    x = x.copy()
+    for m1 in range(4):
+        idx = [m1, m1 + 4, m1 + 8, m1 + 12]
+        for i, val in zip(idx, _dft4(*(x[..., i] for i in idx))):
+            x[..., i] = val
+    for m1 in range(1, 4):
+        for l2 in range(1, 4):
+            x[..., m1 + 4 * l2] = _rotate(x[..., m1 + 4 * l2], np.exp(2j * np.pi * m1 * l2 / 16))
+    for l2 in range(4):
+        idx = [4 * l2, 4 * l2 + 1, 4 * l2 + 2, 4 * l2 + 3]
+        for i, val in zip(idx, _dft4(*(x[..., i] for i in idx))):
+            x[..., i] = val
+    out = np.empty_like(x)
+    for l1 in range(4):
+        for l2 in range(4):
+            out[..., l2 + 4 * l1] = x[..., l1 + 4 * l2]
+    return out
+
+
+def _k5_spectrum(y):
+    """(F, 400) float64 frames -> (F, 257) complex: the 512-point real DFT of the
+    zero-padded frames, step by step as fbank.cu takes it, thread by thread of a
+    frame's 16 (axis 1)."""
+    F = y.shape[0]
+    yp = np.zeros((F, 512))
+    yp[:, :400] = y
+    z = yp[:, 0::2] + 1j * yp[:, 1::2]  # z[n] = y[2n] + i y[2n+1], 0 from n = 200
+    r = np.arange(RADIX)
+    v = z[:, r[:, None] + RADIX * r[None, :]]  # thread n1 holds v[n2] = z[n1 + 16 n2]
+    v = _dft16(v)  # A[n1][k2]
+    step = TWIDDLES[257 + RADIX * r[None, 1:] + r[:, None]]  # row 257 + 16 k2 + n1
+    v[:, :, 1:] = _rotate(v[:, :, 1:], step)  # W256^{n1 k2}
+    buf = np.zeros((F, RADIX * LDX), complex)
+    buf[:, r[:, None] * LDX + r[None, :]] = v  # thread n1 writes row n1
+    v = _dft16(buf[:, r[None, :] * LDX + r[:, None]])  # thread k2 reads column k2
+    # thread k2 holds Z[k2 + 16 k1] at v[k2][k1]; Z[256 - k] comes from thread 16 - k2 at
+    # k1' = 15 - k1 (the shuffle), or from thread 0's own v[(16 - k1) % 16]
+    zc = v[:, (RADIX - r) % RADIX][:, :, ::-1].copy()
+    zc[:, 0] = v[:, 0, (RADIX - r) % RADIX]
+    k = r[:, None] + RADIX * r[None, :]
+    spec = np.empty((F, 257), complex)
+    cs = TWIDDLES[k]
+    spec[:, k] = 0.5 * (v + np.conj(zc)) + _rotate(-0.5j * (v - np.conj(zc)), cs)
+    z0 = v[:, 0, 0]  # Nyquist: Z[256] = Z[0]
+    spec[:, 256] = 0.5 * (z0 + np.conj(z0)) + _rotate(-0.5j * (z0 - np.conj(z0)), TWIDDLES[256])
+    return spec
+
+
+def _frames(wave):
+    """The kernel's preprocessing in float64: DC removal, preemphasis, window."""
+    T = 1 + (len(wave) - 400) // 160
+    x = wave[np.arange(T)[:, None] * 160 + np.arange(400)].astype(np.float64)
+    d = x - x.mean(axis=1, keepdims=True)
+    dp = np.concatenate([d[:, :1], d[:, :-1]], axis=1)
+    return (d - 0.97 * dp) * povey_window(400).astype(np.float64)
+
+
+@pytest.mark.parametrize("source", ["utt0", "utt1", "utt2", "utt3", "noise", "square"])
+def test_k5_fft_decomposition_matches_rfft(source):
+    if source.startswith("utt"):
+        wave = load_waveform(WAVS[int(source[3])])
+    elif source == "noise":
+        wave = (np.random.default_rng(3).normal(size=16000) * 2000.0).astype(np.float32)
+    else:  # a loud square wave: energy at the Nyquist side of the spectrum
+        wave = np.where((np.arange(8000) // 3) % 2 == 0, 32767.0, -32767.0).astype(np.float32)
+    y = _frames(wave)
+    got, want = _k5_spectrum(y), np.fft.rfft(y, 512, axis=1)
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    assert (np.abs(got - want) / scale).max() <= 1e-12
+    # and the features through the power rounded once to f32, the mel product and the log
+    power = (got.real ** 2 + got.imag ** 2).astype(np.float32)
+    mel = np.log(np.maximum(power @ fbank_cuda.mel_bin_ranges(80)[0], EPSILON))
+    np.testing.assert_allclose(mel, fbank_numpy(wave), atol=ATOL, rtol=RTOL)
