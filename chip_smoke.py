@@ -8,16 +8,21 @@ Phases (any failure ends the run with a non-zero exit):
              registers and spills (-Xptxas -v) and failing if fbank_kernel
              spills; then cuobjdump -sass counts the
              tensor-core instructions (HMMA, HGMMA) of every attention kernel
-             and fails if a bf16 kernel (forward, dK/dV, dQ) has none;
+             and fails if a bf16 kernel (forward, dK/dV, dQ) has none at any
+             padded head dim, WIDE (16-byte copies) or not;
   2. kernel  the attention forward (K1f) against its plain PyTorch version on
              the card at the s/m/l head plans, T' = 250 and 1000, ragged
              lengths with a 0-length row, fp32 and bf16, native (B, T, H, D)
-             and head-major strided layouts; times kernel, plain version and
-             torch's scaled_dot_product_attention (a yardstick only);
+             and head-major strided layouts; at the recipes' head dims 44, 80,
+             90, 96 (and an odd 45) also a fused (B, T, 3, H, D) buffer; times
+             kernel, plain version and torch's scaled_dot_product_attention (a
+             yardstick only), at the serving shape for D = 64, 44, 80, 90, 96;
   3. grad    K1f with dropout 0 / 0.15 and its log-sum-exp, and the attention
              backward (K1b), against the plain version and its autograd
              backward with the same seed, at the same head plans, dtypes and
-             layouts; two bf16 cases whose rows put their probability on one
+             layouts, and at D = 44, 80, 90, 96 (p = 0 and 0.15, native and
+             fused layouts, ragged with a 0-length row); two bf16 cases whose
+             rows put their probability on one
              key (a length-1 row; Q = 8 K), where Delta must come from the f32
              O; the kept share of the dropout mask; at the training shape K1f
              with lse and K1b at p = 0.1 (the main path) and p = 0, beside the
@@ -27,8 +32,8 @@ Phases (any failure ends the run with a non-zero exit):
              long one (T'=1000, S=401) and S = 1, 3, 31, 33, 63, 65, 255 and 257
              across K3's states-per-lane steps and its single-warp limit,
              ragged lengths, repeated labels, an infeasible and a 0-frame row;
-             at the training shape the chain floor of K3 and K4 and torch's
-             ctc_loss;
+             at the training shape the chain floor of K3's and of K4's own
+             step and torch's ctc_loss;
   5. serve   s2t_transformer_s at full width (seeded random weights) answers
              the four fixture wavs with beam 5 through the hub, fp32, on the
              card (kernel) and on the CPU (plain): encoder outputs within
@@ -53,13 +58,30 @@ Phases (any failure ends the run with a non-zero exit):
              fp32 forward_fn + criterion pass card vs CPU;
  12. generate cli.generate beam-5 decodes 8 dev utterances as fbank_numpy
              features from phase 11's checkpoint_last.pt;
+ 13. nast     s2t_ctc at full width (s2t_ctc_base, V=10000) serves greedy CTC
+             through CTCGenerator in bf16 at bench.py's NAST shape (B=256,
+             T=1000 frames): utterances/s and RTF (median of 3 batches after
+             a warm-up) and the device busy share of one profiled batch; then
+             fp32 on the fixture wavs, greedy and beam 5, card vs CPU: top
+             tokens identical, or a printed near-tie;
+ 14. train    cli.train trains s2t_ctc with purectc.yaml's model section (18
+     ctc      layers, embed norm, no embedding scale) in bf16, criterion ctc,
+             2 epochs on phase 11's corpus written as fbank features, with
+             eval_ctc_wer and eval_wer; cli.generate decodes the dev split
+             (beam 5, ctc_infer) from checkpoint_best.pt, and
+             hub.from_pretrained transcribes 4 dev utterances to cli.generate's
+             D- strings;
+ 15. wer      tools/wer_sanity (bench.py section C) overfits 16 synthetic
+     sanity   utterances with the 2-layer model on the card and must read WER 0;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
-it: serving (phases 5-6) launches K1f 12 times per encode; a training step
-(phases 7-8) launches K1f 12, K1b 12, K3 1 and K4 1 times; a raw-audio
-forward (phase 11, train or valid) adds K5 once; decoding (phase 12)
-launches K1f 12 times per encode.
+it: serving (phases 5-6, 13) launches K1f once per encoder layer and encode;
+a training step (phases 7-8, 14, 15) launches K1f and K1b once per encoder
+layer, K3 and K4 once; a raw-audio forward (phase 11, train or valid) adds
+K5 once; decoding (phases 12, 14) launches K1f once per encoder layer and
+encode, and a validation batch of phase 14 runs three encodes (the loss,
+eval_ctc_wer, eval_wer).
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -90,8 +112,8 @@ from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerModel, s2t_transformer_m, s2t_transformer_s)
 from s2t_tpu_torch.ops import _build
 from s2t_tpu_torch.ops.attention_cuda import (
-    HEAD_DIMS, fused_attention, fused_attention_bwd, fused_attention_fwd, fused_attention_plain,
-    keep_mask)
+    PADDED_HEAD_DIMS, fused_attention, fused_attention_bwd, fused_attention_fwd,
+    fused_attention_plain, keep_mask)
 from s2t_tpu_torch.ops.ctc import _extend_labels, _lattice_logp, _transition_mask
 from s2t_tpu_torch.ops.ctc_cuda import (
     NEG_INF, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, ctc_chain_floor)
@@ -129,6 +151,10 @@ CTC_ATOL = {"alpha": 1e-3, "demit": 1e-5}
 # the CTA-wide kernel)
 CTC_WIDTHS = (0, 1, 15, 16, 31, 32, 127, 128)
 ALPHA_KERNELS = ("ctc_alpha_warp_kernel", "ctc_alpha_kernel")  # K3's two kernels
+# (head dim, heads) of phases 2-3's cases at the recipes' head dims that are no
+# instantiation of the attention kernels: 176/4 (compare_purectc_base), 640/8
+# (purectc_pds_large_8), 360/4 (the growth360 recipes), 384/4 (encoder_embed_dim 384)
+NEW_HEAD_DIMS = ((44, 4), (80, 8), (90, 4), (96, 4))
 NO_SPILL_KERNELS = ("fbank_kernel",)  # kernels whose -Xptxas -v line must show no spill
 # fp32 training card vs CPU over 3 steps (the same f32 math, reductions in another
 # order through 18 layers): loss and ctc_loss relative, gnorm relative
@@ -216,8 +242,9 @@ def attention_bound(B, T, H, D, lengths, dtype):
 
 # --------------------------------------------------------------------------- #
 def kernel_label(mangled: str) -> str:
-    """'attention_fwd_mma_kernel<64>' from a mangled kernel name
-    (_ZN<len><namespace><len><name>[I...Li<D>E...]...); other names as they are."""
+    """'attention_fwd_mma_kernel<64, true>' from a mangled kernel name
+    (_ZN<len><namespace><len><name>[I<args>E]...: its int and bool template arguments,
+    Li<n>E and Lb<0|1>E; type arguments are left out); other names as they are."""
     pos = 3 if mangled.startswith("_ZN") else len(mangled)
     while pos < len(mangled):
         digits = re.match(r"\d+", mangled[pos:])
@@ -226,8 +253,10 @@ def kernel_label(mangled: str) -> str:
         start = pos + digits.end()
         name, pos = mangled[start:start + int(digits.group())], start + int(digits.group())
         if name.endswith("_kernel"):
-            d = re.match(r"I\w*?Li(\d+)E", mangled[pos:])
-            return name + (f"<{d.group(1)}>" if d else "")
+            args = re.match(r"I((?:L[ib]\d+E|[a-zA-DF-Z])+)E", mangled[pos:])
+            vals = [n if kind == "i" else ("true" if n == "1" else "false")
+                    for kind, n in re.findall(r"L([ib])(\d+)E", args.group(1) if args else "")]
+            return name + (f"<{', '.join(vals)}>" if vals else "")
     return mangled
 
 
@@ -272,22 +301,33 @@ def sass_check():
                              for op in ("HMMA", "HGMMA", "LDSM", "FFMA")}
             log(f"[sass] {lib}: {label} {json.dumps(counts[label])}")
     for kernels in MMA_KERNELS.values():
-        for kernel in kernels:
-            found = {k: c for k, c in counts.items() if k.startswith(kernel + "<")}
-            if len(found) != len(HEAD_DIMS) or any(c["HMMA"] + c["HGMMA"] == 0
-                                                    for c in found.values()):
+        for kernel in kernels:  # every padded head dim, with and without the WIDE copies
+            want = [f"{kernel}<{dp}, {wide}>" for dp in PADDED_HEAD_DIMS
+                    for wide in ("true", "false")]
+            found = {k: counts.get(k) for k in want}
+            if any(c is None or c["HMMA"] + c["HGMMA"] == 0 for c in found.values()):
                 raise AssertionError(f"{kernel}: no tensor-core instructions in its SASS for "
-                                     f"every head dim: {found}")
+                                     f"every instantiation: {found}")
     return counts
 
 
-def attention_case(B, T, H, D, dtype, layout, lengths, seed, time_it):
-    g = torch.Generator(device="cuda").manual_seed(seed)
+def make_qkv(B, T, H, D, dtype, layout, g):
+    """q, k, v as (B, T, H, D) views: "native", the (B, T, H D) projection the model
+    gives (h-stride D); "head_major", a (B, H, T, D) buffer; "fused_qkv", the three slices
+    of one (B, T, 3, H, D) buffer (t-stride 3 H D, k and v H D and 2 H D elements in)."""
+    if layout == "fused_qkv":
+        buf = torch.randn((B, T, 3, H, D), generator=g, device="cuda").to(dtype)
+        return list(buf.unbind(2))
     shape = (B, T, H, D) if layout == "native" else (B, H, T, D)
     qkv = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
     if layout == "head_major":
         qkv = [a.transpose(1, 2) for a in qkv]  # (B, T, H, D) view of a (B, H, T, D) buffer
-    q, k, v = qkv
+    return qkv
+
+
+def attention_case(B, T, H, D, dtype, layout, lengths, seed, time_it):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = make_qkv(B, T, H, D, dtype, layout, g)
     mask = torch.arange(T, device="cuda")[None, :] < torch.as_tensor(lengths, device="cuda")[:, None]
     out = fused_attention(q, k, v, mask)
     ref = fused_attention_plain(q.float(), k.float(), v.float(), mask)
@@ -325,9 +365,18 @@ def phase_kernel():
                     cases.append((B, T, H, D, dtype, layout, lengths, layout == "native"))
     lengths = rng.integers(1, 251, size=B)
     lengths[1] = 0
-    for D in (32, 128):  # the other head dims the kernel takes
+    for D in (32, 128):  # the other head dims that have an instantiation of their own
         for dtype in (torch.float32, torch.bfloat16):
             cases.append((B, 250, 4, D, dtype, "native", lengths, False))
+    # the recipes' head dims that are no instantiation (padded to 48, 80, 96, 96), and an
+    # odd one (2-byte copies), in the (B, T, H D) projection, head-major and fused layouts;
+    # the bf16 projection cases at the serving shape are timed beside the D = 64 row
+    for D, H in NEW_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("native", "head_major", "fused_qkv"):
+                cases.append((16, 250, H, D, dtype, layout, lengths[:16], False))
+    cases.append((8, 250, 3, 45, torch.bfloat16, "native", lengths[:8], False))
+    cases.append((8, 250, 3, 45, torch.float32, "fused_qkv", lengths[:8], False))
     results = []
     with torch.inference_mode():
         for i, c in enumerate(cases):
@@ -345,10 +394,18 @@ def phase_kernel():
         # the serving shape of phase 4: 64 requests of 10 s (T' = 250), bf16, s head plan
         main = attention_case(64, 250, 4, 64, torch.bfloat16, "native", [250] * 64,
                               seed=len(cases), time_it=True)
+        # the same shape at the new head dims (4 heads), for the table beside D = 64
+        by_dim = {D: attention_case(64, 250, 4, D, torch.bfloat16, "native", [250] * 64,
+                                    seed=len(cases) + D, time_it=True)
+                  for D, _ in NEW_HEAD_DIMS}
     log(f"[kernel] serving shape {json.dumps(main)}")
-    if not main["max_abs_err"] <= main["atol"]:
-        raise AssertionError(f"attention kernel disagrees at the serving shape: {main}")
-    return results, main
+    for D, r in by_dim.items():
+        log(f"[kernel] serving shape at D={D}: device_ms {r['device_ms']:.4f} (D=64: "
+            f"{main['device_ms']:.4f}), bound {r['bound_ms']:.4f}, SDPA device "
+            f"{r['library_device_ms']:.4f}, max_abs_err {r['max_abs_err']:.3e}")
+    if not all(r["max_abs_err"] <= r["atol"] for r in [main, *by_dim.values()]):
+        raise AssertionError(f"attention kernel disagrees at the serving shape: {main} {by_dim}")
+    return results, main, by_dim
 
 
 # --------------------------------------------------------------------------- #
@@ -388,11 +445,7 @@ def grad_case(B, T, H, D, dtype, layout, lengths, rate, seed, time_it=False, q_f
     """K1f with lse and K1b against autograd through the plain version; with
     ``q_from_k`` > 0, Q = q_from_k K, so each query's row peaks on its own key."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (B, T, H, D) if layout == "native" else (B, H, T, D)
-    qkv = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
-    if layout == "head_major":
-        qkv = [a.transpose(1, 2) for a in qkv]
-    q, k, v = qkv
+    q, k, v = make_qkv(B, T, H, D, dtype, layout, g)
     if q_from_k:
         q = (q_from_k * k.float()).to(dtype)
     do = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
@@ -477,9 +530,15 @@ def phase_attention_grad():
             for rate in (0.0, 0.15):
                 for layout in ("native", "head_major"):
                     cases.append((B, T, H, D, dtype, layout, lengths, rate))
-    for D in (32, 128):  # the other head dims the kernels take
+    for D in (32, 128):  # the other head dims that have an instantiation of their own
         for dtype in (torch.float32, torch.bfloat16):
             cases.append((8, T, 4, D, dtype, "native", lengths[:8], 0.15))
+    for D, H in NEW_HEAD_DIMS:  # ragged with a 0-length row, both rates, two layouts
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.15):
+                for layout in ("native", "fused_qkv"):
+                    cases.append((8, T, H, D, dtype, layout, lengths[:8], rate))
+    cases.append((4, T, 3, 45, torch.bfloat16, "native", lengths[:4], 0.15))
     long_lengths = np.array([1000, 0, 731, 402])
     for dtype in (torch.float32, torch.bfloat16):
         cases.append((4, 1000, 8, 64, dtype, "native", long_lengths, 0.15))
@@ -518,19 +577,27 @@ def phase_attention_grad():
                      seed=99, time_it=True)
     log(f"[grad] training shape {json.dumps(main)}")
     check_grad_case(main)
-    return results, share, main
+    by_dim = {}  # the same shape at the new head dims, for the table beside D = 64
+    for D, _ in NEW_HEAD_DIMS:
+        r = by_dim[D] = grad_case(40, 250, 8, D, torch.bfloat16, "native", [250] * 40, 0.1,
+                                  seed=99 + D, time_it=True)
+        check_grad_case(r)
+        log(f"[grad] training shape at D={D}: K1b device_ms {r['device_ms']:.4f} (D=64: "
+            f"{main['device_ms']:.4f}), K1f with lse {r['fwd_device_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f}, SDPA backward device {r['library_device_ms']:.4f}")
+    return results, share, main, by_dim
 
 
 def ctc_bounds(B, T, S, lengths, chain_ms):
     """Least time of K3 and K4: the larger of their bytes at the memory rate (K3 reads
     emit for the frames below each length and writes every alpha row; K4 reads emit and
     alphas for those frames and writes every gradient row) and their chain floor
-    (``chain_ms``, K3's and K4's: a row's dependent steps of K3's single-warp step,
-    each two shuffles, two logaddexp and an add, run by one warp on register values
-    alone on the card, measured in phase 4).  The floor is that design's own step,
-    shuffle latency and validity selects included, so it bounds the single-warp
-    design rather than any design; K4 has no step of its own there yet, and K3's
-    step is a lower bound for its beta step (one logaddexp more per state).
+    (``chain_ms``, K3's and K4's: a row's dependent steps of the single-warp step, K3's
+    two shuffles, two logaddexp and an add, K4's its gradient entry's expf, an add, two
+    shuffles and two logaddexp, run by one warp on register values alone on the card,
+    measured in phase 4).  The floor is that design's own step, shuffle latency and
+    validity selects included, so it bounds the single-warp design rather than any
+    design (K4 itself is not that design yet).
     Returns {kernel: (ms, "bytes" or "operations", {"bytes_ms", "chain_ms"})}; the
     operations that bound a chain are its dependent ones."""
     used = sum(min(int(n), T) for n in lengths)
@@ -613,12 +680,16 @@ def ctc_case(B, T, U, V, seed, time_it=False):
         loss = lib()
         res["library_bwd_device_ms"] = device_ms(
             lambda: torch.autograd.grad(loss, lp, retain_graph=True))[0]
-        # K3 runs max(length) - 1 dependent steps, K4 max(length); K4's floor is K3's
-        # step run once more, a lower bound for K4's own (a logaddexp more per state)
+        # K3 runs max(length) - 1 dependent alpha steps, K4 max(length) beta steps, each
+        # with its gradient entry: each floor is its own step's chain
         longest = int(min(input_lengths.max(), T))
         res["chain_steps"] = longest - 1
-        floors = [device_ms(lambda: ctc_chain_floor(n, S, "cuda"), ("ctc_chain_floor_kernel",))[0]
-                  for n in (longest, longest + 1)]
+        floors = [device_ms(lambda: ctc_chain_floor(n, S, "cuda", beta=beta),
+                            ("ctc_chain_floor_kernel",))[0]
+                  for n, beta in ((longest, False), (longest + 1, True))]
+        # K3's step run once more, a lower bound for K4 that predates K4's own step
+        res["beta_bound_k3_step_ms"] = device_ms(lambda: ctc_chain_floor(longest + 1, S, "cuda"),
+                                                 ("ctc_chain_floor_kernel",))[0]
         bounds = ctc_bounds(B, T, S, input_lengths, floors)
         for pre, name in (("alpha", "ctc_alpha"), ("beta", "ctc_beta_grad")):
             res[f"{pre}_bound_ms"], res[f"{pre}_bound_by"], res[f"{pre}_bound_parts"] = bounds[name]
@@ -640,7 +711,9 @@ def phase_ctc():
         f"{main['alpha_bound_ms']:.4f} "
         f"({main['alpha_bound_by']}: {json.dumps(main['alpha_bound_parts'])}), "
         f"{main['chain_steps']} steps; K4 device {main['beta_device_ms']:.4f} ms, bound "
-        f"{main['beta_bound_ms']:.4f} ({main['beta_bound_by']})")
+        f"{main['beta_bound_ms']:.4f} ({main['beta_bound_by']}: its own beta step's chain; "
+        f"K3's step {main['beta_bound_k3_step_ms']:.4f}), device / bound "
+        f"{main['beta_device_ms'] / main['beta_bound_ms']:.3f}")
     return cases
 
 
@@ -1267,22 +1340,30 @@ def forward_card_vs_cpu(task, valid_ds, cfg):
     return res
 
 
+def write_feature_split(root: Path, src: str, dst: str, n=None) -> None:
+    """The fbank_numpy features of the first ``n`` utterances (all when None) of
+    the wav split ``src`` as ``<id>.npy`` files and the manifest ``dst.tsv``,
+    whose other columns are ``src``'s: the feature splits of phases 12 and 14."""
+    from s2t_tpu_torch.data.audio.fbank import fbank_numpy
+    from s2t_tpu_torch.data.dataset import load_waveform
+
+    header, *rows = (root / f"{src}.tsv").read_text().splitlines()
+    lines = [header]
+    for row in rows[:n]:
+        uid, wav, _, *rest = row.split("\t")
+        feats = fbank_numpy(load_waveform(wav, str(root)))
+        np.save(root / f"{uid}.npy", feats)
+        lines.append("\t".join([uid, f"{uid}.npy", str(feats.shape[0]), *rest]))
+    (root / f"{dst}.tsv").write_text("\n".join(lines) + "\n")
+
+
 def phase_generate(root: Path):
     """Decode TEST_UTTS dev utterances, as fbank_numpy features, with cli.generate
     from phase 11's checkpoint_last.pt."""
     from s2t_tpu_torch.cli import generate as cli_generate
-    from s2t_tpu_torch.data.audio.fbank import fbank_numpy
-    from s2t_tpu_torch.data.dataset import load_waveform
     from s2t_tpu_torch.utils.checkpoint import load_checkpoint
 
-    rows = (root / "dev.tsv").read_text().splitlines()[1:TEST_UTTS + 1]
-    lines = ["id\taudio\tn_frames\ttgt_text"]
-    for row in rows:
-        uid, wav, _, text, _ = row.split("\t")
-        feats = fbank_numpy(load_waveform(wav, str(root)))
-        np.save(root / f"{uid}.npy", feats)
-        lines.append(f"{uid}\t{uid}.npy\t{feats.shape[0]}\t{text}")
-    (root / "test.tsv").write_text("\n".join(lines) + "\n")
+    write_feature_split(root, "dev", "test", TEST_UTTS)
     cfg = audio_cfg(root, max_epoch=3)
     cfg.dataset.gen_subset = "test"
     cfg.generation.results_path = str(root / "gen")
@@ -1312,6 +1393,252 @@ def phase_generate(root: Path):
 
 
 # --------------------------------------------------------------------------- #
+# phases 13-15: encoder-only CTC serving and training, and the decode-quality check
+NAST_SHAPE = dict(B=256, T=1000, V=10000)  # bench.py:84-94, bench_nast_generation
+
+
+def ctc_near_tie(card_enc, host_enc, card_tok, host_tok, beam):
+    """Whether rows whose CTC tokens differ between the card and the CPU are
+    explained by the card's logit error ``err`` (max |card - CPU| over valid
+    frames): greedy, every frame whose argmax differs has CPU log-probs of the
+    two tokens within 2 err; beam, the CPU's CTC log-likelihood of the card's
+    and of the CPU's top hypothesis lie within 4 err per frame (each log-prob
+    is off by at most 2 err).  Returns (accepted, report)."""
+    from s2t_tpu_torch.ops.ctc import ctc_loss
+
+    lengths = host_enc["encoder_lengths"]
+    valid = lengths_to_mask(lengths, host_enc["ctc_logits"].shape[1])
+    card_logits, host_logits = card_enc["ctc_logits"].float().cpu(), host_enc["ctc_logits"].float()
+    err = (card_logits - host_logits).abs()[valid].max().item()
+    lp = torch.log_softmax(host_logits, dim=-1)
+    report, ok = [], True
+    for b in range(card_tok.shape[0]):
+        if torch.equal(card_tok[b], host_tok[b]):
+            continue
+        if beam == 1:
+            n = int(lengths[b])
+            a, c = card_logits[b, :n].argmax(-1), host_logits[b, :n].argmax(-1)
+            frames = torch.nonzero(a != c)[:, 0]
+            gaps = (lp[b, frames, c[frames]] - lp[b, frames, a[frames]]).tolist()
+            tie = bool(frames.numel()) and max(gaps) <= 2 * err
+            report.append({"row": b, "frames": frames.tolist(), "gaps": gaps, "near_tie": tie})
+        else:
+            hyps = [t[t != 1] for t in (card_tok[b, 0], host_tok[b, 0])]
+            nll = [ctc_loss(lp[b:b + 1], h[None].long(), lengths[b:b + 1],
+                            torch.tensor([len(h)]), reduction="sum").item() for h in hyps]
+            tie = abs(nll[0] - nll[1]) <= 4 * err * int(lengths[b])
+            report.append({"row": b, "cpu_nll_of_card_and_cpu_top": nll, "near_tie": tie})
+        ok = ok and tie
+    return ok, {"ctc_logits_max_abs_err": err, "differing_rows": report}
+
+
+def phase_nast():
+    """s2t_ctc at full width: greedy CTC serving in bf16 at bench.py's NAST shape
+    through CTCGenerator, then fp32 fixture wavs card vs CPU, greedy and beam 5."""
+    from s2t_tpu_torch.hub import GeneratorHub
+    from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
+    from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_base
+
+    B, T, V = NAST_SHAPE["B"], NAST_SHAPE["T"], NAST_SHAPE["V"]
+    cfg = s2t_ctc_base(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
+    model = S2TCTCModel(cfg, device="cuda", seed=0)
+    gen = CTCGenerator(model, CTCDecoder())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    feats = [torch.randn((B, T, 80), generator=g, device="cuda") for _ in range(4)]
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+
+    def serve(f):
+        return gen.generate({"features": f, "feat_lengths": lens})[0].cpu()
+
+    reset_counts()  # the main path: 1 warm-up, 3 timed and 1 profiled batch
+    out = serve(feats[0])
+    walls = [synced_s(lambda: serve(f)) for f in feats[1:]]
+    prof = device_profile(lambda: serve(feats[1]))
+    encodes = 5
+    counts = read_counts()
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * encodes},
+                 f"NAST serving ({encodes} encodes)")
+    wall = float(np.median(walls))
+    res = {"batch": B, "frames": T, "vocab": V, "dtype": "bfloat16", "wall_s": walls,
+           "utt_per_s": B / wall, "rtf": B * T * 0.01 / wall, "tokens_shape": list(out.shape),
+           "profiled_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
+           "device_busy_share": prof["busy_ms"] / prof["wall_ms"],
+           "top_aten_ops_device_ms": prof["top_ops"], "launches_per_encode": 12}
+    log(f"[nast] bf16 greedy CTC serving: {json.dumps(res)}")
+
+    # fp32: the fixture wavs on the card (kernels) and on the CPU (plain versions)
+    cfg32 = s2t_ctc_base(vocab_size=V, max_target_positions=1024)
+    card, host = (S2TCTCModel(cfg32, device=d, seed=0) for d in ("cuda", "cpu"))
+    batch = GeneratorHub(card, None)._speech_batch(WAVS)
+    parity = {}
+    for beam in (1, 5):
+        before = fused_attention.launches
+        tc, _, ec = CTCGenerator(card, CTCDecoder(beam_size=beam)).generate(batch)
+        torch.cuda.synchronize()
+        check_counts({"attention_fwd": fused_attention.launches - before}, {"attention_fwd": 12},
+                     f"the fp32 beam-{beam} encode")
+        th, _, eh = CTCGenerator(host, CTCDecoder(beam_size=beam)).generate(batch)
+        same = torch.equal(tc.cpu(), th)
+        ok, report = (True, {}) if same else ctc_near_tie(ec, eh, tc.cpu(), th, beam)
+        parity[beam] = {"identical": same, **report,
+                        "lengths": [int((row != 1).sum()) for row in th[:, 0]]}
+        log(f"[nast] fp32 fixture wavs, beam {beam}: card vs CPU top tokens "
+            f"{'identical' if same else 'differ'} {json.dumps(parity[beam])}")
+        if not ok:
+            raise AssertionError(f"CTC decoding differs card vs CPU beyond a near-tie: {report}")
+    res["fp32_parity"] = parity
+    return res, read_counts()
+
+
+PURECTC_MODEL = {"encoder_layers": 18, "encoder_embed_norm": True,  # the model section of
+                 "encoder_no_scale_embedding": True}               # egs/mustc/asr/conf/purectc.yaml
+CTC_CORPUS_MAX_TOKENS = 40000  # frames a batch, the recipes' basis.yaml
+
+
+def ctc_cfg(root: Path, dtype: str = "bfloat16"):
+    """arch s2t_ctc at full width with purectc.yaml's model section, criterion ctc,
+    on the feature splits of phase 11's corpus; validation decodes (eval_ctc_wer,
+    eval_wer), generation is beam 5 with ctc_infer."""
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    return from_dict(TrainConfig, {
+        "task": "speech_to_text", "arch": "s2t_ctc",
+        "criterion": "ctc", "criterion_cfg": {"ctc_weight": 1.0, "zero_infinity": True},
+        "model": {**PURECTC_MODEL, "dtype_str": dtype},
+        "dataset": {"data": str(root), "train_subset": "ftrain", "valid_subset": "fdev",
+                    "gen_subset": "fdev", "max_tokens": CTC_CORPUS_MAX_TOKENS,
+                    "max_source_positions": 6000},
+        "optimization": {"max_epoch": 2, "lr": 2e-3, "warmup_updates": 4, "clip_norm": 10.0},
+        # the best checkpoint by the validation CTC WER, a key the decoding puts in val
+        "checkpoint": {"save_dir": str(root / "ctc_ckpt"), "keep_last_epochs": 1,
+                       "best_checkpoint_metric": "ctc_wer"},
+        "common": {"seed": 1, "log_interval": 1},
+        "eval": {"eval_ctc_wer": True, "eval_wer": True, "eval_gen_beam": 1},
+        "generation": {"beam": 5, "max_len_b": 100, "scoring": "wer", "post_process": None,
+                       "ctc_infer": True, "results_path": str(root / "ctc_gen")},
+    })
+
+
+def phase_train_ctc(root: Path):
+    """cli.train trains s2t_ctc (purectc.yaml: 18 layers, embed norm, no scale) in bf16
+    for 2 epochs on phase 11's corpus as fbank features, validating with eval_ctc_wer
+    and eval_wer; cli.generate decodes the dev split (beam 5, ctc_infer) from
+    checkpoint_best.pt (by ctc_wer) and hub.from_pretrained transcribes the 4 of its
+    utterances with the longest hypotheses, both in fp32."""
+    from s2t_tpu_torch.cli import generate as cli_generate
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import to_dict
+    from s2t_tpu_torch.hub import from_pretrained
+    from s2t_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    write_feature_split(root, "train", "ftrain")
+    write_feature_split(root, "dev", "fdev")
+    split_s = time.perf_counter() - t0
+    cfg = ctc_cfg(root)
+    task = audio_task(cfg, use_audio=False)
+    reset_counts()  # the main path: cli.train, 2 epochs with decoding validations
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, task=task, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = out["trainer"].step
+    n_valid = len(task.get_batch_iterator(task.datasets["fdev"], max_tokens=CTC_CORPUS_MAX_TOKENS,
+                                          seed=1, shuffle=False))
+    valids = n_valid * len(out["history"])
+    layers = PURECTC_MODEL["encoder_layers"]
+    # a step: K1f and K1b per layer, K3 and K4 once; a validation batch: the loss's
+    # forward (K1f per layer, K3) and two more encodes (eval_ctc_wer, eval_wer's generator)
+    want = {"attention_fwd": layers * (steps + 3 * valids), "attention_bwd": layers * steps,
+            "ctc_alpha": steps + valids, "ctc_beta_grad": steps, "fbank": 0}
+    check_counts(counts, want, f"CTC cli.train ({steps} steps, {valids} validation batches)")
+    hist = out["history"]
+    for key in ("loss", "ctc_wer", "ctc_cer", "wer"):
+        if not all(np.isfinite(h[key]) for h in hist):
+            raise AssertionError(f"CTC validation {key} is missing or not finite: {hist}")
+    log(f"[train ctc] 2 epochs, {steps} steps in {wall:.2f} s: train losses "
+        f"{[round(r['loss'], 4) for r in out['train_log']]}; validation "
+        + "; ".join(f"epoch {h['epoch']}: loss {h['loss']:.4f} ctc_wer {h['ctc_wer']:.2f} "
+                    f"ctc_cer {h['ctc_cer']:.2f} wer {h['wer']:.2f}" for h in hist)
+        + f"; launches {json.dumps(counts)} (per step: K1f {layers}, K1b {layers}, K3 1, K4 1)")
+
+    # decode the dev split from checkpoint_best.pt in fp32, beam 5, with ctc_infer
+    cfg32 = ctc_cfg(root, dtype="float32")
+    best = Path(cfg.checkpoint.save_dir) / "checkpoint_best.pt"
+    tree, meta = load_checkpoint(best)
+    gen_task = audio_task(cfg32, use_audio=False)
+    reset_counts()  # the main path: cli.generate
+    gen = cli_generate.main(cfg32, tree["params"], task=gen_task, device="cuda")
+    torch.cuda.synchronize()
+    gen_counts = read_counts()
+    encodes = len(gen_task.get_batch_iterator(gen_task.datasets["fdev"],
+                                              max_tokens=CTC_CORPUS_MAX_TOKENS, shuffle=False))
+    check_counts(gen_counts, {**{k: 0 for k in gen_counts}, "attention_fwd": layers * encodes},
+                 "CTC cli.generate")
+    out_dir = Path(cfg32.generation.results_path)
+    text = (out_dir / "generate-fdev.txt").read_text().splitlines()
+    ctc_lines = (out_dir / "translation-fdev.txt.ctc").read_text().splitlines()
+    n_dev = CORPUS["dev"]
+    if sum(line.startswith("D-") for line in text) != n_dev or len(ctc_lines) != n_dev:
+        raise AssertionError(f"generate-fdev.txt / .ctc do not hold {n_dev} hypotheses")
+    d_lines = {int(line.split("\t")[0][2:]): line.split("\t", 2)[2]
+               for line in text if line.startswith("D-")}
+    # the 4 dev utterances with the longest hypotheses: a check of equal strings, not of
+    # four empty ones
+    ids = sorted(d_lines, key=lambda i: (-len(d_lines[i]), i))[:4]
+    if not d_lines[ids[0]]:
+        raise AssertionError(f"the trained CTC model decodes every dev utterance to nothing: "
+                             f"{text}")
+
+    # hub.from_pretrained on the same checkpoint, those utterances by their feature files
+    reset_counts()  # the main path: the hub
+    hub = from_pretrained(best, root, config=to_dict(cfg32), device="cuda")
+    rows = (root / "fdev.tsv").read_text().splitlines()[1:]
+    strings = hub.generate([str(root / rows[i].split("\t")[1]) for i in ids])
+    torch.cuda.synchronize()
+    hub_counts = read_counts()
+    check_counts(hub_counts, {**{k: 0 for k in hub_counts}, "attention_fwd": layers},
+                 "hub.from_pretrained")
+    want_strings = [d_lines[i] for i in ids]
+    log(f"[train ctc] cli.generate (beam 5, ctc_infer) from checkpoint_best.pt (step "
+        f"{meta['step']}): {text[-1]!r}; first .ctc lines {[x[:80] for x in ctc_lines[:2]]}; "
+        f"from_pretrained transcribes {[x[:80] for x in strings]} ({[len(x) for x in strings]} "
+        f"characters), cli.generate's D- lines {[len(x) for x in want_strings]} characters")
+    if strings != want_strings:
+        raise AssertionError("from_pretrained's strings differ from cli.generate's D- lines")
+    res = {"feature_split_s": split_s, "train_steps": steps, "wall_s": wall,
+           "train_losses": [r["loss"] for r in out["train_log"]], "history": hist,
+           "timing": out["timing"], "score": text[-1], "gen_time_s": gen["gen_time"],
+           "gen_utts_per_s": gen["utts_per_sec"], "gen_rtf": gen["rtf"],
+           "hub_strings": strings, "launches": {"train": counts, "generate": gen_counts,
+                                                 "hub": hub_counts}}
+    total = {k: counts[k] + gen_counts[k] + hub_counts[k] for k in counts}
+    return res, total
+
+
+def phase_wer_sanity():
+    """bench.py section C on the card: overfit 16 synthetic utterances with the
+    2-layer model (120 steps), decode with beam 2, score WER."""
+    from s2t_tpu_torch.tools.wer_sanity import STEPS, wer_sanity
+
+    reset_counts()  # the main path: 120 training steps and one decode
+    t0 = time.perf_counter()
+    res = wer_sanity(device="cuda")
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    # 2 encoder layers: K1f and K1b twice a step, K3 and K4 once; the decode encodes once
+    check_counts(counts, {"attention_fwd": 2 * STEPS + 2, "attention_bwd": 2 * STEPS,
+                          "ctc_alpha": STEPS, "ctc_beta_grad": STEPS, "fbank": 0},
+                 "wer_sanity")
+    log(f"[wer sanity] {json.dumps(res)}")
+    if res["wer_sanity"] != 0.0:
+        raise AssertionError(f"the overfit model does not decode its references: {res}")
+    return res, counts
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1326,8 +1653,8 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     sass = phase_build()
-    cases, main_shape = phase_kernel()
-    grad_cases, kept_share, grad_main = phase_attention_grad()
+    cases, main_shape, fwd_by_dim = phase_kernel()
+    grad_cases, kept_share, grad_main, bwd_by_dim = phase_attention_grad()
     ctc_cases = phase_ctc()
 
     reset_counts()
@@ -1348,13 +1675,18 @@ def main(argv=None) -> int:
         f"({json.dumps(TRAIN_LAUNCHES)} per step)")
 
     fbank_main = phase_fbank()
+    nast, nast_launches = phase_nast()
     with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_") as tmp:
         audio, audio_launches = phase_train_audio(Path(tmp))
         generate, gen_launches = phase_generate(Path(tmp))
+        train_ctc, ctc_launches = phase_train_ctc(Path(tmp))
+    sanity, sanity_launches = phase_wer_sanity()
     log(f"[main path] raw-audio training (2 runs): {json.dumps(audio_launches)}; generate: "
-        f"{json.dumps(gen_launches)}")
-    path_launches = {k: train_launches.get(k, 0) + audio_launches[k] + gen_launches[k]
-                     for k in counters()}
+        f"{json.dumps(gen_launches)}; NAST serving: {json.dumps(nast_launches)}; CTC training, "
+        f"generate and hub: {json.dumps(ctc_launches)}; wer_sanity: {json.dumps(sanity_launches)}")
+    path_launches = {k: train_launches.get(k, 0) + sum(run[k] for run in (
+        audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches))
+        for k in counters()}
     path_launches["attention_fwd"] += serve_launches
 
     ctc_main = ctc_cases[0]
@@ -1436,9 +1768,11 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps({
             "kernels": kernels, "sass": sass, "kernel_cases": cases, "serving_shape": main_shape,
             "grad_cases": grad_cases, "kept_share": kept_share, "training_shape": grad_main,
+            "serving_shape_by_head_dim": fwd_by_dim, "training_shape_by_head_dim": bwd_by_dim,
             "ctc_cases": ctc_cases, "speed": speed, "train_parity": parity,
             "train_speed": train_speed, "train_launches": train_launches, "fbank": fbank_main,
-            "train_audio": audio, "generate": generate, "path_launches": path_launches,
+            "train_audio": audio, "generate": generate, "nast": nast, "train_ctc": train_ctc,
+            "wer_sanity": sanity, "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

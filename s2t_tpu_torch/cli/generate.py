@@ -6,12 +6,14 @@ Usage:
         [--avg-best N --save-dir DIR] [--config conf.yaml] [--device cpu] \
         generation.beam=5 dataset.gen_subset=test
 
-Beam-decodes ``dataset.gen_subset`` with the task's ``SequenceGenerator``
-and writes ``generate-<subset>.txt`` (T-/H-/D- lines and the score line)
-and ``translation-<subset>.txt`` to ``generation.results_path`` (default
-``checkpoint.save_dir``).  Decoding runs on the card unless ``--device cpu``
-is given.  ``generation.ctc_infer`` (greedy CTC dumps) is not ported and
-raises.
+Decodes ``dataset.gen_subset`` with the task's generator (the beam of
+``SequenceGenerator``, or CTC greedy / prefix-beam decoding of
+``CTCGenerator`` for an encoder-only model) and writes ``generate-<subset>.txt``
+(T-/H-/D- lines and the score line) and ``translation-<subset>.txt`` to
+``generation.results_path`` (default ``checkpoint.save_dir``);
+``generation.ctc_infer`` adds ``translation-<subset>.txt.ctc``, the greedy CTC
+transcript of each utterance from the encoder output the generator returns.
+Decoding runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -59,13 +61,11 @@ def load_params(args, cfg) -> Dict[str, torch.Tensor]:
 
 def main(cfg, params, task=None, device="cuda") -> Dict[str, Any]:
     """Decode ``gen_subset`` with ``params`` (a state dict) and score it."""
+    from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
     from s2t_tpu_torch.tasks import setup_task
     from s2t_tpu_torch.utils.scoring import build_scorer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s")
-    if cfg.generation.ctc_infer:
-        raise NotImplementedError("generation.ctc_infer (greedy CTC dumps) is not ported to "
-                                  "s2t_tpu_torch")
     task = task or setup_task(cfg)
     subset = cfg.dataset.gen_subset
     ds = task.load_dataset(subset)
@@ -79,9 +79,12 @@ def main(cfg, params, task=None, device="cuda") -> Dict[str, Any]:
     n_utts, gen_time, total_frames = 0, 0.0, 0
     for batch in itr:
         t0 = time.time()
-        tokens, scores, _ = generator.generate(batch)
+        tokens, scores, enc = generator.generate(batch)
         tokens, scores = tokens.cpu().numpy(), scores.float().cpu().numpy()
         gen_time += time.time() - t0
+        ctc_hyps = None
+        if cfg.generation.ctc_infer and enc.get("ctc_logits") is not None:
+            ctc_hyps = ctc_greedy_decode(enc["ctc_logits"], enc["encoder_lengths"])[0].cpu().numpy()
         B_real = batch["nsentences"]
         n_utts += B_real
         total_frames += int(np.asarray(batch["feat_lengths"])[:B_real].sum())
@@ -94,6 +97,9 @@ def main(cfg, params, task=None, device="cuda") -> Dict[str, Any]:
                 tgt = np.asarray(batch["target"])[b]
                 entry["ref_tokens"] = task.tgt_dict.string(tgt)
                 entry["ref"] = task.decode_tokens(tgt)
+            if ctc_hyps is not None:
+                entry["ctc"] = getattr(task, "src_dict", task.tgt_dict).string(
+                    ctc_hyps[b], bpe_symbol=cfg.generation.post_process)
             results[sid] = entry
 
     scorer = build_scorer(cfg.generation.scoring)
@@ -116,6 +122,10 @@ def main(cfg, params, task=None, device="cuda") -> Dict[str, Any]:
             ft.write(r["hyp"] + "\n")
         if score_str:
             f.write(f"Generate {subset} with beam={cfg.generation.beam}: {score_str}\n")
+    if any("ctc" in r for r in results.values()):
+        with open(out_dir / f"translation-{subset}.txt.ctc", "w") as f:
+            for sid in sorted(results):
+                f.write(results[sid].get("ctc", "") + "\n")
 
     # RTF: audio seconds over wall seconds (features are 10 ms frames)
     rtf = total_frames * 0.01 / gen_time if gen_time > 0 else 0.0

@@ -12,10 +12,12 @@ and checks patience; ``checkpoint.save_interval_updates`` adds mid-epoch
 saves.  A run resumes from ``checkpoint.restore_file`` in ``save_dir`` with
 the optimizer and the epoch iterator's state unless they are reset.
 
+Validation can decode as the JAX CLI does: ``eval.eval_ctc_wer`` scores the
+greedy CTC transcript of every utterance (``ctc_wer``, ``ctc_cer``), and
+``eval.eval_wer`` / ``eval_bleu`` score the task's generator (``wer`` or
+``bleu``); ``checkpoint.best_checkpoint_metric`` may name any of them.
 Settings the port does not have raise ``NotImplementedError`` before
-anything is built (``config.check_train_supported``), among them the
-validation-time decoding of ``eval.eval_wer`` / ``eval_bleu`` /
-``eval_ctc_wer``.
+anything is built (``config.check_train_supported``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ import math
 import time
 from pathlib import Path
 from typing import Any, Dict
+
+import numpy as np
+import torch
 
 logger = logging.getLogger("s2t_tpu_torch.train")
 
@@ -58,12 +63,49 @@ def step_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in batch.items() if k not in _HOST_KEYS}
 
 
-def validate(cfg, task, trainer, valid_ds) -> Dict[str, float]:
-    """Sample-size-weighted mean of every scalar log over the valid split."""
+def _accumulate_ctc_wer(task, model, batch, counts) -> None:
+    """Word and character errors of the greedy CTC transcript of ``batch``
+    against its transcript (source dictionary) or, without one, its target
+    (s2t_tpu/cli/train.py:57-103)."""
+    from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
+    from s2t_tpu_torch.utils.scoring import edit_distance
+
+    dev = model.device
+    with torch.no_grad():
+        enc = model.encode(torch.as_tensor(batch["features"], dtype=torch.float32).to(dev),
+                           torch.as_tensor(batch["feat_lengths"]).to(dev, torch.long))
+    if enc.get("ctc_logits") is None:
+        return
+    toks = ctc_greedy_decode(enc["ctc_logits"], enc["encoder_lengths"])[0].cpu().numpy()
+    if "transcript" in batch:
+        key, dic = "transcript", getattr(task, "src_dict", task.tgt_dict)
+    else:
+        key, dic = "target", task.tgt_dict
+    refs = np.asarray(batch[key])
+    for b in range(batch["nsentences"]):
+        hyp = dic.string(toks[b]).split()
+        ref = dic.string(refs[b]).split()
+        counts["w_err"] += edit_distance(hyp, ref)
+        counts["w_len"] += len(ref)
+        counts["c_err"] += edit_distance(list(" ".join(hyp)), list(" ".join(ref)))
+        counts["c_len"] += len(" ".join(ref))
+
+
+def validate(cfg, task, trainer, valid_ds, generator=None) -> Dict[str, float]:
+    """Sample-size-weighted mean of every scalar log over the valid split, and
+    with ``eval.eval_ctc_wer`` the greedy CTC ``ctc_wer`` / ``ctc_cer``, with
+    ``eval_wer`` or ``eval_bleu`` the ``generator``'s ``wer`` or ``bleu``
+    (s2t_tpu/cli/train.py:106-168)."""
+    from s2t_tpu_torch.utils.scoring import build_scorer
+
     itr = task.get_batch_iterator(valid_ds, max_tokens=cfg.dataset.max_tokens,
                                   seed=cfg.common.seed, shuffle=False).next_epoch_itr()
     tot: Dict[str, float] = {}
     n = 0.0
+    scorer = None
+    if generator is not None and (cfg.eval.eval_wer or cfg.eval.eval_bleu):
+        scorer = build_scorer("wer" if cfg.eval.eval_wer else "sacrebleu")
+    wer_counts = {"w_err": 0, "w_len": 0, "c_err": 0, "c_len": 0}
     for batch in itr:
         logs = trainer.valid_step(step_batch(batch))
         tot["loss"] = tot.get("loss", 0.0) + float(logs["loss"])
@@ -72,9 +114,21 @@ def validate(cfg, task, trainer, valid_ds) -> Dict[str, float]:
             if k not in ("loss", "nll_loss", "sample_size"):
                 tot[k] = tot.get(k, 0.0) + float(v)
         n += float(logs["sample_size"])
+        if cfg.eval.eval_ctc_wer:
+            _accumulate_ctc_wer(task, trainer.model, batch, wer_counts)
+        if scorer is not None:
+            hyp_toks = generator.generate(batch)[0][:, 0].cpu().numpy()
+            for b in range(batch["nsentences"]):
+                scorer.add(task.decode_tokens(np.asarray(batch["target"])[b]),
+                           task.decode_tokens(hyp_toks[b]))
     out = {k: (v if k in _COUNTERS else v / max(n, 1.0)) for k, v in tot.items()}
     if "n_correct" in out and out.get("total", 0) > 0:
         out["accuracy"] = out["n_correct"] / out["total"]
+    if scorer is not None:
+        out["wer" if cfg.eval.eval_wer else "bleu"] = scorer.score()
+    if wer_counts["w_len"] > 0:
+        out["ctc_wer"] = 100.0 * wer_counts["w_err"] / wer_counts["w_len"]
+        out["ctc_cer"] = 100.0 * wer_counts["c_err"] / max(wer_counts["c_len"], 1)
     return out
 
 
@@ -91,6 +145,11 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s")
     check_train_supported(cfg)
     task = task or setup_task(cfg)
+    if cfg.eval.eval_ctc_wer and getattr(getattr(task, "data_cfg", None), "use_audio_input",
+                                         False):
+        raise NotImplementedError(
+            "eval.eval_ctc_wer on a use_audio_input data config: the JAX CLI feeds the "
+            "waveforms to the encoder without an fbank (ROADMAP.md section 3)")
     train_ds = task.load_dataset(cfg.dataset.train_subset, is_train=True)
     valid_ds = task.load_dataset(cfg.dataset.valid_subset)
     model = task.build_model(device=device, for_training=True)
@@ -115,6 +174,13 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
         logger.info("resumed from %s at step %d", last, trainer.step)
     logger.info("arch %s | %s parameters | device %s", cfg.arch,
                 f"{sum(p.numel() for p in model.parameters()):,}", trainer.device)
+
+    generator = None
+    if cfg.eval.eval_wer or cfg.eval.eval_bleu:
+        generator = task.build_generator(model)
+        # as the JAX CLI does, on whatever build_generator returned: a CTCGenerator never
+        # reads beam_size, so a CTC model validates with generation.beam (ROADMAP.md section 3)
+        generator.beam_size = cfg.eval.eval_gen_beam
 
     progress = ProgressLogger(cfg.common.log_format, cfg.common.tensorboard_logdir,
                               cfg.common.wandb_project, cfg.common.azureml_logging)
@@ -162,7 +228,7 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
                 break
 
         t0 = time.perf_counter()
-        val = validate(cfg, task, trainer, valid_ds)
+        val = validate(cfg, task, trainer, valid_ds, generator)
         timing["valid_s"] += time.perf_counter() - t0
         val_metric = val.get(ck.best_checkpoint_metric, val.get("loss"))
         progress.log(val, trainer.step, "valid", epoch_itr.epoch)

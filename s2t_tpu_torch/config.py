@@ -404,5 +404,3 @@ def check_train_supported(cfg: TrainConfig) -> None:
     for name in ("finetune_from_model", "load_pretrained_encoder_from",
                  "load_pretrained_decoder_from"):
         _raise_if_set("checkpoint", name, cfg.checkpoint, " (flax msgpack checkpoints)")
-    for name in ("eval_wer", "eval_bleu", "eval_ctc_wer"):
-        _raise_if_set("eval", name, cfg.eval, " (validation-time decoding)")

@@ -64,13 +64,22 @@
 //   3. dq_kernel: one CTA per (64-query tile, head, batch row) holds its Q and dO tiles
 //      and walks the key tiles below the row's length, recomputing S and dP (thread owns
 //      queries 4ty..4ty+3, keys tx + 8c), and accumulates dQ = dS K in registers.
-// Q, dO, K and V rows that are read per query/key are staged with a row stride of D + 1
+// Q, dO, K and V rows that are read per query/key are staged with a row stride of DP + 1
 // floats, so the 8 lanes that read 8 rows at one column hit 8 banks.  Explicit (batch,
 // time, head) strides cover both the native (B, T, H, D) layout (K2b) and a head-major
 // buffer (K1b) with no transposes.  A 0-length row attends uniformly to all T keys in the
 // forward (every key carries the same -1e9 bias, which the f32 sum rounds away); autograd
 // through the dense version then passes dS = P o (dP - Delta) with P = 1/T into dQ and dK,
 // and so do both paths (P = 1/T for such rows instead of exp(S - lse)).
+//
+// Head dims: as in attention_fwd.cu, every D from 1 to 128 runs the instantiation of the
+// padded DP = 32, 48, ..., 128 (s2t_padded_head_dim) with the real D at run time: the tiles'
+// columns past D are zero-filled, so they add nothing to S, dP or Delta and their dQ, dK and
+// dV columns (which come out 0) are not stored; bf16 tiles copy 16, 4 or 2 bytes at a time
+// as the rows allow (s2t_copy_width; the WIDE instantiations, run when every q/k/v/dO
+// slice takes 16-byte copies of whole rows and D = DP, compile only those copies, the
+// code the D = 32, 64 and 128 kernels ran before the other head dims), and delta_bf16_kernel reads a row's tail, or a row that is not 16-byte aligned,
+// element by element.  MIN_CTAS of the D = 32, 64 and 128 instantiations is unchanged.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -104,7 +113,7 @@ struct Args {
   void *dq, *dk, *dv;
   const int* lengths;
   const long long* seed;
-  int B, T_len, H, rate_u8;
+  int B, T_len, H, D, rate_u8;  // D: the real head dim, <= the instantiation's padded DP
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   float scale, keep_scale;
 };
@@ -132,10 +141,10 @@ __device__ __forceinline__ Entry entry(float qk, float dpd, int query, int key, 
   return Entry{p * z, p * (dpd * z - delta)};
 }
 
-template <typename T, int D>
+template <typename T>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                             float* __restrict__ delta, int B, int T_len, int H, Strides so,
-                             Strides sdo) {
+                             float* __restrict__ delta, int B, int T_len, int H, int D,
+                             Strides so, Strides sdo) {
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= (long long)B * T_len * H) return;
@@ -151,24 +160,27 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout
   if (lane == 0) delta[((long long)b * H + h) * T_len + t] = acc;
 }
 
-template <int D>
+template <int DP>
 constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) * (size_t)(2 * D * PAD + 2 * BM * (D + 1) + 2 * BM * PAD + 2 * BM);
+  return sizeof(float) * (size_t)(2 * DP * PAD + 2 * BM * (DP + 1) + 2 * BM * PAD + 2 * BM);
 }
 
-template <typename T, int D>
+// DP: the padded head dim of the tiles (mma_bf16.cuh); a.D <= DP the real one, whose
+// columns alone are read (the others are zero) and written
+template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [D][PAD]      key tile, transposed
-  float* Vs = Ks + D * PAD;                     // [D][PAD]      value tile, transposed
-  float* Qr = Vs + D * PAD;                     // [BM][D + 1]   query tile
-  float* Or = Qr + BM * (D + 1);                // [BM][D + 1]   dO tile
-  float* Ps = Or + BM * (D + 1);                // [BM][PAD]     P o Z, keys contiguous
+  float* Ks = reinterpret_cast<float*>(smem4);  // [DP][PAD]     key tile, transposed
+  float* Vs = Ks + DP * PAD;                    // [DP][PAD]     value tile, transposed
+  float* Qr = Vs + DP * PAD;                    // [BM][DP + 1]  query tile
+  float* Or = Qr + BM * (DP + 1);               // [BM][DP + 1]  dO tile
+  float* Ps = Or + BM * (DP + 1);               // [BM][PAD]     P o Z, keys contiguous
   float* Ss = Ps + BM * PAD;                    // [BM][PAD]     dS, keys contiguous
   float* lse_s = Ss + BM * PAD;                 // [BM]
   float* dl_s = lse_s + BM;                     // [BM]
 
-  constexpr int DC = D / 8;
+  constexpr int DC = DP / 8;
+  const int D = a.D;
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
@@ -200,10 +212,10 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
   const uint32_t stream =
       a.rate_u8 > 0 ? s2t_dropout_stream((unsigned long long)a.seed[0], b * a.H + h) : 0u;
 
-  for (int idx = tid; idx < BN * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
+  for (int idx = tid; idx < BN * DP; idx += THREADS) {
+    const int r = idx / DP, d = idx % DP;
     const int t = n0 + r;
-    const bool in = t < T_len;
+    const bool in = t < T_len && d < D;
     Ks[d * PAD + r] = in ? to_f32(kb[(long long)t * a.sk.t + d]) : 0.f;
     Vs[d * PAD + r] = in ? to_f32(vb[(long long)t * a.sv.t + d]) : 0.f;
   }
@@ -216,12 +228,12 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
 
   for (int m0 = 0; m0 < T_len; m0 += BM) {
     __syncthreads();  // the previous query tile's reads are done (and Ks / Vs written)
-    for (int idx = tid; idx < BM * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
+    for (int idx = tid; idx < BM * DP; idx += THREADS) {
+      const int r = idx / DP, d = idx % DP;
       const int t = m0 + r;
-      const bool in = t < T_len;
-      Qr[r * (D + 1) + d] = in ? to_f32(qb[(long long)t * a.sq.t + d]) : 0.f;
-      Or[r * (D + 1) + d] = in ? to_f32(ob[(long long)t * a.sdo.t + d]) : 0.f;
+      const bool in = t < T_len && d < D;
+      Qr[r * (DP + 1) + d] = in ? to_f32(qb[(long long)t * a.sq.t + d]) : 0.f;
+      Or[r * (DP + 1) + d] = in ? to_f32(ob[(long long)t * a.sdo.t + d]) : 0.f;
     }
     for (int r = tid; r < BM; r += THREADS) {
       const int t = m0 + r;
@@ -236,13 +248,13 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[i][c] = dp[i][c] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       const float4 kf = *reinterpret_cast<const float4*>(&Ks[d * PAD + 4 * ty]);
       const float4 vf = *reinterpret_cast<const float4*>(&Vs[d * PAD + 4 * ty]);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        const float qv = Qr[(tx + 8 * c) * (D + 1) + d];
-        const float ov = Or[(tx + 8 * c) * (D + 1) + d];
+        const float qv = Qr[(tx + 8 * c) * (DP + 1) + d];
+        const float ov = Or[(tx + 8 * c) * (DP + 1) + d];
         s[0][c] = fmaf(kf.x, qv, s[0][c]);
         s[1][c] = fmaf(kf.y, qv, s[1][c]);
         s[2][c] = fmaf(kf.z, qv, s[2][c]);
@@ -281,8 +293,8 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
       const float4 sv = *reinterpret_cast<const float4*>(&Ss[r * PAD + 4 * ty]);
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
-        const float ov = Or[r * (D + 1) + tx + 8 * j];
-        const float qv = Qr[r * (D + 1) + tx + 8 * j];
+        const float ov = Or[r * (DP + 1) + tx + 8 * j];
+        const float qv = Qr[r * (DP + 1) + tx + 8 * j];
         dv[0][j] = fmaf(pv.x, ov, dv[0][j]);
         dv[1][j] = fmaf(pv.y, ov, dv[1][j]);
         dv[2][j] = fmaf(pv.z, ov, dv[2][j]);
@@ -301,6 +313,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
     if (t < T_len) {
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
+        if (tx + 8 * j >= D) continue;
         dkb[(long long)t * a.sdk.t + tx + 8 * j] = from_f32<T>(dk[i][j] * a.scale);
         dvb[(long long)t * a.sdv.t + tx + 8 * j] = from_f32<T>(dv[i][j]);
       }
@@ -308,21 +321,22 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Args a) {
   }
 }
 
-template <int D>
+template <int DP>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(2 * D * PAD + 2 * BN * (D + 1) + BN * PAD);
+  return sizeof(float) * (size_t)(2 * DP * PAD + 2 * BN * (DP + 1) + BN * PAD);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [D][PAD]      query tile, transposed
-  float* Os = Qs + D * PAD;                     // [D][PAD]      dO tile, transposed
-  float* Kr = Os + D * PAD;                     // [BN][D + 1]   key tile
-  float* Vr = Kr + BN * (D + 1);                // [BN][D + 1]   value tile
-  float* Ss = Vr + BN * (D + 1);                // [BN][PAD]     dS, queries contiguous
+  float* Qs = reinterpret_cast<float*>(smem4);  // [DP][PAD]     query tile, transposed
+  float* Os = Qs + DP * PAD;                    // [DP][PAD]     dO tile, transposed
+  float* Kr = Os + DP * PAD;                    // [BN][DP + 1]  key tile
+  float* Vr = Kr + BN * (DP + 1);               // [BN][DP + 1]  value tile
+  float* Ss = Vr + BN * (DP + 1);               // [BN][PAD]     dS, queries contiguous
 
-  constexpr int DC = D / 8;
+  constexpr int DC = DP / 8;
+  const int D = a.D;
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
@@ -343,10 +357,10 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
   const uint32_t stream =
       a.rate_u8 > 0 ? s2t_dropout_stream((unsigned long long)a.seed[0], b * a.H + h) : 0u;
 
-  for (int idx = tid; idx < BM * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
+  for (int idx = tid; idx < BM * DP; idx += THREADS) {
+    const int r = idx / DP, d = idx % DP;
     const int t = m0 + r;
-    const bool in = t < T_len;
+    const bool in = t < T_len && d < D;
     Qs[d * PAD + r] = in ? to_f32(qb[(long long)t * a.sq.t + d]) : 0.f;
     Os[d * PAD + r] = in ? to_f32(ob[(long long)t * a.sdo.t + d]) : 0.f;
   }
@@ -366,12 +380,12 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
 
   for (int n0 = 0; n0 < kv_end; n0 += BN) {
     __syncthreads();  // the previous key tile's reads are done (and Qs / Os written)
-    for (int idx = tid; idx < BN * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
+    for (int idx = tid; idx < BN * DP; idx += THREADS) {
+      const int r = idx / DP, d = idx % DP;
       const int t = n0 + r;
-      const bool in = t < T_len;
-      Kr[r * (D + 1) + d] = in ? to_f32(kb[(long long)t * a.sk.t + d]) : 0.f;
-      Vr[r * (D + 1) + d] = in ? to_f32(vb[(long long)t * a.sv.t + d]) : 0.f;
+      const bool in = t < T_len && d < D;
+      Kr[r * (DP + 1) + d] = in ? to_f32(kb[(long long)t * a.sk.t + d]) : 0.f;
+      Vr[r * (DP + 1) + d] = in ? to_f32(vb[(long long)t * a.sv.t + d]) : 0.f;
     }
     __syncthreads();
 
@@ -381,13 +395,13 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[i][c] = dp[i][c] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       const float4 qf = *reinterpret_cast<const float4*>(&Qs[d * PAD + 4 * ty]);
       const float4 of = *reinterpret_cast<const float4*>(&Os[d * PAD + 4 * ty]);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        const float kv = Kr[(tx + 8 * c) * (D + 1) + d];
-        const float vv = Vr[(tx + 8 * c) * (D + 1) + d];
+        const float kv = Kr[(tx + 8 * c) * (DP + 1) + d];
+        const float vv = Vr[(tx + 8 * c) * (DP + 1) + d];
         s[0][c] = fmaf(qf.x, kv, s[0][c]);
         s[1][c] = fmaf(qf.y, kv, s[1][c]);
         s[2][c] = fmaf(qf.z, kv, s[2][c]);
@@ -421,7 +435,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
       const float4 sv = *reinterpret_cast<const float4*>(&Ss[r * PAD + 4 * ty]);
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
-        const float kv = Kr[r * (D + 1) + tx + 8 * j];
+        const float kv = Kr[r * (DP + 1) + tx + 8 * j];
         dq[0][j] = fmaf(sv.x, kv, dq[0][j]);
         dq[1][j] = fmaf(sv.y, kv, dq[1][j]);
         dq[2][j] = fmaf(sv.z, kv, dq[2][j]);
@@ -436,7 +450,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
     if (t < T_len) {
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
-        dqb[(long long)t * a.sdq.t + tx + 8 * j] = from_f32<T>(dq[i][j] * a.scale);
+        if (tx + 8 * j < D)
+          dqb[(long long)t * a.sdq.t + tx + 8 * j] = from_f32<T>(dq[i][j] * a.scale);
       }
     }
   }
@@ -448,24 +463,27 @@ constexpr int MMA_WARPS = 4;  // one warp per 16 rows of a 64-row tile
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 static_assert(BM == 16 * MMA_WARPS && BN == 16 * MMA_WARPS, "64-row tiles of 4 warps");
 
-template <int D>
+template <int DP>
 struct MmaTiles {
-  static constexpr int LD = s2t_tile_ld<D>();
-  static constexpr int BQ = 32;                 // query tile of dkdv_mma_kernel
-  static constexpr int BK = D <= 64 ? 64 : 32;  // key tile of dq_mma_kernel
-  // CTAs per SM the register budget aims at: 3 at D <= 64 (at most 168 registers a
+  static constexpr int LD = s2t_tile_ld<DP>();
+  static constexpr int BQ = 32;                  // query tile of dkdv_mma_kernel
+  static constexpr int BK = DP <= 64 ? 64 : 32;  // key tile of dq_mma_kernel
+  // CTAs per SM the register budget aims at: 3 at DP <= 64 (at most 168 registers a
   // thread), measured 14 % faster than the 2 that 172-255 registers allow
-  static constexpr int MIN_CTAS = D <= 64 ? 3 : 1;
+  static constexpr int MIN_CTAS = DP <= 64 ? 3 : 1;
+  // lanes of delta_bf16_kernel per (b, t, h) row, 8 columns each: a power of two so a row's
+  // lanes reduce by xor shuffles inside one warp
+  static constexpr int DELTA_LANES = DP <= 32 ? 4 : (DP <= 64 ? 8 : 16);
   static constexpr size_t dkdv_smem =
       sizeof(bf16) * (size_t)(2 * BN + 4 * BQ) * LD + sizeof(float) * 4 * BQ;
   static constexpr size_t dq_smem = sizeof(bf16) * (size_t)(2 * BM + 4 * BK) * LD;
 };
 
-template <int D>
+template <int DP>
 __global__ void delta_bf16_kernel(const float* __restrict__ o, const bf16* __restrict__ dout,
-                                  float* __restrict__ delta, int B, int T_len, int H, Strides so,
-                                  Strides sdo) {
-  constexpr int LANES = D / 8;  // 8 elements a lane; the lanes of a row share a warp
+                                  float* __restrict__ delta, int B, int T_len, int H, int D,
+                                  Strides so, Strides sdo) {
+  constexpr int LANES = MmaTiles<DP>::DELTA_LANES;  // 8 columns a lane; a row's lanes share a warp
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = i / LANES;
   const int part = (int)(i % LANES);
@@ -474,19 +492,26 @@ __global__ void delta_bf16_kernel(const float* __restrict__ o, const bf16* __res
   const int t = (int)((row / H) % T_len);
   const int b = (int)(row / ((long long)H * T_len));
   float acc = 0.f;
-  if (in) {
-    const float4* op = reinterpret_cast<const float4*>(o + b * so.b + (long long)t * so.t +
-                                                       h * so.h + 8 * part);
-    const float4 o0 = op[0], o1 = op[1];
-    const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * sdo.b + (long long)t * sdo.t +
-                                                     h * sdo.h + 8 * part);
-    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
-    const float x[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+  const int c0 = 8 * part;
+  if (in && c0 < D) {
+    const float* orow = o + b * so.b + (long long)t * so.t + h * so.h + c0;
+    const bf16* drow = dout + b * sdo.b + (long long)t * sdo.t + h * sdo.h + c0;
+    if (c0 + 8 <= D && reinterpret_cast<unsigned long long>(orow) % 16 == 0 &&
+        reinterpret_cast<unsigned long long>(drow) % 16 == 0) {  // 16-byte loads
+      const float4* op = reinterpret_cast<const float4*>(orow);
+      const float4 o0 = op[0], o1 = op[1];
+      const uint4 dv = *reinterpret_cast<const uint4*>(drow);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const float x[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 y = __bfloat1622float2(dp[j]);
-      acc = fmaf(x[2 * j], y.x, acc);
-      acc = fmaf(x[2 * j + 1], y.y, acc);
+      for (int j = 0; j < 4; ++j) {
+        const float2 y = __bfloat1622float2(dp[j]);
+        acc = fmaf(x[2 * j], y.x, acc);
+        acc = fmaf(x[2 * j + 1], y.y, acc);
+      }
+    } else {  // the row's tail, or a row that is not 16-byte aligned
+      for (int j = 0; j < 8 && c0 + j < D; ++j)
+        acc = fmaf(orow[j], __bfloat162float(drow[j]), acc);
     }
   }
 #pragma unroll
@@ -494,12 +519,14 @@ __global__ void delta_bf16_kernel(const float* __restrict__ o, const bf16* __res
   if (in && part == 0) delta[((long long)b * H + h) * T_len + t] = acc;
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dkdv_mma_kernel(Args a) {
-  using Cfg = MmaTiles<D>;
+// WIDE: every q/k/v/dO slice takes 16-byte copies of whole rows, D = DP (s2t_wide_rows)
+template <int DP, bool WIDE>
+__global__ void __launch_bounds__(MMA_THREADS, MmaTiles<DP>::MIN_CTAS) dkdv_mma_kernel(Args a) {
+  using Cfg = MmaTiles<DP>;
   constexpr int LD = Cfg::LD;
   constexpr int BQ = Cfg::BQ;
-  constexpr int KD = D / 16;
+  constexpr int KD = DP / 16;
+  const int D = WIDE ? DP : a.D;  // a constant in the WIDE kernels
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);                  // [BN][LD]
   bf16* Vs = Ks + BN * LD;                                    // [BN][LD]
@@ -542,8 +569,8 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dkdv_mma_k
   // Q, dO, lse and Delta of queries [m0, m0 + BQ) into buffer buf (lse / Delta rows are 4
   // bytes apart with no 16-byte alignment, so they come 4 bytes a thread)
   auto load_queries = [&](int buf, int m0) {
-    s2t_load_tile<BQ, D, MMA_THREADS>(Qs + buf * BQ * LD, qb, a.sq.t, m0, T_len, tid);
-    s2t_load_tile<BQ, D, MMA_THREADS>(Os + buf * BQ * LD, ob, a.sdo.t, m0, T_len, tid);
+    s2t_load_tile<BQ, DP, MMA_THREADS, WIDE>(Qs + buf * BQ * LD, qb, a.sq.t, m0, T_len, D, tid);
+    s2t_load_tile<BQ, DP, MMA_THREADS, WIDE>(Os + buf * BQ * LD, ob, a.sdo.t, m0, T_len, D, tid);
     if (tid < 2 * BQ) {
       const int r = tid % BQ, t = m0 + r;
       const bool in = t < T_len;
@@ -551,14 +578,14 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dkdv_mma_k
       s2t_cp_async_4(s2t_smem_addr((tid < BQ ? lse_s : dl_s) + buf * BQ + r), src, in);
     }
   };
-  s2t_load_tile<BN, D, MMA_THREADS>(Ks, kb, a.sk.t, n0, T_len, tid);
-  s2t_load_tile<BN, D, MMA_THREADS>(Vs, vb, a.sv.t, n0, T_len, tid);
+  s2t_load_tile<BN, DP, MMA_THREADS, WIDE>(Ks, kb, a.sk.t, n0, T_len, D, tid);
+  s2t_load_tile<BN, DP, MMA_THREADS, WIDE>(Vs, vb, a.sv.t, n0, T_len, D, tid);
   load_queries(0, 0);
   s2t_cp_async_commit();
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DP / 8][4], dv[DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
@@ -621,7 +648,7 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dkdv_mma_k
       s2t_acc_to_a(pa, st[2 * kq], st[2 * kq + 1]);
       s2t_acc_to_a(sa, dpt[2 * kq], dpt[2 * kq + 1]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DP / 16; ++dp) {
         uint32_t bo[4], bq[4];
         s2t_ldmatrix_x4_trans(bo, s2t_smem_addr(s2t_bt_frag_row(Ot, LD, 16 * kq, 16 * dp, lane)));
         s2t_mma_bf16(dv[2 * dp], pa, bo[0], bo[1]);
@@ -639,22 +666,23 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dkdv_mma_k
     const int t = n0 + 16 * warp + g + 8 * r;
     if (t < T_len) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(dkb + (long long)t * a.sdk.t + 8 * j + c2) =
-            s2t_pack_bf16(dk[j][2 * r] * a.scale, dk[j][2 * r + 1] * a.scale);
-        *reinterpret_cast<uint32_t*>(dvb + (long long)t * a.sdv.t + 8 * j + c2) =
-            s2t_pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
+      for (int j = 0; j < DP / 8; ++j) {
+        s2t_store_pair<WIDE>(dkb + (long long)t * a.sdk.t + 8 * j + c2, 8 * j + c2, D,
+                             dk[j][2 * r] * a.scale, dk[j][2 * r + 1] * a.scale);
+        s2t_store_pair<WIDE>(dvb + (long long)t * a.sdv.t + 8 * j + c2, 8 * j + c2, D,
+                             dv[j][2 * r], dv[j][2 * r + 1]);
       }
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dq_mma_kernel(Args a) {
-  using Cfg = MmaTiles<D>;
+template <int DP, bool WIDE>
+__global__ void __launch_bounds__(MMA_THREADS, MmaTiles<DP>::MIN_CTAS) dq_mma_kernel(Args a) {
+  using Cfg = MmaTiles<DP>;
   constexpr int LD = Cfg::LD;
   constexpr int BK = Cfg::BK;
-  constexpr int KD = D / 16;
+  constexpr int KD = DP / 16;
+  const int D = WIDE ? DP : a.D;  // a constant in the WIDE kernels
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [BM][LD]
   bf16* Os = Qs + BM * LD;                    // [BM][LD]      dO
@@ -682,10 +710,10 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dq_mma_ker
   const uint32_t stream =
       a.rate_u8 > 0 ? s2t_dropout_stream((unsigned long long)a.seed[0], b * a.H + h) : 0u;
 
-  s2t_load_tile<BM, D, MMA_THREADS>(Qs, qb, a.sq.t, m0, T_len, tid);
-  s2t_load_tile<BM, D, MMA_THREADS>(Os, ob, a.sdo.t, m0, T_len, tid);
-  s2t_load_tile<BK, D, MMA_THREADS>(Ks, kb, a.sk.t, 0, T_len, tid);
-  s2t_load_tile<BK, D, MMA_THREADS>(Vs, vb, a.sv.t, 0, T_len, tid);
+  s2t_load_tile<BM, DP, MMA_THREADS, WIDE>(Qs, qb, a.sq.t, m0, T_len, D, tid);
+  s2t_load_tile<BM, DP, MMA_THREADS, WIDE>(Os, ob, a.sdo.t, m0, T_len, D, tid);
+  s2t_load_tile<BK, DP, MMA_THREADS, WIDE>(Ks, kb, a.sk.t, 0, T_len, D, tid);
+  s2t_load_tile<BK, DP, MMA_THREADS, WIDE>(Vs, vb, a.sv.t, 0, T_len, D, tid);
   s2t_cp_async_commit();
 
   float lse_r[2], dl_r[2];  // rows g and g + 8 of this warp (unused past T: P = 0 there)
@@ -696,9 +724,9 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dq_mma_ker
     dl_r[r] = t < T_len ? dl_b[t] : 0.f;
   }
   uint32_t qf[KD][4], of[KD][4];
-  float dq[D / 8][4];
+  float dq[DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
 
@@ -706,8 +734,10 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dq_mma_ker
     const int n0 = it * BK;
     if (it + 1 < n_k) {  // the next key tile's copy runs during this tile's math
       const int nb = (it + 1) & 1;
-      s2t_load_tile<BK, D, MMA_THREADS>(Ks + nb * BK * LD, kb, a.sk.t, n0 + BK, T_len, tid);
-      s2t_load_tile<BK, D, MMA_THREADS>(Vs + nb * BK * LD, vb, a.sv.t, n0 + BK, T_len, tid);
+      s2t_load_tile<BK, DP, MMA_THREADS, WIDE>(Ks + nb * BK * LD, kb, a.sk.t, n0 + BK, T_len, D,
+                                               tid);
+      s2t_load_tile<BK, DP, MMA_THREADS, WIDE>(Vs + nb * BK * LD, vb, a.sv.t, n0 + BK, T_len, D,
+                                               tid);
       s2t_cp_async_commit();
       s2t_cp_async_wait<1>();
     } else {
@@ -760,7 +790,7 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dq_mma_ker
       uint32_t sa[4];
       s2t_acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DP / 16; ++dd) {
         uint32_t bk[4];
         s2t_ldmatrix_x4_trans(bk, s2t_smem_addr(s2t_bt_frag_row(Kt, LD, 16 * kk, 16 * dd, lane)));
         s2t_mma_bf16(dq[2 * dd], sa, bk[0], bk[1]);
@@ -775,81 +805,100 @@ __global__ void __launch_bounds__(MMA_THREADS, MmaTiles<D>::MIN_CTAS) dq_mma_ker
     const int t = m0 + 16 * warp + g + 8 * r;
     if (t < T_len) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(dqb + (long long)t * a.sdq.t + 8 * j + c2) =
-            s2t_pack_bf16(dq[j][2 * r] * a.scale, dq[j][2 * r + 1] * a.scale);
+      for (int j = 0; j < DP / 8; ++j) {
+        s2t_store_pair<WIDE>(dqb + (long long)t * a.sdq.t + 8 * j + c2, 8 * j + c2, D,
+                             dq[j][2 * r] * a.scale, dq[j][2 * r + 1] * a.scale);
       }
     }
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  using Cfg = MmaTiles<D>;
-  const long long threads = (long long)a.B * a.T_len * a.H * (D / 8);
-  delta_bf16_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+template <int DP, bool WIDE>
+cudaError_t launch_mma_width(const Args& a, cudaStream_t stream) {
+  using Cfg = MmaTiles<DP>;
+  const long long threads = (long long)a.B * a.T_len * a.H * Cfg::DELTA_LANES;
+  delta_bf16_kernel<DP><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(a.o), static_cast<const bf16*>(a.dout), a.delta, a.B, a.T_len,
-      a.H, a.so, a.sdo);
+      a.H, a.D, a.so, a.sdo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(dkdv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Cfg::dkdv_smem);
+  err = cudaFuncSetAttribute(dkdv_mma_kernel<DP, WIDE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::dkdv_smem);
   if (err != cudaSuccess) return err;
-  dkdv_mma_kernel<D><<<dim3((a.T_len + BN - 1) / BN, a.H, a.B), MMA_THREADS, Cfg::dkdv_smem,
+  dkdv_mma_kernel<DP, WIDE><<<dim3((a.T_len + BN - 1) / BN, a.H, a.B), MMA_THREADS, Cfg::dkdv_smem,
                        stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(dq_mma_kernel<DP, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)Cfg::dq_smem);
   if (err != cudaSuccess) return err;
-  dq_mma_kernel<D><<<dim3((a.T_len + BM - 1) / BM, a.H, a.B), MMA_THREADS, Cfg::dq_smem,
+  dq_mma_kernel<DP, WIDE><<<dim3((a.T_len + BM - 1) / BM, a.H, a.B), MMA_THREADS, Cfg::dq_smem,
                      stream>>>(a);
   return cudaGetLastError();
 }
 
+// the 16-byte copies alone when every q/k/v/dO slice allows them
+template <int DP>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  const bool wide = s2t_wide_rows(a.q, a.sq.b, a.sq.t, a.sq.h, a.D) &&
+                    s2t_wide_rows(a.k, a.sk.b, a.sk.t, a.sk.h, a.D) &&
+                    s2t_wide_rows(a.v, a.sv.b, a.sv.t, a.sv.h, a.D) &&
+                    s2t_wide_rows(a.dout, a.sdo.b, a.sdo.t, a.sdo.h, a.D);
+  return wide ? launch_mma_width<DP, true>(a, stream) : launch_mma_width<DP, false>(a, stream);
+}
+
+// the instantiation of the padded head dim s2t_padded_head_dim(D)
 cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
+  switch (s2t_padded_head_dim(D)) {
     case 32: return launch_mma<32>(a, stream);
+    case 48: return launch_mma<48>(a, stream);
     case 64: return launch_mma<64>(a, stream);
+    case 80: return launch_mma<80>(a, stream);
+    case 96: return launch_mma<96>(a, stream);
+    case 112: return launch_mma<112>(a, stream);
     case 128: return launch_mma<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.T_len * a.H;
   const int warps_per_block = 8;
-  delta_kernel<T, D><<<(unsigned)((rows + warps_per_block - 1) / warps_per_block),
-                       32 * warps_per_block, 0, stream>>>(
+  delta_kernel<T><<<(unsigned)((rows + warps_per_block - 1) / warps_per_block),
+                    32 * warps_per_block, 0, stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.B, a.T_len, a.H,
-      a.so, a.sdo);
+      a.D, a.so, a.sdo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem_kv = dkdv_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem_kv = dkdv_smem_bytes<DP>();
+  err = cudaFuncSetAttribute(dkdv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_kv);
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, D><<<dim3((a.T_len + BN - 1) / BN, a.H, a.B), THREADS, smem_kv, stream>>>(a);
+  dkdv_kernel<T, DP><<<dim3((a.T_len + BN - 1) / BN, a.H, a.B), THREADS, smem_kv, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem_q = dq_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr size_t smem_q = dq_smem_bytes<DP>();
+  err = cudaFuncSetAttribute(dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<dim3((a.T_len + BM - 1) / BM, a.H, a.B), THREADS, smem_q, stream>>>(a);
+  dq_kernel<T, DP><<<dim3((a.T_len + BM - 1) / BM, a.H, a.B), THREADS, smem_q, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
+  switch (s2t_padded_head_dim(D)) {
     case 32: return launch<T, 32>(a, stream);
+    case 48: return launch<T, 48>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 80: return launch<T, 80>(a, stream);
+    case 96: return launch<T, 96>(a, stream);
+    case 112: return launch<T, 112>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -857,14 +906,13 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: (B, T, H, D) with element strides (b, t, h) and a unit
-// head-dim stride; o is the forward's output in float32 whatever the dtype (for bfloat16
-// the O the forward wrote before its bf16 rounding); lse: (B, H, T) float32 from the
-// forward; delta: (B, H, T) float32 scratch; lengths: (B,) int32; seed: one int64 (read
-// only when rate_u8 > 0), all on the device.  dtype_code 0 = float32 (FMA kernels),
-// 1 = bfloat16 (tensor-core kernels: q, k, v, dout, dq, dk, dv 16-byte aligned with b, t, h
-// strides that are multiples of 8 elements, o 16-byte aligned with strides that are
-// multiples of 4, which the wrapper checks).  Returns the first cudaError_t (0 on success).
+// q, k, v, o, dout, dq, dk, dv: (B, T, H, D), 1 <= D <= 128, with element strides
+// (b, t, h) and a unit head-dim stride, at any element alignment; o is the forward's output
+// in float32 whatever the dtype (for bfloat16 the O the forward wrote before its bf16
+// rounding); lse: (B, H, T) float32 from the forward; delta: (B, H, T) float32 scratch;
+// lengths: (B,) int32; seed: one int64 (read only when rate_u8 > 0), all on the device.
+// dtype_code 0 = float32 (FMA kernels), 1 = bfloat16 (tensor-core kernels).  Returns the
+// first cudaError_t (0 on success).
 extern "C" int s2t_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, const void* lengths,
@@ -876,9 +924,10 @@ extern "C" int s2t_attention_bwd(
     long long sdk_h, long long sdv_b, long long sdv_t, long long sdv_h, float scale,
     float keep_scale, void* stream) {
   if (rate_u8 < 0 || rate_u8 > 255 || (rate_u8 > 0 && seed == nullptr)) return cudaErrorInvalidValue;
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
                dq, dk, dv, static_cast<const int*>(lengths), static_cast<const long long*>(seed),
-               B, T_len, H, rate_u8,
+               B, T_len, H, D, rate_u8,
                Strides{sq_b, sq_t, sq_h}, Strides{sk_b, sk_t, sk_h}, Strides{sv_b, sv_t, sv_h},
                Strides{so_b, so_t, so_h}, Strides{sdo_b, sdo_t, sdo_h},
                Strides{sdq_b, sdq_t, sdq_h}, Strides{sdk_b, sdk_t, sdk_h},

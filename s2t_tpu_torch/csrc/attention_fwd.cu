@@ -67,6 +67,19 @@
 //   * lse (B, H, T) f32 = m + log(l), the natural-log normaliser of the biased scaled
 //     scores, is written when the caller passes a buffer (training).
 // The masking, 0-length rows, dropout bits and lse are the same on both paths.
+//
+// Head dims: both paths take every D from 1 to 128.  They are compiled for the padded dims
+// DP = 32, 48, 64, 80, 96, 112, 128 (mma_bf16.cuh s2t_padded_head_dim: the mma's k-step is
+// 16) and read the real D at run time; the tiles' columns D .. DP - 1 are zero-filled, so
+// they change neither Q K^T nor the kept output columns, and only the D real columns of O
+// are stored.  The softmax scale is 1/sqrt(D) of the real D (the wrapper passes it).  bf16
+// rows are copied 16 bytes at a time where the pointer, the row stride and D allow it,
+// else 4 bytes (even D and strides: the recipes' (B, T, H D) projections of D = 30 ... 90),
+// else 2 bytes (s2t_copy_width).  Each padded dim has two bf16 instantiations: WIDE, run
+// when every q/k/v slice takes 16-byte copies of whole rows (D = DP), which folds D to the
+// constant DP and compiles only those copies, the code the D = 32, 64 and 128 kernels ran
+// before; and one that reads D and picks the copy width at run time.  With the run-time
+// paths in every kernel, an H100 ran K1b at D = 64 14 % slower (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -93,25 +106,26 @@ struct Strides {
   long long b, t, h;  // in elements; the head-dim stride is 1
 };
 
-template <int D>
+template <int DP>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(2 * D * PAD + BN * D + BN * PAD);
+  return sizeof(float) * (size_t)(2 * DP * PAD + BN * DP + BN * PAD);
 }
 
-template <typename T, int D>
+// DP: the padded head dim of the tiles (mma_bf16.cuh); D <= DP the real one
+template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                      const int* __restrict__ lengths, const long long* __restrict__ seed,
-                     int T_len, int rate_u8, Strides sq, Strides sk, Strides sv, Strides so,
-                     float scale, float keep_scale) {
+                     int T_len, int D, int rate_u8, Strides sq, Strides sk, Strides sv,
+                     Strides so, float scale, float keep_scale) {
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [D][PAD]   query tile, transposed
-  float* Ks = Qs + D * PAD;                     // [D][PAD]   key tile, transposed
-  float* Vs = Ks + D * PAD;                     // [BN][D]    value tile
-  float* Ps = Vs + BN * D;                      // [BN][PAD]  probabilities, transposed
+  float* Qs = reinterpret_cast<float*>(smem4);  // [DP][PAD]  query tile, transposed
+  float* Ks = Qs + DP * PAD;                    // [DP][PAD]  key tile, transposed
+  float* Vs = Ks + DP * PAD;                    // [BN][DP]   value tile
+  float* Ps = Vs + BN * DP;                     // [BN][PAD]  probabilities, transposed
 
-  constexpr int DC = D / 8;  // head-dim columns per thread
+  constexpr int DC = DP / 8;  // head-dim columns per thread
   const int tid = threadIdx.x;
   const int tx = tid & 7;
   const int ty = tid >> 3;
@@ -128,10 +142,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * sv.b + h * sv.h;
   T* ob = o + b * so.b + h * so.h;
 
-  for (int idx = tid; idx < BM * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
+  for (int idx = tid; idx < BM * DP; idx += THREADS) {  // columns >= D are zero
+    const int r = idx / DP, d = idx % DP;
     const int t = m0 + r;
-    Qs[d * PAD + r] = t < T_len ? to_f32(qb[(long long)t * sq.t + d]) : 0.f;
+    Qs[d * PAD + r] = t < T_len && d < D ? to_f32(qb[(long long)t * sq.t + d]) : 0.f;
   }
 
   float acc[4][DC];
@@ -146,12 +160,12 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int n0 = 0; n0 < kv_end; n0 += BN) {
     __syncthreads();  // the previous tile's Ks / Vs / Ps reads are done
-    for (int idx = tid; idx < BN * D; idx += THREADS) {
-      const int r = idx / D, d = idx % D;
+    for (int idx = tid; idx < BN * DP; idx += THREADS) {
+      const int r = idx / DP, d = idx % DP;
       const int t = n0 + r;
-      const bool in = t < T_len;
+      const bool in = t < T_len && d < D;
       Ks[d * PAD + r] = in ? to_f32(kb[(long long)t * sk.t + d]) : 0.f;
-      Vs[r * D + d] = in ? to_f32(vb[(long long)t * sv.t + d]) : 0.f;
+      Vs[r * DP + d] = in ? to_f32(vb[(long long)t * sv.t + d]) : 0.f;
     }
     __syncthreads();
 
@@ -161,7 +175,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[r][c] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       const float4 qv = *reinterpret_cast<const float4*>(&Qs[d * PAD + 4 * ty]);
       float kv[8];
 #pragma unroll
@@ -231,7 +245,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float4 pv = *reinterpret_cast<const float4*>(&Ps[j * PAD + 4 * ty]);
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
-        const float vv = Vs[j * D + tx + 8 * jj];
+        const float vv = Vs[j * DP + tx + 8 * jj];
         acc[0][jj] = fmaf(pv.x, vv, acc[0][jj]);
         acc[1][jj] = fmaf(pv.y, vv, acc[1][jj]);
         acc[2][jj] = fmaf(pv.z, vv, acc[2][jj]);
@@ -250,7 +264,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
-        ob[(long long)t * so.t + tx + 8 * jj] = from_f32<T>(acc[r][jj] * inv);
+        if (tx + 8 * jj < D) ob[(long long)t * so.t + tx + 8 * jj] = from_f32<T>(acc[r][jj] * inv);
       }
     }
   }
@@ -263,23 +277,25 @@ constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D>
+template <int DP>
 constexpr size_t mma_smem_bytes() {  // Q, K[2], V[2] tiles of 64 rows
-  return sizeof(bf16) * (size_t)(5 * BM * s2t_tile_ld<D>());
+  return sizeof(bf16) * (size_t)(5 * BM * s2t_tile_ld<DP>());
 }
 
-template <int D>
+// WIDE: every q/k/v slice takes 16-byte copies of whole rows, D = DP (s2t_wide_rows)
+template <int DP, bool WIDE>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
                          float* __restrict__ lse, float* __restrict__ o32,
                          const int* __restrict__ lengths, const long long* __restrict__ seed,
-                         int T_len, int rate_u8, Strides sq, Strides sk, Strides sv, Strides so,
-                         float scale, float keep_scale) {
+                         int T_len, int D_in, int rate_u8, Strides sq, Strides sk, Strides sv,
+                         Strides so, float scale, float keep_scale) {
   static_assert(BM == MMA_WARPS * 16 && BN == 64, "one warp per 16 query rows, 64-key tiles");
-  constexpr int LD = s2t_tile_ld<D>();
+  const int D = WIDE ? DP : D_in;  // a constant in the WIDE kernels
+  constexpr int LD = s2t_tile_ld<DP>();
   constexpr int TILE = BM * LD;
-  constexpr int KD = D / 16;  // k16 tiles of the head dim
+  constexpr int KD = DP / 16;  // k16 tiles of the padded head dim
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [BM][LD]
   bf16* Ks = Qs + TILE;                       // [2][BN][LD]
@@ -301,17 +317,17 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
 
-  s2t_load_tile<BM, D, MMA_THREADS>(Qs, qb, sq.t, m0, T_len, tid);
-  s2t_load_tile<BN, D, MMA_THREADS>(Ks, kb, sk.t, 0, T_len, tid);
-  s2t_load_tile<BN, D, MMA_THREADS>(Vs, vb, sv.t, 0, T_len, tid);
+  s2t_load_tile<BM, DP, MMA_THREADS, WIDE>(Qs, qb, sq.t, m0, T_len, D, tid);
+  s2t_load_tile<BN, DP, MMA_THREADS, WIDE>(Ks, kb, sk.t, 0, T_len, D, tid);
+  s2t_load_tile<BN, DP, MMA_THREADS, WIDE>(Vs, vb, sv.t, 0, T_len, D, tid);
   s2t_cp_async_commit();
 
   uint32_t qf[KD][4];
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
   float m_r[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8, log2 domain
   float l_r[2] = {0.f, 0.f};              // this lane's share of the running sum
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -319,8 +335,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int n0 = it * BN;
     if (it + 1 < n_tiles) {  // the next tile's copy runs during this tile's math
       const int nb = (it + 1) & 1;
-      s2t_load_tile<BN, D, MMA_THREADS>(Ks + nb * TILE, kb, sk.t, n0 + BN, T_len, tid);
-      s2t_load_tile<BN, D, MMA_THREADS>(Vs + nb * TILE, vb, sv.t, n0 + BN, T_len, tid);
+      s2t_load_tile<BN, DP, MMA_THREADS, WIDE>(Ks + nb * TILE, kb, sk.t, n0 + BN, T_len, D, tid);
+      s2t_load_tile<BN, DP, MMA_THREADS, WIDE>(Vs + nb * TILE, vb, sv.t, n0 + BN, T_len, D, tid);
       s2t_cp_async_commit();
       s2t_cp_async_wait<1>();
     } else {
@@ -391,7 +407,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       acc[j][0] *= alpha[0];
       acc[j][1] *= alpha[0];
       acc[j][2] *= alpha[1];
@@ -413,7 +429,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t pa[4];
       s2t_acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DP / 16; ++dp) {
         uint32_t bv[4];
         s2t_ldmatrix_x4_trans(bv, s2t_smem_addr(s2t_bt_frag_row(Vt, LD, 16 * kk, 16 * dp, lane)));
         s2t_mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
@@ -434,11 +450,11 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         lse[((long long)b * gridDim.y + h) * T_len + t] = m_r[r] * LN2 + logf(l_r[r]);
       }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         const float o0 = acc[j][2 * r] * inv, o1 = acc[j][2 * r + 1] * inv;
         const long long at = b * so.b + (long long)t * so.t + h * so.h + 8 * j + c2;
-        *reinterpret_cast<uint32_t*>(o + at) = s2t_pack_bf16(o0, o1);
-        if (o32 != nullptr) *reinterpret_cast<float2*>(o32 + at) = make_float2(o0, o1);
+        s2t_store_pair<WIDE>(o + at, 8 * j + c2, D, o0, o1);
+        if (o32 != nullptr) s2t_store_pair<WIDE>(o32 + at, 8 * j + c2, D, o0, o1);
       }
     }
   }
@@ -450,53 +466,71 @@ struct Args {
   float *lse, *o32;
   const int* lengths;
   const long long* seed;
-  int B, T_len, H, rate_u8;
+  int B, T_len, H, D, rate_u8;
   Strides sq, sk, sv, so;
   float scale, keep_scale;
 };
 
-template <int D>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_mma_kernel<D>,
+template <int DP, bool WIDE>
+cudaError_t launch_mma_width(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_mma_kernel<DP, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T_len + BM - 1) / BM, a.H, a.B);
-  attention_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+  attention_fwd_mma_kernel<DP, WIDE><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<bf16*>(a.o), a.lse, a.o32, a.lengths, a.seed, a.T_len, a.rate_u8, a.sq, a.sk,
-      a.sv, a.so, a.scale, a.keep_scale);
+      static_cast<bf16*>(a.o), a.lse, a.o32, a.lengths, a.seed, a.T_len, a.D, a.rate_u8, a.sq,
+      a.sk, a.sv, a.so, a.scale, a.keep_scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+// the 16-byte copies alone when every q/k/v slice allows them
+template <int DP>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  const bool wide = s2t_wide_rows(a.q, a.sq.b, a.sq.t, a.sq.h, a.D) &&
+                    s2t_wide_rows(a.k, a.sk.b, a.sk.t, a.sk.h, a.D) &&
+                    s2t_wide_rows(a.v, a.sv.b, a.sv.t, a.sv.h, a.D);
+  return wide ? launch_mma_width<DP, true>(a, stream) : launch_mma_width<DP, false>(a, stream);
+}
+
+template <typename T, int DP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, D>,
+  constexpr size_t smem = smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T_len + BM - 1) / BM, a.H, a.B);
-  attention_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  attention_fwd_kernel<T, DP><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.lse, a.lengths, a.seed, a.T_len, a.rate_u8, a.sq, a.sk, a.sv,
+      static_cast<T*>(a.o), a.lse, a.lengths, a.seed, a.T_len, a.D, a.rate_u8, a.sq, a.sk, a.sv,
       a.so, a.scale, a.keep_scale);
   return cudaGetLastError();
 }
 
+// the instantiation of the padded head dim s2t_padded_head_dim(D)
 template <typename T>
 cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
+  switch (s2t_padded_head_dim(D)) {
     case 32: return launch<T, 32>(a, stream);
+    case 48: return launch<T, 48>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 80: return launch<T, 80>(a, stream);
+    case 96: return launch<T, 96>(a, stream);
+    case 112: return launch<T, 112>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
+  switch (s2t_padded_head_dim(D)) {
     case 32: return launch_mma<32>(a, stream);
+    case 48: return launch_mma<48>(a, stream);
     case 64: return launch_mma<64>(a, stream);
+    case 80: return launch_mma<80>(a, stream);
+    case 96: return launch_mma<96>(a, stream);
+    case 112: return launch_mma<112>(a, stream);
     case 128: return launch_mma<128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -504,13 +538,12 @@ cudaError_t dispatch_mma(int D, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, o: (B, T, H, D) with element strides (b, t, h) and a unit head-dim stride;
-// lse: (B, H, T) float32 or null; o32: null, or for bfloat16 a float32 (B, T, H, D) buffer
-// with o's element strides that receives O before its bf16 rounding; lengths: (B,) int32
-// on the device; seed: one int64 on the device (read only when rate_u8 > 0); dtype_code
-// 0 = float32 (FMA kernel, o32 unused), 1 = bfloat16 (tensor-core kernel: q, k, v, o
-// 16-byte aligned with b, t, h strides that are multiples of 8 elements, which the
-// wrapper checks).  Returns the cudaError_t of the launch (0 on success).
+// q, k, v, o: (B, T, H, D), 1 <= D <= 128, with element strides (b, t, h) and a unit
+// head-dim stride, at any 2-byte alignment; lse: (B, H, T) float32 or null; o32: null, or
+// for bfloat16 a float32 (B, T, H, D) buffer with o's element strides that receives O
+// before its bf16 rounding; lengths: (B,) int32 on the device; seed: one int64 on the
+// device (read only when rate_u8 > 0); dtype_code 0 = float32 (FMA kernel, o32 unused),
+// 1 = bfloat16 (tensor-core kernel).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int s2t_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                  void* o32, const void* lengths, const void* seed, int B,
                                  int T_len, int H, int D, int dtype_code, int rate_u8,
@@ -520,9 +553,10 @@ extern "C" int s2t_attention_fwd(const void* q, const void* k, const void* v, vo
                                  long long so_b, long long so_t, long long so_h, float scale,
                                  float keep_scale, void* stream) {
   if (rate_u8 < 0 || rate_u8 > 255 || (rate_u8 > 0 && seed == nullptr)) return cudaErrorInvalidValue;
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
   const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<float*>(o32),
                static_cast<const int*>(lengths), static_cast<const long long*>(seed), B, T_len,
-               H, rate_u8,
+               H, D, rate_u8,
                Strides{sq_b, sq_t, sq_h}, Strides{sk_b, sk_t, sk_h}, Strides{sv_b, sv_t, sv_h},
                Strides{so_b, so_t, so_h}, scale, keep_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

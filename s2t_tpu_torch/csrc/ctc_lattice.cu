@@ -20,10 +20,11 @@
 // alphas in and the gradient out, 3 x 2.36 MB (0.0021 ms).  Neither is what bounds it: each
 // is a chain of T - 1 dependent steps, so its time is at least the latency of one step's
 // dependent arithmetic times T.  chip_smoke.py measures that floor with
-// ctc_chain_floor_kernel, one warp running the step (two shuffles, two logaddexp with the
-// accurate expf and log1pf, an add) on register values with no loads and no stores, and
-// takes the bound as the larger of the two: ~0.26 us a step on an H100, 0.064 ms for 249
-// steps, 50x the bytes.
+// ctc_chain_floor_kernel, one warp running the step on register values with no loads and
+// no stores, and takes the bound as the larger of the two: K3's step (two shuffles, two
+// logaddexp with the accurate expf and log1pf, an add), ~0.26 us on an H100, 0.064 ms for
+// 249 steps, 50x the bytes; K4's own step (its gradient entry's expf, an add, two shuffles,
+// two logaddexp), written for one warp as K3's is, for the design K4 does not have yet.
 //
 // The TPU kernel walks T inside one program with the whole (B, S) state in VMEM.
 //
@@ -151,26 +152,77 @@ __global__ void ctc_alpha_warp_kernel(const float* __restrict__ emit,
   }
 }
 
-// The chain floor of one alpha step: `steps - 1` dependent alpha_step<R> on register
-// values (emissions and skips made from the state index), no loads, and one store of the
-// last alpha so the chain is not dead code.  One warp; a measurement for chip_smoke.py.
+// One step of K4 written for one warp as alpha_step is: the gradient entry
+// -exp(alpha + beta - logZ) of each state (summed into g, off the chain), then z = beta + e
+// and new[s] = logaddexp(logaddexp(z[s], z[s+1]), z[s+2] + skip_from[s]), the shifted
+// inputs from this lane's registers or the next lane's first two states (two lanes ahead
+// when R == 1) read with __shfl_down_sync.
 template <int R>
+__device__ __forceinline__ void beta_step(float (&bt)[R], float (&g)[R],
+                                          const float (&skip_from)[R], const float (&e)[R],
+                                          const float (&al)[R], float lz, const bool (&valid)[R],
+                                          int lane) {
+  float z[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    g[r] -= expf(al[r] + bt[r] - lz);
+    z[r] = bt[r] + e[r];
+  }
+  float n1 = __shfl_down_sync(FULL, z[0], 1);
+  float n2;
+  if constexpr (R >= 2) {
+    n2 = __shfl_down_sync(FULL, z[1], 1);
+  } else {
+    n2 = __shfl_down_sync(FULL, z[0], 2);
+  }
+  if (lane >= 31) n1 = NEG_INF;
+  if (lane >= (R >= 2 ? 31 : 30)) n2 = NEG_INF;
+  float nw[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float s1 = r + 1 < R ? z[r + 1] : n1;
+    const float s2 = r + 2 < R ? z[r + 2] : (r + 2 == R ? n1 : n2);
+    nw[r] = logaddexp(logaddexp(z[r], s1), s2 + skip_from[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) bt[r] = valid[r] ? nw[r] : NEG_INF;
+}
+
+// The chain floor of one lattice step: `steps - 1` dependent alpha_step<R> (K3's step) or,
+// with BETA, beta_step<R> (K4's: its gradient entry and its beta update) on register values
+// (emissions, alphas and skips made from the state index), no loads, and one store of the
+// last state so the chain is not dead code.  One warp; a measurement for chip_smoke.py.
+template <int R, bool BETA>
 __global__ void ctc_chain_floor_kernel(float* __restrict__ out, int steps, int S) {
   const int lane = threadIdx.x & 31;
   bool valid[R];
-  float a[R], sk[R], e[R];
+  float a[R], sk[R], e[R], al[R], g[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int s = lane * R + r;
     valid[r] = s < S;
-    sk[r] = s % 2 == 1 && s >= 3 ? 0.f : NEG_INF;
     e[r] = -1.f - 0.25f * (float)(s % 7);
-    a[r] = valid[r] && s < 2 ? e[r] : NEG_INF;
+    g[r] = 0.f;
+    if constexpr (BETA) {  // beta starts at `final`: 0 on the two terminal states
+      sk[r] = (s + 2) % 2 == 1 && s + 2 >= 3 && s + 2 < S ? 0.f : NEG_INF;  // skip_from
+      al[r] = -2.f - 0.125f * (float)(s % 5);
+      a[r] = valid[r] && s >= S - 2 ? 0.f : NEG_INF;
+    } else {
+      sk[r] = s % 2 == 1 && s >= 3 ? 0.f : NEG_INF;
+      al[r] = 0.f;
+      a[r] = valid[r] && s < 2 ? e[r] : NEG_INF;
+    }
   }
-  for (int t = 1; t < steps; ++t) alpha_step<R>(a, sk, e, valid, lane);
+  for (int t = 1; t < steps; ++t) {
+    if constexpr (BETA) {
+      beta_step<R>(a, g, sk, e, al, -3.f, valid, lane);
+    } else {
+      alpha_step<R>(a, sk, e, valid, lane);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    if (valid[r]) out[lane * R + r] = a[r];
+    if (valid[r]) out[lane * R + r] = a[r] + g[r];
 }
 
 __global__ void ctc_alpha_kernel(const float* __restrict__ emit, const float* __restrict__ skip,
@@ -317,21 +369,31 @@ extern "C" int s2t_ctc_alpha(const void* emit, const void* skip, const void* len
   return cudaGetLastError();
 }
 
-// out: (S,) float32 on the device; one warp runs `steps - 1` dependent alpha steps of an
-// S-state row (S <= 256) on register values.
-extern "C" int s2t_ctc_chain_floor(void* out, int steps, int S, void* stream) {
+template <bool BETA>
+static void launch_chain_floor(float* o, int steps, int S, cudaStream_t st) {
+  switch ((S + 31) / 32) {
+    case 1: ctc_chain_floor_kernel<1, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 2: ctc_chain_floor_kernel<2, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 3: ctc_chain_floor_kernel<3, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 4: ctc_chain_floor_kernel<4, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 5: ctc_chain_floor_kernel<5, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 6: ctc_chain_floor_kernel<6, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+    case 7: ctc_chain_floor_kernel<7, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+    default: ctc_chain_floor_kernel<8, BETA><<<1, 32, 0, st>>>(o, steps, S); break;
+  }
+}
+
+// out: (S,) float32 on the device; one warp runs `steps - 1` dependent alpha steps (beta 0)
+// or beta steps with their gradient entries (beta 1) of an S-state row (S <= 256) on
+// register values.
+extern "C" int s2t_ctc_chain_floor(void* out, int steps, int S, int beta, void* stream) {
   if (steps < 1 || S < 1 || S > 32 * WARP_MAX_R) return cudaErrorInvalidValue;
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((S + 31) / 32) {
-    case 1: ctc_chain_floor_kernel<1><<<1, 32, 0, st>>>(o, steps, S); break;
-    case 2: ctc_chain_floor_kernel<2><<<1, 32, 0, st>>>(o, steps, S); break;
-    case 3: ctc_chain_floor_kernel<3><<<1, 32, 0, st>>>(o, steps, S); break;
-    case 4: ctc_chain_floor_kernel<4><<<1, 32, 0, st>>>(o, steps, S); break;
-    case 5: ctc_chain_floor_kernel<5><<<1, 32, 0, st>>>(o, steps, S); break;
-    case 6: ctc_chain_floor_kernel<6><<<1, 32, 0, st>>>(o, steps, S); break;
-    case 7: ctc_chain_floor_kernel<7><<<1, 32, 0, st>>>(o, steps, S); break;
-    default: ctc_chain_floor_kernel<8><<<1, 32, 0, st>>>(o, steps, S); break;
+  if (beta) {
+    launch_chain_floor<true>(o, steps, S, st);
+  } else {
+    launch_chain_floor<false>(o, steps, S, st);
   }
   return cudaGetLastError();
 }

@@ -1,21 +1,28 @@
-"""Serving entry: requests in, top-beam token ids out
-(counterpart of ``GeneratorHub._speech_batch`` + ``generate`` in s2t_tpu/hub.py:30-82).
+"""Serving entry (counterpart of s2t_tpu/hub.py).
 
 Usage:
-    from s2t_tpu_torch.hub import GeneratorHub
-    from s2t_tpu_torch.models.s2t_transformer import s2t_transformer_s
-    hub = GeneratorHub.build(s2t_transformer_s(vocab_size=10000), beam_size=5)
-    hub.generate(["utt0.wav", "utt1.wav"])   # -> [np.ndarray of token ids, ...]
+    from s2t_tpu_torch.hub import from_pretrained
+    m = from_pretrained("ckpt/checkpoint_best.pt", data_dir="data/mustc",
+                        config={"arch": "s2t_ctc", "model": {...}})
+    m.transcribe("audio.wav")                  # -> detokenised text
+    m.generate(["utt0.wav", "utt1.npy"])       # -> [text, ...]
+
+``from_pretrained`` loads one of the port's checkpoints (``utils/checkpoint.py``)
+and builds the task, its model (on the card unless ``device="cpu"``) and its
+generator; ``generate``, ``translate`` and ``transcribe`` return strings.
+``GeneratorHub.build`` serves an ``s2t_transformer`` config from seeded weights
+with no task and returns token ids.
 
 A request is a wav path (features are computed on the host with
 ``fbank_numpy``), a ``.npy`` feature path, a 1-D waveform array or a 2-D
-(T, C) feature array.  No task, dictionary or checkpoint yet: the weights come
-from a seed, or from a JAX parameter tree through ``interop.from_flax``.
+(T, C) feature array.  Text requests need the text tasks, which are not
+ported: ``_text_batch`` raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from pathlib import Path
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -36,9 +43,10 @@ def request_features(request: Request) -> np.ndarray:
 
 
 class GeneratorHub:
-    def __init__(self, model: S2TTransformerModel, generator: SequenceGenerator):
+    def __init__(self, model, generator, task=None):
         self.model = model
         self.generator = generator
+        self.task = task
 
     @classmethod
     def build(cls, cfg: S2TTransformerConfig, device="cuda", seed: int = 0,
@@ -56,13 +64,57 @@ class GeneratorHub:
             lens[i] = f.shape[0]
         return {"features": arr, "feat_lengths": lens}
 
-    def generate(self, requests: Sequence[Request]) -> List[np.ndarray]:
-        """Top-beam token ids of each request, up to (not including) EOS."""
-        tokens, _, _ = self.generator.generate(self._speech_batch(requests))
+    def _text_batch(self, lines: List[str]):
+        raise NotImplementedError("text requests need the text tasks, which are not ported to "
+                                  "s2t_tpu_torch")
+
+    def generate(self, requests: Sequence[Request]) -> List:
+        """With a task, the detokenised top hypothesis of each request; without
+        one, its token ids up to (not including) EOS."""
+        from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
+
+        if self.task is not None and not isinstance(self.task, SpeechToTextTask):
+            batch = self._text_batch(list(requests))
+        else:
+            batch = self._speech_batch(requests)
+        tokens, _, _ = self.generator.generate(batch)
         top = tokens[:, 0].cpu().numpy()
+        if self.task is not None:
+            return [self.task.decode_tokens(row) for row in top]
         eos = self.generator.eos_id
         out = []
         for row in top:
             stop = np.flatnonzero(row == eos)
             out.append(row[: stop[0] if stop.size else len(row)])
         return out
+
+    def translate(self, request: Request):
+        return self.generate([request])[0]
+
+    transcribe = translate
+
+
+def from_pretrained(checkpoint: Union[str, Path], data_dir: Optional[str] = None,
+                    config: Optional[dict] = None, device="cuda", **overrides) -> GeneratorHub:
+    """Load a checkpoint of the port and build the task, model and generator
+    (s2t_tpu/hub.py:90-116).  ``config``: the TrainConfig as a dict (arch,
+    model section, generation, ...); a ``model`` section in the checkpoint's
+    metadata is used when ``config`` has none; ``overrides`` set
+    ``generation`` fields."""
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+    from s2t_tpu_torch.tasks import setup_task
+    from s2t_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tree, meta = load_checkpoint(checkpoint)
+    d = dict(config or {})
+    if "model" in meta and "model" not in d:
+        d["model"] = meta["model"]
+    cfg = from_dict(TrainConfig, d)
+    if data_dir:
+        cfg.dataset.data = str(data_dir)
+    for k, v in overrides.items():
+        setattr(cfg.generation, k, v)
+    task = setup_task(cfg)
+    model = task.build_model(device=device)
+    model.load_state_dict(tree["params"] if "params" in tree else tree, strict=True)
+    return GeneratorHub(model, task.build_generator(model), task)

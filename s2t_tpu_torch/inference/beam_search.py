@@ -27,7 +27,7 @@ def length_penalty(lengths: torch.Tensor, lenpen: float) -> torch.Tensor:
     return torch.pow(lengths.float(), lenpen)
 
 
-def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top k along the last dim, ties to the lower index (lax.top_k order)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
@@ -133,7 +133,7 @@ def beam_search(
             logprobs = _ngram_block(logprobs, alive_tokens, i, no_repeat_ngram_size)
 
         total = alive_scores[:, :, None] + logprobs
-        top_scores, top_idx = _topk(total.reshape(B, K * V), 2 * K)
+        top_scores, top_idx = stable_topk(total.reshape(B, K * V), 2 * K)
         beam_idx = top_idx // V
         tok_idx = top_idx % V
 
@@ -147,13 +147,13 @@ def beam_search(
         all_fin_scores = torch.cat([finished_scores, eos_norm_scores], dim=1)
         all_fin_tokens = torch.cat([finished_tokens, cand_tokens], dim=1)
         all_fin_mask = torch.cat([finished_mask, is_eos], dim=1)
-        finished_scores, fin_sel = _topk(all_fin_scores, K)
+        finished_scores, fin_sel = stable_topk(all_fin_scores, K)
         finished_tokens = torch.gather(all_fin_tokens, 1, fin_sel[..., None].expand(B, K, L))
         finished_mask = torch.gather(all_fin_mask, 1, fin_sel) & (finished_scores > NEG_INF / 2)
 
         # ---- alive set: top K non-EOS candidates ---------------------------
         alive_cand_scores = torch.where(is_eos, NEG_INF, top_scores)
-        alive_scores, alive_sel = _topk(alive_cand_scores, K)
+        alive_scores, alive_sel = stable_topk(alive_cand_scores, K)
         alive_tokens = torch.gather(cand_tokens, 1, alive_sel[..., None].expand(B, K, L))
         new_beam_idx = torch.gather(beam_idx, 1, alive_sel)
         reorder_cache(cache, (arange_b + new_beam_idx).reshape(-1), i + 1)
@@ -162,7 +162,7 @@ def beam_search(
     alive_final = alive_scores / length_penalty(torch.tensor(L), lenpen).to(dev)
     all_scores = torch.cat([finished_scores, alive_final], dim=1)
     all_tokens = torch.cat([finished_tokens, alive_tokens], dim=1)
-    best_scores, sel = _topk(all_scores, K)
+    best_scores, sel = stable_topk(all_scores, K)
     best_tokens = torch.gather(all_tokens, 1, sel[..., None].expand(B, K, L))
 
     # pad everything after the first EOS

@@ -1,4 +1,5 @@
-"""Carry a JAX ``S2TTransformerModel.init(...)["params"]`` tree into the port.
+"""Carry a JAX ``S2TTransformerModel`` or ``S2TCTCModel`` ``.init(...)["params"]``
+tree into the port.
 
 The tree arrives as nested mappings of numpy arrays (``jax.tree.map(np.asarray,
 params)``); no jax is imported here.  Layouts:
@@ -10,7 +11,9 @@ params)``); no jax is imported here.  Layouts:
 
 Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
 ``convs.{i}``, and the tied ``shared_embed`` table -> the decoder's
-``embed_tokens``.  Any leaf left unmapped on either side raises.
+``embed_tokens``; the other names (``encoder/embed_norm``, ``encoder/ctc_head``,
+...) are the port's attribute paths.  Any leaf left unmapped on either side
+raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
 say) as the nested flax tree, so it can be compared leaf by leaf with a JAX

@@ -2,26 +2,32 @@
 (counterpart of s2t_tpu/models/build.py).
 
 The ported presets are the ``s2t_transformer`` ones whose features the port
-has (base, s, xs, sp, m, mp, l, lp).  The presets that need modules the port
-does not have yet raise ``NotImplementedError`` naming the arch.
+has (base, s, xs, sp, m, mp, l, lp) and the encoder-only ``s2t_ctc``.  The
+presets that need modules the port does not have yet raise
+``NotImplementedError`` naming the arch.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from s2t_tpu_torch.models import s2t_transformer  # noqa: F401  (registers the presets)
+from s2t_tpu_torch.models import s2t_ctc, s2t_transformer  # noqa: F401  (register the presets)
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
-# arch -> the module it needs (s2t_tpu/models/s2t_transformer.py:1053-1168)
+# arch -> (its model, the module it needs) (s2t_tpu/models/s2t_transformer.py:1053-1168,
+# s2t_tpu/models/s2t_ctc.py:71-106)
 _UNPORTED_ARCHS = {
-    "s2t_transformer_s_relative": "relative-position attention",
-    "s2t_conformer": "the conformer block (macaron, conv module, rel_pos attention)",
-    "convtransformer": "the conv2d subsampler and post-norm stack",
-    "convtransformer_espnet": "the conv2d subsampler and post-norm stack",
-    "s2t_dynamic_transformer_s": "dynamic convolutions",
-    "s2t_light_transformer_s": "lightweight convolutions",
-    "s2t_transformer_s_dlcl": "the dynamic linear combination of layers",
+    "s2t_transformer_s_relative": ("s2t_transformer", "relative-position attention"),
+    "s2t_conformer": ("s2t_transformer",
+                      "the conformer block (macaron, conv module, rel_pos attention)"),
+    "convtransformer": ("s2t_transformer", "the conv2d subsampler and post-norm stack"),
+    "convtransformer_espnet": ("s2t_transformer", "the conv2d subsampler and post-norm stack"),
+    "s2t_dynamic_transformer_s": ("s2t_transformer", "dynamic convolutions"),
+    "s2t_light_transformer_s": ("s2t_transformer", "lightweight convolutions"),
+    "s2t_transformer_s_dlcl": ("s2t_transformer", "the dynamic linear combination of layers"),
+    "s2t_nast": ("s2t_ctc", "inter-CTC layers, the PAE adapters and XCTC"),
+    "s2t_ctc_pds": ("s2t_ctc", "the PDS encoder (models/pds.py)"),
+    "s2t_ctc_sate": ("s2t_ctc", "the SATE encoder (models/sate.py)"),
 }
 
 
@@ -33,8 +39,8 @@ def _unported(arch: str, needs: str):
     return preset
 
 
-for _arch, _needs in _UNPORTED_ARCHS.items():
-    register_model_architecture("s2t_transformer", _arch)(_unported(_arch, _needs))
+for _arch, (_model, _needs) in _UNPORTED_ARCHS.items():
+    register_model_architecture(_model, _arch)(_unported(_arch, _needs))
 
 
 def build_model(arch: str, overrides: Dict[str, Any] | None = None, *, device="cuda",

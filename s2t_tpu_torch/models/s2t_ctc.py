@@ -1,0 +1,74 @@
+"""Encoder-only CTC model (counterpart of s2t_tpu/models/s2t_ctc.py).
+
+``S2TCTCModel`` is the s2t_transformer encoder and its CTC head, with no
+decoder: one encoder pass emits the whole hypothesis, which
+``inference/ctc_decoder.py`` reads off the CTC logits.  The ``s2t_ctc``
+preset is ported; ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate`` are
+registered in ``models/build.py`` and raise ``NotImplementedError`` naming
+what they need.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from s2t_tpu_torch.device import resolve_device
+from s2t_tpu_torch.models.s2t_transformer import (
+    S2TTransformerConfig, S2TTransformerEncoder, _check_trainable, check_supported,
+    init_and_place, s2t_transformer_s)
+from s2t_tpu_torch.registry import register_model, register_model_architecture
+
+
+@register_model("s2t_ctc")
+class S2TCTCModel(nn.Module):
+    """Encoder-only model; ``forward`` returns the encoder's outputs with
+    ``decoder_logits`` None, under the ``Trainer``'s signature.  Built and
+    cast as ``S2TTransformerModel`` is: weights from ``seed``, serving (frozen,
+    stored in ``cfg.dtype``) or ``for_training`` (float32 masters)."""
+
+    def __init__(self, cfg: S2TTransformerConfig, device="cuda", seed: int = 0,
+                 for_training: bool = False):
+        super().__init__()
+        if not isinstance(cfg, S2TTransformerConfig):
+            # the JAX model picks the SATE or PDS encoder by the config's type
+            raise NotImplementedError(
+                f"S2TCTCModel over a {type(cfg).__name__}: the SATE and PDS encoders are not "
+                "ported to s2t_tpu_torch")
+        check_supported(cfg)
+        if for_training:
+            _check_trainable(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        # no decoder embedding exists to tie to, so the JAX encoder's CTC head has its own
+        # projection whatever share_ctc_and_embed says
+        self.encoder = S2TTransformerEncoder(cfg.replace(share_ctc_and_embed=False))
+        init_and_place(self, cfg, device, seed, for_training)
+
+    @property
+    def device(self) -> torch.device:
+        return self.encoder.positions.device
+
+    def forward(self, features, feat_lengths, prev_tokens=None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """``prev_tokens`` is unused (the Trainer's signature); ``train=True``
+        applies every dropout with bits from ``generator``."""
+        if train:
+            _check_trainable(self.cfg)
+            if generator is None:
+                raise ValueError("train=True needs the step's torch.Generator")
+        else:
+            generator = None
+        return {"decoder_logits": None,
+                **self.encoder(features, feat_lengths, generator=generator)}
+
+    def encode(self, features, feat_lengths):
+        return self.encoder(features, feat_lengths)
+
+
+@register_model_architecture("s2t_ctc", "s2t_ctc")
+def s2t_ctc_base(**kw) -> S2TTransformerConfig:
+    return s2t_transformer_s(decoder_layers=0, use_ctc=True).replace(**kw)
+

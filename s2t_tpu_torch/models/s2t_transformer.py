@@ -157,8 +157,9 @@ _PORTED_FIELDS = frozenset({
     "subsampling_kernel", "subsampling_stride", "subsampling_activation",
     "encoder_apply_final_norm", "encoder_embed_dim", "encoder_ffn_embed_dim",
     "encoder_layers", "encoder_attention_heads", "encoder_normalize_before",
-    "encoder_no_scale_embedding", "decoder_embed_dim", "decoder_ffn_embed_dim",
-    "decoder_layers", "decoder_attention_heads", "decoder_normalize_before",
+    "encoder_no_scale_embedding", "encoder_embed_norm", "decoder_embed_dim",
+    "decoder_ffn_embed_dim", "decoder_layers", "decoder_attention_heads",
+    "decoder_normalize_before",
     "share_decoder_input_output_embed", "activation_fn", "encoder_activation_fn",
     "use_ctc", "share_ctc_and_embed", "vocab_size", "src_vocab_size",
     "max_source_positions", "max_target_positions", "pad_id", "dtype_str",
@@ -203,6 +204,38 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
             raise ValueError("share_ctc_and_embed needs a joint vocabulary")
 
 
+@torch.no_grad()
+def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.device,
+                   seed: int, for_training: bool) -> None:
+    """Flax-like init on the CPU from ``seed`` (dense and conv kernels
+    N(0, 1/fan_in), biases 0, LayerNorm 1/0, token embeddings N(0, 1/D)), then
+    onto ``device``: for serving stored in ``cfg.dtype``, frozen, in eval
+    mode; ``for_training`` keeps float32 master parameters and casts only the
+    buffers (the positions tables set the compute dtype)."""
+    g = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv1d)):
+            fan_in = mod.weight[0].numel()
+            nn.init.normal_(mod.weight, std=fan_in ** -0.5, generator=g)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.Embedding):
+            nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5, generator=g)
+    if for_training:
+        model.to(device=device)
+        for mod in model.modules():
+            for name, buf in mod._buffers.items():
+                if buf is not None and buf.is_floating_point():
+                    mod._buffers[name] = buf.to(cfg.dtype)
+    else:
+        model.to(device=device, dtype=cfg.dtype)
+        model.eval()
+        model.requires_grad_(False)
+
+
 class S2TTransformerEncoder(nn.Module):
     """Speech encoder: conv subsampler -> Transformer stack -> CTC head.
 
@@ -225,6 +258,7 @@ class S2TTransformerEncoder(nn.Module):
                             cfg.attention_dropout, cfg.activation_dropout)
             for _ in range(cfg.encoder_layers)
         ])
+        self.embed_norm = layer_norm(D) if cfg.encoder_embed_norm else None
         self.final_norm = layer_norm(D) if cfg.encoder_normalize_before else None
         self.ctc_head = (
             CTCHead(D, cfg.ctc_vocab_size, tied=cfg.share_ctc_and_embed, dropout=cfg.dropout)
@@ -242,6 +276,9 @@ class S2TTransformerEncoder(nn.Module):
         cfg = self.cfg
         # the positions table is in the compute dtype
         x, lengths = self.subsample(features.to(self.positions.dtype), lengths)
+        # the JAX order (s2t_transformer.py:714-717): embed_norm, scale, positions, dropout
+        if self.embed_norm is not None:
+            x = self.embed_norm(x)
         if not cfg.encoder_no_scale_embedding:
             x = x * math.sqrt(cfg.encoder_embed_dim)
         T = x.shape[1]
@@ -292,34 +329,7 @@ class S2TTransformerModel(nn.Module):
             attention_dropout=cfg.attention_dropout,
             activation_dropout=cfg.activation_dropout,
         )
-        self.init_weights(seed)
-        if for_training:
-            self.to(device=device)
-            for mod in self.modules():  # the positions tables set the compute dtype
-                for name, buf in mod._buffers.items():
-                    if buf is not None and buf.is_floating_point():
-                        mod._buffers[name] = buf.to(cfg.dtype)
-        else:
-            self.to(device=device, dtype=cfg.dtype)
-            self.eval()
-            self.requires_grad_(False)
-
-    @torch.no_grad()
-    def init_weights(self, seed: int) -> None:
-        """Flax-like init: dense and conv kernels N(0, 1/fan_in), biases 0,
-        LayerNorm 1/0, token embeddings N(0, 1/D)."""
-        g = torch.Generator().manual_seed(seed)
-        for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv1d)):
-                fan_in = mod.weight[0].numel()
-                nn.init.normal_(mod.weight, std=fan_in ** -0.5, generator=g)
-                if mod.bias is not None:
-                    nn.init.zeros_(mod.bias)
-            elif isinstance(mod, nn.LayerNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
-            elif isinstance(mod, nn.Embedding):
-                nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5, generator=g)
+        init_and_place(self, cfg, device, seed, for_training)
 
     @property
     def device(self) -> torch.device:

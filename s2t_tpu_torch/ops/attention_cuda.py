@@ -16,7 +16,11 @@ materialising the (B, H, T, T) probabilities.
 
 bfloat16 runs on the tensor cores (``mma.sync``, ``ldmatrix``, ``cp.async``),
 float32 on f32 FMAs; design and bound of each kernel are in its source's
-header note.
+header note.  Both take every head dim 1 <= D <= ``MAX_HEAD_DIM`` (128): they
+are compiled for the padded dims ``PADDED_HEAD_DIMS`` and zero-fill the
+columns past the real D, and they read q/k/v/dO at any element alignment (16-,
+4- or 2-byte copies, as the rows allow).  A head dim above 128 and T >= 65536
+raise by name.
 
 Dropout bits come from a counter-based hash keyed by a 64-bit seed (a (1,)
 int64 tensor on the device) and counted by (batch, head, query, key):
@@ -47,7 +51,9 @@ from s2t_tpu_torch.ops import _build
 from s2t_tpu_torch.utils.masking import mask_to_lengths
 
 NEG = -1e9
-HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 128
+# the instantiations of csrc/attention_{fwd,bwd}.cu: D runs the smallest that holds it
+PADDED_HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)
 MAX_T = 1 << 16  # the dropout counter packs (query, key) into 32 bits
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -130,13 +136,6 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return seed
 
 
-def _mma_aligned(t: torch.Tensor) -> bool:
-    """The bf16 kernels copy 16-byte rows with cp.async: the data pointer and the
-    b, t, h strides must be multiples of 16 bytes (8 bf16 or 4 f32 elements)."""
-    per_16_bytes = 16 // t.element_size()
-    return t.data_ptr() % 16 == 0 and all(s % per_16_bytes == 0 for s in t.stride()[:3])
-
-
 def _check(*tensors, what="q/k/v"):
     """Layout first, then the device, so that a layout the kernels refuse is
     reported wherever the tensors lie."""
@@ -152,18 +151,12 @@ def _check(*tensors, what="q/k/v"):
             + ", ".join(str(tuple(t.shape)) for t in tensors)
         )
     B, T, H, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"fused_attention: head dim {D} not in {HEAD_DIMS}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"fused_attention: head dim {D} is outside 1 ... {MAX_HEAD_DIM}")
     if T >= MAX_T:
         raise ValueError(f"fused_attention: T={T} must be below {MAX_T}")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"fused_attention: the head dim of {what} must have stride 1")
-    if q.dtype == torch.bfloat16 and not all(_mma_aligned(t) for t in tensors):
-        raise ValueError(
-            f"fused_attention: bfloat16 {what} must be 16-byte aligned with b/t/h strides "
-            "that are multiples of 8 elements, got "
-            + ", ".join(f"ptr%16={t.data_ptr() % 16} strides={t.stride()}" for t in tensors)
-        )
     if not all(t.is_cuda for t in tensors):
         raise ValueError(f"fused_attention: {what} and valid_mask must all be CUDA tensors")
     if len({t.device for t in tensors}) != 1:
@@ -231,11 +224,10 @@ def fused_attention_bwd(q, k, v, out32, do, lse, lengths, rate_u8: int = 0, seed
     lib = _build.load_library("attention_bwd", _BWD_SIGNATURES)
     _check(q, k, v, do, what="q/k/v/dout")
     B, T, H, D = q.shape
-    if (out32.dtype != torch.float32 or out32.shape != q.shape or out32.stride(-1) != 1
-            or (q.dtype == torch.bfloat16 and not _mma_aligned(out32))):
+    if out32.dtype != torch.float32 or out32.shape != q.shape or out32.stride(-1) != 1:
         raise ValueError(f"fused_attention_bwd: out32 must be the forward's float32 output "
-                         f"{tuple(q.shape)} with a unit head-dim stride (16-byte aligned for "
-                         f"bfloat16), got {tuple(out32.shape)} {out32.dtype} {out32.stride()}")
+                         f"{tuple(q.shape)} with a unit head-dim stride, got "
+                         f"{tuple(out32.shape)} {out32.dtype} {out32.stride()}")
     if lse.shape != (B, H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"fused_attention_bwd: lse must be contiguous ({B}, {H}, {T}) float32")
     if any(t.device != q.device for t in (out32, lse)):
@@ -273,8 +265,8 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out32, lse, lengths, seed = ctx.saved_tensors
-        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not _mma_aligned(do)):
-            do = do.clone(memory_format=torch.contiguous_format)  # a fresh, aligned buffer
+        if do.stride(-1) != 1:
+            do = do.contiguous()
         dq, dk, dv = fused_attention_bwd(q, k, v, out32, do, lse, lengths, ctx.rate_u8, seed)
         return dq, dk, dv, None, None, None
 
@@ -283,9 +275,9 @@ def fused_attention(q, k, v, valid_mask, dropout_rate: float = 0.0,
                     seed: Optional[torch.Tensor] = None):
     """softmax(QK^T/sqrt(D) + padding_bias) @ V with attention dropout.
 
-    q/k/v: (B, T, H, D) float32 or bfloat16, any strides with a unit head-dim
-    stride (bfloat16: a 16-byte aligned pointer and b/t/h strides that are
-    multiples of 8 elements); valid_mask: (B, T) bool, a contiguous True prefix per row;
+    q/k/v: (B, T, H, D) float32 or bfloat16, 1 <= D <= 128, T < 65536, any
+    strides with a unit head-dim stride; valid_mask: (B, T) bool, a contiguous
+    True prefix per row;
     ``seed``: (1,) int64 tensor on the inputs' device, needed when
     ``dropout_rate`` > 0.  Returns a contiguous (B, T, H, D) tensor in
     q.dtype, differentiable in q, k and v.  A CPU tensor runs

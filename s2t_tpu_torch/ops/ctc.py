@@ -1,4 +1,5 @@
-"""CTC loss over a lattice of S = 2U + 1 states (counterpart of s2t_tpu/ops/ctc.py:29-302).
+"""CTC loss over a lattice of S = 2U + 1 states, and greedy CTC decoding
+(counterpart of s2t_tpu/ops/ctc.py:29-302 and :423-446).
 
 The emission gather stays plain PyTorch, as the JAX package leaves it to XLA;
 the lattice recurrences run in ``ops/ctc_cuda.py`` (CUDA kernels K3/K4 on the
@@ -70,3 +71,21 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch
     if reduction == "mean":
         return (nll / label_lengths.clamp(min=1)).mean()
     return nll
+
+
+def ctc_greedy_decode(log_probs_or_logits: torch.Tensor, input_lengths: torch.Tensor,
+                      blank_id: int = 0, pad_id: int = 1):
+    """Greedy CTC decode in tensor ops, with no host sync (counterpart of
+    s2t_tpu/ops/ctc.py:423-446): argmax per frame, repeats collapsed, blanks
+    dropped, the kept tokens left-packed into a (B, T) int32 buffer padded
+    with ``pad_id``.  Returns (tokens, lengths (B,) int32)."""
+    B, T = log_probs_or_logits.shape[:2]
+    pred = log_probs_or_logits.argmax(dim=-1).to(torch.int32)  # first index of a tie, as jnp
+    valid = torch.arange(T, device=pred.device)[None, :] < input_lengths.to(pred.device)[:, None]
+    prev = torch.cat([pred.new_full((B, 1), -1), pred[:, :-1]], dim=1)
+    keep = (pred != blank_id) & (pred != prev) & valid
+    pos = keep.to(torch.int32).cumsum(dim=1) - 1  # the slot of each kept frame
+    # dropped frames write to a spare column T, cut off after the scatter
+    slot = torch.where(keep, pos, T).long()
+    out = pred.new_full((B, T + 1), pad_id).scatter_(1, slot, pred)
+    return out[:, :T], keep.sum(dim=1, dtype=torch.int32)

@@ -35,7 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "s2t_ctc_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "s2t_ctc_beta_grad": (_I, [_P] * 7 + [_I, _I, _I, _P]),
-    "s2t_ctc_chain_floor": (_I, [_P, _I, _I, _P]),
+    "s2t_ctc_chain_floor": (_I, [_P, _I, _I, _I, _P]),
     "s2t_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -122,16 +122,17 @@ def ctc_alpha(emit: torch.Tensor, skip: torch.Tensor, lengths: torch.Tensor) -> 
     return alphas
 
 
-def ctc_chain_floor(steps: int, S: int, device) -> None:
+def ctc_chain_floor(steps: int, S: int, device, beta: bool = False) -> None:
     """Launch the chain-floor measurement: one warp runs ``steps - 1``
-    dependent alpha steps of an S-state row (S <= ``WARP_MAX_S``) on register
-    values, with no loads.  Its device time is the least a chain of that many
-    steps can take; it is no kernel of the training path and counts no
-    launch."""
+    dependent alpha steps (K3's), or with ``beta`` beta steps with their
+    gradient entries (K4's), of an S-state row (S <= ``WARP_MAX_S``) on
+    register values, with no loads.  Its device time is the least a chain of
+    that many steps can take; it is no kernel of the training path and counts
+    no launch."""
     lib = _build.load_library("ctc_lattice", _SIGNATURES)
     out = torch.empty((S,), dtype=torch.float32, device=device)
     with torch.cuda.device(out.device):
-        _launch(lib, lib.s2t_ctc_chain_floor, out.data_ptr(), steps, S, _stream(out))
+        _launch(lib, lib.s2t_ctc_chain_floor, out.data_ptr(), steps, S, int(beta), _stream(out))
 
 
 def ctc_beta_grad(emit, alphas, skip, final, lengths, logz) -> torch.Tensor:

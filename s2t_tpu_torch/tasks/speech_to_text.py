@@ -8,11 +8,14 @@ the step: with ``use_audio_input`` the Kaldi fbank through the K5 wrapper
 (``ops/fbank_cuda.fbank``: the kernel on the card, its plain version on the
 CPU), then the split's feature transforms, then the model.
 
-What the port does not have raises ``NotImplementedError`` naming it:
-comma-separated multilingual splits, latency-augmented attention capture,
-the PAE oracle and mixup inputs, CTC-only and Jacobi generation, and
-decoding a ``use_audio_input`` split (the JAX generator feeds such a batch's
-waveforms to the encoder without an fbank, ROADMAP.md section 3).
+An encoder-only model (``decoder_layers == 0``) decodes through
+``CTCGenerator`` (greedy, or the prefix beam for ``generation.beam`` > 1), an
+encoder-decoder through ``SequenceGenerator``.  What the port does not have
+raises ``NotImplementedError`` naming it: comma-separated multilingual
+splits, latency-augmented attention capture, the PAE oracle and mixup inputs,
+the CTC n-gram LM, Jacobi generation, and decoding a ``use_audio_input`` split
+(the JAX generator feeds such a batch's waveforms to the encoder without an
+fbank, ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from s2t_tpu_torch.config import TrainConfig
 from s2t_tpu_torch.data.audio.transforms import CompositeTransform
 from s2t_tpu_torch.data.dataset import S2TDataConfig, SpeechToTextDataset
 from s2t_tpu_torch.data.dictionary import Dictionary
+from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
 from s2t_tpu_torch.inference.generator import SequenceGenerator
 from s2t_tpu_torch.ops.fbank_cuda import fbank
 from s2t_tpu_torch.registry import register_task
@@ -133,8 +137,14 @@ class SpeechToTextTask(Task):
                 "waveforms to the encoder without an fbank (ROADMAP.md section 3); decode "
                 "a split of fbank features instead")
         if getattr(model.cfg, "decoder_layers", 1) == 0:
-            raise NotImplementedError("CTCGenerator (encoder-only CTC decoding) is not ported "
-                                      "to s2t_tpu_torch")
+            # encoder-only model: decode from CTC (s2t_tpu/tasks/speech_to_text.py:182-202)
+            if g.lm_path and str(g.lm_path).endswith(".arpa"):
+                raise NotImplementedError("generation.lm_path: the CTC n-gram LM (ArpaLM "
+                                          "re-ranking) is not ported to s2t_tpu_torch")
+            dec = CTCDecoder(beam_size=g.beam, pad_id=self.tgt_dict.pad(),
+                             self_ensemble=g.ctc_self_ensemble,
+                             intermediate_logit=g.ctc_inter_logit)
+            return CTCGenerator(model, dec)
         if g.jacobi:
             raise NotImplementedError("generation.jacobi (JacobiGenerator) is not ported to "
                                       "s2t_tpu_torch")

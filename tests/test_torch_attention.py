@@ -46,7 +46,7 @@ def test_matches_pallas_kernel_interpret():
     np.testing.assert_allclose(port(q, k, v, valid), ref, atol=ATOL)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 44, 64, 90, 128])
 def test_matches_dense_path_with_zero_length_row(D):
     q, k, v, valid = make_case(3, 37, 2, D, [37, 0, 11], seed=D)
     out = port(q, k, v, valid)

@@ -12,9 +12,10 @@
   the kernels' FlashAttention-form gradient with Delta from the bf16-rounded
   O misses ``GRAD_RTOL`` against autograd through the plain version, and
   with Delta from the f32 O it holds.
-* The wrapper refuses bf16 tensors that the kernels' 16-byte copies cannot
-  read (an unaligned pointer, b/t/h strides off a multiple of 8) with
-  ValueError before any launch.
+* The wrapper takes bf16 tensors at any element alignment (the kernels copy
+  16, 4 or 2 bytes as the rows allow): layouts it once refused (an unaligned
+  pointer, b/t/h strides off a multiple of 8) now pass its checks, and on
+  ``meta`` tensors only "not CUDA tensors" stops them, before any launch.
 * The bounds chip_smoke.py reports beside the kernels' times, and the kernel
   names its SASS check reads from the compiled libraries.
 """
@@ -111,8 +112,10 @@ def test_delta_from_the_f32_output_holds_a_one_key_row():
 
 
 def _refused(call):
+    """The call passes every layout check and stops, before any launch, only
+    because ``meta`` tensors are not CUDA tensors."""
     before = (attention_cuda.fused_attention.launches, attention_cuda.fused_attention_bwd.launches)
-    with pytest.raises(ValueError, match="16-byte aligned"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         call()
     assert (attention_cuda.fused_attention.launches,
             attention_cuda.fused_attention_bwd.launches) == before
@@ -120,6 +123,8 @@ def _refused(call):
 
 @pytest.mark.parametrize("layout", ["t_stride_36", "offset_4_elements"])
 def test_wrapper_refuses_unaligned_bf16_before_any_launch(monkeypatch, layout):
+    """The two bf16 layouts the 16-byte-only kernels refused: their alignment no
+    longer matters, and the wrapper refuses them only for lying off the card."""
     monkeypatch.setattr(_build, "load_library", lambda *_a, **_k: None)
     meta = dict(device="meta", dtype=torch.bfloat16)  # stands in for the card here
     if layout == "t_stride_36":  # (B, T, H, D) strides (576, 72, 36, 1)
@@ -133,10 +138,11 @@ def test_wrapper_refuses_unaligned_bf16_before_any_launch(monkeypatch, layout):
     _refused(lambda: attention_cuda.fused_attention(good, bad, good, mask))
     _refused(lambda: attention_cuda.fused_attention_fwd(bad, good, good, lengths, with_lse=True))
     _refused(lambda: attention_cuda.fused_attention_bwd(good, good, good, good, bad, lse, lengths))
-    # float32 takes the FMA kernels, which read any strides: the layout passes, and the
-    # tensors are then refused only for not being on the card
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        attention_cuda.fused_attention(bad.float(), good.float(), good.float(), mask)
+    _refused(lambda: attention_cuda.fused_attention(bad.float(), good.float(), good.float(), mask))
+    # what still stops a layout by name: the head-dim stride
+    with pytest.raises(ValueError, match="stride 1"):
+        attention_cuda.fused_attention(good, torch.empty((2, 8, 2, 64), **meta)[..., ::2], good,
+                                       mask)
 
 
 @pytest.mark.parametrize("stray", ["out32", "lse"])
@@ -161,6 +167,8 @@ def test_backward_refuses_saved_tensors_off_the_inputs_device(monkeypatch, stray
      "__nv_bfloat16S3_PfiiiNS_7StridesES5_", "delta_bf16_kernel<128>"),
     ("_ZN49_GLOBAL__N__efbb92f7_16_attention_fwd_cu_7773617820attention_fwd_kernelIfLi64EEEvPKT_",
      "attention_fwd_kernel<64>"),
+    ("_ZN49_GLOBAL__N__efbb92f7_16_attention_bwd_cu_7773617815dkdv_mma_kernelILi48ELb0EEEvNS_4ArgsE",
+     "dkdv_mma_kernel<48, false>"),
     ("fbank_kernel", "fbank_kernel"),
 ])
 def test_sass_check_reads_kernel_names(mangled, label):

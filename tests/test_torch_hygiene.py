@@ -224,7 +224,8 @@ def test_fbank_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
 
 def test_training_cli_refuses_unported_settings():
     for section, name, value in (("bmuf", "active", True), ("distributed", "fsdp", True),
-                                 ("common", "profile", True), ("eval", "eval_wer", True),
+                                 ("common", "profile", True),
+                                 ("common", "tensorboard_logdir", "tb"),
                                  ("checkpoint", "finetune_from_model", "x.pt"),
                                  ("optimization", "lr_scheduler", "cosine")):
         cfg = TrainConfig()
@@ -232,3 +233,7 @@ def test_training_cli_refuses_unported_settings():
         with pytest.raises(NotImplementedError, match=name if section != "optimization"
                            else "cosine"):
             check_train_supported(cfg)
+    # validation-time decoding is ported
+    cfg = TrainConfig()
+    cfg.eval.eval_wer = cfg.eval.eval_bleu = cfg.eval.eval_ctc_wer = True
+    check_train_supported(cfg)
