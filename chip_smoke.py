@@ -1,4 +1,4 @@
-"""Smoke run of the s2t_tpu_torch serving, training and raw-audio slices on one NVIDIA H100.
+"""Smoke run of the s2t_tpu_torch serving, training, raw-audio and PDS slices on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -16,7 +16,9 @@ Phases (any failure ends the run with a non-zero exit):
              and head-major strided layouts; at the recipes' head dims 44, 80,
              90, 96 (and an odd 45) also a fused (B, T, 3, H, D) buffer; times
              kernel, plain version and torch's scaled_dot_product_attention (a
-             yardstick only), at the serving shape for D = 64, 44, 80, 90, 96;
+             yardstick only), at the serving shape for D = 64, 44, 80, 90, 96,
+             and at the PDS stage-0 serving shape (B=64, T'=500, H=4, D=64;
+             D = 50, the growth360 recipes' stage 0, held ragged at T'=500);
   3. grad    K1f with dropout 0 / 0.15 and its log-sum-exp, and the attention
              backward (K1b), against the plain version and its autograd
              backward with the same seed, at the same head plans, dtypes and
@@ -26,7 +28,8 @@ Phases (any failure ends the run with a non-zero exit):
              key (a length-1 row; Q = 8 K), where Delta must come from the f32
              O; the kept share of the dropout mask; at the training shape K1f
              with lse and K1b at p = 0.1 (the main path) and p = 0, beside the
-             backward of scaled_dot_product_attention at p = 0;
+             backward of scaled_dot_product_attention at p = 0, and so at the PDS
+             stage-0 training shape (B=40, T'=500, H=8, D=64; D = 50 ragged);
   4. ctc     the CTC alpha (K3) and beta/gradient (K4) kernels against their
              plain versions at the training shape (B=40, T'=250, S=59), a
              long one (T'=1000, S=401) and S = 1, 3, 31, 33, 63, 65, 255 and 257
@@ -73,15 +76,35 @@ Phases (any failure ends the run with a non-zero exit):
              D- strings;
  15. wer      tools/wer_sanity (bench.py section C) overfits 16 synthetic
      sanity   utterances with the 2-layer model on the card and must read WER 0;
+ 16. pds      pdss2t_transformer_s_8 at full width (256 d, stages 3/3/3/3 at
+     serve    ratios 2/2/1/2, 6 decoder layers, V=10000) serves as phases 5-6
+             do: the fixture wavs in fp32 card vs CPU (encoder outputs within
+             ENC_ATOL, beam-5 tokens identical or a near-tie), then 64 x 10 s
+             in bf16 (utterances/s, RTF, host fbank, encode and beam seconds),
+             and the device ms of each stage of one encode;
+ 17. pds      s2t_ctc_pds with the model section of purectc_pds_base_8_growth360
+     ctc      (dims 200/256/256/360, 4/4/4/4 layers) serves greedy CTC in bf16 at
+             phase 13's B=256 x 1000 frames (RTF, busy share, each stage's
+             device ms); fp32 fixture wavs greedy and beam 5 card vs CPU;
+ 18. pds      (a) pds_big.yaml's model (pdss2t_transformer_m_8 with fusion) in
+     train    fp32, dropout 0, 3 Trainer steps card vs CPU at TRAIN_RTOL; (b) the
+             same model in bf16 at the bench shape (B=40, T=1000, U=30, V=10000,
+             label-smoothed CE + 0.3 CTC), 20 timed steps, one profiled step and
+             K1f's / K1b's device ms split by stage; (c) cli.train on phase 14's
+             feature corpus with egs/mustc/asr/conf/pds_base_8.yaml over its
+             basis.yaml (eval_wer), 2 epochs, cli.generate (beam 5) from
+             checkpoint_best.pt, and hub.from_pretrained transcribing the 4
+             longest hypotheses to cli.generate's D- strings;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
-it: serving (phases 5-6, 13) launches K1f once per encoder layer and encode;
-a training step (phases 7-8, 14, 15) launches K1f and K1b once per encoder
-layer, K3 and K4 once; a raw-audio forward (phase 11, train or valid) adds
-K5 once; decoding (phases 12, 14) launches K1f once per encoder layer and
+it: serving (phases 5-6, 13, 16-17) launches K1f once per encoder layer and
+encode (a PDS encoder: once per layer of every stage); a training step
+(phases 7-8, 14, 15, 18) launches K1f and K1b once per encoder layer, K3 and
+K4 once; a raw-audio forward (phase 11, train or valid) adds
+K5 once; decoding (phases 12, 14, 18) launches K1f once per encoder layer and
 encode, and a validation batch of phase 14 runs three encodes (the loss,
-eval_ctc_wer, eval_wer).
+eval_ctc_wer, eval_wer), of phase 18 two (the loss, eval_wer).
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -91,6 +114,7 @@ call's own kernels (all kernels of a library call) in a torch.profiler trace.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -108,6 +132,8 @@ from s2t_tpu_torch.cli.train import step_batch
 from s2t_tpu_torch.config import OptimizationConfig
 from s2t_tpu_torch.criterions.build import build_criterion
 from s2t_tpu_torch.hub import GeneratorHub
+from s2t_tpu_torch.models.pds import (
+    PDSConfig, PDSS2TTransformerModel, pdss2t_transformer_m_8, pdss2t_transformer_s_8)
 from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerModel, s2t_transformer_m, s2t_transformer_s)
 from s2t_tpu_torch.ops import _build
@@ -174,6 +200,13 @@ GEN = dict(beam_size=5, max_len_a=0.0, max_len_b=100, lenpen=1.0)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def encoder_layers(cfg) -> int:
+    """Encoder self-attention layers: K1f's launches per encode, K1b's per step."""
+    if isinstance(cfg, PDSConfig):
+        return sum(cfg.pds_layers) + cfg.pds_final_layers
+    return cfg.encoder_layers
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -377,6 +410,11 @@ def phase_kernel():
                 cases.append((16, 250, H, D, dtype, layout, lengths[:16], False))
     cases.append((8, 250, 3, 45, torch.bfloat16, "native", lengths[:8], False))
     cases.append((8, 250, 3, 45, torch.float32, "fused_qkv", lengths[:8], False))
+    # a PDS encoder's stage 0 attends at T' = T/2: the growth360 recipes' 200/4 = 50 there
+    lengths500 = rng.integers(1, 501, size=16)
+    lengths500[0], lengths500[1] = 500, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((16, 500, 4, 50, dtype, "native", lengths500, False))
     results = []
     with torch.inference_mode():
         for i, c in enumerate(cases):
@@ -398,14 +436,19 @@ def phase_kernel():
         by_dim = {D: attention_case(64, 250, 4, D, torch.bfloat16, "native", [250] * 64,
                                     seed=len(cases) + D, time_it=True)
                   for D, _ in NEW_HEAD_DIMS}
+        # the stage-0 serving shape of pdss2t_transformer_s_8: 64 requests of 10 s, T' = 500
+        pds0 = attention_case(64, 500, 4, 64, torch.bfloat16, "native", [500] * 64,
+                              seed=len(cases) + 1, time_it=True)
     log(f"[kernel] serving shape {json.dumps(main)}")
+    log(f"[kernel] PDS stage-0 serving shape {json.dumps(pds0)}")
     for D, r in by_dim.items():
         log(f"[kernel] serving shape at D={D}: device_ms {r['device_ms']:.4f} (D=64: "
             f"{main['device_ms']:.4f}), bound {r['bound_ms']:.4f}, SDPA device "
             f"{r['library_device_ms']:.4f}, max_abs_err {r['max_abs_err']:.3e}")
-    if not all(r["max_abs_err"] <= r["atol"] for r in [main, *by_dim.values()]):
-        raise AssertionError(f"attention kernel disagrees at the serving shape: {main} {by_dim}")
-    return results, main, by_dim
+    if not all(r["max_abs_err"] <= r["atol"] for r in [main, pds0, *by_dim.values()]):
+        raise AssertionError(f"attention kernel disagrees at the serving shape: {main} {pds0} "
+                             f"{by_dim}")
+    return results, main, by_dim, pds0
 
 
 # --------------------------------------------------------------------------- #
@@ -539,6 +582,9 @@ def phase_attention_grad():
                 for layout in ("native", "fused_qkv"):
                     cases.append((8, T, H, D, dtype, layout, lengths[:8], rate))
     cases.append((4, T, 3, 45, torch.bfloat16, "native", lengths[:4], 0.15))
+    pds_lengths = np.array([500, 0, 377, 131, 500, 1, 263, 499])  # a PDS stage 0 (D = 50)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((8, 500, 4, 50, dtype, "native", pds_lengths, 0.1))
     long_lengths = np.array([1000, 0, 731, 402])
     for dtype in (torch.float32, torch.bfloat16):
         cases.append((4, 1000, 8, 64, dtype, "native", long_lengths, 0.15))
@@ -585,7 +631,12 @@ def phase_attention_grad():
         log(f"[grad] training shape at D={D}: K1b device_ms {r['device_ms']:.4f} (D=64: "
             f"{main['device_ms']:.4f}), K1f with lse {r['fwd_device_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f}, SDPA backward device {r['library_device_ms']:.4f}")
-    return results, share, main, by_dim
+    # the stage-0 training shape of pdss2t_transformer_m_8: bf16, B=40, T'=500, H=8, p=0.1
+    pds0 = grad_case(40, 500, 8, 64, torch.bfloat16, "native", [500] * 40, 0.1, seed=98,
+                     time_it=True)
+    log(f"[grad] PDS stage-0 training shape {json.dumps(pds0)}")
+    check_grad_case(pds0)
+    return results, share, main, by_dim, pds0
 
 
 def ctc_bounds(B, T, S, lengths, chain_ms):
@@ -731,8 +782,11 @@ def rescore(model, gen, features, lengths, tokens):
         return lp[0].gather(-1, hyp[0, :, None])[:, 0].cumsum(0).cpu()
 
 
-def phase_serve_parity():
-    cfg = s2t_transformer_s(vocab_size=10000, max_target_positions=1024)
+def phase_serve_parity(cfg=None, tag="serve"):
+    """fp32 serving of the fixture wavs on the card and on the CPU from the same
+    seeded weights (``cfg``: s2t_transformer_s by default).  Returns the encodes."""
+    cfg = cfg or s2t_transformer_s(vocab_size=10000, max_target_positions=1024)
+    layers = encoder_layers(cfg)
     card = GeneratorHub.build(cfg, device="cuda", seed=0, **GEN)
     host = GeneratorHub.build(cfg, device="cpu", seed=0, **GEN)
     batch = card._speech_batch(WAVS)
@@ -742,12 +796,12 @@ def phase_serve_parity():
         before = fused_attention.launches
         enc_card = card.model.encode(feats.cuda(), lens.cuda())
         torch.cuda.synchronize()
-        if fused_attention.launches - before != cfg.encoder_layers:
+        if fused_attention.launches - before != layers:
             raise AssertionError(f"encode launched the kernel {fused_attention.launches - before}"
-                                 f" times, expected {cfg.encoder_layers}")
+                                 f" times, expected {layers}")
         enc_host = host.model.encode(feats, lens)
     enc_err = (enc_card["encoder_out"].cpu() - enc_host["encoder_out"]).abs().max().item()
-    log(f"[serve] fp32 encoder_out {tuple(enc_host['encoder_out'].shape)} card vs CPU "
+    log(f"[{tag}] fp32 encoder_out {tuple(enc_host['encoder_out'].shape)} card vs CPU "
         f"max_abs_err={enc_err:.3e} (atol {ENC_ATOL})")
     if not enc_err <= ENC_ATOL:
         raise AssertionError("encoder outputs disagree between the card and the CPU")
@@ -760,12 +814,12 @@ def phase_serve_parity():
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     encodes = 1
-    if fused_attention.launches != cfg.encoder_layers * encodes:
+    if fused_attention.launches != layers * encodes:
         raise AssertionError(f"serving launched the kernel {fused_attention.launches} times")
     t0 = time.perf_counter()
     tok_host = host.generate(WAVS)
     host_s = time.perf_counter() - t0
-    log(f"[serve] 4 requests, beam 5: card {card_s:.3f} s, CPU {host_s:.3f} s; "
+    log(f"[{tag}] 4 requests, beam 5: card {card_s:.3f} s, CPU {host_s:.3f} s; "
         f"lengths {[len(t) for t in tok_card]}")
     for b, (a, c) in enumerate(zip(tok_card, tok_host)):
         if np.array_equal(a, c):
@@ -781,14 +835,14 @@ def phase_serve_parity():
             gaps.append(abs(sa - sc))
             if name == "card":
                 encodes += 2  # each rescore encodes once on the card
-            log(f"[serve] request {b} diverges at step {step}: on {name} candidate "
+            log(f"[{tag}] request {b} diverges at step {step}: on {name} candidate "
                 f"{hyp_a[-1]} scores {sa:.6f}, candidate {hyp_c[-1]} scores {sc:.6f}")
         if not max(gaps) <= ENC_ATOL:
             raise AssertionError(f"request {b}: tokens differ and the gap {max(gaps):.3e} "
                                  f"is no near-tie (tolerance {ENC_ATOL})")
-        log(f"[serve] request {b}: near-tie (gap {max(gaps):.3e} <= {ENC_ATOL}), accepted")
+        log(f"[{tag}] request {b}: near-tie (gap {max(gaps):.3e} <= {ENC_ATOL}), accepted")
     if all(np.array_equal(a, c) for a, c in zip(tok_card, tok_host)):
-        log("[serve] top-beam tokens identical on the card and the CPU")
+        log(f"[{tag}] top-beam tokens identical on the card and the CPU")
     return encodes
 
 
@@ -800,11 +854,13 @@ def synced_s(fn) -> float:
     return time.perf_counter() - t0
 
 
-def device_profile(fn, kernels=()):
+def device_profile(fn, kernels=(), sequence=()):
     """Run ``fn`` once under torch.profiler: device busy ms (union of the
     kernel and copy intervals), the aten ops with the most device time, the
-    device ms of the CUDA kernels whose names contain each of ``kernels``, and
-    the synchronised wall ms of the call."""
+    device ms of the CUDA kernels whose names contain each of ``kernels``, the
+    device ms of each kernel whose name contains one of ``sequence``, in launch
+    order, the device ms of the kernels each ``stage_ranges`` range launched and the
+    span of each on the device timeline, and the synchronised wall ms of the call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -813,8 +869,10 @@ def device_profile(fn, kernels=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels and copies; the device-side copies of stage_ranges' ranges span idle gaps
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("pds_"))
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy_us, start, end = 0.0, *spans[0]
@@ -831,12 +889,85 @@ def device_profile(fn, kernels=()):
                  key=lambda kv: -kv[1])
     kernel_ms = {name: sum(a.self_device_time_total for a in averages if name in a.key) / 1e3
                  for name in kernels}
+    # the ranges of stage_ranges: the host range's device_time_total sums the kernels
+    # launched inside it; the trace's device-side range of the same name spans the device
+    # timeline from its first kernel to its last, idle gaps included
+    range_ms, range_span_ms = {}, {}
+    for e in prof.events():
+        if e.name.startswith("pds_"):
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                range_ms[e.name] = range_ms.get(e.name, 0.0) + e.device_time_total / 1e3
+            else:
+                range_span_ms[e.name] = range_span_ms.get(e.name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3
+    device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    sequence_ms = {name: [(e.time_range.end - e.time_range.start) / 1e3 for e in device
+                          if name in e.name] for name in sequence}
     return {"busy_ms": busy_us / 1e3, "top_ops": ops[:8], "kernel_ms": kernel_ms,
+            "sequence_ms": sequence_ms, "range_ms": range_ms, "range_span_ms": range_span_ms,
             "wall_ms": wall_ms}
 
 
-def phase_speed(n_timed: int = 3, B: int = 64, seconds: float = 10.0):
-    cfg = s2t_transformer_s(vocab_size=10000, max_target_positions=1024, dtype_str="bfloat16")
+def by_stage(sequence_ms, cfg, names, backward=False):
+    """Device ms of a PDS encoder's attention launches summed by stage (and its final
+    layers), from ``device_profile``'s launch-ordered kernels: each launch is one
+    kernel of each of ``names``; the forward runs stage 0 first, the backward the
+    last stage first.  None (logged) when the trace lost a kernel."""
+    lists = [sequence_ms[n] for n in names]
+    counts = [*cfg.pds_layers, *([cfg.pds_final_layers] if cfg.pds_final_layers else [])]
+    if any(len(v) != sum(counts) for v in lists):
+        log(f"[profiler] {names}: {[len(v) for v in lists]} kernels in the trace, expected "
+            f"{sum(counts)} each: no split by stage")
+        return None
+    per_launch = [sum(v) for v in zip(*lists)]
+    if backward:
+        per_launch = per_launch[::-1]
+    out, i = {}, 0
+    for k, n in enumerate(counts):
+        out[f"stage{k}" if k < cfg.pds_stages else "final"] = sum(per_launch[i:i + n])
+        i += n
+    return out
+
+
+@contextlib.contextmanager
+def stage_ranges(encoder):
+    """Run each PDS stage (its downsampler through its last layer) and the tail (fusion,
+    final layers, final norm, CTC head) of ``encoder``'s forward inside a torch.profiler
+    range, ``pds_stage<i>`` / ``pds_tail``, opened and closed by forward hooks; a
+    profile's ``range_ms`` then holds the device ms of each range's kernels."""
+    from torch.profiler import record_function
+
+    open_ranges = []
+
+    def enter(name):
+        def hook(*_):
+            open_ranges.append(record_function(name))
+            open_ranges[-1].__enter__()
+        return hook
+
+    def leave(*_):
+        open_ranges.pop().__exit__(None, None, None)
+
+    hooks = []
+    for i, (down, layers) in enumerate(zip(encoder.downsamplers, encoder.stages)):
+        hooks += [down.register_forward_pre_hook(enter(f"pds_stage{i}")),
+                  layers[-1].register_forward_hook(leave)]
+    hooks += [encoder.stages[-1][-1].register_forward_hook(enter("pds_tail")),
+              encoder.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def phase_speed(cfg=None, tag="speed", n_timed: int = 3, B: int = 64, seconds: float = 10.0):
+    """bf16 serving of B synthetic waveforms of ``seconds`` each, beam 5 (``cfg``:
+    s2t_transformer_s by default); for a PDS model also the device ms of each stage
+    of one encode.  Returns (encodes, results)."""
+    cfg = cfg or s2t_transformer_s(vocab_size=10000, max_target_positions=1024,
+                                   dtype_str="bfloat16")
     hub = GeneratorHub.build(cfg, device="cuda", seed=0, **GEN)
     rng = np.random.default_rng(0)
     waves = [list((rng.normal(size=(B, int(16000 * seconds))) * 3000.0).astype(np.float32))
@@ -861,7 +992,9 @@ def phase_speed(n_timed: int = 3, B: int = 64, seconds: float = 10.0):
     if not torch.isfinite(enc["encoder_out"]).all():
         raise AssertionError("non-finite encoder output")
     beam_s = synced_s(lambda: hub.generator.generate(batch))
-    prof = device_profile(lambda: hub.generator.generate(batch))
+    pds = isinstance(cfg, PDSConfig)
+    with stage_ranges(hub.model.encoder) if pds else contextlib.nullcontext():
+        prof = device_profile(lambda: hub.generator.generate(batch), sequence=FWD_KERNELS)
     busy_ms, top_ops = prof["busy_ms"], prof["top_ops"]
     encodes += 3
     wall = float(np.median(walls))
@@ -871,7 +1004,11 @@ def phase_speed(n_timed: int = 3, B: int = 64, seconds: float = 10.0):
            "profiled_device_busy_ms": busy_ms,
            "device_busy_share_of_encode_plus_beam": busy_ms / 1e3 / beam_s,
            "top_aten_ops_device_ms": top_ops}
-    log(f"[speed] bf16 untuned first measurement: {json.dumps(res)}")
+    if pds:
+        res["encode_device_ms_by_stage"] = prof["range_ms"]
+        res["encode_device_span_ms_by_stage"] = prof["range_span_ms"]
+        res["k1f_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, FWD_KERNELS)
+    log(f"[{tag}] bf16 untuned first measurement: {json.dumps(res)}")
     return encodes, res
 
 
@@ -904,17 +1041,19 @@ def check_step_launches(counts, steps=1):
         raise AssertionError(f"{steps} training step(s) launched {counts}, expected {want}")
 
 
-def phase_train_parity(steps: int = 3):
-    """fp32 s2t_transformer_m, dropout 0: the port's Trainer on the card and on
-    the CPU from the same seeded weights and batches."""
-    cfg = s2t_transformer_m(vocab_size=10000, max_target_positions=1024, dropout=0.0,
-                            attention_dropout=0.0, activation_dropout=0.0)
+def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 3):
+    """fp32, dropout 0: the port's Trainer on the card and on the CPU from the same
+    seeded weights and batches (``cfg``: s2t_transformer_m by default; 12 encoder
+    layers, so TRAIN_LAUNCHES a step)."""
+    cfg = cfg or s2t_transformer_m(vocab_size=10000, max_target_positions=1024, dropout=0.0,
+                                   attention_dropout=0.0, activation_dropout=0.0)
+    assert encoder_layers(cfg) == TRAIN_LAUNCHES["attention_fwd"]
     opt = OptimizationConfig(lr=2e-3, warmup_updates=3, clip_norm=10.0, adam_eps=1e-6)
     rng = np.random.default_rng(0)
     batches = [train_batch(rng, 4, 1000, 30, 10000, [1000, 873, 640, 412]) for _ in range(steps)]
     runs, launches = {}, {k: 0 for k in TRAIN_LAUNCHES}
     for device in ("cuda", "cpu"):
-        model = S2TTransformerModel(cfg, device=device, seed=0, for_training=True)
+        model = model_cls(cfg, device=device, seed=0, for_training=True)
         trainer = Trainer(model, build_criterion(*CRITERION), opt, device=device, seed=1)
         metrics, t0 = [], time.perf_counter()
         for batch in batches:
@@ -928,7 +1067,7 @@ def phase_train_parity(steps: int = 3):
             metrics.append({k: float(m[k]) for k in ("loss", "ctc_loss", "gnorm", "lr")})
         secs = time.perf_counter() - t0
         runs[device] = (metrics, {n: p.detach().cpu() for n, p in model.named_parameters()})
-        log(f"[train] fp32 {device}: {steps} steps in {secs:.2f} s: {json.dumps(metrics)}")
+        log(f"[{tag}] fp32 {device}: {steps} steps in {secs:.2f} s: {json.dumps(metrics)}")
     (card, card_p), (host, host_p) = runs["cuda"], runs["cpu"]
     errs = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in TRAIN_RTOL} for a, b in zip(card, host)]
     diffs = {n: (card_p[n] - host_p[n]).abs() for n in host_p}
@@ -945,7 +1084,7 @@ def phase_train_parity(steps: int = 3):
            "worst_params": {n: diffs[n].max().item() for n in worst},
            "share_of_entries_over_1e-5": over / n_params,
            "launches_per_step": TRAIN_LAUNCHES}
-    log(f"[train] fp32 card vs CPU: rel err per step {json.dumps(errs)} (rtol {TRAIN_RTOL}); "
+    log(f"[{tag}] fp32 card vs CPU: rel err per step {json.dumps(errs)} (rtol {TRAIN_RTOL}); "
         f"max param difference after {steps} steps {param_err:.3e} (bound 2 sum(lr) = "
         f"{param_bound:.3e}; worst {json.dumps(res['worst_params'])}, {over} of {n_params} "
         f"entries differ by more than 1e-5); launches per step {TRAIN_LAUNCHES}")
@@ -955,10 +1094,13 @@ def phase_train_parity(steps: int = 3):
     return res, launches
 
 
-def phase_train_speed(n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000):
-    """bf16 s2t_transformer_m at the bench.py section B shape and optimizer."""
-    cfg = s2t_transformer_m(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
-    model = S2TTransformerModel(cfg, device="cuda", seed=0, for_training=True)
+def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed",
+                      n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000):
+    """bf16 at the bench.py section B shape and optimizer (``cfg``: s2t_transformer_m
+    by default); for a PDS model also K1f's and K1b's device ms by stage."""
+    cfg = cfg or s2t_transformer_m(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
+    assert encoder_layers(cfg) == TRAIN_LAUNCHES["attention_fwd"]
+    model = model_cls(cfg, device="cuda", seed=0, for_training=True)
     trainer = Trainer(model, build_criterion(*CRITERION),
                       OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
                       device="cuda", seed=1)
@@ -973,20 +1115,20 @@ def phase_train_speed(n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30
         losses.append(trainer.train_step(batch)["loss"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    prof = device_profile(lambda: losses.append(trainer.train_step(batch)["loss"]), KERNEL_NAMES)
+    pds = isinstance(cfg, PDSConfig)
+    with stage_ranges(model.encoder) if pds else contextlib.nullcontext():
+        prof = device_profile(lambda: losses.append(trainer.train_step(batch)["loss"]),
+                              KERNEL_NAMES, sequence=FWD_KERNELS + BWD_KERNELS)
     counts = read_counts()
     check_step_launches(counts, n_timed + 2)
     losses = torch.stack(losses).float().cpu()
     if not torch.isfinite(losses).all() or not losses.max() > losses.min():
         raise AssertionError(f"bf16 training loss is not finite or does not move: {losses}")
-    flops = s2t_train_flops(B, T, U, d_model=cfg.encoder_embed_dim, ffn=cfg.encoder_ffn_embed_dim,
-                            enc_layers=cfg.encoder_layers, dec_layers=cfg.decoder_layers, vocab=V)
     steps_per_s = n_timed / wall
     step_ms = wall / n_timed * 1e3
     res = {"batch": B, "frames": T, "target_tokens": U, "vocab": V, "timed_steps": n_timed,
            "wall_s": wall, "step_ms": step_ms, "steps_per_s": steps_per_s,
            "frames_per_s": steps_per_s * B * T, "tokens_per_s": steps_per_s * B * U,
-           "model_flops_per_step": flops, "mfu_vs_989_tflops": flops * steps_per_s / 989e12,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "loss_first_last": [losses[0].item(), losses[-1].item()],
            "profiled_step_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
@@ -995,7 +1137,19 @@ def phase_train_speed(n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30
            "top_aten_ops_device_ms": prof["top_ops"],
            "kernel_device_ms": prof["kernel_ms"],
            "kernel_share_of_busy": {k: v / prof["busy_ms"] for k, v in prof["kernel_ms"].items()}}
-    log(f"[train speed] bf16 untuned first measurement: {json.dumps(res)}")
+    if pds:
+        res["forward_device_ms_by_stage"] = prof["range_ms"]
+        res["forward_device_span_ms_by_stage"] = prof["range_span_ms"]
+        res["k1f_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, FWD_KERNELS)
+        res["k1b_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, BWD_KERNELS,
+                                                 backward=True)
+    else:  # the analytic flops are the s2t_transformer family's
+        flops = s2t_train_flops(B, T, U, d_model=cfg.encoder_embed_dim,
+                                ffn=cfg.encoder_ffn_embed_dim, enc_layers=cfg.encoder_layers,
+                                dec_layers=cfg.decoder_layers, vocab=V)
+        res["model_flops_per_step"] = flops
+        res["mfu_vs_989_tflops"] = flops * steps_per_s / 989e12
+    log(f"[{tag}] bf16 untuned first measurement: {json.dumps(res)}")
     return res, counts
 
 
@@ -1432,15 +1586,19 @@ def ctc_near_tie(card_enc, host_enc, card_tok, host_tok, beam):
     return ok, {"ctc_logits_max_abs_err": err, "differing_rows": report}
 
 
-def phase_nast():
-    """s2t_ctc at full width: greedy CTC serving in bf16 at bench.py's NAST shape
+def phase_nast(preset=None, model_section=None, tag="nast"):
+    """An encoder-only CTC model at full width (``preset``, s2t_ctc_base by default,
+    with ``model_section``): greedy CTC serving in bf16 at bench.py's NAST shape
     through CTCGenerator, then fp32 fixture wavs card vs CPU, greedy and beam 5."""
     from s2t_tpu_torch.hub import GeneratorHub
     from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
     from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_base
 
+    preset = preset or s2t_ctc_base
     B, T, V = NAST_SHAPE["B"], NAST_SHAPE["T"], NAST_SHAPE["V"]
-    cfg = s2t_ctc_base(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
+    cfg = preset(**(model_section or {}), vocab_size=V, dtype_str="bfloat16",
+                 max_target_positions=1024)
+    layers = encoder_layers(cfg)
     model = S2TCTCModel(cfg, device="cuda", seed=0)
     gen = CTCGenerator(model, CTCDecoder())
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1453,21 +1611,27 @@ def phase_nast():
     reset_counts()  # the main path: 1 warm-up, 3 timed and 1 profiled batch
     out = serve(feats[0])
     walls = [synced_s(lambda: serve(f)) for f in feats[1:]]
-    prof = device_profile(lambda: serve(feats[1]))
+    pds = isinstance(cfg, PDSConfig)
+    with stage_ranges(model.encoder) if pds else contextlib.nullcontext():
+        prof = device_profile(lambda: serve(feats[1]), sequence=FWD_KERNELS)
     encodes = 5
     counts = read_counts()
-    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * encodes},
-                 f"NAST serving ({encodes} encodes)")
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": layers * encodes},
+                 f"{tag} serving ({encodes} encodes)")
     wall = float(np.median(walls))
     res = {"batch": B, "frames": T, "vocab": V, "dtype": "bfloat16", "wall_s": walls,
            "utt_per_s": B / wall, "rtf": B * T * 0.01 / wall, "tokens_shape": list(out.shape),
            "profiled_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
            "device_busy_share": prof["busy_ms"] / prof["wall_ms"],
-           "top_aten_ops_device_ms": prof["top_ops"], "launches_per_encode": 12}
-    log(f"[nast] bf16 greedy CTC serving: {json.dumps(res)}")
+           "top_aten_ops_device_ms": prof["top_ops"], "launches_per_encode": layers}
+    if pds:
+        res["encode_device_ms_by_stage"] = prof["range_ms"]
+        res["encode_device_span_ms_by_stage"] = prof["range_span_ms"]
+        res["k1f_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, FWD_KERNELS)
+    log(f"[{tag}] bf16 greedy CTC serving: {json.dumps(res)}")
 
     # fp32: the fixture wavs on the card (kernels) and on the CPU (plain versions)
-    cfg32 = s2t_ctc_base(vocab_size=V, max_target_positions=1024)
+    cfg32 = preset(**(model_section or {}), vocab_size=V, max_target_positions=1024)
     card, host = (S2TCTCModel(cfg32, device=d, seed=0) for d in ("cuda", "cpu"))
     batch = GeneratorHub(card, None)._speech_batch(WAVS)
     parity = {}
@@ -1475,14 +1639,14 @@ def phase_nast():
         before = fused_attention.launches
         tc, _, ec = CTCGenerator(card, CTCDecoder(beam_size=beam)).generate(batch)
         torch.cuda.synchronize()
-        check_counts({"attention_fwd": fused_attention.launches - before}, {"attention_fwd": 12},
-                     f"the fp32 beam-{beam} encode")
+        check_counts({"attention_fwd": fused_attention.launches - before},
+                     {"attention_fwd": layers}, f"the fp32 beam-{beam} encode")
         th, _, eh = CTCGenerator(host, CTCDecoder(beam_size=beam)).generate(batch)
         same = torch.equal(tc.cpu(), th)
         ok, report = (True, {}) if same else ctc_near_tie(ec, eh, tc.cpu(), th, beam)
         parity[beam] = {"identical": same, **report,
                         "lengths": [int((row != 1).sum()) for row in th[:, 0]]}
-        log(f"[nast] fp32 fixture wavs, beam {beam}: card vs CPU top tokens "
+        log(f"[{tag}] fp32 fixture wavs, beam {beam}: card vs CPU top tokens "
             f"{'identical' if same else 'differ'} {json.dumps(parity[beam])}")
         if not ok:
             raise AssertionError(f"CTC decoding differs card vs CPU beyond a near-tie: {report}")
@@ -1525,11 +1689,7 @@ def phase_train_ctc(root: Path):
     and eval_wer; cli.generate decodes the dev split (beam 5, ctc_infer) from
     checkpoint_best.pt (by ctc_wer) and hub.from_pretrained transcribes the 4 of its
     utterances with the longest hypotheses, both in fp32."""
-    from s2t_tpu_torch.cli import generate as cli_generate
     from s2t_tpu_torch.cli import train as cli_train
-    from s2t_tpu_torch.config import to_dict
-    from s2t_tpu_torch.hub import from_pretrained
-    from s2t_tpu_torch.utils.checkpoint import load_checkpoint
 
     t0 = time.perf_counter()
     write_feature_split(root, "train", "ftrain")
@@ -1565,48 +1725,13 @@ def phase_train_ctc(root: Path):
 
     # decode the dev split from checkpoint_best.pt in fp32, beam 5, with ctc_infer
     cfg32 = ctc_cfg(root, dtype="float32")
-    best = Path(cfg.checkpoint.save_dir) / "checkpoint_best.pt"
-    tree, meta = load_checkpoint(best)
-    gen_task = audio_task(cfg32, use_audio=False)
-    reset_counts()  # the main path: cli.generate
-    gen = cli_generate.main(cfg32, tree["params"], task=gen_task, device="cuda")
-    torch.cuda.synchronize()
-    gen_counts = read_counts()
-    encodes = len(gen_task.get_batch_iterator(gen_task.datasets["fdev"],
-                                              max_tokens=CTC_CORPUS_MAX_TOKENS, shuffle=False))
-    check_counts(gen_counts, {**{k: 0 for k in gen_counts}, "attention_fwd": layers * encodes},
-                 "CTC cli.generate")
-    out_dir = Path(cfg32.generation.results_path)
-    text = (out_dir / "generate-fdev.txt").read_text().splitlines()
-    ctc_lines = (out_dir / "translation-fdev.txt.ctc").read_text().splitlines()
-    n_dev = CORPUS["dev"]
-    if sum(line.startswith("D-") for line in text) != n_dev or len(ctc_lines) != n_dev:
-        raise AssertionError(f"generate-fdev.txt / .ctc do not hold {n_dev} hypotheses")
-    d_lines = {int(line.split("\t")[0][2:]): line.split("\t", 2)[2]
-               for line in text if line.startswith("D-")}
-    # the 4 dev utterances with the longest hypotheses: a check of equal strings, not of
-    # four empty ones
-    ids = sorted(d_lines, key=lambda i: (-len(d_lines[i]), i))[:4]
-    if not d_lines[ids[0]]:
-        raise AssertionError(f"the trained CTC model decodes every dev utterance to nothing: "
-                             f"{text}")
-
-    # hub.from_pretrained on the same checkpoint, those utterances by their feature files
-    reset_counts()  # the main path: the hub
-    hub = from_pretrained(best, root, config=to_dict(cfg32), device="cuda")
-    rows = (root / "fdev.tsv").read_text().splitlines()[1:]
-    strings = hub.generate([str(root / rows[i].split("\t")[1]) for i in ids])
-    torch.cuda.synchronize()
-    hub_counts = read_counts()
-    check_counts(hub_counts, {**{k: 0 for k in hub_counts}, "attention_fwd": layers},
-                 "hub.from_pretrained")
-    want_strings = [d_lines[i] for i in ids]
-    log(f"[train ctc] cli.generate (beam 5, ctc_infer) from checkpoint_best.pt (step "
-        f"{meta['step']}): {text[-1]!r}; first .ctc lines {[x[:80] for x in ctc_lines[:2]]}; "
-        f"from_pretrained transcribes {[x[:80] for x in strings]} ({[len(x) for x in strings]} "
-        f"characters), cli.generate's D- lines {[len(x) for x in want_strings]} characters")
-    if strings != want_strings:
-        raise AssertionError("from_pretrained's strings differ from cli.generate's D- lines")
+    gen, text, strings, gen_counts, hub_counts = generate_and_hub(
+        root, cfg32, Path(cfg.checkpoint.save_dir) / "checkpoint_best.pt", layers, "train ctc")
+    ctc_lines = (Path(cfg32.generation.results_path) / "translation-fdev.txt.ctc").read_text()
+    ctc_lines = ctc_lines.splitlines()
+    if len(ctc_lines) != CORPUS["dev"]:
+        raise AssertionError(f"translation-fdev.txt.ctc does not hold {CORPUS['dev']} hypotheses")
+    log(f"[train ctc] first .ctc lines {[x[:80] for x in ctc_lines[:2]]}")
     res = {"feature_split_s": split_s, "train_steps": steps, "wall_s": wall,
            "train_losses": [r["loss"] for r in out["train_log"]], "history": hist,
            "timing": out["timing"], "score": text[-1], "gen_time_s": gen["gen_time"],
@@ -1615,6 +1740,57 @@ def phase_train_ctc(root: Path):
                                                  "hub": hub_counts}}
     total = {k: counts[k] + gen_counts[k] + hub_counts[k] for k in counts}
     return res, total
+
+
+def generate_and_hub(root: Path, cfg32, best: Path, layers: int, tag: str):
+    """cli.generate decodes the fdev split from the checkpoint ``best`` in fp32, then
+    hub.from_pretrained transcribes the 4 dev utterances with the longest hypotheses
+    by their feature files, and must give cli.generate's D- strings (a check of equal
+    strings, not of four empty ones).  Returns (cli.generate's result, the lines of
+    generate-fdev.txt, the hub's strings, the launches of cli.generate and of the hub)."""
+    from s2t_tpu_torch.cli import generate as cli_generate
+    from s2t_tpu_torch.config import to_dict
+    from s2t_tpu_torch.hub import from_pretrained
+    from s2t_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tree, meta = load_checkpoint(best)
+    gen_task = audio_task(cfg32, use_audio=False)
+    reset_counts()  # the main path: cli.generate
+    gen = cli_generate.main(cfg32, tree["params"], task=gen_task, device="cuda")
+    torch.cuda.synchronize()
+    gen_counts = read_counts()
+    encodes = len(gen_task.get_batch_iterator(gen_task.datasets["fdev"],
+                                              max_tokens=cfg32.dataset.max_tokens, shuffle=False))
+    check_counts(gen_counts, {**{k: 0 for k in gen_counts}, "attention_fwd": layers * encodes},
+                 f"{tag}: cli.generate")
+    text = (Path(cfg32.generation.results_path) / "generate-fdev.txt").read_text().splitlines()
+    d_lines = {int(line.split("\t")[0][2:]): line.split("\t", 2)[2]
+               for line in text if line.startswith("D-")}
+    if len(d_lines) != CORPUS["dev"]:
+        raise AssertionError(f"generate-fdev.txt holds {len(d_lines)} hypotheses, expected "
+                             f"{CORPUS['dev']}")
+    ids = sorted(d_lines, key=lambda i: (-len(d_lines[i]), i))[:4]
+    if not d_lines[ids[0]]:
+        raise AssertionError(f"{tag}: the trained model decodes every dev utterance to nothing: "
+                             f"{text}")
+
+    reset_counts()  # the main path: the hub
+    hub = from_pretrained(best, root, config=to_dict(cfg32), device="cuda")
+    rows = (root / "fdev.tsv").read_text().splitlines()[1:]
+    strings = hub.generate([str(root / rows[i].split("\t")[1]) for i in ids])
+    torch.cuda.synchronize()
+    hub_counts = read_counts()
+    check_counts(hub_counts, {**{k: 0 for k in hub_counts}, "attention_fwd": layers},
+                 f"{tag}: hub.from_pretrained")
+    want_strings = [d_lines[i] for i in ids]
+    log(f"[{tag}] cli.generate (beam {cfg32.generation.beam}) from {best.name} (step "
+        f"{meta['step']}): {text[-1]!r}; from_pretrained transcribes {[x[:80] for x in strings]} "
+        f"({[len(x) for x in strings]} characters), cli.generate's D- lines "
+        f"{[len(x) for x in want_strings]} characters")
+    if strings != want_strings:
+        raise AssertionError(f"{tag}: from_pretrained's strings differ from cli.generate's D- "
+                             f"lines: {strings} vs {want_strings}")
+    return gen, text, strings, gen_counts, hub_counts
 
 
 def phase_wer_sanity():
@@ -1639,6 +1815,122 @@ def phase_wer_sanity():
 
 
 # --------------------------------------------------------------------------- #
+# phases 16-18: the PDS encoder serving, serving CTC and training (the card has no yaml
+# package, so the script carries the recipes' sections; tests/test_torch_pds.py holds
+# them to the files)
+PDS_S8_FIELDS = {"vocab_size": 10000, "max_target_positions": 1024}
+GROWTH360_MODEL = {  # the model section of egs/librispeech/asr/conf/purectc_pds_base_8_growth360.yaml
+    "pds_stages": 4, "pds_ratios": [2, 2, 1, 2], "pds_layers": [4, 4, 4, 4],
+    "pds_kernel_sizes": [5, 5, 5, 5], "pds_embed_dims": [200, 256, 256, 360],
+    "pds_attn_heads": [4, 4, 4, 4], "pds_ffn_ratios": [8, 8, 8, 8],
+    "pds_position_embed": [1, 1, 1, 1], "encoder_embed_dim": 360}
+PDS_BIG_MODEL = {"pds_fusion": True, "dropout": 0.15}  # egs/librispeech/asr/conf/pds_big.yaml
+PDS_BIG_ARCH = "pdss2t_transformer_m_8"
+# egs/mustc/asr/conf/pds_base_8.yaml (its arch and criterion_cfg) over its basis.yaml
+PDS_BASE_8 = {"arch": "pdss2t_transformer_s_8",
+              "criterion_cfg": {"label_smoothing": 0.1, "ctc": {"ctc_weight": 0.3}}}
+PDS_BASIS = {"criterion": "label_smoothed_cross_entropy_with_ctc", "max_tokens": 40000,
+             "max_source_positions": 6000, "max_target_positions": 1024, "num_buckets": 12,
+             "eval": {"eval_wer": True, "eval_gen_beam": 1}}
+
+
+def fields(section):
+    """A recipe's model section as config fields (YAML lists -> tuples)."""
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in section.items()}
+
+
+def phase_pds_serve():
+    """pdss2t_transformer_s_8 at full width: fp32 fixture wavs card vs CPU, then bf16
+    serving of 64 x 10 s with each stage's device ms."""
+    encodes = phase_serve_parity(pdss2t_transformer_s_8(**PDS_S8_FIELDS), tag="pds serve")
+    more, speed = phase_speed(pdss2t_transformer_s_8(**PDS_S8_FIELDS, dtype_str="bfloat16"),
+                              tag="pds speed")
+    return encodes + more, speed
+
+
+def phase_pds_train(root: Path):
+    """(a) pds_big.yaml's model in fp32 card vs CPU; (b) in bf16 at the bench shape;
+    (c) cli.train, cli.generate and from_pretrained with pds_base_8.yaml."""
+    cfg32 = pdss2t_transformer_m_8(**{**fields(PDS_BIG_MODEL), "dropout": 0.0,
+                                      "attention_dropout": 0.0, "activation_dropout": 0.0},
+                                   **PDS_S8_FIELDS)
+    parity, parity_launches = phase_train_parity(cfg32, PDSS2TTransformerModel, "pds train")
+    speed, speed_launches = phase_train_speed(
+        pdss2t_transformer_m_8(**fields(PDS_BIG_MODEL), **PDS_S8_FIELDS, dtype_str="bfloat16"),
+        PDSS2TTransformerModel, "pds train speed")
+    cli, cli_launches = phase_pds_cli(root)
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] + cli_launches[k]
+                for k in counters()}
+    return {"parity": parity, "speed": speed, "cli": cli}, launches
+
+
+def pds_cfg(root: Path, dtype: str = "bfloat16"):
+    """pds_base_8.yaml over basis.yaml on phase 14's feature splits; cut to 2 epochs,
+    warmup 4 (basis: 10000) and beam outputs of at most 100 tokens, no sentencepiece."""
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    return from_dict(TrainConfig, {
+        "task": "speech_to_text", "arch": PDS_BASE_8["arch"], "criterion": PDS_BASIS["criterion"],
+        "criterion_cfg": PDS_BASE_8["criterion_cfg"], "model": {"dtype_str": dtype},
+        "dataset": {"data": str(root), "train_subset": "ftrain", "valid_subset": "fdev",
+                    "gen_subset": "fdev", "max_tokens": PDS_BASIS["max_tokens"],
+                    "max_source_positions": PDS_BASIS["max_source_positions"],
+                    "max_target_positions": PDS_BASIS["max_target_positions"],
+                    "num_buckets": PDS_BASIS["num_buckets"]},
+        "optimization": {"max_epoch": 2, "lr": 2e-3, "warmup_updates": 4, "clip_norm": 10.0},
+        "checkpoint": {"save_dir": str(root / "pds_ckpt"), "keep_last_epochs": 1},
+        "common": {"seed": 1, "log_interval": 1},
+        "eval": PDS_BASIS["eval"],
+        "generation": {"beam": 5, "max_len_b": 100, "scoring": "wer", "post_process": None,
+                       "results_path": str(root / "pds_gen")},
+    })
+
+
+def phase_pds_cli(root: Path):
+    """cli.train trains pds_base_8 in bf16 for 2 epochs on phase 14's feature splits,
+    validating with eval_wer (beam 1); cli.generate decodes the dev split (beam 5) from
+    checkpoint_best.pt in fp32 and hub.from_pretrained transcribes the 4 utterances with
+    the longest hypotheses to cli.generate's D- strings."""
+    from s2t_tpu_torch.cli import train as cli_train
+
+    cfg = pds_cfg(root)
+    task = audio_task(cfg, use_audio=False)
+    reset_counts()  # the main path: cli.train, 2 epochs with decoding validations
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, task=task, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = out["trainer"].step
+    n_valid = len(task.get_batch_iterator(task.datasets["fdev"], max_tokens=cfg.dataset.max_tokens,
+                                          seed=1, shuffle=False))
+    valids = n_valid * len(out["history"])
+    layers = encoder_layers(out["model"].cfg)
+    # a step: K1f and K1b per layer, K3 and K4 once; a validation batch: the loss's forward
+    # (K1f per layer, K3) and the eval_wer generator's encode
+    want = {"attention_fwd": layers * (steps + 2 * valids), "attention_bwd": layers * steps,
+            "ctc_alpha": steps + valids, "ctc_beta_grad": steps, "fbank": 0}
+    check_counts(counts, want, f"PDS cli.train ({steps} steps, {valids} validation batches)")
+    hist = out["history"]
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["wer"]) for h in hist):
+        raise AssertionError(f"PDS validation loss or wer is missing or not finite: {hist}")
+    log(f"[pds cli] 2 epochs, {steps} steps in {wall:.2f} s: train losses "
+        f"{[round(r['loss'], 4) for r in out['train_log']]}; validation "
+        + "; ".join(f"epoch {h['epoch']}: loss {h['loss']:.4f} wer {h['wer']:.2f}" for h in hist)
+        + f"; launches {json.dumps(counts)}")
+
+    gen, text, strings, gen_counts, hub_counts = generate_and_hub(
+        root, pds_cfg(root, dtype="float32"), Path(cfg.checkpoint.save_dir) / "checkpoint_best.pt",
+        layers, "pds cli")
+    res = {"train_steps": steps, "wall_s": wall, "history": hist, "timing": out["timing"],
+           "train_losses": [r["loss"] for r in out["train_log"]], "score": text[-1],
+           "gen_time_s": gen["gen_time"], "gen_utts_per_s": gen["utts_per_sec"],
+           "gen_rtf": gen["rtf"], "hub_strings": strings,
+           "launches": {"train": counts, "generate": gen_counts, "hub": hub_counts}}
+    return res, {k: counts[k] + gen_counts[k] + hub_counts[k] for k in counts}
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1653,8 +1945,8 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     sass = phase_build()
-    cases, main_shape, fwd_by_dim = phase_kernel()
-    grad_cases, kept_share, grad_main, bwd_by_dim = phase_attention_grad()
+    cases, main_shape, fwd_by_dim, fwd_pds0 = phase_kernel()
+    grad_cases, kept_share, grad_main, bwd_by_dim, bwd_pds0 = phase_attention_grad()
     ctc_cases = phase_ctc()
 
     reset_counts()
@@ -1680,14 +1972,30 @@ def main(argv=None) -> int:
         audio, audio_launches = phase_train_audio(Path(tmp))
         generate, gen_launches = phase_generate(Path(tmp))
         train_ctc, ctc_launches = phase_train_ctc(Path(tmp))
-    sanity, sanity_launches = phase_wer_sanity()
+        sanity, sanity_launches = phase_wer_sanity()
+        # phase 18 trains through the CLI on phase 14's feature splits
+        pds_train, pds_train_launches = phase_pds_train(Path(tmp))
     log(f"[main path] raw-audio training (2 runs): {json.dumps(audio_launches)}; generate: "
         f"{json.dumps(gen_launches)}; NAST serving: {json.dumps(nast_launches)}; CTC training, "
-        f"generate and hub: {json.dumps(ctc_launches)}; wer_sanity: {json.dumps(sanity_launches)}")
+        f"generate and hub: {json.dumps(ctc_launches)}; wer_sanity: {json.dumps(sanity_launches)}"
+        f"; PDS training (parity, speed, CLI): {json.dumps(pds_train_launches)}")
+
+    fused_attention.launches = 0
+    pds_encodes, pds_speed = phase_pds_serve()
+    pds_serve_launches = fused_attention.launches
+    if pds_serve_launches != 12 * pds_encodes:
+        raise AssertionError(f"PDS serving launched the attention kernel {pds_serve_launches} "
+                             f"times for {pds_encodes} encodes, expected {12 * pds_encodes}")
+    from s2t_tpu_torch.models.s2t_ctc import s2t_ctc_pds
+
+    pds_ctc, pds_ctc_launches = phase_nast(s2t_ctc_pds, fields(GROWTH360_MODEL), "pds ctc")
+    log(f"[main path] PDS serving: attention_fwd launches {pds_serve_launches} over "
+        f"{pds_encodes} encodes (12 per encode); PDS CTC serving: {json.dumps(pds_ctc_launches)} "
+        f"(16 per encode)")
     path_launches = {k: train_launches.get(k, 0) + sum(run[k] for run in (
-        audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches))
-        for k in counters()}
-    path_launches["attention_fwd"] += serve_launches
+        audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches,
+        pds_train_launches, pds_ctc_launches)) for k in counters()}
+    path_launches["attention_fwd"] += serve_launches + pds_serve_launches
 
     ctc_main = ctc_cases[0]
     kernels = [{
@@ -1772,7 +2080,9 @@ def main(argv=None) -> int:
             "ctc_cases": ctc_cases, "speed": speed, "train_parity": parity,
             "train_speed": train_speed, "train_launches": train_launches, "fbank": fbank_main,
             "train_audio": audio, "generate": generate, "nast": nast, "train_ctc": train_ctc,
-            "wer_sanity": sanity, "path_launches": path_launches,
+            "wer_sanity": sanity, "pds_stage0_serving_shape": fwd_pds0,
+            "pds_stage0_training_shape": bwd_pds0, "pds_serve": pds_speed, "pds_ctc": pds_ctc,
+            "pds_train": pds_train, "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

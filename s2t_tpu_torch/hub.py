@@ -10,8 +10,8 @@ Usage:
 ``from_pretrained`` loads one of the port's checkpoints (``utils/checkpoint.py``)
 and builds the task, its model (on the card unless ``device="cpu"``) and its
 generator; ``generate``, ``translate`` and ``transcribe`` return strings.
-``GeneratorHub.build`` serves an ``s2t_transformer`` config from seeded weights
-with no task and returns token ids.
+``GeneratorHub.build`` serves an ``s2t_transformer`` or ``pdss2t_transformer``
+config from seeded weights with no task and returns token ids.
 
 A request is a wav path (features are computed on the host with
 ``fbank_numpy``), a ``.npy`` feature path, a 1-D waveform array or a 2-D
@@ -29,6 +29,7 @@ import numpy as np
 from s2t_tpu_torch.data.audio.fbank import fbank_numpy
 from s2t_tpu_torch.data.dataset import load_features, load_waveform
 from s2t_tpu_torch.inference.generator import SequenceGenerator
+from s2t_tpu_torch.models.pds import PDSConfig, PDSS2TTransformerModel
 from s2t_tpu_torch.models.s2t_transformer import S2TTransformerConfig, S2TTransformerModel
 
 Request = Union[str, np.ndarray]
@@ -49,9 +50,10 @@ class GeneratorHub:
         self.task = task
 
     @classmethod
-    def build(cls, cfg: S2TTransformerConfig, device="cuda", seed: int = 0,
+    def build(cls, cfg: Union[S2TTransformerConfig, PDSConfig], device="cuda", seed: int = 0,
               **generation) -> "GeneratorHub":
-        model = S2TTransformerModel(cfg, device=device, seed=seed)
+        model_cls = PDSS2TTransformerModel if isinstance(cfg, PDSConfig) else S2TTransformerModel
+        model = model_cls(cfg, device=device, seed=seed)
         return cls(model, SequenceGenerator(model, **generation))
 
     def _speech_batch(self, requests: Sequence[Request]):

@@ -70,8 +70,14 @@ class SequenceGenerator:
         return int(min(self.max_len_a * enc_T + self.max_len_b, self.max_target_positions - 1))
 
     def _enc_len_bound(self, T: int) -> int:
-        """Conservative encoder length from the subsampling plan."""
+        """Conservative encoder length (s2t_tpu/inference/generator.py:397-405): a
+        staged encoder (PDS) pads T to its ``pad_multiple`` and divides by its exact
+        ``downsample_ratio``; otherwise the subsampling plan."""
         cfg = self.model.cfg
+        ratio = getattr(cfg, "downsample_ratio", 0)
+        if ratio > 1:
+            mult = getattr(cfg, "pad_multiple", 1)
+            return -(-(-(-T // mult) * mult) // ratio)
         for _ in range(cfg.subsampling_layers):
             T = (T - 1) // cfg.subsampling_stride + 1
         return T

@@ -1,5 +1,5 @@
-"""Carry a JAX ``S2TTransformerModel`` or ``S2TCTCModel`` ``.init(...)["params"]``
-tree into the port.
+"""Carry a JAX ``S2TTransformerModel``, ``PDSS2TTransformerModel`` or
+``S2TCTCModel`` ``.init(...)["params"]`` tree into the port.
 
 The tree arrives as nested mappings of numpy arrays (``jax.tree.map(np.asarray,
 params)``); no jax is imported here.  Layouts:
@@ -10,9 +10,13 @@ params)``); no jax is imported here.  Layouts:
     Embed      embedding             -> weight
 
 Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
-``convs.{i}``, and the tied ``shared_embed`` table -> the decoder's
-``embed_tokens``; the other names (``encoder/embed_norm``, ``encoder/ctc_head``,
-...) are the port's attribute paths.  Any leaf left unmapped on either side
+``convs.{i}``, the PDS encoder's ``stage{i}_layer{j}`` -> ``stages.{i}.{j}``,
+``ds{i}`` -> ``downsamplers.{i}``, ``fusion{i}`` -> ``fusion_blocks.{i}`` and
+``final_layer{j}`` -> ``final_layers.{j}``, and the tied ``shared_embed`` table
+-> the decoder's ``embed_tokens``; the other names (``encoder/embed_norm``,
+``encoder/ctc_head``, ...) are the port's attribute paths.  The bare leaves
+``norm_scale``, ``norm_bias`` (a fusion block's frozen affine) and
+``fusion_weight`` keep their names.  Any leaf left unmapped on either side
 raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
@@ -29,7 +33,19 @@ import numpy as np
 import torch
 from torch import nn
 
-_INDEXED = re.compile(r"^(layer|conv)(\d+)$")
+# flax module name -> the port's module path, and back (on the dotted port path)
+_TO_PORT = ((re.compile(r"^stage(\d+)_layer(\d+)$"), r"stages.\1.\2"),
+            (re.compile(r"^ds(\d+)$"), r"downsamplers.\1"),
+            (re.compile(r"^fusion(\d+)$"), r"fusion_blocks.\1"),
+            (re.compile(r"^final_layer(\d+)$"), r"final_layers.\1"),
+            (re.compile(r"^(layer|conv)(\d+)$"), r"\1s.\2"))
+_TO_FLAX = ((re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
+            (re.compile(r"\bdownsamplers\.(\d+)\b"), r"ds\1"),
+            (re.compile(r"\bfusion_blocks\.(\d+)\b"), r"fusion\1"),
+            (re.compile(r"\bfinal_layers\.(\d+)\b"), r"final_layer\1"),
+            (re.compile(r"\b(layer|conv)s\.(\d+)\b"), r"\1\2"))
+# parameters that are leaves of their own, with the same name on both sides
+_BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight"})
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -45,11 +61,8 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 def _module_path(parts) -> str:
     if parts == ("shared_embed",):
         return "decoder.embed_tokens"
-    names = []
-    for p in parts:
-        m = _INDEXED.match(p)
-        names.append(f"{m.group(1)}s.{m.group(2)}" if m else p)
-    return ".".join(names)
+    return ".".join(next((pat.sub(repl, p) for pat, repl in _TO_PORT if pat.match(p)), p)
+                    for p in parts)
 
 
 def _leaf(name: str, arr: np.ndarray):
@@ -61,8 +74,8 @@ def _leaf(name: str, arr: np.ndarray):
         raise ValueError(f"kernel of rank {arr.ndim} has no port layout")
     if name in ("scale", "embedding"):
         return "weight", arr
-    if name == "bias":
-        return "bias", arr
+    if name in ("bias", *_BARE):
+        return name, arr
     raise KeyError(name)
 
 
@@ -102,12 +115,14 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
 def _flax_module_path(name: str, shared_embed: bool) -> tuple:
     if name == "decoder.embed_tokens" and shared_embed:
         return ("shared_embed",)
-    return tuple(re.sub(r"\b(layer|conv)s\.(\d+)\b", r"\1\2", name).split("."))
+    for pattern, repl in _TO_FLAX:
+        name = pattern.sub(repl, name)
+    return tuple(name.split("."))
 
 
 def _flax_leaf(module: str, name: str, arr: np.ndarray):
-    if name == "bias":
-        return "bias", arr
+    if name in ("bias", *_BARE):
+        return name, arr
     if name != "weight":
         raise KeyError(name)
     if module.endswith("embed_tokens"):

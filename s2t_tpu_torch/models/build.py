@@ -2,16 +2,18 @@
 (counterpart of s2t_tpu/models/build.py).
 
 The ported presets are the ``s2t_transformer`` ones whose features the port
-has (base, s, xs, sp, m, mp, l, lp) and the encoder-only ``s2t_ctc``.  The
-presets that need modules the port does not have yet raise
-``NotImplementedError`` naming the arch.
+has (base, s, xs, sp, m, mp, l, lp), the 13 ``pdss2t_transformer_*`` ones
+and the encoder-only ``s2t_ctc`` and ``s2t_ctc_pds``.  The presets that need
+modules the port does not have yet raise ``NotImplementedError`` naming the
+arch; a ported preset whose config selects an unported branch raises naming
+the field.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from s2t_tpu_torch.models import s2t_ctc, s2t_transformer  # noqa: F401  (register the presets)
+from s2t_tpu_torch.models import pds, s2t_ctc, s2t_transformer  # noqa: F401  (the presets)
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 # arch -> (its model, the module it needs) (s2t_tpu/models/s2t_transformer.py:1053-1168,
@@ -26,7 +28,6 @@ _UNPORTED_ARCHS = {
     "s2t_light_transformer_s": ("s2t_transformer", "lightweight convolutions"),
     "s2t_transformer_s_dlcl": ("s2t_transformer", "the dynamic linear combination of layers"),
     "s2t_nast": ("s2t_ctc", "inter-CTC layers, the PAE adapters and XCTC"),
-    "s2t_ctc_pds": ("s2t_ctc", "the PDS encoder (models/pds.py)"),
     "s2t_ctc_sate": ("s2t_ctc", "the SATE encoder (models/sate.py)"),
 }
 

@@ -1,0 +1,477 @@
+"""PDS: the Progressive Down-Sampling encoder (counterpart of s2t_tpu/models/pds.py).
+
+The encoder runs in stages; each stage is a strided-conv ``Downsampling`` (or
+the Conv1d subsampler for a ratio of -1), that stage's sinusoidal positions at
+its own length and width, dropout, and plain pre- or post-norm Transformer
+layers.  With ``pds_fusion`` every stage's output is carried to the last
+stage's length by a ``FusionBlock`` and the results are summed with learned or
+fixed weights.  ``pds_final_layers``, the final norm and the top CTC head
+follow.  ``PDSS2TTransformerModel`` puts the port's Transformer decoder on
+top; ``S2TCTCModel`` (``s2t_ctc_pds``) takes the encoder alone.
+
+``PDSConfig`` keeps the JAX config's field names and defaults.  The branches
+the port does not have raise ``NotImplementedError`` naming the field and the
+ROADMAP.md item that ports it (``check_supported``): conformer stages,
+rel_pos attention, in-layer conv strides and the Conv2d subsampler (item 7),
+per-stage inter-CTC / XCTC, PAE and a CTC tap below the top (item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from s2t_tpu_torch.device import torch_dtype
+from s2t_tpu_torch.models.s2t_transformer import S2TTransformerModel
+from s2t_tpu_torch.modules.cast import Conv1d
+from s2t_tpu_torch.modules.ctc_head import CTCHead
+from s2t_tpu_torch.modules.dropout import dropout
+from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
+from s2t_tpu_torch.modules.positional import sinusoidal_table
+from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling
+from s2t_tpu_torch.registry import register_model, register_model_architecture
+from s2t_tpu_torch.utils.masking import lengths_to_mask
+
+
+@dataclass(frozen=True)
+class PDSConfig:
+    """Field for field the JAX PDSConfig (same names, same defaults); see
+    there for what each field means."""
+
+    input_feat_per_channel: int = 80
+    input_channels: int = 1
+    pds_stages: int = 4
+    pds_ratios: Tuple[int, ...] = (2, 2, 2, 2)
+    pds_layers: Tuple[int, ...] = (2, 2, 6, 2)
+    pds_kernel_sizes: Tuple[int, ...] = (5, 5, 5, 5)
+    pds_embed_dims: Tuple[int, ...] = (256, 256, 256, 256)
+    pds_attn_heads: Tuple[int, ...] = (4, 4, 4, 4)
+    pds_ffn_ratios: Tuple[int, ...] = (8, 8, 8, 8)
+    pds_position_embed: Tuple[int, ...] = (1, 1, 1, 1)
+    pds_ctc: Tuple[int, ...] = ()
+    pds_xctc: Tuple[int, ...] = ()
+    pds_embed_norm: bool = True
+    pds_ds_method: str = "conv"
+    pds_conv_strides: Tuple[int, ...] = ()
+    pds_cnn_kernel_sizes: Tuple[int, ...] = ()
+    pds_dropout: float = -1.0
+    pds_fusion: bool = False
+    pds_fusion_method: str = "all_conv"
+    pds_fusion_layers: Tuple[int, ...] = ()
+    pds_fusion_weight: Tuple[float, ...] = ()
+    pds_final_layers: int = 0
+    subsampling_type: str = "conv1d"
+    subsampling_layers: int = 2
+    subsampling_filter: int = 1024
+    subsampling_kernel: int = 5
+    subsampling_stride: int = 2
+    subsampling_norm: str = "none"
+    subsampling_activation: str = "glu"
+    subsampling_ref_pad_semantics: bool = True
+    encoder_embed_dim: int = 256
+    encoder_attention_type: str = "abs"
+    encoder_normalize_before: bool = True
+    activation_fn: str = "relu"
+    encoder_activation_fn: str = ""
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    macaron_style: bool = False
+    use_cnn_module: bool = False
+    cnn_module_kernel: int = 31
+    cnn_module_norm: str = "layer_norm"
+    conv_module_bias: bool = False
+    use_ctc: bool = True
+    ctc_layer: int = 0
+    use_xctc: bool = False
+    xctc_layer: int = 0
+    ctc_pae: str = "none"
+    xctc_pae: str = "none"
+    pae_ctc_temperature: float = 1.0
+    pae_unnorm_input: bool = False
+    pae_embed_norm: bool = False
+    pae_out_norm: bool = False
+    share_inter_ctc: bool = True
+    decoder_embed_dim: int = 256
+    decoder_ffn_embed_dim: int = 2048
+    decoder_layers: int = 6
+    decoder_attention_heads: int = 4
+    decoder_normalize_before: bool = True
+    decoder_learned_pos: bool = False
+    share_decoder_input_output_embed: bool = True
+    vocab_size: int = 1000
+    src_vocab_size: int = -1
+    max_source_positions: int = 6000
+    max_target_positions: int = 1024
+    pad_id: int = 1
+    dtype_str: str = "float32"
+    compat_subsampling_layers: int = 0
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype_str)
+
+    @property
+    def enc_act(self):
+        return self.encoder_activation_fn or self.activation_fn
+
+    @property
+    def ctc_vocab_size(self):
+        return self.src_vocab_size if self.src_vocab_size > 0 else self.vocab_size
+
+    @property
+    def downsample_ratio(self):
+        """Exact end-to-end T reduction, which the generator bounds its output by."""
+        return self.total_ratio
+
+    @property
+    def total_ratio(self):
+        r = 1
+        for x in self.pds_ratios:
+            # ratio -1: the shared subsampler downsamples by stride ** layers
+            r *= self.subsampling_stride ** self.subsampling_layers if x == -1 else max(x, 1)
+        for s in self.pds_conv_strides:
+            r *= max(s, 1)
+        return r
+
+    @property
+    def pad_multiple(self) -> int:
+        """T is padded to a multiple of the product of the conv ratios before stage 0."""
+        r = 1
+        for x in self.pds_ratios:
+            r *= max(1, x)
+        return r
+
+    def stage_conv_stride(self, i: int) -> int:
+        return max(1, self.pds_conv_strides[i]) if self.pds_conv_strides else 1
+
+    def stage_expand_dim(self, i: int) -> int:
+        """Output dim of stage i's last layer."""
+        if self.stage_conv_stride(i) != 1 and i != self.pds_stages - 1:
+            return self.pds_embed_dims[i + 1]
+        return self.pds_embed_dims[i]
+
+    def stage_cnn_kernel(self, i: int) -> int:
+        return self.pds_cnn_kernel_sizes[i] if self.pds_cnn_kernel_sizes else self.cnn_module_kernel
+
+    @property
+    def fusion_stages(self) -> Tuple[int, ...]:
+        """Stage indices whose outputs are fused (none unless at least two)."""
+        if not self.pds_fusion or self.pds_fusion_method in ("none", ""):
+            return ()
+        method = self.pds_fusion_method.split("_")[0]
+        flags = self.pds_fusion_layers or tuple(1 for _ in range(self.pds_stages))
+        idx = [i for i in range(self.pds_stages) if flags[i] and (
+            method == "all"
+            or (method == "same" and self.stage_expand_dim(i) == self.encoder_embed_dim))]
+        return tuple(idx) if len(idx) > 1 else ()
+
+    @property
+    def fusion_transform(self) -> str:
+        parts = self.pds_fusion_method.split("_")
+        return parts[1] if len(parts) == 2 else "conv"
+
+    @property
+    def out_dim(self) -> int:
+        """Width of the encoder's output: the fusion's, else the last stage's."""
+        return self.encoder_embed_dim if self.fusion_stages else self.stage_expand_dim(
+            self.pds_stages - 1)
+
+
+_ITEM7 = "ROADMAP.md section 1 item 7 (conformer and encoder variants)"
+_ITEM8 = "ROADMAP.md section 1 item 8 (the CTC research stack)"
+
+
+def _unported(field: str, value, item: str):
+    return NotImplementedError(f"PDSConfig.{field}={value!r} is not ported to s2t_tpu_torch "
+                               f"({item})")
+
+
+def check_supported(cfg: PDSConfig) -> None:
+    """Raise NotImplementedError on the first field that selects a branch the
+    port does not have, naming the field and the ROADMAP.md item that ports it."""
+    if cfg.encoder_attention_type != "abs":
+        raise _unported("encoder_attention_type", cfg.encoder_attention_type, _ITEM7)
+    for name in ("macaron_style", "use_cnn_module", "pds_conv_strides"):
+        if getattr(cfg, name):
+            raise _unported(name, getattr(cfg, name), _ITEM7)
+    if -1 in cfg.pds_ratios:
+        # the shared subsampler: the port has the Conv1d one, masked between layers
+        if cfg.subsampling_type != "conv1d":
+            raise _unported("subsampling_type", cfg.subsampling_type,
+                            _ITEM7 + ", under a pds_ratios entry of -1")
+        if cfg.subsampling_norm != "none":
+            raise _unported("subsampling_norm", cfg.subsampling_norm, _ITEM7)
+        if cfg.subsampling_ref_pad_semantics:
+            raise _unported("subsampling_ref_pad_semantics", True,
+                            _ITEM7 + ", under a pds_ratios entry of -1")
+    for name in ("pds_ctc", "pds_xctc"):
+        if any(getattr(cfg, name)):
+            raise _unported(name, getattr(cfg, name), _ITEM8)
+    for name, off in (("use_xctc", False), ("ctc_pae", "none"), ("xctc_pae", "none"),
+                      ("ctc_layer", 0), ("xctc_layer", 0)):
+        if getattr(cfg, name) != off:
+            raise _unported(name, getattr(cfg, name), _ITEM8)
+    if cfg.decoder_learned_pos:
+        raise _unported("decoder_learned_pos", True, "learned decoder positions")
+    if cfg.fusion_stages and cfg.fusion_transform != "conv":
+        raise NotImplementedError(
+            f"fusion transform {cfg.fusion_transform!r}: only 'conv' is implemented (the "
+            "reference's conv2/conv3/pool variants appear in no recipe that enables fusion)")
+    if cfg.decoder_layers > 0 and cfg.out_dim != cfg.decoder_embed_dim:
+        raise NotImplementedError(
+            f"a PDS encoder of width {cfg.out_dim} under a decoder of width "
+            f"{cfg.decoder_embed_dim}: the port's cross-attention projects keys of the "
+            "decoder's width")
+
+
+class Downsampling(nn.Module):
+    """A stage's strided conv: mask, Conv1d(k, stride max(ratio, 1), padding
+    (k - 1) // 2), optional LayerNorm, mask.  Ratio 0 is the identity; ratio 1
+    still applies the conv; lengths shrink only for a ratio above 1."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int = 5, stride: int = 2,
+                 embed_norm: bool = True):
+        super().__init__()
+        self.stride = stride
+        if stride == 0:
+            return
+        self.conv = Conv1d(in_dim, out_dim, kernel_size, max(stride, 1),
+                           padding=(kernel_size - 1) // 2)
+        self.norm = layer_norm(out_dim) if embed_norm else None
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+        if self.stride == 0:
+            return x, lengths
+        x = x.masked_fill(~lengths_to_mask(lengths, x.shape[1])[..., None], 0.0)
+        x = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        if self.stride > 1:
+            lengths = (lengths - 1) // self.stride + 1
+        if self.norm is not None:
+            x = self.norm(x)
+        return x.masked_fill(~lengths_to_mask(lengths, x.shape[1])[..., None], 0.0), lengths
+
+
+class FusionBlock(nn.Module):
+    """A stage's output carried to the last stage's length and width: pre-norm,
+    Conv1d(k = stride = ratio, no padding), the frozen per-channel affine that
+    stands for the reference's BatchNorm (``norm_scale``, ``norm_bias``),
+    ReLU, post-norm."""
+
+    def __init__(self, in_dim: int, out_dim: int, ratio: int):
+        super().__init__()
+        self.pre_norm = layer_norm(in_dim)
+        self.conv = Conv1d(in_dim, out_dim, ratio, ratio)
+        self.norm_scale = nn.Parameter(torch.ones(out_dim))
+        self.norm_bias = nn.Parameter(torch.zeros(out_dim))
+        self.post_norm = layer_norm(out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(self.pre_norm(x).transpose(1, 2)).transpose(1, 2)
+        x = x * self.norm_scale.to(x.dtype) + self.norm_bias.to(x.dtype)
+        return self.post_norm(F.relu(x))
+
+
+class PDSEncoder(nn.Module):
+    """Returns the JAX encoder's keys: {"encoder_out" (B, T', D), "encoder_lengths"
+    (B,), "ctc_logits" (B, T', V_src) or None, "inter_ctc_logits" (), "xctc_logits"
+    None, "inter_xctc_logits" ()}; the per-stage taps are not ported."""
+
+    def __init__(self, cfg: PDSConfig):
+        super().__init__()
+        self.cfg = cfg
+        dims = cfg.pds_embed_dims
+        in_dim = cfg.input_feat_per_channel * cfg.input_channels
+        downs, stages = [], []
+        for i in range(cfg.pds_stages):
+            if cfg.pds_ratios[i] == -1:
+                downs.append(Conv1dSubsampling(
+                    in_dim, cfg.subsampling_layers, cfg.subsampling_filter, dims[i],
+                    cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation))
+            else:
+                downs.append(Downsampling(in_dim, dims[i], cfg.pds_kernel_sizes[i],
+                                          cfg.pds_ratios[i], cfg.pds_embed_norm))
+            stages.append(nn.ModuleList([
+                S2TEncoderLayer(dims[i], dims[i] * cfg.pds_ffn_ratios[i], cfg.pds_attn_heads[i],
+                                cfg.enc_act, cfg.encoder_normalize_before, cfg.dropout,
+                                cfg.attention_dropout, cfg.activation_dropout)
+                for _ in range(cfg.pds_layers[i])]))
+            in_dim = dims[i]
+        self.downsamplers = nn.ModuleList(downs)
+        self.stages = nn.ModuleList(stages)
+        fusion = cfg.fusion_stages
+        self.fusion_blocks = nn.ModuleDict()
+        for i in fusion:
+            ratio = 1
+            for v in cfg.pds_ratios[i + 1:]:
+                ratio *= max(v, 1)
+            self.fusion_blocks[str(i)] = FusionBlock(dims[i], cfg.encoder_embed_dim, ratio)
+        self.fusion_weight = (nn.Parameter(torch.full((len(fusion),), 1.0 / len(fusion)))
+                              if fusion and not cfg.pds_fusion_weight else None)
+        D = cfg.encoder_embed_dim
+        self.final_layers = nn.ModuleList([
+            S2TEncoderLayer(D, D * cfg.pds_ffn_ratios[-1], cfg.pds_attn_heads[-1], cfg.enc_act,
+                            cfg.encoder_normalize_before, cfg.dropout, cfg.attention_dropout,
+                            cfg.activation_dropout)
+            for _ in range(cfg.pds_final_layers)])
+        self.final_norm = layer_norm(cfg.out_dim) if cfg.encoder_normalize_before else None
+        self.ctc_head = (CTCHead(cfg.out_dim, cfg.ctc_vocab_size, dropout=cfg.dropout)
+                         if cfg.use_ctc else None)
+
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        # the fairseq pad-aware table at this length and width (valid frame i -> pad + 1 + i)
+        return x + sinusoidal_table(x.shape[1], x.shape[2], self.cfg.pad_id, x.dtype,
+                                    x.device)[None]
+
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor,
+                embedding: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """``embedding`` is None: a PDS encoder's CTC head has its own projection."""
+        cfg = self.cfg
+        x = features.to(cfg.dtype)
+        mult = cfg.pad_multiple
+        if mult > 1 and x.shape[1] % mult:
+            # every stage conv sees a length its ratio divides
+            x = F.pad(x, (0, 0, 0, mult - x.shape[1] % mult))
+        stage_drop = cfg.dropout if cfg.pds_dropout < 0 else cfg.pds_dropout
+        stage_outs = []
+        for i in range(cfg.pds_stages):
+            x, lengths = self.downsamplers[i](x, lengths)
+            if cfg.pds_position_embed[i]:
+                x = self._positions(x)
+            x = dropout(x, cfg.dropout if i == 0 else stage_drop, generator)
+            valid = lengths_to_mask(lengths, x.shape[1])
+            for layer in self.stages[i]:
+                x = layer(x, valid, generator=generator)
+            stage_outs.append((x, lengths))
+
+        fusion = cfg.fusion_stages
+        if fusion:
+            Tf = x.shape[1]
+            weights = (self.fusion_weight.to(x.dtype) if self.fusion_weight is not None
+                       else torch.tensor(cfg.pds_fusion_weight, dtype=x.dtype, device=x.device))
+            fused = torch.zeros_like(x)
+            for k, i in enumerate(fusion):
+                out, lens = stage_outs[i]
+                # padded frames are zeroed before the strided fusion conv
+                y = self.fusion_blocks[str(i)](
+                    out.masked_fill(~lengths_to_mask(lens, out.shape[1])[..., None], 0.0))
+                y = y[:, :Tf] if y.shape[1] >= Tf else F.pad(y, (0, 0, 0, Tf - y.shape[1]))
+                fused = fused + weights[k] * y
+            x = fused
+
+        if len(self.final_layers):
+            x = dropout(self._positions(x), stage_drop, generator)
+            valid = lengths_to_mask(lengths, x.shape[1])
+            for layer in self.final_layers:
+                x = layer(x, valid, generator=generator)
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        ctc_logits = None if self.ctc_head is None else self.ctc_head(x, generator=generator)
+        return {"encoder_out": x, "encoder_lengths": lengths, "ctc_logits": ctc_logits,
+                "inter_ctc_logits": (), "xctc_logits": None, "inter_xctc_logits": ()}
+
+
+@register_model("pdss2t_transformer")
+class PDSS2TTransformerModel(S2TTransformerModel):
+    """The PDS encoder under the port's Transformer decoder, with the
+    signatures, build and placement of ``S2TTransformerModel``."""
+
+    @staticmethod
+    def check_config(cfg: PDSConfig, for_training: bool) -> None:
+        check_supported(cfg)
+
+    build_encoder = PDSEncoder
+
+
+# --------------------------------------------------------------------------- #
+# architecture presets (same values as the JAX package's, s2t_tpu/models/pds.py:663-763)
+# --------------------------------------------------------------------------- #
+
+
+def _pds_preset(stages, ratios, layers, kernels, dims, heads, ffn_ratios, **kw) -> PDSConfig:
+    # the last stage dim is the encoder width; when the caller overrides the
+    # stage plan, the global dims follow it unless set explicitly
+    dims = tuple(kw.get("pds_embed_dims", dims))
+    kw.setdefault("encoder_embed_dim", dims[-1])
+    kw.setdefault("decoder_embed_dim", dims[-1])
+    kw.setdefault("decoder_ffn_embed_dim", dims[-1] * 8)
+    cfg = PDSConfig(
+        pds_stages=stages, pds_ratios=ratios, pds_layers=layers, pds_kernel_sizes=kernels,
+        pds_embed_dims=dims, pds_attn_heads=heads, pds_ffn_ratios=ffn_ratios,
+        pds_position_embed=tuple(1 for _ in range(stages)),
+        pds_ctc=tuple(0 for _ in range(stages)),
+    )
+    return cfg.replace(**kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_s")
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_s_16")
+def pdss2t_transformer_s_16(**kw) -> PDSConfig:
+    return _pds_preset(4, (2, 2, 2, 2), (2, 2, 6, 2), (5, 5, 5, 5), (256, 256, 256, 256),
+                       (4, 4, 4, 4), (8, 8, 8, 8), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_s_4")
+def pdss2t_transformer_s_4(**kw) -> PDSConfig:
+    return _pds_preset(3, (2, 2, 1), (4, 4, 4), (5, 5, 5), (256, 256, 256), (4, 4, 4),
+                       (8, 8, 8), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_s_8")
+def pdss2t_transformer_s_8(**kw) -> PDSConfig:
+    return _pds_preset(4, (2, 2, 1, 2), (3, 3, 3, 3), (5, 5, 5, 5), (256, 256, 256, 256),
+                       (4, 4, 4, 4), (8, 8, 8, 8), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_s_32")
+def pdss2t_transformer_s_32(**kw) -> PDSConfig:
+    return _pds_preset(5, (2, 2, 2, 2, 2), (2, 2, 3, 3, 2), (5, 5, 5, 5, 5),
+                       (256, 256, 256, 256, 256), (4, 4, 4, 4, 4), (8, 8, 8, 8, 8), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_sd")
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_sd_8")
+def pdss2t_transformer_sd_8(**kw) -> PDSConfig:
+    # deep-and-thin: the set_pds_deep_8 layer plan
+    return _pds_preset(4, (2, 2, 1, 2), (7, 7, 7, 9), (5, 5, 5, 5), (256, 256, 256, 256),
+                       (4, 4, 4, 4), (8, 8, 8, 8), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_sd_16")
+def pdss2t_transformer_sd_16(**kw) -> PDSConfig:
+    return _pds_preset(4, (2, 2, 2, 2), (5, 5, 12, 8), (5, 5, 5, 5), (256, 256, 256, 256),
+                       (4, 4, 4, 4), (8, 8, 8, 8), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_sd_32")
+def pdss2t_transformer_sd_32(**kw) -> PDSConfig:
+    return _pds_preset(5, (2, 2, 2, 2, 2), (5, 5, 7, 7, 6), (5, 5, 5, 5, 5),
+                       (256, 256, 256, 256, 256), (4, 4, 4, 4, 4), (8, 8, 8, 8, 8), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_m")
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_m_16")
+def pdss2t_transformer_m(**kw) -> PDSConfig:
+    return _pds_preset(4, (2, 2, 2, 2), (2, 2, 6, 2), (5, 5, 5, 5), (512, 512, 512, 512),
+                       (8, 8, 8, 8), (4, 4, 4, 4), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_m_8")
+def pdss2t_transformer_m_8(**kw) -> PDSConfig:
+    return _pds_preset(4, (2, 2, 1, 2), (3, 3, 3, 3), (5, 5, 5, 5), (512, 512, 512, 512),
+                       (8, 8, 8, 8), (4, 4, 4, 4), **kw)
+
+
+@register_model_architecture("pdss2t_transformer", "pdss2t_transformer_m_32")
+def pdss2t_transformer_m_32(**kw) -> PDSConfig:
+    return _pds_preset(5, (2, 2, 2, 2, 2), (2, 2, 3, 3, 2), (5, 5, 5, 5, 5),
+                       (512, 512, 512, 512, 512), (8, 8, 8, 8, 8), (4, 4, 4, 4, 4), **kw)

@@ -1,11 +1,12 @@
 """Encoder-only CTC model (counterpart of s2t_tpu/models/s2t_ctc.py).
 
-``S2TCTCModel`` is the s2t_transformer encoder and its CTC head, with no
-decoder: one encoder pass emits the whole hypothesis, which
-``inference/ctc_decoder.py`` reads off the CTC logits.  The ``s2t_ctc``
-preset is ported; ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate`` are
-registered in ``models/build.py`` and raise ``NotImplementedError`` naming
-what they need.
+``S2TCTCModel`` is an encoder and its CTC head, with no decoder: one
+encoder pass emits the whole hypothesis, which ``inference/ctc_decoder.py``
+reads off the CTC logits.  The encoder follows the config's type, as in the
+JAX model: the s2t_transformer encoder for an ``S2TTransformerConfig``
+(preset ``s2t_ctc``), the PDS encoder for a ``PDSConfig`` (``s2t_ctc_pds``).
+``s2t_nast`` and ``s2t_ctc_sate`` are registered in ``models/build.py`` and
+raise ``NotImplementedError`` naming what they need.
 """
 
 from __future__ import annotations
@@ -16,10 +17,25 @@ import torch
 from torch import nn
 
 from s2t_tpu_torch.device import resolve_device
+from s2t_tpu_torch.models import pds
 from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerConfig, S2TTransformerEncoder, _check_trainable, check_supported,
     init_and_place, s2t_transformer_s)
 from s2t_tpu_torch.registry import register_model, register_model_architecture
+
+
+def _check_config(cfg, for_training: bool) -> None:
+    if isinstance(cfg, pds.PDSConfig):
+        pds.check_supported(cfg)
+    elif isinstance(cfg, S2TTransformerConfig):
+        check_supported(cfg)
+        if for_training:
+            _check_trainable(cfg)
+    else:
+        # the JAX model also takes a SATEConfig
+        raise NotImplementedError(
+            f"S2TCTCModel over a {type(cfg).__name__}: the SATE encoder is not ported to "
+            "s2t_tpu_torch")
 
 
 @register_model("s2t_ctc")
@@ -29,34 +45,29 @@ class S2TCTCModel(nn.Module):
     cast as ``S2TTransformerModel`` is: weights from ``seed``, serving (frozen,
     stored in ``cfg.dtype``) or ``for_training`` (float32 masters)."""
 
-    def __init__(self, cfg: S2TTransformerConfig, device="cuda", seed: int = 0,
-                 for_training: bool = False):
+    def __init__(self, cfg, device="cuda", seed: int = 0, for_training: bool = False):
         super().__init__()
-        if not isinstance(cfg, S2TTransformerConfig):
-            # the JAX model picks the SATE or PDS encoder by the config's type
-            raise NotImplementedError(
-                f"S2TCTCModel over a {type(cfg).__name__}: the SATE and PDS encoders are not "
-                "ported to s2t_tpu_torch")
-        check_supported(cfg)
-        if for_training:
-            _check_trainable(cfg)
+        _check_config(cfg, for_training)
         device = resolve_device(device)
         self.cfg = cfg
-        # no decoder embedding exists to tie to, so the JAX encoder's CTC head has its own
-        # projection whatever share_ctc_and_embed says
-        self.encoder = S2TTransformerEncoder(cfg.replace(share_ctc_and_embed=False))
+        if isinstance(cfg, pds.PDSConfig):
+            self.encoder = pds.PDSEncoder(cfg)
+        else:
+            # no decoder embedding exists to tie to, so the JAX encoder's CTC head has its
+            # own projection whatever share_ctc_and_embed says
+            self.encoder = S2TTransformerEncoder(cfg.replace(share_ctc_and_embed=False))
         init_and_place(self, cfg, device, seed, for_training)
 
     @property
     def device(self) -> torch.device:
-        return self.encoder.positions.device
+        return next(self.parameters()).device
 
     def forward(self, features, feat_lengths, prev_tokens=None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """``prev_tokens`` is unused (the Trainer's signature); ``train=True``
         applies every dropout with bits from ``generator``."""
         if train:
-            _check_trainable(self.cfg)
+            _check_config(self.cfg, True)
             if generator is None:
                 raise ValueError("train=True needs the step's torch.Generator")
         else:
@@ -72,3 +83,11 @@ class S2TCTCModel(nn.Module):
 def s2t_ctc_base(**kw) -> S2TTransformerConfig:
     return s2t_transformer_s(decoder_layers=0, use_ctc=True).replace(**kw)
 
+
+@register_model_architecture("s2t_ctc", "s2t_ctc_pds")
+def s2t_ctc_pds(**kw) -> pds.PDSConfig:
+    """Encoder-only CTC over a PDS encoder (the purectc_pds_* recipes): the
+    ``pdss2t_transformer_s_8`` plan with no decoder."""
+    kw.setdefault("decoder_layers", 0)
+    kw.setdefault("use_ctc", True)
+    return pds.pdss2t_transformer_s_8(**kw)

@@ -208,10 +208,11 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
 def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.device,
                    seed: int, for_training: bool) -> None:
     """Flax-like init on the CPU from ``seed`` (dense and conv kernels
-    N(0, 1/fan_in), biases 0, LayerNorm 1/0, token embeddings N(0, 1/D)), then
-    onto ``device``: for serving stored in ``cfg.dtype``, frozen, in eval
-    mode; ``for_training`` keeps float32 master parameters and casts only the
-    buffers (the positions tables set the compute dtype)."""
+    N(0, 1/fan_in), biases 0, LayerNorm 1/0, token embeddings N(0, 1/D); the PDS
+    fusion's frozen affine ``norm_scale`` 1 / ``norm_bias`` 0 and its
+    ``fusion_weight`` 1/len), then onto ``device``: for serving stored in
+    ``cfg.dtype``, frozen, in eval mode; ``for_training`` keeps float32 master
+    parameters and casts only the buffers."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d)):
@@ -224,6 +225,13 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.Embedding):
             nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5, generator=g)
+        for name, p in mod.named_parameters(recurse=False):
+            if name == "norm_scale":
+                nn.init.ones_(p)
+            elif name == "norm_bias":
+                nn.init.zeros_(p)
+            elif name == "fusion_weight":
+                nn.init.constant_(p, 1.0 / p.numel())
     if for_training:
         model.to(device=device)
         for mod in model.modules():
@@ -308,12 +316,10 @@ class S2TTransformerModel(nn.Module):
     def __init__(self, cfg: S2TTransformerConfig, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()
-        check_supported(cfg)
-        if for_training:
-            _check_trainable(cfg)
+        self.check_config(cfg, for_training)
         device = resolve_device(device)
         self.cfg = cfg
-        self.encoder = S2TTransformerEncoder(cfg)
+        self.encoder = self.build_encoder(cfg)
         self.decoder = TransformerDecoder(
             vocab_size=cfg.vocab_size,
             embed_dim=cfg.decoder_embed_dim,
@@ -331,19 +337,29 @@ class S2TTransformerModel(nn.Module):
         )
         init_and_place(self, cfg, device, seed, for_training)
 
+    @staticmethod
+    def check_config(cfg: S2TTransformerConfig, for_training: bool) -> None:
+        """Raise on what the port does not have (a subclass checks its own config)."""
+        check_supported(cfg)
+        if for_training:
+            _check_trainable(cfg)
+
+    build_encoder = S2TTransformerEncoder
+
     @property
     def device(self) -> torch.device:
         return self.decoder.embed_tokens.weight.device
 
     def _ctc_embedding(self):
-        return self.decoder.embed_tokens.weight if self.cfg.share_ctc_and_embed else None
+        tied = getattr(self.cfg, "share_ctc_and_embed", False)
+        return self.decoder.embed_tokens.weight if tied else None
 
     def forward(self, features, feat_lengths, prev_tokens, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """Teacher-forced forward.  ``train=True`` applies every dropout with
         bits from ``generator`` (on the model's device); otherwise no dropout."""
         if train:
-            _check_trainable(self.cfg)
+            self.check_config(self.cfg, True)
             if generator is None:
                 raise ValueError("train=True needs the step's torch.Generator")
         else:

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -19,3 +21,13 @@ def fairseq_sinusoidal_encoding(max_len: int, dim: int, padding_idx: int = 1) ->
     if dim % 2 == 1:
         pe = np.pad(pe, ((0, 0), (0, 1)))
     return torch.from_numpy(pe).to(torch.float32)
+
+
+@lru_cache(maxsize=128)
+def sinusoidal_table(T: int, dim: int, padding_idx: int, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """``fairseq_sinusoidal_encoding(T, dim, padding_idx)`` in ``dtype`` on
+    ``device``, made once per key: a table at the length a call needs, with no
+    cap, as the JAX encoders that build theirs per call (PDS stages)."""
+    with torch.inference_mode(False):  # a normal tensor, usable by training after a decode
+        return fairseq_sinusoidal_encoding(T, dim, padding_idx).to(device=device, dtype=dtype)

@@ -125,11 +125,14 @@ def test_ctc_criterion_loss_and_grads_match_jax(variant):
 
 
 def test_unported_presets_and_encoders_raise():
-    for arch, needs in (("s2t_nast", "XCTC"), ("s2t_ctc_pds", "PDS"), ("s2t_ctc_sate", "SATE")):
+    for arch, needs in (("s2t_nast", "XCTC"), ("s2t_ctc_sate", "SATE")):
         with pytest.raises(NotImplementedError, match=needs):
             build_model(arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="SATE and PDS"):
+    with pytest.raises(NotImplementedError, match="SATE encoder"):
         tctc.S2TCTCModel(object(), device="cpu")
+    # the PDS encoder is ported (tests/test_torch_pds.py): its preset builds an encoder-only model
+    pds = build_model("s2t_ctc_pds", dict(vocab_size=32, pds_layers=(1, 1, 1, 1)), device="cpu")
+    assert isinstance(pds, tctc.S2TCTCModel) and pds.cfg.decoder_layers == 0
     with pytest.raises(NotImplementedError, match="ngram_lm"):
         CTCGenerator(None, CTCDecoder(), ngram_lm=object())
     model = build_model("s2t_ctc", dict(TINY), device="cpu")
