@@ -1,4 +1,5 @@
-"""Smoke run of the s2t_tpu_torch serving, training, raw-audio and PDS slices on one NVIDIA H100.
+"""Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE and Conformer slices
+on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -14,7 +15,9 @@ Phases (any failure ends the run with a non-zero exit):
              the card at the s/m/l head plans, T' = 250 and 1000, ragged
              lengths with a 0-length row, fp32 and bf16, native (B, T, H, D)
              and head-major strided layouts; at the recipes' head dims 44, 80,
-             90, 96 (and an odd 45) also a fused (B, T, 3, H, D) buffer; times
+             90, 96 (and an odd 45) also a fused (B, T, 3, H, D) buffer; rows of
+             0 frames (a SATE textual encoder under a CTC shrink that calls a
+             row all blank), one batch entirely so; times
              kernel, plain version and torch's scaled_dot_product_attention (a
              yardstick only), at the serving shape for D = 64, 44, 80, 90, 96,
              and at the PDS stage-0 serving shape (B=64, T'=500, H=4, D=64;
@@ -95,16 +98,36 @@ Phases (any failure ends the run with a non-zero exit):
              basis.yaml (eval_wer), 2 epochs, cli.generate (beam 5) from
              checkpoint_best.pt, and hub.from_pretrained transcribing the 4
              longest hypotheses to cli.generate's D- strings;
+ 19. sate     s2t_sate_s (sate.yaml: acoustic 12 x 256, league adapter, textual
+     serve    6 x 256, decoder 6 x 256, V=10000) as phases 5-6: fp32 fixture
+             wavs card vs CPU (beam-5 tokens identical or a near-tie), 64 x 10 s
+             in bf16, 18 K1f launches an encode, the encode's device ms split
+             acoustic / adapter / textual by forward-hook ranges; the same for
+             sate_pds_8.yaml's model (a PDS acoustic encoder, 3/3/3/3 layers);
+ 20. sate     (a) s2t_sate_s fp32, dropout 0, 3 Trainer steps card vs CPU at
+     train    TRAIN_RTOL; (b) bf16 at the bench shape, 18/18/1/1 launches a step;
+             (c) cli.train with sate.yaml (bf16) from phase 11's wav corpus (K5
+             in the step), 2 epochs, cli.generate (beam 5) on the feature split
+             and hub.from_pretrained;
+ 21. conformer s2t_conformer (12 x 256, kernel 31, swish, rel_pos: dense, so no
+             K1f) served as phases 5-6 with the rel_pos attention's and the conv
+             module's device ms of an encode; ConformerCTCSmall.yaml's model
+             (16 x 176, head dim 44, Conv2d subsampler) fp32 card vs CPU for 3
+             steps, through cli.train from raw audio (K5, K3, K4) for 2 epochs,
+             and as phase 13 (greedy bf16 serving; fp32 greedy / beam-5 tokens
+             card vs CPU);
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
-it: serving (phases 5-6, 13, 16-17) launches K1f once per encoder layer and
-encode (a PDS encoder: once per layer of every stage); a training step
-(phases 7-8, 14, 15, 18) launches K1f and K1b once per encoder layer, K3 and
-K4 once; a raw-audio forward (phase 11, train or valid) adds
-K5 once; decoding (phases 12, 14, 18) launches K1f once per encoder layer and
-encode, and a validation batch of phase 14 runs three encodes (the loss,
-eval_ctc_wer, eval_wer), of phase 18 two (the loss, eval_wer).
+it: serving (phases 5-6, 13, 16-17, 19, 21) launches K1f once per encoder layer
+that attends with the fused kernel and encode (a PDS encoder: every stage's
+layers; SATE: the acoustic and the textual layers; a rel_pos layer attends
+densely and launches none); a training step (phases 7-8, 14, 15, 18, 20, 21)
+launches K1f and K1b once per such layer, K3 and K4 once; a raw-audio forward
+(phases 11, 20, 21, train or valid) adds K5 once; decoding (phases 12, 14, 18,
+20) launches K1f once per such layer and encode, and a validation batch of
+phase 14 runs three encodes (the loss, eval_ctc_wer, eval_wer), of phase 18
+two (the loss, eval_wer).
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -135,7 +158,9 @@ from s2t_tpu_torch.hub import GeneratorHub
 from s2t_tpu_torch.models.pds import (
     PDSConfig, PDSS2TTransformerModel, pdss2t_transformer_m_8, pdss2t_transformer_s_8)
 from s2t_tpu_torch.models.s2t_transformer import (
-    S2TTransformerModel, s2t_transformer_m, s2t_transformer_s)
+    S2TTransformerConfig, S2TTransformerModel, s2t_conformer, s2t_transformer_m,
+    s2t_transformer_s)
+from s2t_tpu_torch.models.sate import S2TSATEModel, SATEConfig, s2t_sate_s
 from s2t_tpu_torch.ops import _build
 from s2t_tpu_torch.ops.attention_cuda import (
     PADDED_HEAD_DIMS, fused_attention, fused_attention_bwd, fused_attention_fwd,
@@ -203,10 +228,23 @@ def log(msg: str) -> None:
 
 
 def encoder_layers(cfg) -> int:
-    """Encoder self-attention layers: K1f's launches per encode, K1b's per step."""
+    """Encoder self-attention layers that run the fused kernel: K1f's launches per
+    encode, K1b's per step (a rel_pos layer attends densely and launches neither)."""
+    if isinstance(cfg, SATEConfig):
+        acoustic = cfg.pds if cfg.acoustic_encoder == "pds" else cfg.acoustic
+        text = cfg.text_encoder_layers if cfg.text_attention_type == "abs" else 0
+        return encoder_layers(acoustic) + text
+    if cfg.encoder_attention_type != "abs":
+        return 0
     if isinstance(cfg, PDSConfig):
         return sum(cfg.pds_layers) + cfg.pds_final_layers
     return cfg.encoder_layers
+
+
+def step_launches(cfg) -> dict:
+    """Launches of one training step of a model of ``cfg``."""
+    layers = encoder_layers(cfg)
+    return {"attention_fwd": layers, "attention_bwd": layers, "ctc_alpha": 1, "ctc_beta_grad": 1}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -415,6 +453,14 @@ def phase_kernel():
     lengths500[0], lengths500[1] = 500, 0
     for dtype in (torch.float32, torch.bfloat16):
         cases.append((16, 500, 4, 50, dtype, "native", lengths500, False))
+    # a SATE textual encoder under the CTC shrink: a row the CTC head calls all blank is
+    # 0 frames long (the kernel attends uniformly over all T keys, as the dense path
+    # does); one batch where every row is
+    shrunk = rng.integers(0, 126, size=16)
+    shrunk[:4] = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((16, 125, 4, 64, dtype, "native", shrunk, False))
+        cases.append((8, 125, 4, 64, dtype, "native", np.zeros(8, np.int64), False))
     results = []
     with torch.inference_mode():
         for i, c in enumerate(cases):
@@ -869,10 +915,10 @@ def device_profile(fn, kernels=(), sequence=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels and copies; the device-side copies of stage_ranges' ranges span idle gaps
+    # kernels and copies; the device-side copies of the ranges span idle gaps
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith("pds_"))
+                   and not e.name.startswith(RANGE_PREFIXES))
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy_us, start, end = 0.0, *spans[0]
@@ -889,12 +935,13 @@ def device_profile(fn, kernels=(), sequence=()):
                  key=lambda kv: -kv[1])
     kernel_ms = {name: sum(a.self_device_time_total for a in averages if name in a.key) / 1e3
                  for name in kernels}
-    # the ranges of stage_ranges: the host range's device_time_total sums the kernels
-    # launched inside it; the trace's device-side range of the same name spans the device
-    # timeline from its first kernel to its last, idle gaps included
+    # the ranges of stage_ranges and module_ranges: the host range's device_time_total sums
+    # the kernels launched inside it (over every entry of a range of that name); the
+    # trace's device-side range of the same name spans the device timeline from its first
+    # kernel to its last, idle gaps included
     range_ms, range_span_ms = {}, {}
     for e in prof.events():
-        if e.name.startswith("pds_"):
+        if e.name.startswith(RANGE_PREFIXES):
             if e.device_type == torch.autograd.DeviceType.CPU:
                 range_ms[e.name] = range_ms.get(e.name, 0.0) + e.device_time_total / 1e3
             else:
@@ -928,6 +975,73 @@ def by_stage(sequence_ms, cfg, names, backward=False):
         out[f"stage{k}" if k < cfg.pds_stages else "final"] = sum(per_launch[i:i + n])
         i += n
     return out
+
+
+RANGE_PREFIXES = ("pds_", "sate_", "conformer_")  # the profiler ranges of the hooks below
+
+
+@contextlib.contextmanager
+def module_ranges(named_modules):
+    """Run the forward of each module of ``named_modules`` ((name, module) pairs; a name
+    may repeat, and its ranges then sum) inside a torch.profiler range of that name,
+    opened by a forward pre-hook and closed by a forward hook."""
+    from torch.profiler import record_function
+
+    hooks = []
+    for name, module in named_modules:
+        opened = []
+
+        def enter(*_, name=name, opened=opened):
+            opened.append(record_function(name))
+            opened[-1].__enter__()
+
+        def leave(*_, opened=opened):
+            opened.pop().__exit__(None, None, None)
+
+        hooks += [module.register_forward_pre_hook(enter), module.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def sate_ranges(model):
+    """SATE's encode split: the acoustic encoder (with its CTC head), the adapter, the
+    textual encoder."""
+    enc = model.encoder
+    parts = [("sate_acoustic", enc.acoustic), ("sate_textual", enc.textual)]
+    if enc.adapter is not None:
+        parts.append(("sate_adapter", enc.adapter))
+    return module_ranges(parts)
+
+
+def conformer_ranges(model):
+    """A Conformer encode: the whole encoder, and every layer's self-attention and conv
+    module (each name sums over the layers)."""
+    enc = model.encoder
+    return module_ranges([("conformer_encoder", enc)]
+                         + [("conformer_attention", layer.self_attn) for layer in enc.layers]
+                         + [("conformer_conv_module", layer.conv_module) for layer in enc.layers])
+
+
+def encoder_ranges(model):
+    """The ranges of ``model``'s encoder: PDS stages, SATE parts, Conformer sublayers, or
+    none."""
+    cfg = model.cfg
+    if isinstance(cfg, PDSConfig):
+        return stage_ranges(model.encoder)
+    if isinstance(cfg, SATEConfig):
+        return sate_ranges(model)
+    if getattr(cfg, "use_cnn_module", False) and cfg.encoder_attention_type == "rel_pos":
+        return conformer_ranges(model)
+    return contextlib.nullcontext()
+
+
+def range_shares(range_ms, whole):
+    """Each range's device ms over the ``whole`` range's (a Conformer encode's shares)."""
+    total = range_ms.get(whole)
+    return {k: v / total for k, v in range_ms.items() if k != whole} if total else None
 
 
 @contextlib.contextmanager
@@ -964,8 +1078,8 @@ def stage_ranges(encoder):
 
 def phase_speed(cfg=None, tag="speed", n_timed: int = 3, B: int = 64, seconds: float = 10.0):
     """bf16 serving of B synthetic waveforms of ``seconds`` each, beam 5 (``cfg``:
-    s2t_transformer_s by default); for a PDS model also the device ms of each stage
-    of one encode.  Returns (encodes, results)."""
+    s2t_transformer_s by default); for a PDS, SATE or Conformer model also the device ms
+    of each stage or part of one encode (``encoder_ranges``).  Returns (encodes, results)."""
     cfg = cfg or s2t_transformer_s(vocab_size=10000, max_target_positions=1024,
                                    dtype_str="bfloat16")
     hub = GeneratorHub.build(cfg, device="cuda", seed=0, **GEN)
@@ -993,7 +1107,7 @@ def phase_speed(cfg=None, tag="speed", n_timed: int = 3, B: int = 64, seconds: f
         raise AssertionError("non-finite encoder output")
     beam_s = synced_s(lambda: hub.generator.generate(batch))
     pds = isinstance(cfg, PDSConfig)
-    with stage_ranges(hub.model.encoder) if pds else contextlib.nullcontext():
+    with encoder_ranges(hub.model):
         prof = device_profile(lambda: hub.generator.generate(batch), sequence=FWD_KERNELS)
     busy_ms, top_ops = prof["busy_ms"], prof["top_ops"]
     encodes += 3
@@ -1008,6 +1122,10 @@ def phase_speed(cfg=None, tag="speed", n_timed: int = 3, B: int = 64, seconds: f
         res["encode_device_ms_by_stage"] = prof["range_ms"]
         res["encode_device_span_ms_by_stage"] = prof["range_span_ms"]
         res["k1f_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, FWD_KERNELS)
+    elif prof["range_ms"]:
+        res["encode_device_ms_by_part"] = prof["range_ms"]
+        res["encode_device_span_ms_by_part"] = prof["range_span_ms"]
+        res["share_of_encoder_device_ms"] = range_shares(prof["range_ms"], "conformer_encoder")
     log(f"[{tag}] bf16 untuned first measurement: {json.dumps(res)}")
     return encodes, res
 
@@ -1035,26 +1153,28 @@ def train_batch(rng, B, T, U, V, lengths):
     }
 
 
-def check_step_launches(counts, steps=1):
-    want = {**{k: 0 for k in counters()}, **{k: n * steps for k, n in TRAIN_LAUNCHES.items()}}
+def check_step_launches(counts, steps=1, per_step=None):
+    per_step = per_step or TRAIN_LAUNCHES
+    want = {**{k: 0 for k in counters()}, **{k: n * steps for k, n in per_step.items()}}
     if counts != want:
         raise AssertionError(f"{steps} training step(s) launched {counts}, expected {want}")
 
 
-def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 3):
+def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 3,
+                       criterion=CRITERION):
     """fp32, dropout 0: the port's Trainer on the card and on the CPU from the same
     seeded weights and batches (``cfg``: s2t_transformer_m by default; 12 encoder
-    layers, so TRAIN_LAUNCHES a step)."""
+    layers, so TRAIN_LAUNCHES a step; another model, ``step_launches``)."""
     cfg = cfg or s2t_transformer_m(vocab_size=10000, max_target_positions=1024, dropout=0.0,
                                    attention_dropout=0.0, activation_dropout=0.0)
-    assert encoder_layers(cfg) == TRAIN_LAUNCHES["attention_fwd"]
+    per_step = step_launches(cfg)
     opt = OptimizationConfig(lr=2e-3, warmup_updates=3, clip_norm=10.0, adam_eps=1e-6)
     rng = np.random.default_rng(0)
     batches = [train_batch(rng, 4, 1000, 30, 10000, [1000, 873, 640, 412]) for _ in range(steps)]
-    runs, launches = {}, {k: 0 for k in TRAIN_LAUNCHES}
+    runs, launches = {}, {k: 0 for k in per_step}
     for device in ("cuda", "cpu"):
         model = model_cls(cfg, device=device, seed=0, for_training=True)
-        trainer = Trainer(model, build_criterion(*CRITERION), opt, device=device, seed=1)
+        trainer = Trainer(model, build_criterion(*criterion), opt, device=device, seed=1)
         metrics, t0 = [], time.perf_counter()
         for batch in batches:
             reset_counts()  # the main path: one training step on the card
@@ -1062,7 +1182,7 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
             if device == "cuda":
                 torch.cuda.synchronize()
                 counts = read_counts()
-                check_step_launches(counts)
+                check_step_launches(counts, per_step=per_step)
                 launches = {k: launches[k] + counts[k] for k in launches}
             metrics.append({k: float(m[k]) for k in ("loss", "ctc_loss", "gnorm", "lr")})
         secs = time.perf_counter() - t0
@@ -1083,11 +1203,11 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
            "max_param_diff": param_err, "param_bound": param_bound,
            "worst_params": {n: diffs[n].max().item() for n in worst},
            "share_of_entries_over_1e-5": over / n_params,
-           "launches_per_step": TRAIN_LAUNCHES}
+           "launches_per_step": per_step}
     log(f"[{tag}] fp32 card vs CPU: rel err per step {json.dumps(errs)} (rtol {TRAIN_RTOL}); "
         f"max param difference after {steps} steps {param_err:.3e} (bound 2 sum(lr) = "
         f"{param_bound:.3e}; worst {json.dumps(res['worst_params'])}, {over} of {n_params} "
-        f"entries differ by more than 1e-5); launches per step {TRAIN_LAUNCHES}")
+        f"entries differ by more than 1e-5); launches per step {per_step}")
     if any(not e[k] <= TRAIN_RTOL[k] for e in errs for k in TRAIN_RTOL) or \
             not param_err <= param_bound:
         raise AssertionError("fp32 training disagrees between the card and the CPU")
@@ -1095,13 +1215,15 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
 
 
 def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed",
-                      n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000):
+                      n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000,
+                      criterion=CRITERION):
     """bf16 at the bench.py section B shape and optimizer (``cfg``: s2t_transformer_m
-    by default); for a PDS model also K1f's and K1b's device ms by stage."""
+    by default); for a PDS model also K1f's and K1b's device ms by stage, for SATE and
+    a Conformer the device ms of each part of the forward (``encoder_ranges``)."""
     cfg = cfg or s2t_transformer_m(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
-    assert encoder_layers(cfg) == TRAIN_LAUNCHES["attention_fwd"]
+    per_step = step_launches(cfg)
     model = model_cls(cfg, device="cuda", seed=0, for_training=True)
-    trainer = Trainer(model, build_criterion(*CRITERION),
+    trainer = Trainer(model, build_criterion(*criterion),
                       OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
                       device="cuda", seed=1)
     batch = train_batch(np.random.default_rng(0), B, T, U, V, [T] * B)
@@ -1116,11 +1238,11 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pds = isinstance(cfg, PDSConfig)
-    with stage_ranges(model.encoder) if pds else contextlib.nullcontext():
+    with encoder_ranges(model):
         prof = device_profile(lambda: losses.append(trainer.train_step(batch)["loss"]),
                               KERNEL_NAMES, sequence=FWD_KERNELS + BWD_KERNELS)
     counts = read_counts()
-    check_step_launches(counts, n_timed + 2)
+    check_step_launches(counts, n_timed + 2, per_step)
     losses = torch.stack(losses).float().cpu()
     if not torch.isfinite(losses).all() or not losses.max() > losses.min():
         raise AssertionError(f"bf16 training loss is not finite or does not move: {losses}")
@@ -1143,7 +1265,10 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
         res["k1f_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, FWD_KERNELS)
         res["k1b_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, BWD_KERNELS,
                                                  backward=True)
-    else:  # the analytic flops are the s2t_transformer family's
+    elif prof["range_ms"]:
+        res["forward_device_ms_by_part"] = prof["range_ms"]
+    if isinstance(cfg, S2TTransformerConfig) and cfg.encoder_attention_type == "abs" \
+            and cfg.decoder_layers:  # the analytic flops are the s2t_transformer family's
         flops = s2t_train_flops(B, T, U, d_model=cfg.encoder_embed_dim,
                                 ffn=cfg.encoder_ffn_embed_dim, enc_layers=cfg.encoder_layers,
                                 dec_layers=cfg.decoder_layers, vocab=V)
@@ -1310,24 +1435,36 @@ def write_corpus(root: Path, seed: int = 0) -> None:
         (root / f"{split}.tsv").write_text("\n".join(lines) + "\n")
 
 
-def audio_cfg(root: Path, max_epoch: int, dtype: str = "bfloat16"):
+def train_cfg(root: Path, arch: str, model: dict, criterion, save_dir: str,
+              dtype: str = "bfloat16", max_epoch: int = 2, dataset=None, optimization=None,
+              checkpoint=None, eval=None, generation=None):
+    """A cli.train config over ``root``: ``model`` is the recipe's model section, with
+    ``dtype`` as its dtype (a SATE model's acoustic dtype), ``criterion`` (name, cfg).
+    By default on phase 11's wav corpus (with use_audio_input the size columns and caps
+    count samples); warmup 4; the other sections update the defaults below."""
     from s2t_tpu_torch.config import TrainConfig, from_dict
 
+    dtype_key = "acoustic_dtype_str" if arch.startswith("s2t_sate") else "dtype_str"
     return from_dict(TrainConfig, {
-        "task": "speech_to_text",
-        "arch": "s2t_transformer_m",  # full width; the preset's dropouts
-        "criterion": CRITERION[0],
-        "criterion_cfg": CRITERION[1],
-        "model": {"dtype_str": dtype},
-        # with use_audio_input the size columns and caps count samples
-        "dataset": {"data": str(root), "max_tokens": 6_400_000,
-                    "max_source_positions": 200_000},
+        "task": "speech_to_text", "arch": arch, "criterion": criterion[0],
+        "criterion_cfg": criterion[1], "model": {**model, dtype_key: dtype},
+        "dataset": {"data": str(root), "max_tokens": 6_400_000, "max_source_positions": 200_000,
+                    **(dataset or {})},
         "optimization": {"max_epoch": max_epoch, "lr": 2e-3, "warmup_updates": 4,
-                         "clip_norm": 10.0},
-        "checkpoint": {"save_dir": str(root / "ckpt"), "keep_last_epochs": 2},
+                         "clip_norm": 10.0, **(optimization or {})},
+        "checkpoint": {"save_dir": str(root / save_dir), "keep_last_epochs": 1,
+                       **(checkpoint or {})},
         "common": {"seed": 1, "log_interval": 1},
-        "generation": {"beam": 5, "max_len_b": 100, "scoring": "wer", "post_process": None},
+        "eval": eval or {},
+        "generation": {"beam": 5, "max_len_b": 100, "scoring": "wer", "post_process": None,
+                       **(generation or {})},
     })
+
+
+def audio_cfg(root: Path, max_epoch: int, dtype: str = "bfloat16"):
+    """s2t_transformer_m at full width (the preset's dropouts) on the wav corpus."""
+    return train_cfg(root, "s2t_transformer_m", {}, CRITERION, "ckpt", dtype, max_epoch,
+                     checkpoint={"keep_last_epochs": 2})
 
 
 def audio_task(cfg, use_audio: bool = True):
@@ -1347,11 +1484,11 @@ def check_counts(counts, want, what):
         raise AssertionError(f"{what} launched {counts}, expected {want}")
 
 
-def path_counts(train_steps, forwards):
+def path_counts(train_steps, forwards, layers=12):
     """Launches of a run of ``train_steps`` train steps and ``forwards`` forwards
     in all (train + valid): K5, K1f and K3 once per forward (K1f per encoder
-    layer), K1b and K4 per train step."""
-    return {"attention_fwd": 12 * forwards, "attention_bwd": 12 * train_steps,
+    layer of the fused kernel), K1b and K4 per train step."""
+    return {"attention_fwd": layers * forwards, "attention_bwd": layers * train_steps,
             "ctc_alpha": forwards, "ctc_beta_grad": train_steps, "fbank": forwards}
 
 
@@ -1366,37 +1503,18 @@ def phase_train_audio(root: Path):
     write_corpus(root)
     corpus_s = time.perf_counter() - t0
     cfg = audio_cfg(root, max_epoch=3)
-    task = audio_task(cfg)
-    reset_counts()  # the main path: cli.train from raw audio, 3 epochs
-    t0 = time.perf_counter()
-    out = cli_train.main(cfg, task=task, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    steps = out["trainer"].step
+    first, counts, _, task = phase_audio_cli(cfg, "train audio")
+    steps, n_valid, losses, valid = (first[k] for k in ("train_steps", "valid_batches",
+                                                        "train_losses", "valid_losses"))
     valid_ds = task.datasets[cfg.dataset.valid_subset]
-    n_valid = len(task.get_batch_iterator(valid_ds, max_tokens=cfg.dataset.max_tokens,
-                                          seed=cfg.common.seed, shuffle=False))
-    check_counts(counts, path_counts(steps, steps + n_valid * len(out["history"])),
-                 f"cli.train ({steps} steps, {len(out['history'])} validations of {n_valid} batch)")
-    losses = [r["loss"] for r in out["train_log"]]
-    valid = [h["loss"] for h in out["history"]]
-    epoch_mean = [np.mean([r["loss"] for r in out["train_log"] if r["epoch"] == e])
-                  for e in (1, 3)]
-    if not (np.isfinite(losses).all() and np.isfinite(valid).all() and valid[-1] < valid[0]
-            and epoch_mean[1] < epoch_mean[0]):
-        raise AssertionError(f"raw-audio training: losses not finite or not falling: train "
-                             f"{losses}, valid {valid}")
     ckpt = Path(cfg.checkpoint.save_dir)
     files = sorted(p.name for p in ckpt.glob("*.pt"))
     want = {"checkpoint_last.pt", "checkpoint_best.pt", "checkpoint3.pt", "checkpoint2.pt"}
     if not want <= set(files) or "checkpoint1.pt" in files:  # keep_last_epochs 2
         raise AssertionError(f"checkpoint files {files}, expected {sorted(want)} and no "
                              "checkpoint1.pt")
-    log(f"[train audio] 3 epochs, {steps} steps in {wall:.2f} s: train losses "
-        f"{[round(x, 4) for x in losses]}, valid {[round(x, 4) for x in valid]}; launches "
-        f"{json.dumps(counts)}; checkpoints {files}")
-    timing = out["timing"]
+    log(f"[train audio] checkpoints {files}")
+    timing, wall = first["timing"], first["wall_s"]
 
     # a 4th epoch resumes from checkpoint_last.pt: step and epoch continue
     cfg4 = audio_cfg(root, max_epoch=4)
@@ -1612,7 +1730,7 @@ def phase_nast(preset=None, model_section=None, tag="nast"):
     out = serve(feats[0])
     walls = [synced_s(lambda: serve(f)) for f in feats[1:]]
     pds = isinstance(cfg, PDSConfig)
-    with stage_ranges(model.encoder) if pds else contextlib.nullcontext():
+    with encoder_ranges(model):
         prof = device_profile(lambda: serve(feats[1]), sequence=FWD_KERNELS)
     encodes = 5
     counts = read_counts()
@@ -1628,6 +1746,9 @@ def phase_nast(preset=None, model_section=None, tag="nast"):
         res["encode_device_ms_by_stage"] = prof["range_ms"]
         res["encode_device_span_ms_by_stage"] = prof["range_span_ms"]
         res["k1f_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, FWD_KERNELS)
+    elif prof["range_ms"]:
+        res["encode_device_ms_by_part"] = prof["range_ms"]
+        res["share_of_encoder_device_ms"] = range_shares(prof["range_ms"], "conformer_encoder")
     log(f"[{tag}] bf16 greedy CTC serving: {json.dumps(res)}")
 
     # fp32: the fixture wavs on the card (kernels) and on the CPU (plain versions)
@@ -1663,24 +1784,15 @@ def ctc_cfg(root: Path, dtype: str = "bfloat16"):
     """arch s2t_ctc at full width with purectc.yaml's model section, criterion ctc,
     on the feature splits of phase 11's corpus; validation decodes (eval_ctc_wer,
     eval_wer), generation is beam 5 with ctc_infer."""
-    from s2t_tpu_torch.config import TrainConfig, from_dict
-
-    return from_dict(TrainConfig, {
-        "task": "speech_to_text", "arch": "s2t_ctc",
-        "criterion": "ctc", "criterion_cfg": {"ctc_weight": 1.0, "zero_infinity": True},
-        "model": {**PURECTC_MODEL, "dtype_str": dtype},
-        "dataset": {"data": str(root), "train_subset": "ftrain", "valid_subset": "fdev",
-                    "gen_subset": "fdev", "max_tokens": CTC_CORPUS_MAX_TOKENS,
-                    "max_source_positions": 6000},
-        "optimization": {"max_epoch": 2, "lr": 2e-3, "warmup_updates": 4, "clip_norm": 10.0},
+    return train_cfg(
+        root, "s2t_ctc", PURECTC_MODEL, ("ctc", {"ctc_weight": 1.0, "zero_infinity": True}),
+        "ctc_ckpt", dtype,
+        dataset={"train_subset": "ftrain", "valid_subset": "fdev", "gen_subset": "fdev",
+                 "max_tokens": CTC_CORPUS_MAX_TOKENS, "max_source_positions": 6000},
         # the best checkpoint by the validation CTC WER, a key the decoding puts in val
-        "checkpoint": {"save_dir": str(root / "ctc_ckpt"), "keep_last_epochs": 1,
-                       "best_checkpoint_metric": "ctc_wer"},
-        "common": {"seed": 1, "log_interval": 1},
-        "eval": {"eval_ctc_wer": True, "eval_wer": True, "eval_gen_beam": 1},
-        "generation": {"beam": 5, "max_len_b": 100, "scoring": "wer", "post_process": None,
-                       "ctc_infer": True, "results_path": str(root / "ctc_gen")},
-    })
+        checkpoint={"best_checkpoint_metric": "ctc_wer"},
+        eval={"eval_ctc_wer": True, "eval_wer": True, "eval_gen_beam": 1},
+        generation={"ctc_infer": True, "results_path": str(root / "ctc_gen")})
 
 
 def phase_train_ctc(root: Path):
@@ -1867,23 +1979,13 @@ def phase_pds_train(root: Path):
 def pds_cfg(root: Path, dtype: str = "bfloat16"):
     """pds_base_8.yaml over basis.yaml on phase 14's feature splits; cut to 2 epochs,
     warmup 4 (basis: 10000) and beam outputs of at most 100 tokens, no sentencepiece."""
-    from s2t_tpu_torch.config import TrainConfig, from_dict
-
-    return from_dict(TrainConfig, {
-        "task": "speech_to_text", "arch": PDS_BASE_8["arch"], "criterion": PDS_BASIS["criterion"],
-        "criterion_cfg": PDS_BASE_8["criterion_cfg"], "model": {"dtype_str": dtype},
-        "dataset": {"data": str(root), "train_subset": "ftrain", "valid_subset": "fdev",
-                    "gen_subset": "fdev", "max_tokens": PDS_BASIS["max_tokens"],
-                    "max_source_positions": PDS_BASIS["max_source_positions"],
-                    "max_target_positions": PDS_BASIS["max_target_positions"],
-                    "num_buckets": PDS_BASIS["num_buckets"]},
-        "optimization": {"max_epoch": 2, "lr": 2e-3, "warmup_updates": 4, "clip_norm": 10.0},
-        "checkpoint": {"save_dir": str(root / "pds_ckpt"), "keep_last_epochs": 1},
-        "common": {"seed": 1, "log_interval": 1},
-        "eval": PDS_BASIS["eval"],
-        "generation": {"beam": 5, "max_len_b": 100, "scoring": "wer", "post_process": None,
-                       "results_path": str(root / "pds_gen")},
-    })
+    return train_cfg(
+        root, PDS_BASE_8["arch"], {}, (PDS_BASIS["criterion"], PDS_BASE_8["criterion_cfg"]),
+        "pds_ckpt", dtype,
+        dataset={"train_subset": "ftrain", "valid_subset": "fdev", "gen_subset": "fdev",
+                 **{k: PDS_BASIS[k] for k in ("max_tokens", "max_source_positions",
+                                              "max_target_positions", "num_buckets")}},
+        eval=PDS_BASIS["eval"], generation={"results_path": str(root / "pds_gen")})
 
 
 def phase_pds_cli(root: Path):
@@ -1931,6 +2033,158 @@ def phase_pds_cli(root: Path):
 
 
 # --------------------------------------------------------------------------- #
+# phases 19-21: SATE and the Conformer (the recipes' sections; tests/test_torch_sate.py holds
+# them to the files)
+SATE_MODEL = {"adapter_type": "league", "text_encoder_layers": 6}  # egs/mustc/st/conf/sate.yaml
+SATE_CRITERION = ("label_smoothed_cross_entropy_with_ctc",  # sate.yaml's criterion_cfg
+                  {"label_smoothing": 0.1, "ctc": {"ctc_weight": 1.0}})
+SATE_PDS_8_MODEL = {  # the model section of egs/mustc/st/conf/sate_pds_8.yaml
+    "acoustic_encoder": "pds", "pds_stages": 4, "pds_layers": [3, 3, 3, 3],
+    "pds_ratios": [2, 2, 1, 2], "pds_embed_dims": [256, 256, 256, 256],
+    "pds_kernel_sizes": [5, 5, 5, 5], "pds_ffn_ratios": [8, 8, 8, 8],
+    "pds_attn_heads": [4, 4, 4, 4], "pds_position_embed": [1, 1, 1, 1],
+    "adapter_type": "inter_league", "text_encoder_layers": 6,
+    "acoustic_encoder_embed_norm": True, "acoustic_encoder_no_scale_embedding": True}
+CONFORMER_CTC_SMALL = {  # egs/librispeech/asr/conf/ConformerCTCSmall.yaml
+    "arch": "s2t_ctc", "criterion": "ctc", "criterion_cfg": {"ctc_weight": 1.0},
+    "optimization": {"lr": 1.5e-3, "weight_decay": 1.0e-6},
+    "model": {"encoder_embed_dim": 176, "encoder_ffn_embed_dim": 704, "encoder_layers": 16,
+              "encoder_attention_heads": 4, "subsampling_type": "conv2d",
+              "subsampling_layers": 2, "subsampling_filter": 176, "subsampling_kernel": 3,
+              "subsampling_stride": 2, "subsampling_norm": "batch2d",
+              "subsampling_activation": "swish", "macaron_style": True, "use_cnn_module": True,
+              "cnn_module_kernel": 31, "encoder_attention_type": "rel_pos",
+              "encoder_activation_fn": "swish"}}
+NO_DROPOUT = {"dropout": 0.0, "attention_dropout": 0.0, "activation_dropout": 0.0}
+
+
+def sate_cfg(model, dtype="float32", **kw):
+    """s2t_sate_s at full width with a recipe's model section (V = 10000)."""
+    return s2t_sate_s(**fields(model), **PDS_S8_FIELDS, acoustic_dtype_str=dtype, **kw)
+
+
+def phase_sate_serve():
+    """sate.yaml's and sate_pds_8.yaml's models as phases 5-6 serve: fp32 fixture wavs
+    card vs CPU, bf16 64 x 10 s with the encode's device ms by part.  Returns
+    ({tag: results}, K1f launches)."""
+    out, launches = {}, 0
+    for tag, model in (("sate", SATE_MODEL), ("sate pds", SATE_PDS_8_MODEL)):
+        cfg = sate_cfg(model)
+        layers = encoder_layers(cfg)
+        if layers != 18:
+            raise AssertionError(f"{tag}: {layers} fused-attention layers, expected 12 + 6")
+        encodes = phase_serve_parity(cfg, tag=f"{tag} serve")
+        more, speed = phase_speed(sate_cfg(model, "bfloat16"), tag=f"{tag} speed")
+        encodes += more
+        if fused_attention.launches != layers * encodes:
+            raise AssertionError(f"{tag} serving launched the attention kernel "
+                                 f"{fused_attention.launches} times for {encodes} encodes, "
+                                 f"expected {layers} each")
+        launches += fused_attention.launches
+        out[tag] = {**speed, "encodes": encodes, "k1f_launches": fused_attention.launches}
+        log(f"[{tag} serve] attention_fwd launches {fused_attention.launches} over {encodes} "
+            f"encodes ({layers} per encode: 12 acoustic + 6 textual)")
+    return out, launches
+
+
+def audio_cli_cfg(root: Path, arch, model, criterion, tag, dtype, optimization=None):
+    """A 2-epoch cli.train config on phase 11's wav corpus that decodes phase 14's
+    feature split."""
+    return train_cfg(root, arch, model, criterion, f"{tag}_ckpt", dtype,
+                     dataset={"gen_subset": "fdev"}, optimization=optimization,
+                     generation={"results_path": str(root / f"{tag}_gen")})
+
+
+def phase_audio_cli(cfg, tag: str):
+    """cli.train from raw audio (K5 in every forward, then utterance CMVN + SpecAugment)
+    for ``cfg``'s epochs with validation; checks the launches, and that the losses are
+    finite and fall (the last validation below the first, the last epoch's mean train
+    loss below the first's).  Returns (results, launches, fused-attention layers, task)."""
+    from s2t_tpu_torch.cli import train as cli_train
+
+    task = audio_task(cfg)
+    reset_counts()  # the main path: cli.train from raw audio
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, task=task, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps, epochs = out["trainer"].step, cfg.optimization.max_epoch
+    n_valid = len(task.get_batch_iterator(task.datasets[cfg.dataset.valid_subset],
+                                          max_tokens=cfg.dataset.max_tokens,
+                                          seed=cfg.common.seed, shuffle=False))
+    layers = encoder_layers(out["model"].cfg)
+    check_counts(counts, path_counts(steps, steps + n_valid * len(out["history"]), layers),
+                 f"{tag} cli.train ({steps} steps, {len(out['history'])} validations of "
+                 f"{n_valid} batch)")
+    losses = [r["loss"] for r in out["train_log"]]
+    valid = [h["loss"] for h in out["history"]]
+    epoch_mean = [np.mean([r["loss"] for r in out["train_log"] if r["epoch"] == e])
+                  for e in (1, epochs)]
+    if not (np.isfinite(losses).all() and np.isfinite(valid).all() and valid[-1] < valid[0]
+            and epoch_mean[1] < epoch_mean[0]):
+        raise AssertionError(f"{tag}: losses not finite or not falling: train {losses}, "
+                             f"valid {valid}")
+    res = {"train_steps": steps, "wall_s": wall, "valid_batches": n_valid,
+           "train_losses": losses, "valid_losses": valid, "timing": out["timing"],
+           "launches": counts}
+    log(f"[{tag} cli] {epochs} epochs from raw audio, {steps} steps in {wall:.2f} s: train "
+        f"losses {[round(x, 4) for x in losses]}, valid {[round(x, 4) for x in valid]}; "
+        f"launches {json.dumps(counts)}")
+    return res, counts, layers, task
+
+
+def phase_sate_train(root: Path):
+    """(a) sate.yaml's model fp32 card vs CPU; (b) bf16 at the bench shape; (c) cli.train
+    with sate.yaml from raw audio, cli.generate and from_pretrained."""
+    parity, parity_launches = phase_train_parity(
+        sate_cfg(SATE_MODEL, **{f"acoustic_{k}": v for k, v in NO_DROPOUT.items()}),
+        S2TSATEModel, "sate train", criterion=SATE_CRITERION)
+    speed, speed_launches = phase_train_speed(sate_cfg(SATE_MODEL, "bfloat16"), S2TSATEModel,
+                                              "sate train speed", criterion=SATE_CRITERION)
+    cli, cli_launches, layers, _ = phase_audio_cli(
+        audio_cli_cfg(root, "s2t_sate_s", SATE_MODEL, SATE_CRITERION, "sate", "bfloat16"), "sate")
+    gen, text, strings, gen_counts, hub_counts = generate_and_hub(
+        root, audio_cli_cfg(root, "s2t_sate_s", SATE_MODEL, SATE_CRITERION, "sate", "float32"),
+        root / "sate_ckpt" / "checkpoint_best.pt", layers, "sate cli")
+    cli.update({"score": text[-1], "gen_time_s": gen["gen_time"], "gen_rtf": gen["rtf"],
+                "hub_strings": strings, "generate_launches": gen_counts,
+                "hub_launches": hub_counts})
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] + cli_launches[k]
+                + gen_counts[k] + hub_counts[k] for k in counters()}
+    return {"parity": parity, "speed": speed, "cli": cli}, launches
+
+
+def phase_conformer(root: Path):
+    """s2t_conformer served as phases 5-6 (rel_pos: no K1f); ConformerCTCSmall's model
+    fp32 card vs CPU for 3 steps, through cli.train from raw audio, and served as
+    phase 13.  Returns (results, launches)."""
+    from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_base
+
+    fused_attention.launches = 0
+    cfg = s2t_conformer(**PDS_S8_FIELDS)
+    encodes = phase_serve_parity(cfg, tag="conformer serve")
+    more, speed = phase_speed(s2t_conformer(**PDS_S8_FIELDS, dtype_str="bfloat16"),
+                              tag="conformer speed")
+    if fused_attention.launches:
+        raise AssertionError(f"the rel_pos encoder launched K1f {fused_attention.launches} times")
+    model, crit = fields(CONFORMER_CTC_SMALL["model"]), (
+        CONFORMER_CTC_SMALL["criterion"], {**CONFORMER_CTC_SMALL["criterion_cfg"],
+                                           "zero_infinity": True})
+    parity, parity_launches = phase_train_parity(
+        s2t_ctc_base(**model, **PDS_S8_FIELDS, **NO_DROPOUT), S2TCTCModel, "conformer ctc train",
+        criterion=crit)
+    cli, cli_launches, _, _ = phase_audio_cli(
+        audio_cli_cfg(root, "s2t_ctc", CONFORMER_CTC_SMALL["model"], crit, "conformer",
+                       "bfloat16", CONFORMER_CTC_SMALL["optimization"]), "conformer ctc")
+    serve_ctc, serve_ctc_launches = phase_nast(s2t_ctc_base, model, "conformer ctc")
+    launches = {k: parity_launches.get(k, 0) + cli_launches[k] + serve_ctc_launches[k]
+                for k in counters()}
+    return {"serve_encodes": encodes + more, "speed": speed, "ctc_parity": parity,
+            "ctc_cli": cli, "ctc_serve": serve_ctc}, launches
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1975,10 +2229,15 @@ def main(argv=None) -> int:
         sanity, sanity_launches = phase_wer_sanity()
         # phase 18 trains through the CLI on phase 14's feature splits
         pds_train, pds_train_launches = phase_pds_train(Path(tmp))
+        # phases 20-21 train from phase 11's wavs and decode phase 14's feature split
+        sate_train, sate_train_launches = phase_sate_train(Path(tmp))
+        conformer, conformer_launches = phase_conformer(Path(tmp))
     log(f"[main path] raw-audio training (2 runs): {json.dumps(audio_launches)}; generate: "
         f"{json.dumps(gen_launches)}; NAST serving: {json.dumps(nast_launches)}; CTC training, "
         f"generate and hub: {json.dumps(ctc_launches)}; wer_sanity: {json.dumps(sanity_launches)}"
-        f"; PDS training (parity, speed, CLI): {json.dumps(pds_train_launches)}")
+        f"; PDS training (parity, speed, CLI): {json.dumps(pds_train_launches)}; SATE training "
+        f"(parity, speed, CLI, generate, hub): {json.dumps(sate_train_launches)}; Conformer "
+        f"(serving, CTC parity, CLI, CTC serving): {json.dumps(conformer_launches)}")
 
     fused_attention.launches = 0
     pds_encodes, pds_speed = phase_pds_serve()
@@ -1992,10 +2251,13 @@ def main(argv=None) -> int:
     log(f"[main path] PDS serving: attention_fwd launches {pds_serve_launches} over "
         f"{pds_encodes} encodes (12 per encode); PDS CTC serving: {json.dumps(pds_ctc_launches)} "
         f"(16 per encode)")
+    sate_serve, sate_serve_launches = phase_sate_serve()
+    log(f"[main path] SATE serving: attention_fwd launches {sate_serve_launches} (18 per encode)")
     path_launches = {k: train_launches.get(k, 0) + sum(run[k] for run in (
         audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches,
-        pds_train_launches, pds_ctc_launches)) for k in counters()}
-    path_launches["attention_fwd"] += serve_launches + pds_serve_launches
+        pds_train_launches, pds_ctc_launches, sate_train_launches, conformer_launches))
+        for k in counters()}
+    path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
     ctc_main = ctc_cases[0]
     kernels = [{
@@ -2082,7 +2344,8 @@ def main(argv=None) -> int:
             "train_audio": audio, "generate": generate, "nast": nast, "train_ctc": train_ctc,
             "wer_sanity": sanity, "pds_stage0_serving_shape": fwd_pds0,
             "pds_stage0_training_shape": bwd_pds0, "pds_serve": pds_speed, "pds_ctc": pds_ctc,
-            "pds_train": pds_train, "path_launches": path_launches,
+            "pds_train": pds_train, "sate_serve": sate_serve, "sate_train": sate_train,
+            "conformer": conformer, "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,8 @@ Usage:
 ``from_pretrained`` loads one of the port's checkpoints (``utils/checkpoint.py``)
 and builds the task, its model (on the card unless ``device="cpu"``) and its
 generator; ``generate``, ``translate`` and ``transcribe`` return strings.
-``GeneratorHub.build`` serves an ``s2t_transformer`` or ``pdss2t_transformer``
-config from seeded weights with no task and returns token ids.
+``GeneratorHub.build`` serves an ``s2t_transformer``, ``pdss2t_transformer``
+or ``s2t_sate`` config from seeded weights with no task and returns token ids.
 
 A request is a wav path (features are computed on the host with
 ``fbank_numpy``), a ``.npy`` feature path, a 1-D waveform array or a 2-D
@@ -31,6 +31,7 @@ from s2t_tpu_torch.data.dataset import load_features, load_waveform
 from s2t_tpu_torch.inference.generator import SequenceGenerator
 from s2t_tpu_torch.models.pds import PDSConfig, PDSS2TTransformerModel
 from s2t_tpu_torch.models.s2t_transformer import S2TTransformerConfig, S2TTransformerModel
+from s2t_tpu_torch.models.sate import S2TSATEModel, SATEConfig
 
 Request = Union[str, np.ndarray]
 
@@ -50,9 +51,10 @@ class GeneratorHub:
         self.task = task
 
     @classmethod
-    def build(cls, cfg: Union[S2TTransformerConfig, PDSConfig], device="cuda", seed: int = 0,
-              **generation) -> "GeneratorHub":
-        model_cls = PDSS2TTransformerModel if isinstance(cfg, PDSConfig) else S2TTransformerModel
+    def build(cls, cfg: Union[S2TTransformerConfig, PDSConfig, SATEConfig], device="cuda",
+              seed: int = 0, **generation) -> "GeneratorHub":
+        model_cls = (PDSS2TTransformerModel if isinstance(cfg, PDSConfig)
+                     else S2TSATEModel if isinstance(cfg, SATEConfig) else S2TTransformerModel)
         model = model_cls(cfg, device=device, seed=seed)
         return cls(model, SequenceGenerator(model, **generation))
 

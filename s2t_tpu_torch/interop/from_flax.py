@@ -1,11 +1,13 @@
-"""Carry a JAX ``S2TTransformerModel``, ``PDSS2TTransformerModel`` or
-``S2TCTCModel`` ``.init(...)["params"]`` tree into the port.
+"""Carry a JAX ``S2TTransformerModel``, ``PDSS2TTransformerModel``,
+``S2TSATEModel`` or ``S2TCTCModel`` ``.init(...)["params"]`` tree into the port.
 
 The tree arrives as nested mappings of numpy arrays (``jax.tree.map(np.asarray,
 params)``); no jax is imported here.  Layouts:
 
     Dense      kernel (in, out)      -> Linear weight (out, in)
-    Conv       kernel (k, in, out)   -> Conv1d weight (out, in, k)
+    Conv       kernel (k, in, out)   -> Conv1d weight (out, in, k); the conv
+                                        module's depthwise (k, 1, D) -> (D, 1, k)
+    Conv 2-D   kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)
     LayerNorm  scale / bias          -> weight / bias
     Embed      embedding             -> weight
 
@@ -14,10 +16,12 @@ Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
 ``ds{i}`` -> ``downsamplers.{i}``, ``fusion{i}`` -> ``fusion_blocks.{i}`` and
 ``final_layer{j}`` -> ``final_layers.{j}``, and the tied ``shared_embed`` table
 -> the decoder's ``embed_tokens``; the other names (``encoder/embed_norm``,
-``encoder/ctc_head``, ...) are the port's attribute paths.  The bare leaves
-``norm_scale``, ``norm_bias`` (a fusion block's frozen affine) and
-``fusion_weight`` keep their names.  Any leaf left unmapped on either side
-raises.
+``encoder/ctc_head``, SATE's ``encoder/acoustic``, ``encoder/adapter`` and
+``encoder/textual``, a Conformer layer's ``macaron_ffn`` and ``conv_module``,
+...) are the port's attribute paths.  The bare leaves ``norm_scale``,
+``norm_bias`` (a frozen per-channel affine), ``fusion_weight``, ``pos_bias_u``,
+``pos_bias_v`` and ``embed_adapter`` keep their names.  Any leaf left unmapped
+on either side raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
 say) as the nested flax tree, so it can be compared leaf by leaf with a JAX
@@ -45,7 +49,8 @@ _TO_FLAX = ((re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
             (re.compile(r"\bfinal_layers\.(\d+)\b"), r"final_layer\1"),
             (re.compile(r"\b(layer|conv)s\.(\d+)\b"), r"\1\2"))
 # parameters that are leaves of their own, with the same name on both sides
-_BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight"})
+_BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
+                   "embed_adapter"})
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -71,6 +76,8 @@ def _leaf(name: str, arr: np.ndarray):
             return "weight", arr.T
         if arr.ndim == 3:
             return "weight", arr.transpose(2, 1, 0)
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {arr.ndim} has no port layout")
     if name in ("scale", "embedding"):
         return "weight", arr
@@ -133,6 +140,8 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
         return "kernel", arr.T
     if arr.ndim == 3:
         return "kernel", arr.transpose(2, 1, 0)
+    if arr.ndim == 4:
+        return "kernel", arr.transpose(2, 3, 1, 0)
     raise KeyError(name)
 
 

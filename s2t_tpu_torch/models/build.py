@@ -1,47 +1,96 @@
 """Model construction from an arch name and config-dict overrides
 (counterpart of s2t_tpu/models/build.py).
 
-The ported presets are the ``s2t_transformer`` ones whose features the port
-has (base, s, xs, sp, m, mp, l, lp), the 13 ``pdss2t_transformer_*`` ones
-and the encoder-only ``s2t_ctc`` and ``s2t_ctc_pds``.  The presets that need
-modules the port does not have yet raise ``NotImplementedError`` naming the
-arch; a ported preset whose config selects an unported branch raises naming
-the field.
+The ported presets: the ``s2t_transformer`` ones (base, s, xs, sp, m, mp, l,
+lp and the Conformer ``s2t_conformer``), the 13
+``pdss2t_transformer_*`` ones, SATE's ``s2t_sate`` / ``s2t_sate_s`` and the
+encoder-only ``s2t_ctc``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``.  Every other
+architecture of the JAX registry is registered here too, as a preset that
+raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
+ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
+registry); a ported preset whose config selects an unported branch raises
+naming the field.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from s2t_tpu_torch.models import pds, s2t_ctc, s2t_transformer  # noqa: F401  (the presets)
+from s2t_tpu_torch.models import pds, s2t_ctc, s2t_transformer, sate  # noqa: F401  (the presets)
+from s2t_tpu_torch.models.s2t_transformer import ITEM7, ITEM8
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
-# arch -> (its model, the module it needs) (s2t_tpu/models/s2t_transformer.py:1053-1168,
-# s2t_tpu/models/s2t_ctc.py:71-106)
-_UNPORTED_ARCHS = {
-    "s2t_transformer_s_relative": ("s2t_transformer", "relative-position attention"),
-    "s2t_conformer": ("s2t_transformer",
-                      "the conformer block (macaron, conv module, rel_pos attention)"),
-    "convtransformer": ("s2t_transformer", "the conv2d subsampler and post-norm stack"),
-    "convtransformer_espnet": ("s2t_transformer", "the conv2d subsampler and post-norm stack"),
-    "s2t_dynamic_transformer_s": ("s2t_transformer", "dynamic convolutions"),
-    "s2t_light_transformer_s": ("s2t_transformer", "lightweight convolutions"),
-    "s2t_transformer_s_dlcl": ("s2t_transformer", "the dynamic linear combination of layers"),
-    "s2t_nast": ("s2t_ctc", "inter-CTC layers, the PAE adapters and XCTC"),
-    "s2t_ctc_sate": ("s2t_ctc", "the SATE encoder (models/sate.py)"),
+_ITEMS = {
+    7: ITEM7,
+    8: ITEM8,
+    9: "ROADMAP.md section 1 item 9 (other speech families)",
+    10: "ROADMAP.md section 1 item 10 (inference breadth: LM fusion)",
+    11: "ROADMAP.md section 1 item 11 (the text and MT zoo)",
+}
+
+# every arch of the JAX registry the port lacks -> (its model, what it needs, the item)
+UNPORTED_ARCHS = {
+    "s2t_transformer_s_relative": ("s2t_transformer", "Shaw relative-position attention", 7),
+    "s2t_dynamic_transformer_s": ("s2t_transformer", "dynamic convolutions", 7),
+    "s2t_light_transformer_s": ("s2t_transformer", "lightweight convolutions", 7),
+    "s2t_transformer_s_dlcl": ("s2t_transformer", "the dynamic linear combination of layers",
+                               7),
+    **{a: ("s2t_transformer", "the ESPnet-ST Conv2d front-end presets", 7)
+       for a in ("convtransformer", "convtransformer_espnet")},
+    "s2t_nast": ("s2t_ctc", "inter-CTC layers, the PAE adapters and XCTC", 8),
+    **{a: ("s2t_dual", "the dual-encoder S2 layers", 9) for a in ("s2t_dual", "s2t_dual_s")},
+    **{a: ("s2t_multibranch", "the multibranch S2 layers", 9)
+       for a in ("s2t_multibranch", "s2t_multibranch_s")},
+    **{a: ("berard", "the Berard LSTM encoder-decoder", 9)
+       for a in ("berard", "berard_512_3_2", "s2t_berard", "s2t_berard_256_3_3",
+                 "s2t_berard_512_3_2", "s2t_berard_512_5_3")},
+    **{a: ("s2t_w2v2_transformer", "the wav2vec 2.0 encoder", 9)
+       for a in ("s2t_w2v2_transformer", "s2t_w2v2_transformer_base")},
+    **{a: ("wav2vec2", "the wav2vec 2.0 model", 9) for a in ("wav2vec2_base", "wav2vec2_large")},
+    **{a: ("wav2vec", "the wav2vec model", 9) for a in ("wav2vec", "wav2vec_large")},
+    "wav2vec_ctc": ("wav2vec_ctc", "the wav2vec 2.0 encoder", 9),
+    "wav2vec_seq2seq": ("wav2vec_seq2seq", "the wav2vec 2.0 encoder", 9),
+    **{a: ("emformer", "the streaming Emformer", 9) for a in ("emformer", "emformer_s")},
+    **{a: ("transformer_lm", "the Transformer language model", 10)
+       for a in ("transformer_lm", "transformer_lm_baevski_wiki103", "transformer_lm_big",
+                 "transformer_lm_wiki103")},
+    **{a: ("transformer", "the text Transformer", 11)
+       for a in ("transformer", "transformer_ctc", "transformer_iwslt_de_en",
+                 "transformer_wmt_en_de_big", "transformer_wmt_en_de_big_t2t")},
+    **{a: ("transformer_align", "the alignment Transformer", 11)
+       for a in ("transformer_align", "transformer_wmt_en_de_big_align")},
+    **{a: ("multilingual_transformer", "the multilingual Transformer", 11)
+       for a in ("multilingual_transformer", "multilingual_transformer_iwslt_de_en")},
+    **{a: ("lstm", "the LSTM encoder-decoder", 11) for a in ("lstm", "lstm_wiseman_iwslt_de_en")},
+    "lstm_lm": ("lstm_lm", "the LSTM language model", 11),
+    **{a: ("fconv", "the convolutional seq2seq model", 11)
+       for a in ("fconv", "fconv_iwslt_de_en", "fconv_wmt_en_de")},
+    **{a: ("lightconv", "lightweight and dynamic convolutions", 11)
+       for a in ("lightconv", "lightconv_iwslt_de_en", "dynamicconv", "dynamicconv_iwslt_de_en")},
+    **{a: ("bart", "BART", 11) for a in ("bart_base", "bart_large", "mbart_large")},
+    **{a: ("roberta", "the RoBERTa encoder", 11)
+       for a in ("roberta_base", "roberta_large", "bert_base", "camembert", "gottbert",
+                 "xlmr_base", "xlmr_large")},
+    **{a: ("hf_gpt2", "GPT-2", 11) for a in ("hf_gpt2", "hf_gpt2_medium", "hf_gpt2_large")},
+    **{a: ("cmlm_transformer", "the NAT family", 11)
+       for a in ("cmlm_transformer", "cmlm_transformer_small", "nonautoregressive_transformer")},
+    **{a: ("levenshtein_transformer", "the NAT family", 11)
+       for a in ("levenshtein_transformer", "levenshtein_transformer_small")},
+    "insertion_transformer": ("insertion_transformer", "the NAT family", 11),
+    "nacrf_transformer": ("nacrf_transformer", "the NAT family", 11),
 }
 
 
-def _unported(arch: str, needs: str):
+def _unported(arch: str, needs: str, item: int):
     def preset(**kw):
         raise NotImplementedError(f"arch {arch!r} needs {needs}, which is not ported to "
-                                  "s2t_tpu_torch")
+                                  f"s2t_tpu_torch ({_ITEMS[item]})")
 
     return preset
 
 
-for _arch, (_model, _needs) in _UNPORTED_ARCHS.items():
-    register_model_architecture(_model, _arch)(_unported(_arch, _needs))
+for _arch, (_model, _needs, _item) in UNPORTED_ARCHS.items():
+    register_model_architecture(_model, _arch)(_unported(_arch, _needs, _item))
 
 
 def build_model(arch: str, overrides: Dict[str, Any] | None = None, *, device="cuda",
@@ -50,7 +99,6 @@ def build_model(arch: str, overrides: Dict[str, Any] | None = None, *, device="c
     fields (vocab sizes, feature dims, position caps) applied after the
     user's ``overrides``; the weights come from ``seed`` on ``device``."""
     model_name, preset = ARCHS.get(arch)
-    model_cls = MODELS.get(model_name)
     merged = {**(overrides or {}), **ctx}
     # lists from YAML -> tuples (config fields are hashable tuples)
     merged = {k: tuple(v) if isinstance(v, list) else v for k, v in merged.items()}
@@ -58,4 +106,5 @@ def build_model(arch: str, overrides: Dict[str, Any] | None = None, *, device="c
         cfg = preset(**merged)
     except TypeError as e:
         raise ValueError(f"unknown model config key for arch {arch!r}: {e}") from e
+    model_cls = MODELS.get(model_name)
     return model_cls(cfg, device=device, seed=seed, for_training=for_training)

@@ -2,8 +2,9 @@
 
 The encoder runs in stages; each stage is a strided-conv ``Downsampling`` (or
 the Conv1d subsampler for a ratio of -1), that stage's sinusoidal positions at
-its own length and width, dropout, and plain pre- or post-norm Transformer
-layers.  With ``pds_fusion`` every stage's output is carried to the last
+its own length and width (or its relative-position table, under rel_pos),
+dropout, and pre- or post-norm layers, Conformer ones with ``macaron_style`` /
+``use_cnn_module``.  With ``pds_fusion`` every stage's output is carried to the last
 stage's length by a ``FusionBlock`` and the results are summed with learned or
 fixed weights.  ``pds_final_layers``, the final norm and the top CTC head
 follow.  ``PDSS2TTransformerModel`` puts the port's Transformer decoder on
@@ -11,9 +12,10 @@ top; ``S2TCTCModel`` (``s2t_ctc_pds``) takes the encoder alone.
 
 ``PDSConfig`` keeps the JAX config's field names and defaults.  The branches
 the port does not have raise ``NotImplementedError`` naming the field and the
-ROADMAP.md item that ports it (``check_supported``): conformer stages,
-rel_pos attention, in-layer conv strides and the Conv2d subsampler (item 7),
-per-stage inter-CTC / XCTC, PAE and a CTC tap below the top (item 8).
+ROADMAP.md item that ports it (``check_supported``): attention other than abs
+and rel_pos, in-layer conv strides and a ratio of -1 with the Conv2d
+subsampler or the reference pad semantics (item 7), per-stage inter-CTC /
+XCTC, PAE and a CTC tap below the top (item 8).
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from s2t_tpu_torch.device import torch_dtype
-from s2t_tpu_torch.models.s2t_transformer import S2TTransformerModel
+from s2t_tpu_torch.models.s2t_transformer import ITEM7, ITEM8, S2TTransformerModel
 from s2t_tpu_torch.modules.cast import Conv1d
 from s2t_tpu_torch.modules.ctc_head import CTCHead
 from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
-from s2t_tpu_torch.modules.positional import sinusoidal_table
+from s2t_tpu_torch.modules.positional import relative_table, sinusoidal_table
 from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
@@ -186,10 +188,6 @@ class PDSConfig:
             self.pds_stages - 1)
 
 
-_ITEM7 = "ROADMAP.md section 1 item 7 (conformer and encoder variants)"
-_ITEM8 = "ROADMAP.md section 1 item 8 (the CTC research stack)"
-
-
 def _unported(field: str, value, item: str):
     return NotImplementedError(f"PDSConfig.{field}={value!r} is not ported to s2t_tpu_torch "
                                f"({item})")
@@ -198,28 +196,27 @@ def _unported(field: str, value, item: str):
 def check_supported(cfg: PDSConfig) -> None:
     """Raise NotImplementedError on the first field that selects a branch the
     port does not have, naming the field and the ROADMAP.md item that ports it."""
-    if cfg.encoder_attention_type != "abs":
-        raise _unported("encoder_attention_type", cfg.encoder_attention_type, _ITEM7)
-    for name in ("macaron_style", "use_cnn_module", "pds_conv_strides"):
-        if getattr(cfg, name):
-            raise _unported(name, getattr(cfg, name), _ITEM7)
+    if cfg.encoder_attention_type not in ("abs", "rel_pos"):
+        raise _unported("encoder_attention_type", cfg.encoder_attention_type, ITEM7)
+    if cfg.pds_conv_strides:
+        raise _unported("pds_conv_strides", cfg.pds_conv_strides, ITEM7)
     if -1 in cfg.pds_ratios:
         # the shared subsampler: the port has the Conv1d one, masked between layers
         if cfg.subsampling_type != "conv1d":
             raise _unported("subsampling_type", cfg.subsampling_type,
-                            _ITEM7 + ", under a pds_ratios entry of -1")
+                            ITEM7 + ", under a pds_ratios entry of -1")
         if cfg.subsampling_norm != "none":
-            raise _unported("subsampling_norm", cfg.subsampling_norm, _ITEM7)
+            raise _unported("subsampling_norm", cfg.subsampling_norm, ITEM7)
         if cfg.subsampling_ref_pad_semantics:
             raise _unported("subsampling_ref_pad_semantics", True,
-                            _ITEM7 + ", under a pds_ratios entry of -1")
+                            ITEM7 + ", under a pds_ratios entry of -1")
     for name in ("pds_ctc", "pds_xctc"):
         if any(getattr(cfg, name)):
-            raise _unported(name, getattr(cfg, name), _ITEM8)
+            raise _unported(name, getattr(cfg, name), ITEM8)
     for name, off in (("use_xctc", False), ("ctc_pae", "none"), ("xctc_pae", "none"),
                       ("ctc_layer", 0), ("xctc_layer", 0)):
         if getattr(cfg, name) != off:
-            raise _unported(name, getattr(cfg, name), _ITEM8)
+            raise _unported(name, getattr(cfg, name), ITEM8)
     if cfg.decoder_learned_pos:
         raise _unported("decoder_learned_pos", True, "learned decoder positions")
     if cfg.fusion_stages and cfg.fusion_transform != "conv":
@@ -299,10 +296,10 @@ class PDSEncoder(nn.Module):
             else:
                 downs.append(Downsampling(in_dim, dims[i], cfg.pds_kernel_sizes[i],
                                           cfg.pds_ratios[i], cfg.pds_embed_norm))
+            # a stage's conv modules take the encoder activation (s2t_tpu/models/pds.py:298)
             stages.append(nn.ModuleList([
-                S2TEncoderLayer(dims[i], dims[i] * cfg.pds_ffn_ratios[i], cfg.pds_attn_heads[i],
-                                cfg.enc_act, cfg.encoder_normalize_before, cfg.dropout,
-                                cfg.attention_dropout, cfg.activation_dropout)
+                self._layer(dims[i], cfg.pds_ffn_ratios[i], cfg.pds_attn_heads[i],
+                            cfg.stage_cnn_kernel(i), cfg.enc_act)
                 for _ in range(cfg.pds_layers[i])]))
             in_dim = dims[i]
         self.downsamplers = nn.ModuleList(downs)
@@ -317,19 +314,31 @@ class PDSEncoder(nn.Module):
         self.fusion_weight = (nn.Parameter(torch.full((len(fusion),), 1.0 / len(fusion)))
                               if fusion and not cfg.pds_fusion_weight else None)
         D = cfg.encoder_embed_dim
+        # the final layers' conv modules take activation_fn (s2t_tpu/models/pds.py:472)
         self.final_layers = nn.ModuleList([
-            S2TEncoderLayer(D, D * cfg.pds_ffn_ratios[-1], cfg.pds_attn_heads[-1], cfg.enc_act,
-                            cfg.encoder_normalize_before, cfg.dropout, cfg.attention_dropout,
-                            cfg.activation_dropout)
+            self._layer(D, cfg.pds_ffn_ratios[-1], cfg.pds_attn_heads[-1],
+                        cfg.stage_cnn_kernel(cfg.pds_stages - 1), cfg.activation_fn)
             for _ in range(cfg.pds_final_layers)])
         self.final_norm = layer_norm(cfg.out_dim) if cfg.encoder_normalize_before else None
         self.ctc_head = (CTCHead(cfg.out_dim, cfg.ctc_vocab_size, dropout=cfg.dropout)
                          if cfg.use_ctc else None)
 
-    def _positions(self, x: torch.Tensor) -> torch.Tensor:
-        # the fairseq pad-aware table at this length and width (valid frame i -> pad + 1 + i)
+    def _layer(self, dim: int, ffn_ratio: int, heads: int, cnn_kernel: int, conv_act: str):
+        cfg = self.cfg
+        return S2TEncoderLayer(dim, dim * ffn_ratio, heads, cfg.enc_act,
+                               cfg.encoder_normalize_before, cfg.dropout, cfg.attention_dropout,
+                               cfg.activation_dropout, cfg.encoder_attention_type,
+                               cfg.macaron_style, cfg.use_cnn_module, cnn_kernel,
+                               conv_activation=conv_act, conv_norm_type=cfg.cnn_module_norm,
+                               conv_bias=cfg.conv_module_bias)
+
+    def _positions(self, x: torch.Tensor):
+        """(x, None) with the fairseq pad-aware table at this length and width added
+        (valid frame i -> pad + 1 + i), or (x, the relative table) under rel_pos."""
+        if self.cfg.encoder_attention_type == "rel_pos":
+            return x, relative_table(x.shape[1], x.shape[2], x.dtype, x.device)
         return x + sinusoidal_table(x.shape[1], x.shape[2], self.cfg.pad_id, x.dtype,
-                                    x.device)[None]
+                                    x.device)[None], None
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor,
                 embedding: Optional[torch.Tensor] = None,
@@ -345,12 +354,13 @@ class PDSEncoder(nn.Module):
         stage_outs = []
         for i in range(cfg.pds_stages):
             x, lengths = self.downsamplers[i](x, lengths)
+            pos_emb = None
             if cfg.pds_position_embed[i]:
-                x = self._positions(x)
+                x, pos_emb = self._positions(x)
             x = dropout(x, cfg.dropout if i == 0 else stage_drop, generator)
             valid = lengths_to_mask(lengths, x.shape[1])
             for layer in self.stages[i]:
-                x = layer(x, valid, generator=generator)
+                x = layer(x, valid, generator=generator, pos_emb=pos_emb)
             stage_outs.append((x, lengths))
 
         fusion = cfg.fusion_stages
@@ -369,10 +379,11 @@ class PDSEncoder(nn.Module):
             x = fused
 
         if len(self.final_layers):
-            x = dropout(self._positions(x), stage_drop, generator)
+            x, pos_emb = self._positions(x)
+            x = dropout(x, stage_drop, generator)
             valid = lengths_to_mask(lengths, x.shape[1])
             for layer in self.final_layers:
-                x = layer(x, valid, generator=generator)
+                x = layer(x, valid, generator=generator, pos_emb=pos_emb)
         if self.final_norm is not None:
             x = self.final_norm(x)
         ctc_logits = None if self.ctc_head is None else self.ctc_head(x, generator=generator)

@@ -4,9 +4,10 @@
 encoder pass emits the whole hypothesis, which ``inference/ctc_decoder.py``
 reads off the CTC logits.  The encoder follows the config's type, as in the
 JAX model: the s2t_transformer encoder for an ``S2TTransformerConfig``
-(preset ``s2t_ctc``), the PDS encoder for a ``PDSConfig`` (``s2t_ctc_pds``).
-``s2t_nast`` and ``s2t_ctc_sate`` are registered in ``models/build.py`` and
-raise ``NotImplementedError`` naming what they need.
+(presets ``s2t_ctc``), the PDS encoder for a ``PDSConfig`` (``s2t_ctc_pds``),
+the SATE encoder for a ``SATEConfig`` (``s2t_ctc_sate``).  ``s2t_nast`` is
+registered in ``models/build.py`` and raises ``NotImplementedError`` naming
+what it needs.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from s2t_tpu_torch.device import resolve_device
-from s2t_tpu_torch.models import pds
+from s2t_tpu_torch.models import pds, sate
 from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerConfig, S2TTransformerEncoder, _check_trainable, check_supported,
     init_and_place, s2t_transformer_s)
@@ -27,15 +28,15 @@ from s2t_tpu_torch.registry import register_model, register_model_architecture
 def _check_config(cfg, for_training: bool) -> None:
     if isinstance(cfg, pds.PDSConfig):
         pds.check_supported(cfg)
+    elif isinstance(cfg, sate.SATEConfig):
+        sate.check_supported(cfg, for_training)
     elif isinstance(cfg, S2TTransformerConfig):
         check_supported(cfg)
         if for_training:
             _check_trainable(cfg)
     else:
-        # the JAX model also takes a SATEConfig
-        raise NotImplementedError(
-            f"S2TCTCModel over a {type(cfg).__name__}: the SATE encoder is not ported to "
-            "s2t_tpu_torch")
+        raise TypeError(f"S2TCTCModel takes an S2TTransformerConfig, a PDSConfig or a "
+                        f"SATEConfig, not a {type(cfg).__name__}")
 
 
 @register_model("s2t_ctc")
@@ -52,6 +53,8 @@ class S2TCTCModel(nn.Module):
         self.cfg = cfg
         if isinstance(cfg, pds.PDSConfig):
             self.encoder = pds.PDSEncoder(cfg)
+        elif isinstance(cfg, sate.SATEConfig):
+            self.encoder = sate.S2TSATEEncoder(cfg)
         else:
             # no decoder embedding exists to tie to, so the JAX encoder's CTC head has its
             # own projection whatever share_ctc_and_embed says
@@ -91,3 +94,11 @@ def s2t_ctc_pds(**kw) -> pds.PDSConfig:
     kw.setdefault("decoder_layers", 0)
     kw.setdefault("use_ctc", True)
     return pds.pdss2t_transformer_s_8(**kw)
+
+
+@register_model_architecture("s2t_ctc", "s2t_ctc_sate")
+def s2t_ctc_sate(**kw) -> sate.SATEConfig:
+    """Encoder-only CTC over the SATE encoder (acoustic transformer or PDS by
+    ``acoustic_encoder``): ``s2t_sate_s`` with no decoder."""
+    kw.setdefault("acoustic_decoder_layers", 0)
+    return sate.s2t_sate_s(**kw)

@@ -1,13 +1,15 @@
-"""S2T Transformer encoder-decoder (counterpart of s2t_tpu/models/s2t_transformer.py).
+"""S2T Transformer / Conformer encoder-decoder (counterpart of
+s2t_tpu/models/s2t_transformer.py).
 
-The plain path of the s/m/l presets: Conv1d-GLU subsampler -> scaled
-features + sinusoidal positions -> pre- or post-norm Transformer encoder with
-"abs" attention -> CTC head, and a Transformer decoder on top, for serving
-and for training (``forward(..., train=True, generator=g)``: every dropout
-site of the JAX modules, drawn from the step's generator).
-``S2TTransformerConfig`` keeps the JAX config's field names and defaults so a
-config crosses over field by field; a field that selects a branch the port
-does not have raises ``NotImplementedError`` naming it.
+The encoder: a Conv1d-GLU or Conv2d subsampler -> scaled features +
+sinusoidal positions ("abs" attention) or a relative-position table
+("rel_pos") -> pre- or post-norm layers, optionally Conformer (macaron FFN,
+convolution module) -> CTC head; a Transformer decoder on top.  It serves and
+trains (``forward(..., train=True, generator=g)``: every dropout site of the
+JAX modules, drawn from the step's generator).  ``S2TTransformerConfig``
+keeps the JAX config's field names and defaults so a config crosses over
+field by field; a field that selects a branch the port does not have raises
+``NotImplementedError`` naming it (and the ROADMAP.md item that ports it).
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.modules.ctc_head import CTCHead
 from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
-from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding
-from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling
+from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding, relative_table
+from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling, Conv2dSubsampling
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
@@ -173,7 +175,24 @@ _PORTED_FIELDS = frozenset({
     "inter_mixup_ratio_decay_params", "layer_out_norm_interval", "cnn_module_kernel",
     "cnn_module_norm", "conv_module_bias", "pipeline_microbatches", "init_mask_weight",
     "subsampling_padding", "ctc_layer", "xctc_layer", "compression_norm", "compression_pos",
+    # the Conformer block and the Conv2d subsampler, checked in check_supported
+    "encoder_attention_type", "macaron_style", "use_cnn_module", "subsampling_type",
+    "subsampling_norm",
 })
+ITEM7 = "ROADMAP.md section 1 item 7 (conformer and encoder variants)"
+ITEM8 = "ROADMAP.md section 1 item 8 (the CTC research stack)"
+ITEM12 = "ROADMAP.md section 1 item 12 (parallelism)"
+# the ROADMAP.md item that ports each unported field
+_FIELD_ITEMS = {
+    "subsampling_ref_pad_semantics": ITEM7, "encoder_lconv_kernels": ITEM7,
+    "max_encoder_relative_length": ITEM7, "max_decoder_relative_length": ITEM7,
+    "encoder_attention_window": ITEM7, "hard_mask_window": ITEM7, "gauss_mask_sigma": ITEM7,
+    "encoder_attention_stride": ITEM7, "use_enc_dlcl": ITEM7, "encoder_embed_linear": ITEM7,
+    "inter_ctc_layers": ITEM8, "ctc_pae": ITEM8, "use_xctc": ITEM8, "inter_xctc_layers": ITEM8,
+    "xctc_pae": ITEM8, "share_xctc_and_embed": ITEM8, "use_axctc": ITEM8,
+    "inter_axctc_layers": ITEM8, "compression_layers": ITEM8, "inter_mixup": ITEM8,
+    "layer_out_norm": ITEM8, "seq_parallel": ITEM12, "pipeline_parallel": ITEM12,
+}
 
 
 def _check_trainable(cfg: S2TTransformerConfig) -> None:
@@ -195,8 +214,21 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
         if f.name not in _PORTED_FIELDS and getattr(cfg, f.name) != f.default:
             raise NotImplementedError(
                 f"S2TTransformerConfig.{f.name}={getattr(cfg, f.name)!r} is not ported "
-                f"to s2t_tpu_torch (only the plain s2t_transformer serving path is)"
+                f"to s2t_tpu_torch ({_FIELD_ITEMS.get(f.name, 'not on the ROADMAP.md queue')})"
             )
+    if cfg.encoder_attention_type not in ("abs", "rel_pos"):
+        raise NotImplementedError(
+            f"S2TTransformerConfig.encoder_attention_type={cfg.encoder_attention_type!r} is not "
+            f"ported to s2t_tpu_torch ({ITEM7}: only 'abs' and 'rel_pos' are)")
+    if cfg.subsampling_type not in ("conv1d", "conv2d"):
+        raise NotImplementedError(
+            f"S2TTransformerConfig.subsampling_type={cfg.subsampling_type!r} is not ported to "
+            "s2t_tpu_torch")
+    if cfg.subsampling_type == "conv1d" and cfg.subsampling_norm != "none":
+        # under conv2d the JAX subsampler takes no norm, so the field is inert there
+        raise NotImplementedError(
+            f"S2TTransformerConfig.subsampling_norm={cfg.subsampling_norm!r} under the Conv1d "
+            f"subsampler is not ported to s2t_tpu_torch ({ITEM7})")
     if cfg.share_ctc_and_embed:
         if cfg.encoder_embed_dim != cfg.decoder_embed_dim:
             raise ValueError("share_ctc_and_embed requires encoder_embed_dim == decoder_embed_dim")
@@ -208,14 +240,16 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
 def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.device,
                    seed: int, for_training: bool) -> None:
     """Flax-like init on the CPU from ``seed`` (dense and conv kernels
-    N(0, 1/fan_in), biases 0, LayerNorm 1/0, token embeddings N(0, 1/D); the PDS
-    fusion's frozen affine ``norm_scale`` 1 / ``norm_bias`` 0 and its
-    ``fusion_weight`` 1/len), then onto ``device``: for serving stored in
+    N(0, 1/fan_in), biases 0, LayerNorm 1/0, token embeddings N(0, 1/D); the
+    frozen affines' ``norm_scale`` 1 / ``norm_bias`` 0, the PDS fusion's
+    ``fusion_weight`` 1/len, the relative attention's ``pos_bias_u`` /
+    ``pos_bias_v`` Xavier-uniform and the adapters' ``embed_adapter``
+    N(0, 1/D)), then onto ``device``: for serving stored in
     ``cfg.dtype``, frozen, in eval mode; ``for_training`` keeps float32 master
     parameters and casts only the buffers."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv1d)):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
             nn.init.normal_(mod.weight, std=fan_in ** -0.5, generator=g)
             if mod.bias is not None:
@@ -232,6 +266,11 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
                 nn.init.zeros_(p)
             elif name == "fusion_weight":
                 nn.init.constant_(p, 1.0 / p.numel())
+            elif name in ("pos_bias_u", "pos_bias_v"):
+                limit = math.sqrt(6.0 / sum(p.shape))
+                nn.init.uniform_(p, -limit, limit, generator=g)
+            elif name == "embed_adapter":
+                nn.init.normal_(p, std=p.shape[1] ** -0.5, generator=g)
     if for_training:
         model.to(device=device)
         for mod in model.modules():
@@ -245,7 +284,7 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
 
 
 class S2TTransformerEncoder(nn.Module):
-    """Speech encoder: conv subsampler -> Transformer stack -> CTC head.
+    """Speech encoder: conv subsampler -> Transformer / Conformer stack -> CTC head.
 
     Returns {"encoder_out" (B, T', D), "encoder_lengths" (B,), "ctc_logits"
     (B, T', V_src) or None}.  ``embedding``: the decoder's token table when
@@ -255,15 +294,24 @@ class S2TTransformerEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         D = cfg.encoder_embed_dim
-        self.subsample = Conv1dSubsampling(
-            cfg.input_feat_per_channel * cfg.input_channels, cfg.subsampling_layers,
-            cfg.subsampling_filter, D, cfg.subsampling_kernel, cfg.subsampling_stride,
-            cfg.subsampling_activation,
-        )
+        in_dim = cfg.input_feat_per_channel * cfg.input_channels
+        if cfg.subsampling_type == "conv2d":
+            # s2t_tpu/models/s2t_transformer.py:347-353: no subsampling_norm reaches it
+            self.subsample = Conv2dSubsampling(
+                in_dim, cfg.subsampling_layers, cfg.subsampling_filter, D,
+                cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation,
+                cfg.subsampling_padding)
+        else:
+            self.subsample = Conv1dSubsampling(
+                in_dim, cfg.subsampling_layers, cfg.subsampling_filter, D,
+                cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation)
         self.layers = nn.ModuleList([
             S2TEncoderLayer(D, cfg.encoder_ffn_embed_dim, cfg.encoder_attention_heads,
                             cfg.enc_act, cfg.encoder_normalize_before, cfg.dropout,
-                            cfg.attention_dropout, cfg.activation_dropout)
+                            cfg.attention_dropout, cfg.activation_dropout,
+                            cfg.encoder_attention_type, cfg.macaron_style, cfg.use_cnn_module,
+                            cfg.cnn_module_kernel, conv_activation=cfg.activation_fn,
+                            conv_norm_type=cfg.cnn_module_norm, conv_bias=cfg.conv_module_bias)
             for _ in range(cfg.encoder_layers)
         ])
         self.embed_norm = layer_norm(D) if cfg.encoder_embed_norm else None
@@ -272,29 +320,35 @@ class S2TTransformerEncoder(nn.Module):
             CTCHead(D, cfg.ctc_vocab_size, tied=cfg.share_ctc_and_embed, dropout=cfg.dropout)
             if cfg.use_ctc else None
         )
-        self.register_buffer(
-            "positions",
-            fairseq_sinusoidal_encoding(cfg.max_source_positions, D, cfg.pad_id),
-            persistent=False,
-        )
+        self.rel_pos = cfg.encoder_attention_type == "rel_pos"
+        if not self.rel_pos:
+            self.register_buffer(
+                "positions",
+                fairseq_sinusoidal_encoding(cfg.max_source_positions, D, cfg.pad_id),
+                persistent=False,
+            )
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor,
                 embedding: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         cfg = self.cfg
-        # the positions table is in the compute dtype
-        x, lengths = self.subsample(features.to(self.positions.dtype), lengths)
-        # the JAX order (s2t_transformer.py:714-717): embed_norm, scale, positions, dropout
+        x, lengths = self.subsample(features.to(cfg.dtype), lengths)
+        # the JAX order (s2t_transformer.py:714-729): embed_norm, scale, positions, dropout
         if self.embed_norm is not None:
             x = self.embed_norm(x)
         if not cfg.encoder_no_scale_embedding:
             x = x * math.sqrt(cfg.encoder_embed_dim)
         T = x.shape[1]
-        # fairseq table: valid frame i gets absolute position pad+1+i
-        x = dropout(x + self.positions[:T][None], cfg.dropout, generator)
+        pos_emb = None
+        if self.rel_pos:
+            pos_emb = relative_table(T, cfg.encoder_embed_dim, x.dtype, x.device)
+        else:
+            # fairseq table: valid frame i gets absolute position pad+1+i
+            x = x + self.positions[:T][None]
+        x = dropout(x, cfg.dropout, generator)
         valid = lengths_to_mask(lengths, T)
         for layer in self.layers:
-            x = layer(x, valid, generator=generator)
+            x = layer(x, valid, generator=generator, pos_emb=pos_emb)
         if self.final_norm is not None and cfg.encoder_apply_final_norm:
             x = self.final_norm(x)
         ctc_logits = None if self.ctc_head is None else self.ctc_head(x, embedding, generator)
@@ -320,20 +374,21 @@ class S2TTransformerModel(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.encoder = self.build_encoder(cfg)
+        dec = self.decoder_config(cfg)
         self.decoder = TransformerDecoder(
-            vocab_size=cfg.vocab_size,
-            embed_dim=cfg.decoder_embed_dim,
-            ffn_dim=cfg.decoder_ffn_embed_dim,
-            num_layers=cfg.decoder_layers,
-            num_heads=cfg.decoder_attention_heads,
-            activation=cfg.activation_fn,
-            normalize_before=cfg.decoder_normalize_before,
-            share_input_output_embed=cfg.share_decoder_input_output_embed,
-            max_positions=cfg.max_target_positions,
-            pad_id=cfg.pad_id,
-            dropout=cfg.dropout,
-            attention_dropout=cfg.attention_dropout,
-            activation_dropout=cfg.activation_dropout,
+            vocab_size=dec.vocab_size,
+            embed_dim=dec.decoder_embed_dim,
+            ffn_dim=dec.decoder_ffn_embed_dim,
+            num_layers=dec.decoder_layers,
+            num_heads=dec.decoder_attention_heads,
+            activation=dec.activation_fn,
+            normalize_before=dec.decoder_normalize_before,
+            share_input_output_embed=dec.share_decoder_input_output_embed,
+            max_positions=dec.max_target_positions,
+            pad_id=dec.pad_id,
+            dropout=dec.dropout,
+            attention_dropout=dec.attention_dropout,
+            activation_dropout=dec.activation_dropout,
         )
         init_and_place(self, cfg, device, seed, for_training)
 
@@ -343,6 +398,11 @@ class S2TTransformerModel(nn.Module):
         check_supported(cfg)
         if for_training:
             _check_trainable(cfg)
+
+    @staticmethod
+    def decoder_config(cfg):
+        """The config whose decoder fields build the decoder (a subclass's may nest it)."""
+        return cfg
 
     build_encoder = S2TTransformerEncoder
 
@@ -449,3 +509,13 @@ def s2t_transformer_l(**kw) -> S2TTransformerConfig:
 @register_model_architecture("s2t_transformer", "s2t_transformer_lp")
 def s2t_transformer_lp(**kw) -> S2TTransformerConfig:
     return s2t_transformer_l(encoder_layers=16).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_conformer")
+def s2t_conformer(**kw) -> S2TTransformerConfig:
+    """Conformer-S: macaron FFN, convolution module, relative positions, swish."""
+    return s2t_transformer_s(
+        encoder_attention_type="rel_pos", macaron_style=True,
+        use_cnn_module=True, activation_fn="swish",
+    ).replace(**kw)
+

@@ -1,5 +1,6 @@
-"""Multi-head attention with an explicit incremental KV cache
-(counterpart of s2t_tpu/modules/attention.py, "abs" attention only).
+"""Multi-head attention with an explicit incremental KV cache, and the
+Conformer's relative-position attention (counterpart of
+s2t_tpu/modules/attention.py: "abs" attention and ``RelPositionMultiHeadAttention``).
 
 Encoder self-attention with a pure padding mask goes to the fused kernel
 (``ops/attention_cuda.py``) under the condition of the JAX module
@@ -21,6 +22,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from s2t_tpu_torch.modules.cast import Linear
@@ -149,3 +151,58 @@ class MultiHeadAttention(nn.Module):
         w = drop(dot_attention_weights(q, k, bias, q.dtype), self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out_proj(self._merge(out)), cache
+
+
+class RelPositionMultiHeadAttention(nn.Module):
+    """Transformer-XL relative-position self-attention, ESPnet's variant that
+    the Conformer uses (s2t_tpu/modules/attention.py:474-542): content scores
+    (q + u) k^T plus position scores (q + v) p^T, the latter shifted so that key
+    j of query i reads the table row of position j - i.  Dense, as in JAX.
+    ``pos_emb`` is ``relative_encoding(T, D)`` for the call's T.  The scores and
+    both products stay in the input dtype, the softmax runs in f32 and is cast
+    back (attention.py:539)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.dropout = dropout
+        self.q_proj = Linear(embed_dim, embed_dim)
+        self.k_proj = Linear(embed_dim, embed_dim)
+        self.v_proj = Linear(embed_dim, embed_dim)
+        self.pos_proj = Linear(embed_dim, embed_dim, bias=False)
+        self.out_proj = Linear(embed_dim, embed_dim)
+        self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, self.head_dim))
+        self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, self.head_dim))
+
+    @staticmethod
+    def rel_shift(x: torch.Tensor) -> torch.Tensor:
+        """(B, H, T, 2T-1) -> (B, H, T, T): the pad-one-left, reshape, drop-a-row
+        trick of attention.py:503-512, element for element."""
+        B, H, T, L = x.shape
+        x = F.pad(x, (1, 0)).reshape(B, H, L + 1, T)
+        return x[:, :, 1:, :].reshape(B, H, T, L)[..., :T]
+
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor, bias: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Self-attention of ``x`` (B, T, D) under the additive ``bias``
+        (B, 1, 1, T); ``generator``: the training step's, None for no dropout."""
+        B, T, _ = x.shape
+        H, Dh = self.num_heads, self.head_dim
+        q = self.q_proj(x).reshape(B, T, H, Dh)
+        k = self.k_proj(x).reshape(B, T, H, Dh)
+        v = self.v_proj(x).reshape(B, T, H, Dh)
+        p = self.pos_proj(pos_emb).reshape(-1, H, Dh)  # (2T-1, H, Dh)
+        q_u = q + self.pos_bias_u.to(q.dtype)[None, None]
+        q_v = q + self.pos_bias_v.to(q.dtype)[None, None]
+        ac = torch.einsum("bqhd,bkhd->bhqk", q_u, k)
+        bd = self.rel_shift(torch.einsum("bqhd,lhd->bhql", q_v, p))
+        # the JAX scale is sqrt(Dh) rounded to the input dtype
+        scores = (ac + bd) / torch.tensor(math.sqrt(Dh), dtype=q.dtype)
+        scores = scores + bias
+        w = drop(torch.softmax(scores.float(), dim=-1).to(q.dtype), self.dropout, generator)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, T, self.embed_dim)
+        return self.out_proj(out)

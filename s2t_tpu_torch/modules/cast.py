@@ -2,8 +2,8 @@
 
 A model built for training keeps float32 master parameters and computes in
 ``cfg.dtype`` (the flax modules keep float32 params and compute in ``dtype``):
-``Linear`` and ``Conv1d`` cast their weights to the input's dtype at use, and
-``LayerNorm`` normalises in float32 with float32 scale and bias and returns
+``Linear``, ``Conv1d`` and ``Conv2d`` cast their weights to the input's dtype at
+use, and ``LayerNorm`` normalises in float32 with float32 scale and bias and returns
 the input's dtype.  A model built for serving stores its parameters in
 ``cfg.dtype`` already, and each layer then runs exactly as its torch.nn base.
 """
@@ -25,6 +25,11 @@ class Linear(nn.Linear):
 
 
 class Conv1d(nn.Conv1d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _as(self.bias, x.dtype))
+
+
+class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype), _as(self.bias, x.dtype))
 

@@ -1,4 +1,4 @@
-"""Sinusoidal positions (counterpart of s2t_tpu/modules/positional.py:26)."""
+"""Sinusoidal and relative positions (counterpart of s2t_tpu/modules/positional.py:26-54)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,18 @@ def fairseq_sinusoidal_encoding(max_len: int, dim: int, padding_idx: int = 1) ->
     return torch.from_numpy(pe).to(torch.float32)
 
 
+def relative_encoding(max_len: int, dim: int) -> torch.Tensor:
+    """(2 max_len - 1, dim) table of the relative positions max_len - 1 ... -(max_len - 1)
+    (ESPnet's layout: positive first, descending), sin at even and cos at odd
+    columns.  Computed in float64, returned as float32."""
+    pos = np.arange(max_len - 1, -max_len, -1, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, dim, 2, dtype=np.float64) * -(np.log(10000.0) / dim))
+    pe = np.zeros((2 * max_len - 1, dim), dtype=np.float64)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(torch.float32)
+
+
 @lru_cache(maxsize=128)
 def sinusoidal_table(T: int, dim: int, padding_idx: int, dtype: torch.dtype,
                      device: torch.device) -> torch.Tensor:
@@ -31,3 +43,11 @@ def sinusoidal_table(T: int, dim: int, padding_idx: int, dtype: torch.dtype,
     cap, as the JAX encoders that build theirs per call (PDS stages)."""
     with torch.inference_mode(False):  # a normal tensor, usable by training after a decode
         return fairseq_sinusoidal_encoding(T, dim, padding_idx).to(device=device, dtype=dtype)
+
+
+@lru_cache(maxsize=128)
+def relative_table(T: int, dim: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``relative_encoding(T, dim)`` in ``dtype`` on ``device``, made once per key
+    (the JAX encoders build it per call at the call's T)."""
+    with torch.inference_mode(False):
+        return relative_encoding(T, dim).to(device=device, dtype=dtype)

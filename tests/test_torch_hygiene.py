@@ -113,6 +113,26 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
     assert cli_generate.parse_args(["data"]).device == "cuda"
 
 
+@pytest.mark.parametrize("arch,kw", [
+    ("s2t_sate_s", dict(acoustic_encoder_layers=1, acoustic_decoder_layers=1,
+                        text_encoder_layers=1, acoustic_encoder_embed_dim=32,
+                        acoustic_decoder_embed_dim=32, acoustic_subsampling_filter=32)),
+    ("s2t_ctc_sate", dict(acoustic_encoder_layers=1, text_encoder_layers=1,
+                          acoustic_encoder_embed_dim=32, acoustic_subsampling_filter=32)),
+    ("s2t_conformer", dict(encoder_layers=1, decoder_layers=1, encoder_embed_dim=32,
+                           decoder_embed_dim=32, subsampling_filter=32)),
+])
+def test_sate_and_conformer_entry_points_need_cuda_unless_cpu_requested(monkeypatch, arch, kw):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(arch, {**kw, "vocab_size": 16})
+    model = build_model(arch, {**kw, "vocab_size": 16}, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    if arch != "s2t_ctc_sate":
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            GeneratorHub.build(model.cfg)
+
+
 def test_kernel_wrapper_raises_instead_of_falling_back(monkeypatch):
     def no_library(*_a, **_k):
         raise RuntimeError("library cannot load")

@@ -2,8 +2,8 @@
 
 Tiny configs: 3 stages at ratios (2, 1, 2), dims (32, 48, 64), 4 heads, FFN
 ratio 2, one layer a stage, vocab 32, a one-layer decoder; variants plain,
-fusion, ``pds_position_embed`` (1, 0, 1), one ``pds_final_layers`` layer and
-post-norm.  Weights are flax's, carried across with ``from_flax``; the batch
+fusion, ``pds_position_embed`` (1, 0, 1), one ``pds_final_layers`` layer,
+post-norm, and Conformer stages (macaron FFN, conv module, rel_pos).  Weights are flax's, carried across with ``from_flax``; the batch
 is B = 4 at T = 61 (not a multiple of 4) with lengths (61, 45, 31, 1).
 
 * ``encoder_out``, ``ctc_logits`` and ``decoder_logits`` within atol 1e-5
@@ -20,7 +20,7 @@ is B = 4 at T = 61 (not a multiple of 4) with lengths (61, 45, 31, 1).
   ``NotImplementedError`` by name;
 * every ``egs/**/*.yaml`` of arch ``pdss2t_transformer_*`` or ``s2t_ctc_pds``
   resolves to the JAX preset's field values and passes the port's checks
-  (70), or raises naming its module (5).
+  (73), or raises naming its module (2, the EffecientConformer pair).
 
 tests/test_torch_pds_cli.py drives a PDS model through both packages' CLIs.
 """
@@ -62,7 +62,11 @@ VARIANTS = {"plain": {}, "fusion": dict(pds_fusion=True),
             "final_layers": dict(pds_final_layers=1),
             "postnorm": dict(encoder_normalize_before=False, decoder_normalize_before=False),
             # an _8 plan: the generator bounds its output by ceil(T / 8), not T / 4
-            "ratio8": dict(pds_ratios=(2, 2, 2))}
+            "ratio8": dict(pds_ratios=(2, 2, 2)),
+            # Conformer stages: macaron FFN, conv module (a kernel per stage), rel_pos
+            "conformer": dict(macaron_style=True, use_cnn_module=True,
+                              encoder_attention_type="rel_pos", pds_cnn_kernel_sizes=(5, 3, 7),
+                              encoder_activation_fn="swish", pds_final_layers=1)}
 # the encoder-only model: s2t_ctc_pds sets decoder_layers 0 unless told otherwise
 CTC_TINY = {k: v for k, v in TINY.items() if k != "decoder_layers"}
 LENGTHS = (61, 45, 31, 1)
@@ -245,9 +249,9 @@ def test_loss_and_grads_match_jax(arch, criterion):
 
 
 @pytest.mark.parametrize("field,value,names", [
-    ("encoder_attention_type", "rel_pos", "item 7"),
-    ("macaron_style", True, "item 7"),
-    ("use_cnn_module", True, "item 7"),
+    ("encoder_attention_type", "rope", "item 7"),
+    ("encoder_attention_type", "relative", "item 7"),
+    ("encoder_attention_type", "local", "item 7"),
     ("pds_conv_strides", (1, 2, 1), "item 7"),
     ("pds_ratios", (-1, 1, 2), "subsampling_ref_pad_semantics"),
     ("subsampling_type", "conv2d", "item 7"),
@@ -294,9 +298,6 @@ def test_ratio_minus_one_takes_the_conv1d_subsampler():
 # the recipes
 # --------------------------------------------------------------------------- #
 UNPORTED_RECIPES = {
-    "egs/mustc/asr/conf/purectc_pds_base_8_grow512.yaml": "item 7",
-    "egs/librispeech/asr/conf/compare_purectc_pds_base_8.yaml": "item 7",
-    "egs/librispeech/asr/conf/compare_my_purectc_pds_base_8.yaml": "item 7",
     "egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml": "item 7",
     "egs/librispeech/asr/conf/EffecientConformerCTCMedium.yaml": "item 7",
 }
@@ -333,13 +334,16 @@ def test_every_pds_recipe_resolves_as_jax_or_raises_by_name():
             refused[path] = str(e)
             continue
         built.append(path)
-    assert len(recipes) == 75 and len(built) == 70 and len(refused) == 5, refused
+    assert len(recipes) == 75 and len(built) == 73 and len(refused) == 2, refused
     assert set(refused) == set(UNPORTED_RECIPES)
     for path, msg in refused.items():
         assert UNPORTED_RECIPES[path] in msg and "PDSConfig." in msg, (path, msg)
-    # the fusion recipes build: pds_big (m_8) and pds_deep (sd_8)
+    # the fusion recipes build: pds_big (m_8) and pds_deep (sd_8); so do the Conformer-stage ones
     assert {"egs/librispeech/asr/conf/pds_big.yaml",
-            "egs/librispeech/asr/conf/pds_deep.yaml"} <= set(built)
+            "egs/librispeech/asr/conf/pds_deep.yaml",
+            "egs/mustc/asr/conf/purectc_pds_base_8_grow512.yaml",
+            "egs/librispeech/asr/conf/compare_purectc_pds_base_8.yaml",
+            "egs/librispeech/asr/conf/compare_my_purectc_pds_base_8.yaml"} <= set(built)
     arch, model = recipes["egs/librispeech/asr/conf/purectc_pds_base_8_growth360.yaml"]
     m = build_model(arch, model, device="cpu", vocab_size=32)
     assert isinstance(m, tctc.S2TCTCModel) and m.cfg.downsample_ratio == 8

@@ -137,7 +137,7 @@ def test_unported_branches_raise_by_name(tasks):
         task.build_generator(task.build_model(device="cpu"))
     with pytest.raises(NotImplementedError, match="multilingual"):
         task.load_dataset("train,dev")
-    for arch in ("s2t_conformer", "convtransformer", "s2t_transformer_s_relative"):
+    for arch in ("s2t_dynamic_transformer_s", "convtransformer", "s2t_transformer_s_relative"):
         with pytest.raises(NotImplementedError, match=arch):
             build_model(arch, device="cpu")
     with pytest.raises(KeyError, match="unknown task"):
