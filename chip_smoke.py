@@ -1,5 +1,5 @@
-"""Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE and Conformer slices
-on one NVIDIA H100.
+"""Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer and CTC
+research-stack slices on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -116,18 +116,37 @@ Phases (any failure ends the run with a non-zero exit):
              steps, through cli.train from raw audio (K5, K3, K4) for 2 epochs,
              and as phase 13 (greedy bf16 serving; fp32 greedy / beam-5 tokens
              card vs CPU);
+ 22. nast     s2t_nast (reproduction_nast.yaml: 18 x 256, inter-CTC at 6 / 9 / 12 with the
+             inter_league PAE, XCTC, V=10000) as phase 13 through
+             CTCGenerator(use_xctc=True), the encode's device ms split into layers, PAE
+             adapters and CTC / XCTC heads by forward-hook ranges; fp32 greedy, beam 5
+             and ctc_self_ensemble tokens card vs CPU; fp32 training card vs CPU (ctc 1,
+             inter 0.5, xctc 1) and bf16 at the bench shape, 18 / 18 / 5 / 5 launches a step;
+ 23. bil_ctc  reproduction_bil_ctc.yaml on s2t_transformer_s (inter-CTC at 4, inter-XCTC
+             at 8, both PAEs, the XCTC oracle at 0.3, CE + CTC 0.3 / 0.2 / 0.3 / 0.2):
+             the oracle's Viterbi card vs CPU, fp32 training card vs CPU with 160-token
+             targets (XCTC's S = 319 takes K3's CTA-wide kernel), bf16 at the bench shape
+             (64-token targets) with each CTC term's device ms, 12 / 12 / 4 / 4 launches a
+             step, K3 / K4 at that XCTC shape, fp32 beam-5 serving card vs CPU;
+ 24. aipa     reproduction_purectc_aipa_kd.yaml (a Conformer s2t_ctc, 18 x 256 rel_pos,
+             4 shared inter-CTC taps, keep_org mixup at ratio 1: the batch doubles, the
+             mixup-consistency losses): fp32 training card vs CPU with the host draws, bf16
+             at the bench shape (each CTC term's device ms and the duplicated unmixed-row
+             CTC), cli.train from phase 11's wavs for 2 epochs (K5 1, K3 / K4 10 a step),
+             cli.generate greedy and from_pretrained;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
-it: serving (phases 5-6, 13, 16-17, 19, 21) launches K1f once per encoder layer
+it: serving (phases 5-6, 13, 16-17, 19, 21-23) launches K1f once per encoder layer
 that attends with the fused kernel and encode (a PDS encoder: every stage's
 layers; SATE: the acoustic and the textual layers; a rel_pos layer attends
-densely and launches none); a training step (phases 7-8, 14, 15, 18, 20, 21)
-launches K1f and K1b once per such layer, K3 and K4 once; a raw-audio forward
-(phases 11, 20, 21, train or valid) adds K5 once; decoding (phases 12, 14, 18,
-20) launches K1f once per such layer and encode, and a validation batch of
-phase 14 runs three encodes (the loss, eval_ctc_wer, eval_wer), of phase 18
-two (the loss, eval_wer).
+densely and launches none); a training step (phases 7-8, 14, 15, 18, 20-24)
+launches K1f and K1b once per such layer, K3 and K4 once per CTC term (once
+without the stack; phase 22 5, 23 4, 24 10: mixup runs each term twice); a
+raw-audio forward (phases 11, 20, 21, 24, train or valid) adds K5 once; decoding
+(phases 12, 14, 18, 20, 24) launches K1f once per such layer and encode, and a
+validation batch of phase 14 runs three encodes (the loss, eval_ctc_wer,
+eval_wer), of phase 18 two (the loss, eval_wer).
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -241,10 +260,12 @@ def encoder_layers(cfg) -> int:
     return cfg.encoder_layers
 
 
-def step_launches(cfg) -> dict:
-    """Launches of one training step of a model of ``cfg``."""
+def step_launches(cfg, ctc_terms: int = 1) -> dict:
+    """Launches of one training step of a model of ``cfg`` whose loss has
+    ``ctc_terms`` CTC lattices (K3 and K4 once each)."""
     layers = encoder_layers(cfg)
-    return {"attention_fwd": layers, "attention_bwd": layers, "ctc_alpha": 1, "ctc_beta_grad": 1}
+    return {"attention_fwd": layers, "attention_bwd": layers, "ctc_alpha": ctc_terms,
+            "ctc_beta_grad": ctc_terms}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -977,7 +998,7 @@ def by_stage(sequence_ms, cfg, names, backward=False):
     return out
 
 
-RANGE_PREFIXES = ("pds_", "sate_", "conformer_")  # the profiler ranges of the hooks below
+RANGE_PREFIXES = ("pds_", "sate_", "conformer_", "stack_")  # the profiler ranges below
 
 
 @contextlib.contextmanager
@@ -1016,26 +1037,41 @@ def sate_ranges(model):
     return module_ranges(parts)
 
 
-def conformer_ranges(model):
+def conformer_parts(enc):
     """A Conformer encode: the whole encoder, and every layer's self-attention and conv
     module (each name sums over the layers)."""
-    enc = model.encoder
-    return module_ranges([("conformer_encoder", enc)]
-                         + [("conformer_attention", layer.self_attn) for layer in enc.layers]
-                         + [("conformer_conv_module", layer.conv_module) for layer in enc.layers])
+    return ([("conformer_encoder", enc)]
+            + [("conformer_attention", layer.self_attn) for layer in enc.layers]
+            + [("conformer_conv_module", layer.conv_module) for layer in enc.layers])
+
+
+def stack_parts(enc):
+    """The CTC research stack's split of an encode: the whole encoder, its layers, the
+    PAE adapters (CTC and XCTC), the CTC heads (the final one, which the shared inter taps
+    call too, and any per-tap ones) and the XCTC / AXCTC heads; each name sums its calls."""
+    parts = [("stack_encoder", enc)] + [("stack_layers", layer) for layer in enc.layers]
+    parts += [("stack_pae", m) for m in (enc.pae, enc.xpae) if m is not None]
+    heads = [enc.ctc_head] + list((enc.inter_ctc_heads or {}).values())
+    parts += [("stack_ctc_heads", m) for m in heads if m is not None]
+    parts += [("stack_xctc_heads", m) for m in (enc.xctc_head, enc.axctc_head) if m is not None]
+    return parts
 
 
 def encoder_ranges(model):
-    """The ranges of ``model``'s encoder: PDS stages, SATE parts, Conformer sublayers, or
-    none."""
+    """The ranges of ``model``'s encoder: PDS stages, SATE parts, Conformer sublayers, the
+    CTC research stack's parts, or none."""
     cfg = model.cfg
     if isinstance(cfg, PDSConfig):
         return stage_ranges(model.encoder)
     if isinstance(cfg, SATEConfig):
         return sate_ranges(model)
-    if getattr(cfg, "use_cnn_module", False) and cfg.encoder_attention_type == "rel_pos":
-        return conformer_ranges(model)
-    return contextlib.nullcontext()
+    parts = []
+    if cfg.use_cnn_module and cfg.encoder_attention_type == "rel_pos":
+        parts += conformer_parts(model.encoder)
+    if cfg.inter_ctc_layers or cfg.use_xctc or cfg.use_axctc:
+        # one whole-encoder range: two on one module would close out of order
+        parts += stack_parts(model.encoder)[1 if parts else 0:]
+    return module_ranges(parts) if parts else contextlib.nullcontext()
 
 
 def range_shares(range_ms, whole):
@@ -1137,7 +1173,8 @@ KERNEL_NAMES = ("attention_fwd_mma_kernel", "delta_bf16_kernel", "dkdv_mma_kerne
 
 
 def train_batch(rng, B, T, U, V, lengths):
-    """A seeded batch as bench.py section B makes it (transcript = target[:, :-1])."""
+    """A seeded batch as bench.py section B makes it (transcript = target[:, :-1]),
+    with the target lengths the collater gives (the PAE oracle reads them)."""
     targets = rng.integers(4, V, size=(B, U)).astype(np.int32)
     targets[:, -1] = 2
     prev = np.roll(targets, 1, axis=1)
@@ -1147,10 +1184,44 @@ def train_batch(rng, B, T, U, V, lengths):
         "feat_lengths": np.asarray(lengths, np.int32),
         "prev_tokens": prev,
         "target": targets,
+        "target_lengths": np.full((B,), U, np.int32),
         "transcript": targets[:, :-1],
         "transcript_lengths": np.full((B,), U - 1, np.int32),
         "ntokens": np.float32(B * U),
     }
+
+
+def stack_forward(model, batch, train=False, generator=None):
+    """The trainer's forward adapter with the task's encoder inputs (the PAE oracle's
+    transcript and EOS-stripped target, mixup's step count) threaded as
+    ``SpeechToTextTask.forward_fn`` threads them."""
+    from s2t_tpu_torch.tasks.speech_to_text import encoder_inputs
+
+    return model(batch["features"], batch["feat_lengths"], batch["prev_tokens"], train=train,
+                 generator=generator, **encoder_inputs(model.cfg, batch, train))
+
+
+@contextlib.contextmanager
+def ctc_term_ranges():
+    """Run each CTC term of the CTC criterion (one ``_one_ctc`` call: the emission
+    gather, the normaliser and K3, twice under mixup) inside a profiler range
+    ``stack_ctc_term<i>``, i counting the calls in order."""
+    from torch.profiler import record_function
+
+    from s2t_tpu_torch.criterions.ctc import CTCCriterion
+
+    plain, calls = CTCCriterion._one_ctc, [0]
+
+    def ranged(self, *args, **kw):
+        calls[0] += 1
+        with record_function(f"stack_ctc_term{calls[0]}"):
+            return plain(self, *args, **kw)
+
+    CTCCriterion._one_ctc = ranged
+    try:
+        yield
+    finally:
+        CTCCriterion._one_ctc = plain
 
 
 def check_step_launches(counts, steps=1, per_step=None):
@@ -1161,20 +1232,26 @@ def check_step_launches(counts, steps=1, per_step=None):
 
 
 def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 3,
-                       criterion=CRITERION):
+                       criterion=CRITERION, per_step=None, U: int = 30, log_keys=()):
     """fp32, dropout 0: the port's Trainer on the card and on the CPU from the same
     seeded weights and batches (``cfg``: s2t_transformer_m by default; 12 encoder
-    layers, so TRAIN_LAUNCHES a step; another model, ``step_launches``)."""
+    layers, so TRAIN_LAUNCHES a step; another model, ``step_launches`` or
+    ``per_step``), through ``stack_forward`` (the task's encoder inputs: the PAE
+    oracle's targets).  ``log_keys``: more CTC terms, reported every step and held
+    at ctc_loss's rtol on the first (the same weights on both devices; later
+    steps start from parameters Adam has moved apart by up to 2 lr)."""
     cfg = cfg or s2t_transformer_m(vocab_size=10000, max_target_positions=1024, dropout=0.0,
                                    attention_dropout=0.0, activation_dropout=0.0)
-    per_step = step_launches(cfg)
+    per_step = per_step or step_launches(cfg)
+    first_rtol = {k: TRAIN_RTOL["ctc_loss"] for k in log_keys}
     opt = OptimizationConfig(lr=2e-3, warmup_updates=3, clip_norm=10.0, adam_eps=1e-6)
     rng = np.random.default_rng(0)
-    batches = [train_batch(rng, 4, 1000, 30, 10000, [1000, 873, 640, 412]) for _ in range(steps)]
+    batches = [train_batch(rng, 4, 1000, U, 10000, [1000, 873, 640, 412]) for _ in range(steps)]
     runs, launches = {}, {k: 0 for k in per_step}
     for device in ("cuda", "cpu"):
         model = model_cls(cfg, device=device, seed=0, for_training=True)
-        trainer = Trainer(model, build_criterion(*criterion), opt, device=device, seed=1)
+        trainer = Trainer(model, build_criterion(*criterion), opt, device=device, seed=1,
+                          forward_fn=stack_forward)
         metrics, t0 = [], time.perf_counter()
         for batch in batches:
             reset_counts()  # the main path: one training step on the card
@@ -1184,12 +1261,14 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
                 counts = read_counts()
                 check_step_launches(counts, per_step=per_step)
                 launches = {k: launches[k] + counts[k] for k in launches}
-            metrics.append({k: float(m[k]) for k in ("loss", "ctc_loss", "gnorm", "lr")})
+            metrics.append({k: float(m[k]) for k in ("loss", "ctc_loss", "gnorm", "lr",
+                                                     *log_keys)})
         secs = time.perf_counter() - t0
         runs[device] = (metrics, {n: p.detach().cpu() for n, p in model.named_parameters()})
         log(f"[{tag}] fp32 {device}: {steps} steps in {secs:.2f} s: {json.dumps(metrics)}")
     (card, card_p), (host, host_p) = runs["cuda"], runs["cpu"]
-    errs = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in TRAIN_RTOL} for a, b in zip(card, host)]
+    errs = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in (*TRAIN_RTOL, *log_keys)}
+            for a, b in zip(card, host)]
     diffs = {n: (card_p[n] - host_p[n]).abs() for n in host_p}
     worst = sorted(diffs, key=lambda n: -diffs[n].max().item())[:3]
     param_err = diffs[worst[0]].max().item()
@@ -1200,15 +1279,18 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
     # of 0 that passes on one device and not the other) moves up to 2 lr apart per step
     param_bound = 2 * sum(m["lr"] for m in host)
     res = {"steps": steps, "card": card, "cpu": host, "rel_err": errs, "rtol": TRAIN_RTOL,
+           "first_step_rtol": first_rtol,
            "max_param_diff": param_err, "param_bound": param_bound,
            "worst_params": {n: diffs[n].max().item() for n in worst},
            "share_of_entries_over_1e-5": over / n_params,
            "launches_per_step": per_step}
-    log(f"[{tag}] fp32 card vs CPU: rel err per step {json.dumps(errs)} (rtol {TRAIN_RTOL}); "
+    log(f"[{tag}] fp32 card vs CPU: rel err per step {json.dumps(errs)} (rtol {TRAIN_RTOL}; "
+        f"first step {first_rtol}); "
         f"max param difference after {steps} steps {param_err:.3e} (bound 2 sum(lr) = "
         f"{param_bound:.3e}; worst {json.dumps(res['worst_params'])}, {over} of {n_params} "
         f"entries differ by more than 1e-5); launches per step {per_step}")
     if any(not e[k] <= TRAIN_RTOL[k] for e in errs for k in TRAIN_RTOL) or \
+            any(not errs[0][k] <= r for k, r in first_rtol.items()) or \
             not param_err <= param_bound:
         raise AssertionError("fp32 training disagrees between the card and the CPU")
     return res, launches
@@ -1216,16 +1298,17 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
 
 def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed",
                       n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000,
-                      criterion=CRITERION):
+                      criterion=CRITERION, per_step=None):
     """bf16 at the bench.py section B shape and optimizer (``cfg``: s2t_transformer_m
-    by default); for a PDS model also K1f's and K1b's device ms by stage, for SATE and
-    a Conformer the device ms of each part of the forward (``encoder_ranges``)."""
+    by default); for a PDS model also K1f's and K1b's device ms by stage, for SATE, a
+    Conformer and the CTC research stack the device ms of each part of the forward
+    (``encoder_ranges``) and of each CTC term of the loss (``ctc_term_ranges``)."""
     cfg = cfg or s2t_transformer_m(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
-    per_step = step_launches(cfg)
+    per_step = per_step or step_launches(cfg)
     model = model_cls(cfg, device="cuda", seed=0, for_training=True)
     trainer = Trainer(model, build_criterion(*criterion),
                       OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
-                      device="cuda", seed=1)
+                      device="cuda", seed=1, forward_fn=stack_forward)
     batch = train_batch(np.random.default_rng(0), B, T, U, V, [T] * B)
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}  # device-resident, as bench
     reset_counts()  # the main path: 1 warm-up + n_timed timed + 1 profiled step
@@ -1238,9 +1321,9 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pds = isinstance(cfg, PDSConfig)
-    with encoder_ranges(model):
+    with encoder_ranges(model), ctc_term_ranges():
         prof = device_profile(lambda: losses.append(trainer.train_step(batch)["loss"]),
-                              KERNEL_NAMES, sequence=FWD_KERNELS + BWD_KERNELS)
+                              KERNEL_NAMES, sequence=FWD_KERNELS + BWD_KERNELS + ("ctc_beta_grad",))
     counts = read_counts()
     check_step_launches(counts, n_timed + 2, per_step)
     losses = torch.stack(losses).float().cpu()
@@ -1267,6 +1350,10 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
                                                  backward=True)
     elif prof["range_ms"]:
         res["forward_device_ms_by_part"] = prof["range_ms"]
+    if per_step["ctc_alpha"] > 1:  # each CTC term's forward, and K4 of each in launch order
+        res["ctc_term_forward_device_ms"] = {k: v for k, v in prof["range_ms"].items()
+                                             if k.startswith("stack_ctc_term")}
+        res["k4_device_ms_in_launch_order"] = prof["sequence_ms"]["ctc_beta_grad"]
     if isinstance(cfg, S2TTransformerConfig) and cfg.encoder_attention_type == "abs" \
             and cfg.decoder_layers:  # the analytic flops are the s2t_transformer family's
         flops = s2t_train_flops(B, T, U, d_model=cfg.encoder_embed_dim,
@@ -1484,12 +1571,14 @@ def check_counts(counts, want, what):
         raise AssertionError(f"{what} launched {counts}, expected {want}")
 
 
-def path_counts(train_steps, forwards, layers=12):
+def path_counts(train_steps, forwards, layers=12, ctc_step=1, ctc_valid=1):
     """Launches of a run of ``train_steps`` train steps and ``forwards`` forwards
-    in all (train + valid): K5, K1f and K3 once per forward (K1f per encoder
-    layer of the fused kernel), K1b and K4 per train step."""
+    in all (train + valid): K5 and K1f once per forward (K1f per encoder layer of
+    the fused kernel), K1b per train step, K3 and K4 once per CTC term of a train
+    step (``ctc_step``) and K3 once per term of a validation forward (``ctc_valid``)."""
     return {"attention_fwd": layers * forwards, "attention_bwd": layers * train_steps,
-            "ctc_alpha": forwards, "ctc_beta_grad": train_steps, "fbank": forwards}
+            "ctc_alpha": ctc_step * train_steps + ctc_valid * (forwards - train_steps),
+            "ctc_beta_grad": ctc_step * train_steps, "fbank": forwards}
 
 
 def to_device(batch, device):
@@ -1587,7 +1676,7 @@ def forward_card_vs_cpu(task, valid_ds, cfg):
         counts = read_counts()
         if device == "cuda":
             check_counts(counts, path_counts(0, 1), "the fp32 card forward")
-        outs[device] = {k: v.cpu() for k, v in out.items() if v is not None}
+        outs[device] = {k: v.cpu() for k, v in out.items() if isinstance(v, torch.Tensor)}
         losses[device] = {"loss": float(loss), "ctc_loss": float(logs["ctc_loss"])}
         del model
     card, cpu = outs["cuda"], outs["cpu"]
@@ -1669,18 +1758,25 @@ def phase_generate(root: Path):
 NAST_SHAPE = dict(B=256, T=1000, V=10000)  # bench.py:84-94, bench_nast_generation
 
 
-def ctc_near_tie(card_enc, host_enc, card_tok, host_tok, beam):
+def ctc_near_tie(card_enc, host_enc, card_tok, host_tok, beam, decoder=None):
     """Whether rows whose CTC tokens differ between the card and the CPU are
     explained by the card's logit error ``err`` (max |card - CPU| over valid
     frames): greedy, every frame whose argmax differs has CPU log-probs of the
     two tokens within 2 err; beam, the CPU's CTC log-likelihood of the card's
     and of the CPU's top hypothesis lie within 4 err per frame (each log-prob
-    is off by at most 2 err).  Returns (accepted, report)."""
+    is off by at most 2 err).  Under a self-ensembling ``decoder`` the decoded
+    log-probs are its averages: ``err`` is their own error, so each is off by at
+    most err and the same bounds hold.  Returns (accepted, report)."""
     from s2t_tpu_torch.ops.ctc import ctc_loss
 
     lengths = host_enc["encoder_lengths"]
     valid = lengths_to_mask(lengths, host_enc["ctc_logits"].shape[1])
-    card_logits, host_logits = card_enc["ctc_logits"].float().cpu(), host_enc["ctc_logits"].float()
+    if decoder is not None and decoder.self_ensemble:
+        card_logits = decoder.select_logits(card_enc).float().cpu()
+        host_logits = decoder.select_logits(host_enc).float()
+    else:
+        card_logits = card_enc["ctc_logits"].float().cpu()
+        host_logits = host_enc["ctc_logits"].float()
     err = (card_logits - host_logits).abs()[valid].max().item()
     lp = torch.log_softmax(host_logits, dim=-1)
     report, ok = [], True
@@ -1704,10 +1800,12 @@ def ctc_near_tie(card_enc, host_enc, card_tok, host_tok, beam):
     return ok, {"ctc_logits_max_abs_err": err, "differing_rows": report}
 
 
-def phase_nast(preset=None, model_section=None, tag="nast"):
+def phase_nast(preset=None, model_section=None, tag="nast", use_xctc=False, ensemble=False):
     """An encoder-only CTC model at full width (``preset``, s2t_ctc_base by default,
     with ``model_section``): greedy CTC serving in bf16 at bench.py's NAST shape
-    through CTCGenerator, then fp32 fixture wavs card vs CPU, greedy and beam 5."""
+    through CTCGenerator (``use_xctc``: the XCTC logits), then fp32 fixture wavs card
+    vs CPU, greedy and beam 5 (and, with ``ensemble``, ctc_self_ensemble over the
+    inter-CTC taps greedy and beam 5)."""
     from s2t_tpu_torch.hub import GeneratorHub
     from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
     from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_base
@@ -1718,7 +1816,7 @@ def phase_nast(preset=None, model_section=None, tag="nast"):
                  max_target_positions=1024)
     layers = encoder_layers(cfg)
     model = S2TCTCModel(cfg, device="cuda", seed=0)
-    gen = CTCGenerator(model, CTCDecoder())
+    gen = CTCGenerator(model, CTCDecoder(), use_xctc=use_xctc)
     g = torch.Generator(device="cuda").manual_seed(0)
     feats = [torch.randn((B, T, 80), generator=g, device="cuda") for _ in range(4)]
     lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
@@ -1737,8 +1835,9 @@ def phase_nast(preset=None, model_section=None, tag="nast"):
     check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": layers * encodes},
                  f"{tag} serving ({encodes} encodes)")
     wall = float(np.median(walls))
-    res = {"batch": B, "frames": T, "vocab": V, "dtype": "bfloat16", "wall_s": walls,
-           "utt_per_s": B / wall, "rtf": B * T * 0.01 / wall, "tokens_shape": list(out.shape),
+    res = {"batch": B, "frames": T, "vocab": V, "dtype": "bfloat16", "use_xctc": use_xctc,
+           "wall_s": walls, "utt_per_s": B / wall, "rtf": B * T * 0.01 / wall,
+           "tokens_shape": list(out.shape),
            "profiled_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
            "device_busy_share": prof["busy_ms"] / prof["wall_ms"],
            "top_aten_ops_device_ms": prof["top_ops"], "launches_per_encode": layers}
@@ -1748,7 +1847,8 @@ def phase_nast(preset=None, model_section=None, tag="nast"):
         res["k1f_device_ms_by_stage"] = by_stage(prof["sequence_ms"], cfg, FWD_KERNELS)
     elif prof["range_ms"]:
         res["encode_device_ms_by_part"] = prof["range_ms"]
-        res["share_of_encoder_device_ms"] = range_shares(prof["range_ms"], "conformer_encoder")
+        whole = "stack_encoder" if "stack_encoder" in prof["range_ms"] else "conformer_encoder"
+        res["share_of_encoder_device_ms"] = range_shares(prof["range_ms"], whole)
     log(f"[{tag}] bf16 greedy CTC serving: {json.dumps(res)}")
 
     # fp32: the fixture wavs on the card (kernels) and on the CPU (plain versions)
@@ -1756,19 +1856,21 @@ def phase_nast(preset=None, model_section=None, tag="nast"):
     card, host = (S2TCTCModel(cfg32, device=d, seed=0) for d in ("cuda", "cpu"))
     batch = GeneratorHub(card, None)._speech_batch(WAVS)
     parity = {}
-    for beam in (1, 5):
+    for beam, se in [(1, False), (5, False)] + ([(1, True), (5, True)] if ensemble else []):
+        decoder = CTCDecoder(beam_size=beam, self_ensemble=se)
         before = fused_attention.launches
-        tc, _, ec = CTCGenerator(card, CTCDecoder(beam_size=beam)).generate(batch)
+        tc, _, ec = CTCGenerator(card, decoder, use_xctc=use_xctc).generate(batch)
         torch.cuda.synchronize()
         check_counts({"attention_fwd": fused_attention.launches - before},
                      {"attention_fwd": layers}, f"the fp32 beam-{beam} encode")
-        th, _, eh = CTCGenerator(host, CTCDecoder(beam_size=beam)).generate(batch)
+        th, _, eh = CTCGenerator(host, decoder, use_xctc=use_xctc).generate(batch)
         same = torch.equal(tc.cpu(), th)
-        ok, report = (True, {}) if same else ctc_near_tie(ec, eh, tc.cpu(), th, beam)
-        parity[beam] = {"identical": same, **report,
-                        "lengths": [int((row != 1).sum()) for row in th[:, 0]]}
-        log(f"[{tag}] fp32 fixture wavs, beam {beam}: card vs CPU top tokens "
-            f"{'identical' if same else 'differ'} {json.dumps(parity[beam])}")
+        ok, report = (True, {}) if same else ctc_near_tie(ec, eh, tc.cpu(), th, beam, decoder)
+        key = f"beam{beam}" + ("_self_ensemble" if se else "")
+        parity[key] = {"identical": same, **report,
+                       "lengths": [int((row != 1).sum()) for row in th[:, 0]]}
+        log(f"[{tag}] fp32 fixture wavs, {key}: card vs CPU top tokens "
+            f"{'identical' if same else 'differ'} {json.dumps(parity[key])}")
         if not ok:
             raise AssertionError(f"CTC decoding differs card vs CPU beyond a near-tie: {report}")
     res["fp32_parity"] = parity
@@ -2087,15 +2189,16 @@ def phase_sate_serve():
     return out, launches
 
 
-def audio_cli_cfg(root: Path, arch, model, criterion, tag, dtype, optimization=None):
+def audio_cli_cfg(root: Path, arch, model, criterion, tag, dtype, optimization=None,
+                  generation=None):
     """A 2-epoch cli.train config on phase 11's wav corpus that decodes phase 14's
     feature split."""
     return train_cfg(root, arch, model, criterion, f"{tag}_ckpt", dtype,
                      dataset={"gen_subset": "fdev"}, optimization=optimization,
-                     generation={"results_path": str(root / f"{tag}_gen")})
+                     generation={"results_path": str(root / f"{tag}_gen"), **(generation or {})})
 
 
-def phase_audio_cli(cfg, tag: str):
+def phase_audio_cli(cfg, tag: str, ctc_step: int = 1, ctc_valid: int = 1):
     """cli.train from raw audio (K5 in every forward, then utterance CMVN + SpecAugment)
     for ``cfg``'s epochs with validation; checks the launches, and that the losses are
     finite and fall (the last validation below the first, the last epoch's mean train
@@ -2114,7 +2217,8 @@ def phase_audio_cli(cfg, tag: str):
                                           max_tokens=cfg.dataset.max_tokens,
                                           seed=cfg.common.seed, shuffle=False))
     layers = encoder_layers(out["model"].cfg)
-    check_counts(counts, path_counts(steps, steps + n_valid * len(out["history"]), layers),
+    check_counts(counts, path_counts(steps, steps + n_valid * len(out["history"]), layers,
+                                     ctc_step, ctc_valid),
                  f"{tag} cli.train ({steps} steps, {len(out['history'])} validations of "
                  f"{n_valid} batch)")
     losses = [r["loss"] for r in out["train_log"]]
@@ -2185,6 +2289,155 @@ def phase_conformer(root: Path):
 
 
 # --------------------------------------------------------------------------- #
+# phases 22-24: the CTC research stack (the recipes' sections; tests/test_torch_nast.py
+# holds them to the files)
+NAST_CRITERION = ("ctc", {"ctc_weight": 1.0, "inter_ctc_weight": 0.5,  # reproduction_nast.yaml
+                          "xctc_weight": 1.0})
+BIL_CTC_MODEL = {  # the model section of egs/mustc/st/conf/reproduction_bil_ctc.yaml
+    "inter_ctc_layers": [4], "ctc_pae": "inter_league", "use_xctc": True,
+    "inter_xctc_layers": [8], "xctc_pae": "inter_league", "xctc_pae_ground_truth_ratio": 0.3}
+BIL_CTC_CRITERION = ("label_smoothed_cross_entropy_with_ctc", {  # its criterion_cfg over basis
+    "label_smoothing": 0.1, "ctc": {"ctc_weight": 0.3, "inter_ctc_weight": 0.2,
+                                    "xctc_weight": 0.3, "inter_xctc_weight": 0.2}})
+AIPA = {  # egs/librispeech/asr/conf/reproduction_purectc_aipa_kd.yaml
+    "arch": "s2t_ctc", "criterion": "ctc",
+    "criterion_cfg": {"ctc_weight": 1.0, "inter_ctc_weight": 1.0, "zero_infinity": True,
+                      "ctc_mixup_consistent_weight": 0.15,
+                      "inter_ctc_mixup_consistent_weight": 0.1},
+    "model": {"encoder_layers": 18, "macaron_style": True, "use_cnn_module": True,
+              "cnn_module_kernel": 15, "encoder_attention_type": "rel_pos",
+              "encoder_activation_fn": "swish", "inter_mixup": True, "inter_mixup_layer": 0,
+              "inter_mixup_prob": 1.0, "inter_mixup_ratio": 1.0, "inter_mixup_beta": 0.2,
+              "inter_mixup_keep_org": True, "inter_mixup_ratio_decay": False,
+              "inter_mixup_ratio_decay_params": [20000, 40000, 0],
+              "inter_ctc_layers": [6, 9, 12, 15], "share_inter_ctc": True,
+              "share_ctc_and_embed": True, "ctc_pae": "inter_league", "pae_unnorm_input": True}}
+# CTC terms of a step: NAST's CTC, 3 inter taps and XCTC; BiL-CTC's CTC, inter-CTC, XCTC and
+# inter-XCTC; AIPA's CTC and 4 inter taps, each twice under mixup (once without, in eval)
+NAST_TERMS, BIL_CTC_TERMS, AIPA_TERMS = 5, 4, 10
+# BiL-CTC's fp32 parity targets: 160 tokens, so XCTC's lattice has S = 319 states and takes
+# K3's CTA-wide kernel (S > 256) on the main path; its bf16 bench targets: 64 (S = 127)
+BIL_CTC_PARITY_U, BIL_CTC_BENCH_U = 160, 64
+STACK_TIMED_STEPS = 10
+
+
+def alignment_card_vs_cpu(B=8, T=250, U=60, V=10000, seed=10):
+    """The oracle's Viterbi (``ctc_best_alignment``, a plain PyTorch loop over T on both
+    devices) on the same CPU-made log-probs on the card and on the CPU: max, compare and
+    add are exact in fp32, so the states must be equal; and its time on the card."""
+    from s2t_tpu_torch.ops.ctc import ctc_best_alignment
+
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(B, T, V, generator=g) * 3, dim=-1)
+    labels = torch.randint(3, V, (B, U), generator=g)
+    in_len = torch.randint(U + 2, T + 1, (B,), generator=g)
+    lab_len = torch.randint(U // 2, U + 1, (B,), generator=g)
+    host = ctc_best_alignment(lp, labels, in_len, lab_len)
+    args = [t.cuda() for t in (lp, labels, in_len, lab_len)]
+    card = ctc_best_alignment(*args)
+    same = all(torch.equal(c.cpu(), h) for c, h in zip(card, host))
+    res = {"B": B, "T": T, "U": U, "V": V, "identical": same,
+           "ms": cuda_ms(lambda: ctc_best_alignment(*args), iters=3, warmup=1)}
+    log(f"[stack] ctc_best_alignment card vs CPU on the same log-probs: {json.dumps(res)}")
+    if not same:
+        raise AssertionError("the Viterbi alignment differs between the card and the CPU")
+    return res
+
+
+def phase_stack_nast():
+    """s2t_nast (reproduction_nast.yaml, V = 10000): bf16 XCTC greedy serving at the NAST
+    shape with the encode split by stack part, fp32 fixture wavs card vs CPU greedy, beam
+    5 and self-ensemble; fp32 training card vs CPU and bf16 at the bench shape."""
+    from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_nast
+
+    serve, serve_launches = phase_nast(s2t_nast, None, "s2t_nast", use_xctc=True, ensemble=True)
+    per_step = step_launches(s2t_nast(), NAST_TERMS)
+    parity, parity_launches = phase_train_parity(
+        s2t_nast(**PDS_S8_FIELDS, **NO_DROPOUT), S2TCTCModel, "s2t_nast train",
+        criterion=NAST_CRITERION, per_step=per_step, log_keys=("inter_ctc_loss", "xctc_loss"))
+    speed, speed_launches = phase_train_speed(
+        s2t_nast(**PDS_S8_FIELDS, dtype_str="bfloat16"), S2TCTCModel, "s2t_nast train speed",
+        n_timed=STACK_TIMED_STEPS, criterion=NAST_CRITERION, per_step=per_step)
+    launches = {k: serve_launches[k] + parity_launches.get(k, 0) + speed_launches[k]
+                for k in counters()}
+    return {"serve": serve, "parity": parity, "speed": speed}, launches
+
+
+def phase_stack_bil_ctc():
+    """BiL-CTC (reproduction_bil_ctc.yaml on s2t_transformer_s, V = 10000): the oracle's
+    Viterbi card vs CPU; fp32 training card vs CPU with the oracle (its mask drawn on the
+    host) and targets long enough for K3's CTA-wide kernel; bf16 at the bench shape with
+    each CTC term's device ms; K3 / K4 at its XCTC shape; fp32 beam-5 serving card vs CPU."""
+    model = fields(BIL_CTC_MODEL)
+    per_step = step_launches(s2t_transformer_s(**model), BIL_CTC_TERMS)
+    align = alignment_card_vs_cpu()
+    parity, parity_launches = phase_train_parity(
+        s2t_transformer_s(**model, **PDS_S8_FIELDS, **NO_DROPOUT), S2TTransformerModel,
+        "bil_ctc train", criterion=BIL_CTC_CRITERION, per_step=per_step, U=BIL_CTC_PARITY_U,
+        log_keys=("inter_ctc_loss", "xctc_loss", "inter_xctc_loss"))
+    speed, speed_launches = phase_train_speed(
+        s2t_transformer_s(**model, **PDS_S8_FIELDS, dtype_str="bfloat16"), S2TTransformerModel,
+        "bil_ctc train speed", n_timed=STACK_TIMED_STEPS, U=BIL_CTC_BENCH_U,
+        criterion=BIL_CTC_CRITERION, per_step=per_step)
+    xctc = ctc_case(40, 250, BIL_CTC_BENCH_U - 1, 10000, seed=9, time_it=True)
+    log(f"[bil_ctc] K3 / K4 at the XCTC shape: {json.dumps(xctc)}")
+    if not (xctc["alpha_err"] <= CTC_ATOL["alpha"] and xctc["nll_err"] <= CTC_ATOL["alpha"]
+            and xctc["demit_err"] <= CTC_ATOL["demit"] and xctc["unreached_agree"]
+            and xctc["infeasible_nll_over_5e29"]):
+        raise AssertionError(f"CTC kernels disagree with their plain versions: {xctc}")
+    fused_attention.launches = 0
+    encodes = phase_serve_parity(s2t_transformer_s(**model, **PDS_S8_FIELDS), tag="bil_ctc serve")
+    if fused_attention.launches != 12 * encodes:
+        raise AssertionError(f"BiL-CTC serving launched K1f {fused_attention.launches} times for "
+                             f"{encodes} encodes, expected 12 each")
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] for k in counters()}
+    launches["attention_fwd"] += fused_attention.launches
+    return {"alignment": align, "parity": parity, "speed": speed, "xctc_shape": xctc,
+            "serve_encodes": encodes}, launches
+
+
+def phase_stack_aipa(root: Path):
+    """AIPA (reproduction_purectc_aipa_kd.yaml: a Conformer s2t_ctc, 18 x 256 rel_pos, 4
+    shared inter-CTC taps with the inter_league PAE, keep_org mixup at ratio 1, the
+    mixup-consistency losses): fp32 training card vs CPU with the host draws, bf16 at the
+    bench shape (the batch doubles), cli.train from phase 11's wavs for 2 epochs,
+    cli.generate greedy and from_pretrained."""
+    from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_base
+
+    model, crit = fields(AIPA["model"]), (AIPA["criterion"], AIPA["criterion_cfg"])
+    per_step = step_launches(s2t_ctc_base(**model), AIPA_TERMS)  # rel_pos: no K1f / K1b
+    parity, parity_launches = phase_train_parity(
+        s2t_ctc_base(**model, **PDS_S8_FIELDS, **NO_DROPOUT), S2TCTCModel, "aipa train",
+        criterion=crit, per_step=per_step,
+        log_keys=("inter_ctc_loss", "ctc_mixup_consistent_loss",
+                  "inter_ctc_mixup_consistent_loss"))
+    speed, speed_launches = phase_train_speed(
+        s2t_ctc_base(**model, **PDS_S8_FIELDS, dtype_str="bfloat16"), S2TCTCModel,
+        "aipa train speed", n_timed=STACK_TIMED_STEPS, criterion=crit, per_step=per_step)
+    # under keep_org the B original rows are unmixed and their second lattice (index2 =
+    # themselves) repeats the first: half of the rows of one of each term's two lattices,
+    # a quarter of the CTC device ms if that work scales with the rows (an estimate)
+    terms = speed.get("ctc_term_forward_device_ms", {})
+    dup = 0.5 * 0.5 * (sum(terms.values()) + sum(speed.get("k4_device_ms_in_launch_order", [])))
+    speed["duplicated_unmixed_ctc_device_ms"] = dup
+    speed["duplicated_unmixed_ctc_share_of_busy"] = dup / speed["profiled_device_busy_ms"]
+    gen_cfg = {"beam": 1}
+    cli, cli_launches, layers, _ = phase_audio_cli(
+        audio_cli_cfg(root, AIPA["arch"], AIPA["model"], crit, "aipa", "bfloat16",
+                      generation=gen_cfg), "aipa", ctc_step=AIPA_TERMS, ctc_valid=AIPA_TERMS // 2)
+    gen, text, strings, gen_counts, hub_counts = generate_and_hub(
+        root, audio_cli_cfg(root, AIPA["arch"], AIPA["model"], crit, "aipa", "float32",
+                            generation=gen_cfg),
+        root / "aipa_ckpt" / "checkpoint_best.pt", layers, "aipa cli")
+    cli.update({"score": text[-1], "gen_time_s": gen["gen_time"], "gen_rtf": gen["rtf"],
+                "hub_strings": strings, "generate_launches": gen_counts,
+                "hub_launches": hub_counts})
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] + cli_launches[k]
+                + gen_counts[k] + hub_counts[k] for k in counters()}
+    return {"parity": parity, "speed": speed, "cli": cli}, launches
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2232,6 +2485,14 @@ def main(argv=None) -> int:
         # phases 20-21 train from phase 11's wavs and decode phase 14's feature split
         sate_train, sate_train_launches = phase_sate_train(Path(tmp))
         conformer, conformer_launches = phase_conformer(Path(tmp))
+        # phases 22-24: the CTC research stack; 24 trains from phase 11's wavs
+        nast_stack, nast_stack_launches = phase_stack_nast()
+        bil_ctc, bil_ctc_launches = phase_stack_bil_ctc()
+        aipa, aipa_launches = phase_stack_aipa(Path(tmp))
+    log(f"[main path] the CTC research stack: s2t_nast (serving, parity, speed) "
+        f"{json.dumps(nast_stack_launches)}; BiL-CTC (parity, speed, serving) "
+        f"{json.dumps(bil_ctc_launches)}; AIPA (parity, speed, CLI, generate, hub) "
+        f"{json.dumps(aipa_launches)}")
     log(f"[main path] raw-audio training (2 runs): {json.dumps(audio_launches)}; generate: "
         f"{json.dumps(gen_launches)}; NAST serving: {json.dumps(nast_launches)}; CTC training, "
         f"generate and hub: {json.dumps(ctc_launches)}; wer_sanity: {json.dumps(sanity_launches)}"
@@ -2255,7 +2516,8 @@ def main(argv=None) -> int:
     log(f"[main path] SATE serving: attention_fwd launches {sate_serve_launches} (18 per encode)")
     path_launches = {k: train_launches.get(k, 0) + sum(run[k] for run in (
         audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches,
-        pds_train_launches, pds_ctc_launches, sate_train_launches, conformer_launches))
+        pds_train_launches, pds_ctc_launches, sate_train_launches, conformer_launches,
+        nast_stack_launches, bil_ctc_launches, aipa_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -2345,7 +2607,8 @@ def main(argv=None) -> int:
             "wer_sanity": sanity, "pds_stage0_serving_shape": fwd_pds0,
             "pds_stage0_training_shape": bwd_pds0, "pds_serve": pds_speed, "pds_ctc": pds_ctc,
             "pds_train": pds_train, "sate_serve": sate_serve, "sate_train": sate_train,
-            "conformer": conformer, "path_launches": path_launches,
+            "conformer": conformer, "nast_stack": nast_stack, "bil_ctc": bil_ctc, "aipa": aipa,
+            "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 
 The names of the ported criteria map to their classes; any other name raises.
 ``cfg_dict`` fills the criterion's Config, nested dataclasses from nested
-dicts (``{"ctc": {"ctc_weight": 0.3}}``); an unknown key raises.
+dicts (``{"ctc": {"ctc_weight": 0.3}}``), a YAML list into a tuple field as a
+tuple and an int into a float field as a float, as the JAX builder coerces
+them; an unknown key raises.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ def _from_dict(cls, values: Dict[str, Any]):
             is not dataclasses.MISSING else known[name].default
         if dataclasses.is_dataclass(default) and isinstance(val, dict):
             val = _from_dict(type(default), val)
+        elif isinstance(default, tuple) and isinstance(val, list):
+            val = tuple(val)
+        elif isinstance(default, float) and type(val) is int:
+            val = float(val)
         kw[name] = val
     return cls(**kw)
 

@@ -5,7 +5,8 @@ Plain tensor ops on the model's device, as the JAX package leaves them to
 XLA: the greedy decode has no host sync, the prefix beam one Python step a
 frame over static (B, K, T) buffers.  ``CTCGenerator`` keeps the
 ``SequenceGenerator`` interface (``generate(batch)`` -> tokens, scores, the
-encoder dict).  Its n-gram LM re-ranking is not ported and raises.
+encoder dict) and with ``use_xctc`` decodes the XCTC head's logits (NAST
+translation).  Its n-gram LM re-ranking is not ported and raises.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ class CTCDecoder:
 
     ``self_ensemble`` averages the log-probs of the inter-CTC logits with the
     final ones; ``intermediate_logit`` = k decodes the k-th inter-CTC logits.
-    Both read ``inter_ctc_logits``, which no ported encoder emits: without it
-    they do nothing, as in the JAX package."""
+    Both read the encoder's ``inter_ctc_logits``: without taps they do
+    nothing, as in the JAX package."""
 
     def __init__(self, blank_id: int = 0, pad_id: int = 1, beam_size: int = 1,
                  self_ensemble: bool = False, intermediate_logit: int = 0):
@@ -65,15 +66,16 @@ class CTCDecoder:
 
 class CTCGenerator:
     """One encoder pass, then CTC greedy or prefix-beam decoding
-    (s2t_tpu/inference/ctc_decoder.py:79-137).  No ported encoder emits XCTC
-    logits, so the JAX ``use_xctc`` switch has nothing to select here."""
+    (s2t_tpu/inference/ctc_decoder.py:79-137); ``use_xctc`` decodes the XCTC
+    logits in place of the CTC ones when the encoder emits them."""
 
-    def __init__(self, model, decoder: CTCDecoder, ngram_lm=None):
+    def __init__(self, model, decoder: CTCDecoder, use_xctc: bool = False, ngram_lm=None):
         if ngram_lm is not None:
             raise NotImplementedError("CTCGenerator's n-gram LM re-ranking (ngram_lm) is not "
                                       "ported to s2t_tpu_torch")
         self.model = model
         self.decoder = decoder
+        self.use_xctc = use_xctc
 
     @torch.inference_mode()
     def generate(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
@@ -84,6 +86,8 @@ class CTCGenerator:
         feats = torch.as_tensor(batch["features"], dtype=torch.float32).to(dev)
         lengths = torch.as_tensor(batch["feat_lengths"]).to(device=dev, dtype=torch.long)
         enc = self.model.encode(feats, lengths)
+        if self.use_xctc and enc.get("xctc_logits") is not None:
+            enc = {**enc, "ctc_logits": enc["xctc_logits"]}
         tokens, second = self.decoder.decode(enc)
         if tokens.dim() == 2:
             return tokens[:, None, :], torch.zeros((tokens.shape[0], 1), device=dev), enc

@@ -12,11 +12,15 @@ params)``); no jax is imported here.  Layouts:
     Embed      embedding             -> weight
 
 Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
-``convs.{i}``, the PDS encoder's ``stage{i}_layer{j}`` -> ``stages.{i}.{j}``,
+``convs.{i}``, the CTC research stack's per-layer modules ``inter_ctc_head{l}``,
+``inter_ctc_norm{l}``, ``inter_xctc_norm{l}``, ``inter_axctc_norm{l}``,
+``compression_norm{l}`` and ``layer_out_norm{i}`` -> ``inter_ctc_heads.{l}``,
+... ``layer_out_norms.{i}``, the PDS encoder's ``stage{i}_layer{j}`` -> ``stages.{i}.{j}``,
 ``ds{i}`` -> ``downsamplers.{i}``, ``fusion{i}`` -> ``fusion_blocks.{i}`` and
 ``final_layer{j}`` -> ``final_layers.{j}``, and the tied ``shared_embed`` table
 -> the decoder's ``embed_tokens``; the other names (``encoder/embed_norm``,
-``encoder/ctc_head``, SATE's ``encoder/acoustic``, ``encoder/adapter`` and
+``encoder/ctc_head``, ``encoder/pae``, ``encoder/xctc_head``, ``encoder/xpae``,
+``encoder/axctc_head``, SATE's ``encoder/acoustic``, ``encoder/adapter`` and
 ``encoder/textual``, a Conformer layer's ``macaron_ffn`` and ``conv_module``,
 ...) are the port's attribute paths.  The bare leaves ``norm_scale``,
 ``norm_bias`` (a frozen per-channel affine), ``fusion_weight``, ``pos_bias_u``,
@@ -37,13 +41,18 @@ import numpy as np
 import torch
 from torch import nn
 
+# the CTC research stack's per-layer modules: flax ``<name>{l}`` -> the port's ``<name>s.{l}``
+_PER_LAYER = "inter_ctc_head|inter_ctc_norm|inter_xctc_norm|inter_axctc_norm|compression_norm|" \
+    "layer_out_norm"
 # flax module name -> the port's module path, and back (on the dotted port path)
-_TO_PORT = ((re.compile(r"^stage(\d+)_layer(\d+)$"), r"stages.\1.\2"),
+_TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
+            (re.compile(r"^stage(\d+)_layer(\d+)$"), r"stages.\1.\2"),
             (re.compile(r"^ds(\d+)$"), r"downsamplers.\1"),
             (re.compile(r"^fusion(\d+)$"), r"fusion_blocks.\1"),
             (re.compile(r"^final_layer(\d+)$"), r"final_layers.\1"),
             (re.compile(r"^(layer|conv)(\d+)$"), r"\1s.\2"))
-_TO_FLAX = ((re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
+_TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
+            (re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
             (re.compile(r"\bdownsamplers\.(\d+)\b"), r"ds\1"),
             (re.compile(r"\bfusion_blocks\.(\d+)\b"), r"fusion\1"),
             (re.compile(r"\bfinal_layers\.(\d+)\b"), r"final_layer\1"),

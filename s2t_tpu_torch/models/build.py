@@ -4,8 +4,8 @@
 The ported presets: the ``s2t_transformer`` ones (base, s, xs, sp, m, mp, l,
 lp and the Conformer ``s2t_conformer``), the 13
 ``pdss2t_transformer_*`` ones, SATE's ``s2t_sate`` / ``s2t_sate_s`` and the
-encoder-only ``s2t_ctc``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``.  Every other
-architecture of the JAX registry is registered here too, as a preset that
+encoder-only ``s2t_ctc``, ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``.
+Every other architecture of the JAX registry is registered here too, as a preset that
 raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
 ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
 registry); a ported preset whose config selects an unported branch raises
@@ -17,12 +17,11 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from s2t_tpu_torch.models import pds, s2t_ctc, s2t_transformer, sate  # noqa: F401  (the presets)
-from s2t_tpu_torch.models.s2t_transformer import ITEM7, ITEM8
+from s2t_tpu_torch.models.s2t_transformer import ITEM7
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 _ITEMS = {
     7: ITEM7,
-    8: ITEM8,
     9: "ROADMAP.md section 1 item 9 (other speech families)",
     10: "ROADMAP.md section 1 item 10 (inference breadth: LM fusion)",
     11: "ROADMAP.md section 1 item 11 (the text and MT zoo)",
@@ -37,7 +36,6 @@ UNPORTED_ARCHS = {
                                7),
     **{a: ("s2t_transformer", "the ESPnet-ST Conv2d front-end presets", 7)
        for a in ("convtransformer", "convtransformer_espnet")},
-    "s2t_nast": ("s2t_ctc", "inter-CTC layers, the PAE adapters and XCTC", 8),
     **{a: ("s2t_dual", "the dual-encoder S2 layers", 9) for a in ("s2t_dual", "s2t_dual_s")},
     **{a: ("s2t_multibranch", "the multibranch S2 layers", 9)
        for a in ("s2t_multibranch", "s2t_multibranch_s")},

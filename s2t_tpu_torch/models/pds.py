@@ -15,7 +15,7 @@ the port does not have raise ``NotImplementedError`` naming the field and the
 ROADMAP.md item that ports it (``check_supported``): attention other than abs
 and rel_pos, in-layer conv strides and a ratio of -1 with the Conv2d
 subsampler or the reference pad semantics (item 7), per-stage inter-CTC /
-XCTC, PAE and a CTC tap below the top (item 8).
+XCTC, PAE and a CTC tap below the top (item 8b).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from s2t_tpu_torch.device import torch_dtype
-from s2t_tpu_torch.models.s2t_transformer import ITEM7, ITEM8, S2TTransformerModel
+from s2t_tpu_torch.models.s2t_transformer import ITEM7, ITEM8B, S2TTransformerModel
 from s2t_tpu_torch.modules.cast import Conv1d
 from s2t_tpu_torch.modules.ctc_head import CTCHead
 from s2t_tpu_torch.modules.dropout import dropout
@@ -212,11 +212,11 @@ def check_supported(cfg: PDSConfig) -> None:
                             ITEM7 + ", under a pds_ratios entry of -1")
     for name in ("pds_ctc", "pds_xctc"):
         if any(getattr(cfg, name)):
-            raise _unported(name, getattr(cfg, name), ITEM8)
+            raise _unported(name, getattr(cfg, name), ITEM8B)
     for name, off in (("use_xctc", False), ("ctc_pae", "none"), ("xctc_pae", "none"),
                       ("ctc_layer", 0), ("xctc_layer", 0)):
         if getattr(cfg, name) != off:
-            raise _unported(name, getattr(cfg, name), ITEM8)
+            raise _unported(name, getattr(cfg, name), ITEM8B)
     if cfg.decoder_learned_pos:
         raise _unported("decoder_learned_pos", True, "learned decoder positions")
     if cfg.fusion_stages and cfg.fusion_transform != "conv":

@@ -4,10 +4,10 @@
 encoder pass emits the whole hypothesis, which ``inference/ctc_decoder.py``
 reads off the CTC logits.  The encoder follows the config's type, as in the
 JAX model: the s2t_transformer encoder for an ``S2TTransformerConfig``
-(presets ``s2t_ctc``), the PDS encoder for a ``PDSConfig`` (``s2t_ctc_pds``),
-the SATE encoder for a ``SATEConfig`` (``s2t_ctc_sate``).  ``s2t_nast`` is
-registered in ``models/build.py`` and raises ``NotImplementedError`` naming
-what it needs.
+(presets ``s2t_ctc`` and ``s2t_nast``: 18 layers, inter-CTC at 6 / 9 / 12 with
+the ``inter_league`` PAE, and an XCTC head for translation), the PDS encoder
+for a ``PDSConfig`` (``s2t_ctc_pds``), the SATE encoder for a ``SATEConfig``
+(``s2t_ctc_sate``).
 """
 
 from __future__ import annotations
@@ -66,17 +66,20 @@ class S2TCTCModel(nn.Module):
         return next(self.parameters()).device
 
     def forward(self, features, feat_lengths, prev_tokens=None, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None, **encoder_inputs) -> Dict[str, Any]:
         """``prev_tokens`` is unused (the Trainer's signature); ``train=True``
-        applies every dropout with bits from ``generator``."""
+        applies every dropout with bits from ``generator``; ``encoder_inputs``
+        (the oracle's targets, ``num_updates``) reach the encoder, None values
+        dropped."""
         if train:
             _check_config(self.cfg, True)
             if generator is None:
                 raise ValueError("train=True needs the step's torch.Generator")
         else:
             generator = None
+        kw = {k: v for k, v in encoder_inputs.items() if v is not None}
         return {"decoder_logits": None,
-                **self.encoder(features, feat_lengths, generator=generator)}
+                **self.encoder(features, feat_lengths, generator=generator, **kw)}
 
     def encode(self, features, feat_lengths):
         return self.encoder(features, feat_lengths)
@@ -85,6 +88,16 @@ class S2TCTCModel(nn.Module):
 @register_model_architecture("s2t_ctc", "s2t_ctc")
 def s2t_ctc_base(**kw) -> S2TTransformerConfig:
     return s2t_transformer_s(decoder_layers=0, use_ctc=True).replace(**kw)
+
+
+@register_model_architecture("s2t_ctc", "s2t_nast")
+def s2t_nast(**kw) -> S2TTransformerConfig:
+    """NAST: a deep encoder, inter-CTC with the PAE, XCTC for translation
+    (s2t_tpu/models/s2t_ctc.py:73-86)."""
+    return s2t_transformer_s(
+        decoder_layers=0, encoder_layers=18, use_ctc=True, inter_ctc_layers=(6, 9, 12),
+        ctc_pae="inter_league", use_xctc=True,
+    ).replace(**kw)
 
 
 @register_model_architecture("s2t_ctc", "s2t_ctc_pds")

@@ -6,10 +6,21 @@ sinusoidal positions ("abs" attention) or a relative-position table
 ("rel_pos") -> pre- or post-norm layers, optionally Conformer (macaron FFN,
 convolution module) -> CTC head; a Transformer decoder on top.  It serves and
 trains (``forward(..., train=True, generator=g)``: every dropout site of the
-JAX modules, drawn from the step's generator).  ``S2TTransformerConfig``
-keeps the JAX config's field names and defaults so a config crosses over
-field by field; a field that selects a branch the port does not have raises
-``NotImplementedError`` naming it (and the ROADMAP.md item that ports it).
+JAX modules, drawn from the step's generator).
+
+The CTC research stack of the JAX encoder rides the layer loop: inter-CTC
+taps (a per-tap or the final norm, a shared or per-tap head) with PAE
+re-injection and its ground-truth oracle, inter-XCTC taps with their own PAE,
+AXCTC taps, per-layer output norms, CTC-blank compression that left-packs the
+kept frames and shortens the lengths mid-stack, and inter-mixup.  The mixup
+draws and the oracle's uniform draws are made on the host from numpy
+generators seeded by the step's generator seed (``draw_mixup``,
+``adapter.host_uniform``), so the card and the CPU draw alike.
+
+``S2TTransformerConfig`` keeps the JAX config's field names and defaults so a
+config crosses over field by field; a field that selects a branch the port
+does not have raises ``NotImplementedError`` naming it (and the ROADMAP.md
+item that ports it).
 """
 
 from __future__ import annotations
@@ -19,15 +30,18 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from s2t_tpu_torch.device import resolve_device, torch_dtype
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
+from s2t_tpu_torch.modules.adapter import Adapter, ctc_oracle_probs, host_uniform
 from s2t_tpu_torch.modules.ctc_head import CTCHead
 from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
-from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding, relative_table
+from s2t_tpu_torch.modules.positional import (
+    fairseq_sinusoidal_encoding, relative_table, sinusoidal_table)
 from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling, Conv2dSubsampling
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
@@ -151,7 +165,7 @@ class S2TTransformerConfig:
 
 
 # fields the port reads, plus knobs that only act when a switch that must keep its
-# default is on (mixup / oracle / compression / inter-CTC sharing, remat_policy);
+# default is on (remat_policy, pipeline_microbatches, init_mask_weight);
 # encoder_layerdrop > 0 and checkpoint_activations raise when training
 # (_check_trainable); every other field must keep its default
 _PORTED_FIELDS = frozenset({
@@ -178,9 +192,13 @@ _PORTED_FIELDS = frozenset({
     # the Conformer block and the Conv2d subsampler, checked in check_supported
     "encoder_attention_type", "macaron_style", "use_cnn_module", "subsampling_type",
     "subsampling_norm",
+    # the CTC research stack of the layer loop
+    "inter_ctc_layers", "ctc_pae", "use_xctc", "inter_xctc_layers", "xctc_pae",
+    "share_xctc_and_embed", "use_axctc", "inter_axctc_layers", "compression_layers",
+    "inter_mixup", "layer_out_norm",
 })
 ITEM7 = "ROADMAP.md section 1 item 7 (conformer and encoder variants)"
-ITEM8 = "ROADMAP.md section 1 item 8 (the CTC research stack)"
+ITEM8B = "ROADMAP.md section 1 item 8b (the rest of the CTC research stack)"
 ITEM12 = "ROADMAP.md section 1 item 12 (parallelism)"
 # the ROADMAP.md item that ports each unported field
 _FIELD_ITEMS = {
@@ -188,10 +206,7 @@ _FIELD_ITEMS = {
     "max_encoder_relative_length": ITEM7, "max_decoder_relative_length": ITEM7,
     "encoder_attention_window": ITEM7, "hard_mask_window": ITEM7, "gauss_mask_sigma": ITEM7,
     "encoder_attention_stride": ITEM7, "use_enc_dlcl": ITEM7, "encoder_embed_linear": ITEM7,
-    "inter_ctc_layers": ITEM8, "ctc_pae": ITEM8, "use_xctc": ITEM8, "inter_xctc_layers": ITEM8,
-    "xctc_pae": ITEM8, "share_xctc_and_embed": ITEM8, "use_axctc": ITEM8,
-    "inter_axctc_layers": ITEM8, "compression_layers": ITEM8, "inter_mixup": ITEM8,
-    "layer_out_norm": ITEM8, "seq_parallel": ITEM12, "pipeline_parallel": ITEM12,
+    "seq_parallel": ITEM12, "pipeline_parallel": ITEM12,
 }
 
 
@@ -229,11 +244,18 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
         raise NotImplementedError(
             f"S2TTransformerConfig.subsampling_norm={cfg.subsampling_norm!r} under the Conv1d "
             f"subsampler is not ported to s2t_tpu_torch ({ITEM7})")
-    if cfg.share_ctc_and_embed:
+    if cfg.share_ctc_and_embed or cfg.share_xctc_and_embed:
         if cfg.encoder_embed_dim != cfg.decoder_embed_dim:
-            raise ValueError("share_ctc_and_embed requires encoder_embed_dim == decoder_embed_dim")
-        if cfg.ctc_vocab_size != cfg.vocab_size:
+            raise ValueError("share_(x)ctc_and_embed requires encoder_embed_dim == "
+                             "decoder_embed_dim")
+        if cfg.share_ctc_and_embed and cfg.ctc_vocab_size != cfg.vocab_size:
             raise ValueError("share_ctc_and_embed needs a joint vocabulary")
+    # the JAX encoder's setup checks (s2t_tpu/models/s2t_transformer.py:491-517)
+    missing = [l for l in cfg.compression_layers
+               if not cfg.use_ctc or l not in cfg.inter_ctc_layers]
+    if missing:
+        raise ValueError(f"compression_layers {missing} need use_ctc=True and a matching entry "
+                         "in inter_ctc_layers (the CTC logit source, as in the reference)")
 
 
 @torch.no_grad()
@@ -283,12 +305,91 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
         model.requires_grad_(False)
 
 
-class S2TTransformerEncoder(nn.Module):
-    """Speech encoder: conv subsampler -> Transformer / Conformer stack -> CTC head.
+# the streams of the host draws, beside the step's generator seed
+MIXUP_STREAM, ORACLE_STREAM = 1, 2
 
-    Returns {"encoder_out" (B, T', D), "encoder_lengths" (B,), "ctc_logits"
-    (B, T', V_src) or None}.  ``embedding``: the decoder's token table when
-    the CTC projection is tied to it."""
+
+def draw_mixup(B: int, cfg: S2TTransformerConfig, seed: int,
+               step: Optional[int] = None) -> Dict[str, Any]:
+    """The random draws of one inter-mixup (s2t_tpu/models/s2t_transformer.py:528-593),
+    made on the host from a numpy generator seeded by (``seed``, ``step``).
+
+    m = max(int(B ratio), 1) mixed rows; ``inter_mixup_prob`` decides whether
+    any row mixes; with ``inter_mixup_ratio_decay`` and a ``step`` only the
+    first floor(B ratio_t) mixed rows are live.  ``keep_org`` (AIPA): rows
+    [all B originals | m mixed], keep_boundary 0, an unlive mixed row weighs 0;
+    otherwise [originals m .. B-1 | m mixed], keep_boundary m, an unlive mixed
+    slot j keeps original j.  Returns numpy ``index1`` / ``index2`` (int64),
+    ``coef`` (float32, 1 where not mixed), ``flag`` (bool), ``weight``
+    (float32) and the int ``keep_boundary``."""
+    m = max(int(B * cfg.inter_mixup_ratio), 1)
+    rng = np.random.default_rng([seed, MIXUP_STREAM, 0 if step is None else step])
+    apply = rng.random() < cfg.inter_mixup_prob
+    r1 = rng.integers(0, B, size=m)
+    r2 = rng.integers(0, B, size=m)
+    live = np.full(m, True)
+    if cfg.inter_mixup_ratio_decay and step is not None:
+        s0, s1, r_end = cfg.inter_mixup_ratio_decay_params
+        t = np.clip((np.float32(step) - np.float32(s0)) / np.float32(max(s1 - s0, 1.0)),
+                    np.float32(0.0), np.float32(1.0))
+        ratio_t = np.float32(cfg.inter_mixup_ratio) + t * np.float32(r_end - cfg.inter_mixup_ratio)
+        live = np.arange(m) < int(np.floor(np.float32(B) * ratio_t))
+    live = live & apply
+    if cfg.inter_mixup_keep_org:
+        idx1 = np.concatenate([np.arange(B), r1])
+        idx2 = np.concatenate([np.arange(B), r2])
+        flag = np.concatenate([np.zeros(B, bool), live])
+        weight = np.concatenate([np.ones(B, np.float32), live.astype(np.float32)])
+        kb = 0
+    else:
+        slot = np.arange(m)  # an unlive slot j keeps original j
+        idx1 = np.concatenate([np.arange(m, B), np.where(live, r1, slot)])
+        idx2 = np.concatenate([np.arange(m, B), np.where(live, r2, slot)])
+        flag = np.concatenate([np.zeros(B - m, bool), live])
+        weight = np.ones(B, np.float32)
+        kb = m
+    beta = cfg.inter_mixup_beta
+    coef = np.where(flag, rng.beta(beta, beta, size=flag.shape), 1.0).astype(np.float32)
+    return {"index1": idx1.astype(np.int64), "index2": idx2.astype(np.int64), "coef": coef,
+            "flag": flag, "weight": weight, "keep_boundary": kb}
+
+
+def apply_mixup(x: torch.Tensor, lengths: torch.Tensor, draws: Dict[str, Any]):
+    """Blend the rows of ``x`` (B, T, D) by ``draws`` (``draw_mixup``'s, or the
+    ``mixup`` dict of a JAX forward): padded frames are zeroed first, row r
+    becomes coef_r x[index1_r] + (1 - coef_r) x[index2_r], a mixed row's
+    length is the longer source's.  Returns (x, lengths, the mixup dict as
+    tensors on x's device)."""
+    dev = x.device
+    mix = {k: torch.as_tensor(np.array(draws[k]), device=dev)
+           for k in ("index1", "index2", "coef", "flag", "weight")}
+    mix["index1"], mix["index2"] = mix["index1"].long(), mix["index2"].long()
+    mix["keep_boundary"] = int(draws["keep_boundary"])
+    i1, i2, flag = mix["index1"], mix["index2"], mix["flag"]
+    x = x * lengths_to_mask(lengths, x.shape[1])[..., None].to(x.dtype)
+    c = mix["coef"][:, None, None].to(x.dtype)
+    x = c * x[i1] + (1.0 - c) * x[i2]
+    lengths = torch.where(flag, torch.maximum(lengths[i1], lengths[i2]), lengths[i1])
+    return x, lengths, mix
+
+
+def _taps(layers, n_layers: int, top: bool = False):
+    """The 1-indexed layers a tap sits after (the last layer only when ``top``)."""
+    return tuple(l for l in dict.fromkeys(layers) if 1 <= l < n_layers + int(top))
+
+
+class S2TTransformerEncoder(nn.Module):
+    """Speech encoder: conv subsampler -> Transformer / Conformer stack -> CTC heads.
+
+    ``forward(features, lengths, embedding, generator, transcript=...,
+    transcript_lengths=..., target=..., target_lengths=..., num_updates=...)``
+    returns the JAX encoder's dict: "encoder_out" (B, T', D), "encoder_lengths"
+    (B,), "ctc_logits" (B, T', V_src) or None, "inter_ctc_logits" ((layer,
+    logits), ...), "xctc_logits", "inter_xctc_logits", "axctc_logits",
+    "inter_axctc_logits" and "mixup" (None, or the draws as tensors).
+    ``embedding``: the decoder's token table when a CTC or XCTC projection is
+    tied to it.  With a ``generator`` (training) mixup draws and the PAE
+    oracle substitutes (from ``transcript`` / ``target``)."""
 
     def __init__(self, cfg: S2TTransformerConfig):
         super().__init__()
@@ -320,6 +421,38 @@ class S2TTransformerEncoder(nn.Module):
             CTCHead(D, cfg.ctc_vocab_size, tied=cfg.share_ctc_and_embed, dropout=cfg.dropout)
             if cfg.use_ctc else None
         )
+        # the taps the layer loop reaches, and only the modules they call (as flax
+        # creates parameters only for the submodules a call reaches)
+        L = cfg.encoder_layers
+        self.ctc_taps = _taps(cfg.inter_ctc_layers, L) if cfg.use_ctc else ()
+        self.xctc_taps = _taps(cfg.inter_xctc_layers, L) if cfg.use_xctc else ()
+        self.axctc_taps = _taps(cfg.inter_axctc_layers, L, top=True) if cfg.use_axctc else ()
+
+        def norms(taps):
+            return nn.ModuleDict({str(l): layer_norm(D) for l in taps}) if taps else None
+
+        self.inter_ctc_heads = (
+            nn.ModuleDict({str(l): CTCHead(D, cfg.ctc_vocab_size, dropout=cfg.dropout)
+                           for l in self.ctc_taps})
+            if self.ctc_taps and not cfg.share_inter_ctc else None)
+        self.inter_ctc_norms = None if cfg.share_inter_ctc_norm else norms(self.ctc_taps)
+        self.pae = (Adapter(D, cfg.ctc_vocab_size, cfg.ctc_pae, cfg.pae_ctc_temperature)
+                    if self.ctc_taps and cfg.ctc_pae != "none" else None)
+        self.xctc_head = (CTCHead(D, cfg.vocab_size, tied=cfg.share_xctc_and_embed,
+                                  dropout=cfg.dropout) if cfg.use_xctc else None)
+        self.inter_xctc_norms = None if cfg.share_inter_xctc_norm else norms(self.xctc_taps)
+        self.xpae = (Adapter(D, cfg.vocab_size, cfg.xctc_pae, cfg.pae_ctc_temperature)
+                     if self.xctc_taps and cfg.xctc_pae != "none" else None)
+        self.axctc_head = (CTCHead(D, cfg.vocab_size, dropout=cfg.dropout)
+                           if cfg.use_axctc else None)
+        self.inter_axctc_norms = norms(self.axctc_taps)
+        self.compression_norms = (
+            norms([l for l in cfg.compression_layers if l in self.ctc_taps])
+            if cfg.compression_norm else None)
+        iv = max(cfg.layer_out_norm_interval, 1)
+        self.layer_out_norms = (nn.ModuleDict({str(i): layer_norm(D) for i in range(L)
+                                               if i % iv == 0})
+                                if cfg.layer_out_norm else None)
         self.rel_pos = cfg.encoder_attention_type == "rel_pos"
         if not self.rel_pos:
             self.register_buffer(
@@ -328,10 +461,51 @@ class S2TTransformerEncoder(nn.Module):
                 persistent=False,
             )
 
+    def _mixup(self, x, lengths, generator, num_updates):
+        draws = draw_mixup(x.shape[0], self.cfg, generator.initial_seed(), num_updates)
+        return apply_mixup(x, lengths, draws)
+
+    def _oracle(self, logits, lengths, tokens, token_lengths, ratio, generator, layer, stream):
+        """The PAE oracle's probabilities at one tap (s2t_tpu/models/s2t_transformer.py:678-690),
+        its uniform draws from the host by (step seed, layer, CTC 0 / XCTC 1)."""
+        cfg = self.cfg
+        uniform = host_uniform(logits.shape[:2], (generator.initial_seed(), ORACLE_STREAM,
+                                                  layer, stream))
+        return ctc_oracle_probs(logits, lengths, tokens, token_lengths, uniform, ratio,
+                                temperature=cfg.pae_ctc_temperature, smooth=cfg.pae_oracle_smooth,
+                                only_mistake=cfg.xctc_pae_ground_truth_only_mistake)
+
+    def _compress(self, x, logits, lengths, layer):
+        """CTC-blank compression (s2t_tpu/models/s2t_transformer.py:595-622): frames whose
+        blank probability is >= the threshold go, the rest are left-packed in order
+        by a stable sort, a row with nothing kept keeps frame 0."""
+        cfg = self.cfg
+        B, T, D = x.shape
+        valid = lengths_to_mask(lengths, T)
+        blank = torch.softmax(logits.float(), dim=-1)[..., 0]
+        keep = (blank < cfg.compression_threshold) & valid
+        first = torch.arange(T, device=x.device)[None, :] == 0
+        keep = keep | (~keep.any(dim=1, keepdim=True) & first & valid)
+        order = torch.argsort(torch.where(keep, 0, 1), dim=1, stable=True)
+        x = x.gather(1, order[..., None].expand(B, T, D))
+        lengths = keep.sum(dim=1).to(lengths.dtype)
+        x = x * lengths_to_mask(lengths, T)[..., None].to(x.dtype)
+        if self.compression_norms is not None:
+            x = self.compression_norms[str(layer)](x)
+        if cfg.compression_pos:
+            x = x + sinusoidal_table(T, D, cfg.pad_id, x.dtype, x.device)[None]
+        return x, lengths
+
     def forward(self, features: torch.Tensor, lengths: torch.Tensor,
                 embedding: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                transcript: Optional[torch.Tensor] = None,
+                transcript_lengths: Optional[torch.Tensor] = None,
+                target: Optional[torch.Tensor] = None,
+                target_lengths: Optional[torch.Tensor] = None,
+                num_updates: Optional[int] = None) -> Dict[str, Any]:
         cfg = self.cfg
+        train = generator is not None
         x, lengths = self.subsample(features.to(cfg.dtype), lengths)
         # the JAX order (s2t_transformer.py:714-729): embed_norm, scale, positions, dropout
         if self.embed_norm is not None:
@@ -346,13 +520,61 @@ class S2TTransformerEncoder(nn.Module):
             # fairseq table: valid frame i gets absolute position pad+1+i
             x = x + self.positions[:T][None]
         x = dropout(x, cfg.dropout, generator)
+        mixup = None
+        if train and cfg.inter_mixup and cfg.inter_mixup_layer <= 0:
+            x, lengths, mixup = self._mixup(x, lengths, generator, num_updates)
         valid = lengths_to_mask(lengths, T)
-        for layer in self.layers:
+        inter_ctc, inter_xctc, inter_axctc = [], [], []
+        for i, layer in enumerate(self.layers):
+            if train and cfg.inter_mixup and mixup is None and cfg.inter_mixup_layer == i + 1:
+                x, lengths, mixup = self._mixup(x, lengths, generator, num_updates)
+                valid = lengths_to_mask(lengths, T)
             x = layer(x, valid, generator=generator, pos_emb=pos_emb)
+            if self.layer_out_norms is not None and str(i) in self.layer_out_norms:
+                x = self.layer_out_norms[str(i)](x)
+            l = i + 1
+            if l in self.ctc_taps:
+                h = (self.final_norm if cfg.share_inter_ctc_norm
+                     else self.inter_ctc_norms[str(l)])(x)
+                head = self.ctc_head if cfg.share_inter_ctc else self.inter_ctc_heads[str(l)]
+                logits = head(h, embedding, generator)
+                inter_ctc.append((l, logits))
+                if self.pae is not None:
+                    probs = None
+                    if cfg.ctc_pae_ground_truth_ratio > 0 and train and transcript is not None:
+                        probs = self._oracle(logits, lengths, transcript, transcript_lengths,
+                                             cfg.ctc_pae_ground_truth_ratio, generator, l, 0)
+                    x = self.pae(x if cfg.pae_unnorm_input else h, logits, probs=probs)
+                if l in cfg.compression_layers:
+                    x, lengths = self._compress(x, logits, lengths, l)
+                    valid = lengths_to_mask(lengths, T)
+            if l in self.xctc_taps:
+                h = (self.final_norm if cfg.share_inter_xctc_norm
+                     else self.inter_xctc_norms[str(l)])(x)
+                xlogits = self.xctc_head(h, embedding, generator)
+                inter_xctc.append((l, xlogits))
+                if self.xpae is not None:
+                    probs = None
+                    if cfg.xctc_pae_ground_truth_ratio > 0 and train and target is not None:
+                        probs = self._oracle(xlogits, lengths, target, target_lengths,
+                                             cfg.xctc_pae_ground_truth_ratio, generator, l, 1)
+                    x = self.xpae(x if cfg.pae_unnorm_input else h, xlogits, probs=probs)
+            if l in self.axctc_taps:
+                h = self.inter_axctc_norms[str(l)](x)
+                inter_axctc.append((l, self.axctc_head(h, None, generator)))
         if self.final_norm is not None and cfg.encoder_apply_final_norm:
             x = self.final_norm(x)
-        ctc_logits = None if self.ctc_head is None else self.ctc_head(x, embedding, generator)
-        return {"encoder_out": x, "encoder_lengths": lengths, "ctc_logits": ctc_logits}
+
+        def head(module, emb=None):
+            return None if module is None else module(x, emb, generator)
+
+        return {"encoder_out": x, "encoder_lengths": lengths,
+                "ctc_logits": head(self.ctc_head, embedding),
+                "inter_ctc_logits": tuple(inter_ctc),
+                "xctc_logits": head(self.xctc_head, embedding),
+                "inter_xctc_logits": tuple(inter_xctc),
+                "axctc_logits": head(self.axctc_head),
+                "inter_axctc_logits": tuple(inter_axctc), "mixup": mixup}
 
 
 @register_model("s2t_transformer")
@@ -405,28 +627,43 @@ class S2TTransformerModel(nn.Module):
         return cfg
 
     build_encoder = S2TTransformerEncoder
+    # the decoder rows follow the encoder's mixup (s2t_tpu/models/s2t_transformer.py:994-1004);
+    # the JAX SATE model's decoder takes the tokens as they are
+    decoder_mixup = True
 
     @property
     def device(self) -> torch.device:
         return self.decoder.embed_tokens.weight.device
 
     def _ctc_embedding(self):
-        tied = getattr(self.cfg, "share_ctc_and_embed", False)
+        cfg = self.cfg
+        tied = getattr(cfg, "share_ctc_and_embed", False) or getattr(cfg, "share_xctc_and_embed",
+                                                                     False)
         return self.decoder.embed_tokens.weight if tied else None
 
     def forward(self, features, feat_lengths, prev_tokens, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None, **encoder_inputs) -> Dict[str, Any]:
         """Teacher-forced forward.  ``train=True`` applies every dropout with
-        bits from ``generator`` (on the model's device); otherwise no dropout."""
+        bits from ``generator`` (on the model's device); otherwise no dropout.
+        ``encoder_inputs``: the encoder's keyword inputs (the oracle's
+        ``transcript`` / ``target`` and their lengths, ``num_updates``); None
+        values are dropped."""
         if train:
             self.check_config(self.cfg, True)
             if generator is None:
                 raise ValueError("train=True needs the step's torch.Generator")
         else:
             generator = None
-        enc = self.encoder(features, feat_lengths, self._ctc_embedding(), generator)
+        kw = {k: v for k, v in encoder_inputs.items() if v is not None}
+        enc = self.encoder(features, feat_lengths, self._ctc_embedding(), generator, **kw)
         enc_mask = lengths_to_mask(enc["encoder_lengths"], enc["encoder_out"].shape[1])
-        logits = self.decoder(prev_tokens, enc["encoder_out"], enc_mask, generator)
+        mix = None
+        if self.decoder_mixup and enc.get("mixup") is not None:
+            # embed both source utterances' targets and blend (decoder_emb mixup)
+            mu = enc["mixup"]
+            mix = {"tokens2": prev_tokens[mu["index2"]], "coef": mu["coef"], "flag": mu["flag"]}
+            prev_tokens = prev_tokens[mu["index1"]]
+        logits = self.decoder(prev_tokens, enc["encoder_out"], enc_mask, generator, mix=mix)
         return {"decoder_logits": logits, **enc}
 
     # --- inference-facing methods (used by the generator) -------------------

@@ -14,10 +14,14 @@ an explicit padding bias and attends densely: the two agree, a 0-length row
 (every frame of a row the CTC shrink calls blank) included, where both attend
 uniformly over all T keys.
 
+The acoustic encoder's CTC research stack (inter-CTC taps, PAE and its
+oracle from the transcript, mixup) comes with it, and its keys pass through
+the encoder's dict, as in JAX (``**enc``).
+
 ``SATEConfig`` keeps the JAX field names and defaults.  What the port does not
 have raises ``NotImplementedError`` naming the field and its ROADMAP.md item
 (``check_supported``): the textual XCTC taps, their PAE and ground-truth
-curriculum, and the CTC-Aug cross-attention layers (item 8); textual
+curriculum, and the CTC-Aug cross-attention layers (item 8b); textual
 attention other than abs and rel_pos (item 7).
 """
 
@@ -33,7 +37,7 @@ from torch import nn
 
 from s2t_tpu_torch.models import pds as pds_mod
 from s2t_tpu_torch.models.s2t_transformer import (
-    ITEM7, ITEM8, S2TTransformerConfig, S2TTransformerEncoder, S2TTransformerModel,
+    ITEM7, ITEM8B, S2TTransformerConfig, S2TTransformerEncoder, S2TTransformerModel,
     _check_trainable, s2t_transformer_s)
 from s2t_tpu_torch.models.s2t_transformer import check_supported as check_acoustic
 from s2t_tpu_torch.modules.adapter import ADAPTER_TYPES, Adapter, ctc_shrink_matrix
@@ -124,7 +128,7 @@ def check_supported(cfg: SATEConfig, for_training: bool = False) -> None:
                       ("xctc_pae", "none"), ("xctc_cross_attn", False),
                       ("xctc_pae_ground_truth_ratio", 0.0)):
         if getattr(cfg, name) != off:
-            raise _unported(name, getattr(cfg, name), ITEM8)
+            raise _unported(name, getattr(cfg, name), ITEM8B)
     if cfg.text_attention_type not in ("abs", "rel_pos"):
         raise _unported("text_attention_type", cfg.text_attention_type, ITEM7)
     if cfg.adapter_type not in ADAPTER_TYPES + ("shrink",):
@@ -203,8 +207,10 @@ class S2TSATEEncoder(nn.Module):
         if cfg.acoustic_encoder == "pds":
             self.acoustic = pds_mod.PDSEncoder(cfg.pds)
         else:
-            # no decoder table reaches the acoustic encoder: its CTC head has its own projection
-            self.acoustic = S2TTransformerEncoder(a.replace(share_ctc_and_embed=False))
+            # no decoder table reaches the acoustic encoder: its CTC heads have their own
+            # projections
+            self.acoustic = S2TTransformerEncoder(a.replace(share_ctc_and_embed=False,
+                                                            share_xctc_and_embed=False))
         self.adapter = (Adapter(a.encoder_embed_dim, a.ctc_vocab_size, cfg.adapter_type,
                                 cfg.adapter_temperature)
                         if cfg.adapter_type not in ("none", "shrink") else None)
@@ -212,10 +218,20 @@ class S2TSATEEncoder(nn.Module):
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor,
                 embedding: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """``embedding`` is unused: neither CTC head of SATE is tied."""
+                generator: Optional[torch.Generator] = None,
+                transcript: Optional[torch.Tensor] = None,
+                transcript_lengths: Optional[torch.Tensor] = None,
+                target: Optional[torch.Tensor] = None,
+                target_lengths: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """``embedding`` is unused: neither CTC head of SATE is tied.  The
+        transcript reaches the acoustic encoder's oracle; the target is the
+        textual oracle's (item 8b), so it reaches nothing here."""
         cfg = self.cfg
-        enc = self.acoustic(features, lengths, generator=generator)
+        if cfg.acoustic_encoder == "pds":
+            enc = self.acoustic(features, lengths, generator=generator)
+        else:
+            enc = self.acoustic(features, lengths, generator=generator, transcript=transcript,
+                                transcript_lengths=transcript_lengths)
         x, enc_lengths, ctc_logits = enc["encoder_out"], enc["encoder_lengths"], enc["ctc_logits"]
         if cfg.freeze_acoustic_encoder:
             x = x.detach()
@@ -247,6 +263,7 @@ class S2TSATEModel(S2TTransformerModel):
         return cfg.acoustic
 
     build_encoder = S2TSATEEncoder
+    decoder_mixup = False  # the JAX SATE model hands its decoder the tokens as they are
 
 
 @register_model_architecture("s2t_sate", "s2t_sate")

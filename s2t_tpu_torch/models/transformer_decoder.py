@@ -64,11 +64,22 @@ class TransformerDecoder(nn.Module):
 
     def forward_features(self, prev_tokens: torch.Tensor, encoder_out: torch.Tensor,
                          encoder_valid_mask: torch.Tensor,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Hidden states before the output projection: (B, U, D)."""
+                         generator: Optional[torch.Generator] = None,
+                         mix: Optional[dict] = None) -> torch.Tensor:
+        """Hidden states before the output projection: (B, U, D).  ``mix`` =
+        {"tokens2", "coef", "flag"} blends the embeddings of a second token
+        sequence into the flagged rows (encoder mixup,
+        s2t_tpu/models/transformer_decoder.py:131-150)."""
         U = prev_tokens.shape[1]
-        x = drop(self._embed(prev_tokens, 0), self.dropout, generator)
-        self_bias = causal_bias(U, x.dtype, x.device) + padding_bias(prev_tokens != self.pad_id, x.dtype)
+        x = self._embed(prev_tokens, 0)
+        tgt_valid = prev_tokens != self.pad_id
+        if mix is not None:
+            x2 = self._embed(mix["tokens2"], 0)
+            c = mix["coef"][:, None, None].to(x.dtype)
+            x = torch.where(mix["flag"][:, None, None], c * x + (1.0 - c) * x2, x)
+            tgt_valid = tgt_valid | (mix["tokens2"] != self.pad_id)
+        x = drop(x, self.dropout, generator)
+        self_bias = causal_bias(U, x.dtype, x.device) + padding_bias(tgt_valid, x.dtype)
         cross_bias = padding_bias(encoder_valid_mask, x.dtype)
         for layer in self.layers:
             x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator)
@@ -77,10 +88,11 @@ class TransformerDecoder(nn.Module):
         return x
 
     def forward(self, prev_tokens, encoder_out, encoder_valid_mask,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, mix: Optional[dict] = None
+                ) -> torch.Tensor:
         """Teacher-forced forward: (B, U) tokens -> (B, U, V) logits."""
         return self._output(self.forward_features(prev_tokens, encoder_out, encoder_valid_mask,
-                                                  generator))
+                                                  generator, mix))
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """Zeroed KV cache: per layer (B, max_len, H, Dh) k/v tensors in the

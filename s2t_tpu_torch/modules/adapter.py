@@ -1,4 +1,5 @@
-"""PAE adapters and the CTC shrink (counterpart of s2t_tpu/modules/adapter.py:31-153).
+"""PAE adapters, the CTC shrink and the ground-truth oracle (counterpart of
+s2t_tpu/modules/adapter.py:31-192).
 
 ``Adapter`` re-injects CTC predictions into an encoder stream; SATE uses it
 as the bridge from the acoustic to the textual encoder.  Types: ``none``
@@ -7,20 +8,25 @@ as the bridge from the acoustic to the textual encoder.  Types: ``none``
 ``league`` (linear + context), ``inter_league`` (x + context) and
 ``gated_league`` (g linear + (1 - g) context with a learned sigmoid gate).
 ``ctc_shrink_matrix`` is the static-shape form of the CTC-blank/repeat
-collapse: a (B, T, T) pooling matrix, applied as a matmul.  The
-ground-truth oracle (``ctc_oracle_probs``) needs the CTC best alignment
-(ROADMAP.md section 1 item 8) and is not ported.
+collapse: a (B, T, T) pooling matrix, applied as a matmul.
+``ctc_oracle_probs`` is the PAE's ground-truth curriculum: at frames drawn with
+probability ``ratio`` the Viterbi alignment's one-hot replaces the CTC
+posterior that ``Adapter(..., probs=...)`` re-embeds.  Its uniform draws come
+from the host (``host_uniform``: a numpy generator of an explicit seed), so
+the card and the CPU draw the same mask.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from s2t_tpu_torch.modules.cast import LayerNorm, Linear
+from s2t_tpu_torch.ops.ctc import ctc_best_alignment
 
 ADAPTER_TYPES = ("none", "linear", "context", "league", "inter_league", "gated_league")
 _CONTEXT_TYPES = ("context", "league", "inter_league", "gated_league")
@@ -32,9 +38,10 @@ def _layer_norm(dim: int) -> LayerNorm:
 
 
 class Adapter(nn.Module):
-    """``forward(x, ctc_logits)``; ``embed_adapter`` (V, D) is the re-embedding
-    table of the context types; ``embed_norm`` / ``out_norm`` add a LayerNorm
-    on the context (``embed_ln``) / on the output (``out_ln``)."""
+    """``forward(x, ctc_logits, probs=None)``; ``probs`` (the oracle's) replaces
+    softmax(ctc_logits / T); ``embed_adapter`` (V, D) is the re-embedding table
+    of the context types; ``embed_norm`` / ``out_norm`` add a LayerNorm on the
+    context (``embed_ln``) / on the output (``out_ln``)."""
 
     def __init__(self, dim: int, vocab_size: int, adapter_type: str = "inter_league",
                  ctc_temperature: float = 1.0, embed_norm: bool = False,
@@ -57,13 +64,16 @@ class Adapter(nn.Module):
     def _linear(self, x):
         return self.linear_norm(self.linear_fc2(F.relu(self.linear_fc1(x))))
 
-    def forward(self, x: torch.Tensor, ctc_logits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctc_logits: Optional[torch.Tensor] = None,
+                probs: Optional[torch.Tensor] = None) -> torch.Tensor:
         t = self.adapter_type
         if t == "none":
             return x
         if self.embed_adapter is not None:
-            probs = torch.softmax(ctc_logits.float() / self.ctc_temperature, dim=-1).to(x.dtype)
-            context = torch.einsum("btv,vd->btd", probs, self.embed_adapter.to(x.dtype))
+            if probs is None:
+                probs = torch.softmax(ctc_logits.float() / self.ctc_temperature, dim=-1)
+            context = torch.einsum("btv,vd->btd", probs.to(x.dtype),
+                                   self.embed_adapter.to(x.dtype))
             if self.embed_ln is not None:
                 context = self.embed_ln(context)
         if t == "linear":
@@ -117,3 +127,33 @@ def ctc_shrink_matrix(ctc_logits: torch.Tensor, lengths: torch.Tensor, blank_id:
     else:
         raise ValueError(f"shrink strategy {strategy!r} not supported")
     return W.to(ctc_logits.dtype), new_lengths
+
+
+def host_uniform(shape: Sequence[int], seed: Sequence[int]) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` as a float32 CPU tensor, from a numpy generator
+    seeded by ``seed`` (non-negative ints): the same draws on every device."""
+    return torch.from_numpy(np.random.default_rng(list(seed)).random(tuple(shape),
+                                                                     dtype=np.float32))
+
+
+def ctc_oracle_probs(logits: torch.Tensor, lengths: torch.Tensor, tokens: torch.Tensor,
+                     token_lengths: torch.Tensor, uniform: torch.Tensor, ratio: float,
+                     temperature: float = 1.0, smooth: bool = False,
+                     only_mistake: bool = False) -> torch.Tensor:
+    """(B, T, V) float32: the CTC best alignment's one-hot (0.9 + 0.1/V and 0.1/V
+    with ``smooth``) at the frames where ``uniform`` (B, T) < ``ratio``, and
+    softmax(logits / temperature) elsewhere (s2t_tpu/modules/adapter.py:156-192).
+    ``only_mistake`` keeps the one-hot only where the CTC argmax differs from
+    the aligned token.  The alignment is taken without gradient; the posterior
+    keeps its graph."""
+    lp = torch.log_softmax(logits.detach().float(), dim=-1)
+    aligned, _ = ctc_best_alignment(lp, tokens, lengths, token_lengths)
+    V = logits.shape[-1]
+    oracle = F.one_hot(aligned.long(), V).float()
+    if smooth:
+        oracle = torch.where(oracle == 1.0, 0.9 + 0.1 / V, 0.1 / V)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    mask = uniform.to(logits.device) < ratio
+    if only_mistake:
+        mask = mask & (lp.argmax(dim=-1) != aligned)
+    return torch.where(mask[..., None], oracle, probs)

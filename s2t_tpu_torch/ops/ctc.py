@@ -1,12 +1,14 @@
-"""CTC loss over a lattice of S = 2U + 1 states, and greedy CTC decoding
-(counterpart of s2t_tpu/ops/ctc.py:29-302 and :423-446).
+"""CTC loss over a lattice of S = 2U + 1 states, the Viterbi best alignment and
+greedy CTC decoding (counterpart of s2t_tpu/ops/ctc.py:29-302, :344-420 and :423-446).
 
 The emission gather stays plain PyTorch, as the JAX package leaves it to XLA;
 the lattice recurrences run in ``ops/ctc_cuda.py`` (CUDA kernels K3/K4 on the
 card, their plain versions on the CPU) for every input: there is no size gate.
 The JAX head-input gather (``fused_head`` / ``return_fused``, :130-162) is not
 ported: gathering the same emissions from the logits is the same math
-(``_lattice_logp`` :38-64).
+(``_lattice_logp`` :38-64).  ``ctc_best_alignment`` is a ``lax.scan`` outside any
+Pallas kernel in JAX, so its counterpart is a plain PyTorch loop over T on
+every device.
 """
 
 from __future__ import annotations
@@ -71,6 +73,57 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch
     if reduction == "mean":
         return (nll / label_lengths.clamp(min=1)).mean()
     return nll
+
+
+def ctc_best_alignment(log_probs: torch.Tensor, labels: torch.Tensor,
+                       input_lengths: torch.Tensor, label_lengths: torch.Tensor,
+                       blank_id: int = 0):
+    """Viterbi best CTC alignment (s2t_tpu/ops/ctc.py:344-420): a max-product
+    forward pass with back-pointers, then the backtrace.  Returns (aligned
+    tokens (B, T) int32: the token the best path emits at each frame, blank at
+    blank frames; lattice states (B, T) int32).
+
+    JAX's tie order: the candidates stack as (stay, step1, step2) and the first
+    maximum wins; the final state is the last label only when its score is
+    strictly above the last blank's; frames at or past a row's length keep the
+    final state.  One Python step a frame, no host sync."""
+    lp = log_probs.float()
+    B, T, _ = lp.shape
+    dev = lp.device
+    ext = _extend_labels(labels.long(), blank_id)
+    S = ext.shape[1]
+    emit = _lattice_logp(lp, ext)  # (B, T, S)
+    skip_ok = _transition_mask(ext, blank_id)
+    input_lengths = input_lengths.to(dev).long()
+    label_lengths = label_lengths.to(dev).long()
+    alpha = torch.full((B, S), NEG_INF, dtype=torch.float32, device=dev)
+    alpha[:, 0] = emit[:, 0, 0]
+    if S > 1:
+        alpha[:, 1] = emit[:, 0, 1]
+    pad = torch.full((B, 2), NEG_INF, dtype=torch.float32, device=dev)
+    backs = []  # backs[t - 1]: the move into frame t, 0 stay / 1 step / 2 skip
+    for t in range(1, T):
+        step1 = torch.cat([pad[:, :1], alpha[:, :-1]], dim=1)
+        step2 = torch.where(skip_ok, torch.cat([pad, alpha[:, :-2]], dim=1)[:, :S], NEG_INF)
+        best = torch.maximum(alpha, torch.maximum(step1, step2))
+        back = torch.where(alpha >= best, 0, torch.where(step1 >= step2, 1, 2))
+        active = (t < input_lengths)[:, None]
+        alpha = torch.where(active, best + emit[:, t], alpha)
+        backs.append(torch.where(active, back, 0).to(torch.uint8))
+    last_label = (2 * label_lengths - 1).clamp(min=0)
+    last_blank = 2 * label_lengths
+    a_label = alpha.gather(1, last_label[:, None])[:, 0]
+    a_label = torch.where(label_lengths > 0, a_label, NEG_INF)
+    a_blank = alpha.gather(1, last_blank[:, None])[:, 0]
+    state = torch.where(a_label > a_blank, last_label, last_blank)
+    states = [state] * T
+    for t in range(T - 1, 0, -1):
+        states[t] = state
+        delta = backs[t - 1].gather(1, state[:, None])[:, 0].long()
+        state = torch.where(t < input_lengths, state - delta, state)
+    states[0] = state
+    states = torch.minimum(torch.stack(states, dim=1), 2 * label_lengths[:, None])
+    return ext.gather(1, states).to(torch.int32), states.to(torch.int32)
 
 
 def ctc_greedy_decode(log_probs_or_logits: torch.Tensor, input_lengths: torch.Tensor,

@@ -8,14 +8,19 @@ the step: with ``use_audio_input`` the Kaldi fbank through the K5 wrapper
 (``ops/fbank_cuda.fbank``: the kernel on the card, its plain version on the
 CPU), then the split's feature transforms, then the model.
 
+In training the adapter also threads the encoder's own inputs, as the JAX
+one does (``encoder_inputs``): the PAE oracle's transcript and EOS-stripped
+target when the model's config sets a ground-truth ratio, and the step count
+(``num_updates``) for mixup's ratio decay.
+
 An encoder-only model (``decoder_layers == 0``) decodes through
-``CTCGenerator`` (greedy, or the prefix beam for ``generation.beam`` > 1), an
-encoder-decoder through ``SequenceGenerator``.  What the port does not have
-raises ``NotImplementedError`` naming it: comma-separated multilingual
-splits, latency-augmented attention capture, the PAE oracle and mixup inputs,
-the CTC n-gram LM, Jacobi generation, and decoding a ``use_audio_input`` split
-(the JAX generator feeds such a batch's waveforms to the encoder without an
-fbank, ROADMAP.md section 3).
+``CTCGenerator`` (greedy, or the prefix beam for ``generation.beam`` > 1; the
+XCTC head's logits when the model has one), an encoder-decoder through
+``SequenceGenerator``.  What the port does not have raises
+``NotImplementedError`` naming it: comma-separated multilingual splits,
+latency-augmented attention capture, the CTC n-gram LM, Jacobi generation, and
+decoding a ``use_audio_input`` split (the JAX generator feeds such a batch's
+waveforms to the encoder without an fbank, ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -40,19 +45,34 @@ from s2t_tpu_torch.trainer import fold_in
 TRANSFORM_FOLD = 7
 
 
-def _check_forward_supported(cfg: TrainConfig, model) -> None:
-    mcfg = model.cfg
+def _check_forward_supported(cfg: TrainConfig) -> None:
     if cfg.criterion.startswith("latency_augmented"):
         raise NotImplementedError(
             f"criterion {cfg.criterion!r}: capturing the decoder's cross-attention is not "
             "ported to s2t_tpu_torch")
-    for name in ("ctc_pae_ground_truth_ratio", "xctc_pae_ground_truth_ratio"):
-        if getattr(mcfg, name, 0.0) > 0:
-            raise NotImplementedError(f"{name} > 0 (the PAE ground-truth oracle) is not ported "
-                                      "to s2t_tpu_torch")
-    if getattr(mcfg, "inter_mixup_ratio_decay", False):
-        raise NotImplementedError("inter_mixup_ratio_decay (mixup's step input) is not ported "
-                                  "to s2t_tpu_torch")
+
+
+def encoder_inputs(mcfg, batch, train: bool) -> dict:
+    """The encoder's keyword inputs of a training forward
+    (s2t_tpu/tasks/speech_to_text.py:139-158): the oracle's ``transcript`` and
+    the target with EOS (2) rewritten to pad (1) and its lengths less one, when
+    the config sets a ground-truth ratio; ``num_updates`` (the batch's
+    ``_step``) under mixup's ratio decay.  Nothing in eval."""
+    kw = {}
+    if not train:
+        return kw
+    if getattr(mcfg, "ctc_pae_ground_truth_ratio", 0.0) > 0 or \
+            getattr(mcfg, "xctc_pae_ground_truth_ratio", 0.0) > 0:
+        if "transcript" in batch:
+            kw["transcript"] = batch["transcript"]
+            kw["transcript_lengths"] = batch["transcript_lengths"]
+        if "target" in batch and getattr(mcfg, "xctc_pae_ground_truth_ratio", 0.0) > 0:
+            tgt = batch["target"]
+            kw["target"] = torch.where(tgt == 2, 1, tgt)
+            kw["target_lengths"] = batch["target_lengths"] - 1
+    if getattr(mcfg, "inter_mixup_ratio_decay", False) and "_step" in batch:
+        kw["num_updates"] = int(batch["_step"])
+    return kw
 
 
 @register_task("speech_to_text")
@@ -113,7 +133,7 @@ class SpeechToTextTask(Task):
         cfg = self.cfg
 
         def fwd(model, batch, train: bool = False, generator: Optional[torch.Generator] = None):
-            _check_forward_supported(cfg, model)
+            _check_forward_supported(cfg)
             feats, lengths = batch["features"], batch["feat_lengths"]
             if use_audio:
                 # the fbank inside the step: K5 on the card, its plain version on the CPU
@@ -125,7 +145,8 @@ class SpeechToTextTask(Task):
                     tf_gen = torch.Generator(device=feats.device).manual_seed(
                         fold_in(generator.initial_seed(), TRANSFORM_FOLD))
                 feats = tf(feats, lengths, tf_gen)
-            return model(feats, lengths, batch["prev_tokens"], train=train, generator=generator)
+            return model(feats, lengths, batch["prev_tokens"], train=train, generator=generator,
+                         **encoder_inputs(model.cfg, batch, train))
 
         return fwd
 
@@ -144,7 +165,7 @@ class SpeechToTextTask(Task):
             dec = CTCDecoder(beam_size=g.beam, pad_id=self.tgt_dict.pad(),
                              self_ensemble=g.ctc_self_ensemble,
                              intermediate_logit=g.ctc_inter_logit)
-            return CTCGenerator(model, dec)
+            return CTCGenerator(model, dec, use_xctc=getattr(model.cfg, "use_xctc", False))
         if g.jacobi:
             raise NotImplementedError("generation.jacobi (JacobiGenerator) is not ported to "
                                       "s2t_tpu_torch")

@@ -55,9 +55,14 @@ def fold_in(seed: int, data: int) -> int:
 
 def s2t_forward(model, batch: Dict[str, torch.Tensor], train: bool = False,
                 generator: torch.Generator | None = None) -> Dict[str, Any]:
-    """The forward adapter for speech-to-text batches (the JAX trainer's s2t_forward)."""
+    """The forward adapter for speech-to-text batches (the JAX trainer's s2t_forward):
+    in training it hands the step count to mixup's ratio decay."""
+    kw = {}
+    if train and getattr(getattr(model, "cfg", None), "inter_mixup_ratio_decay", False) \
+            and "_step" in batch:
+        kw["num_updates"] = int(batch["_step"])
     return model(batch["features"], batch["feat_lengths"], batch["prev_tokens"],
-                 train=train, generator=generator)
+                 train=train, generator=generator, **kw)
 
 
 class Trainer:
@@ -113,6 +118,8 @@ class Trainer:
         loss_sum, size_sum, logs_sum = 0.0, 0.0, {}
         for i, micro in enumerate(micros):
             gen = self._generator(self.step, None if len(micros) == 1 else i)
+            # the update count, for forward adapters with an in-step schedule (trainer.py:316)
+            micro = {**micro, "_step": self.step}
             out = self.forward_fn(self.model, micro, train=True, generator=gen)
             loss, sample_size, logs = self.criterion(out, micro)
             loss.float().backward()

@@ -378,7 +378,7 @@ def test_conv2d_front_end_post_norm_forward_matches_jax():
     ("encoder_attention_type", "rope", "item 7"),
     ("subsampling_ref_pad_semantics", True, "item 7"),
     ("use_enc_dlcl", True, "item 7"),
-    ("inter_ctc_layers", (1,), "item 8"),
+    ("pipeline_parallel", 2, "item 12"),
 ])
 def test_unported_conformer_branches_raise_by_name(field, value, item):
     with pytest.raises(NotImplementedError, match=item) as e:

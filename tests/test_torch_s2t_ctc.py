@@ -125,8 +125,8 @@ def test_ctc_criterion_loss_and_grads_match_jax(variant):
 
 
 def test_unported_presets_and_encoders_raise():
-    with pytest.raises(NotImplementedError, match="XCTC"):
-        build_model("s2t_nast", device="cpu")
+    with pytest.raises(NotImplementedError, match="pds_xctc"):
+        build_model("s2t_ctc_pds", dict(vocab_size=32, pds_xctc=(0, 1, 0, 0)), device="cpu")
     with pytest.raises(TypeError, match="SATEConfig"):
         tctc.S2TCTCModel(object(), device="cpu")
     # the SATE encoder is ported (tests/test_torch_sate.py): its preset builds an encoder-only model

@@ -31,7 +31,7 @@ T = 40 with lengths (40, 33, 21, 1).
 * the recipe census: every ``egs/**/*.yaml`` that names a SATE or Conformer
   arch or sets rel_pos / macaron_style / use_cnn_module resolves to the JAX
   preset's fields and builds at a tiny depth, or raises naming an item-7 or
-  item-8 field;
+  item-8b field;
 * ``cli.train`` (2 epochs from raw audio, one flax init) and ``cli.generate`` of
   a SATE config give the JAX CLIs' validation losses (rtol 1e-4) and
   T-/H-/D- lines.
@@ -301,7 +301,7 @@ def test_s2t_ctc_sate_tokens_identical(beam):
     ("text_use_xctc", True, "item 8"), ("inter_xctc_layers", (1,), "item 8"),
     ("xctc_pae", "inter_league", "item 8"), ("xctc_cross_attn", True, "item 8"),
     ("xctc_pae_ground_truth_ratio", 0.1, "item 8"), ("text_attention_type", "rope", "item 7"),
-    ("acoustic_inter_ctc_layers", (1,), "item 8"),
+    ("acoustic_use_enc_dlcl", True, "item 7"),
 ])
 def test_unported_sate_fields_raise_by_name(field, value, item):
     with pytest.raises(NotImplementedError, match=item) as e:
@@ -343,19 +343,13 @@ SATE_BUILDS = {f"egs/mustc/st/conf/{n}.yaml" for n in (
     "sate", "sate_deep", "sate_big", "reproduction_sate", "sate_pds_8", "sate_pds_8_444",
     "sate_pds_16", "sate_pds_base_8", "sate_pds_deep_8", "sate_big_pds")}
 REFUSED = {  # recipe -> what its first unported field names
-    "egs/mustc/st/conf/ctc_aug_base.yaml": "item 8",
-    "egs/mustc/st/conf/ctc_aug_big.yaml": "item 8",
-    "egs/mustc/st/conf/ctc_aug_pds_big.yaml": "item 8",
-    "egs/mustc/st/conf/nast_pds_big.yaml": "item 8",
-    "egs/mustc/st/conf/reproduction_bil_ctc_progressive.yaml": "item 8",
-    "egs/mustc/st/conf/reproduction_bil_ctc_progressive2.yaml": "item 8",
-    "egs/mustc/st/conf/reproduction_ctc_aug.yaml": "item 8",
-    "egs/mustc/st/conf/reproduction_aipa_kd.yaml": "item 8",
-    "egs/mustc/st/conf/reproduction_aipa_kd_womixuploss.yaml": "item 8",
-    "egs/mustc/st/conf/reproduction_bil_ctc_synchronous.yaml": "item 8",
-    "egs/librispeech/asr/conf/reproduction_bil_ctc_syn.yaml": "item 8",
-    "egs/librispeech/asr/conf/reproduction_purectc_aipa_kd.yaml": "item 8",
-    "egs/librispeech/asr/conf/reproduction_purectc_aipa_kd_woiploss.yaml": "item 8",
+    "egs/mustc/st/conf/ctc_aug_base.yaml": "item 8b",
+    "egs/mustc/st/conf/ctc_aug_big.yaml": "item 8b",
+    "egs/mustc/st/conf/ctc_aug_pds_big.yaml": "item 8b",
+    "egs/mustc/st/conf/nast_pds_big.yaml": "item 8b",
+    "egs/mustc/st/conf/reproduction_bil_ctc_progressive.yaml": "item 8b",
+    "egs/mustc/st/conf/reproduction_bil_ctc_progressive2.yaml": "item 8b",
+    "egs/mustc/st/conf/reproduction_ctc_aug.yaml": "item 8b",
     "egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml": "item 7",
     "egs/librispeech/asr/conf/EffecientConformerCTCMedium.yaml": "item 7",
 }
@@ -428,7 +422,7 @@ def test_every_sate_and_conformer_recipe_builds_or_raises_by_name():
     assert set(refused) == set(REFUSED), refused
     for path, msg in refused.items():
         assert REFUSED[path] in msg and "Config." in msg, (path, msg)
-    assert len(recipes) == len(built) + len(refused) == 38 and len(built) == 23
+    assert len(recipes) == len(built) + len(refused) == 38 and len(built) == 29
 
 
 # --------------------------------------------------------------------------- #

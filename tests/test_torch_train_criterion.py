@@ -103,9 +103,9 @@ def test_loss_logs_and_grads_match_jax(transcript):
 def test_unported_criteria_and_branches_raise():
     with pytest.raises(NotImplementedError, match="cross_entropy_with_alignment"):
         build_criterion("label_smoothed_cross_entropy_with_alignment")
-    with pytest.raises(NotImplementedError, match="inter_ctc_weight"):
-        build_criterion("ctc", {"inter_ctc_weight": 0.5})
-    with pytest.raises(NotImplementedError, match="xctc_weight"):
-        build_criterion(CRITERION[0], {"ctc": {"xctc_weight": 1.0}})
+    with pytest.raises(NotImplementedError, match="join_speech_and_text_loss"):
+        build_criterion("join_speech_and_text_loss", {"ctc": {"inter_ctc_weight": 0.5}})
+    with pytest.raises(NotImplementedError, match="nat_loss"):
+        build_criterion("nat_loss")
     with pytest.raises(KeyError, match="no_such_field"):
         build_criterion("ctc", {"no_such_field": 1})
