@@ -134,15 +134,32 @@ Phases (any failure ends the run with a non-zero exit):
              at the bench shape (each CTC term's device ms and the duplicated unmixed-row
              CTC), cli.train from phase 11's wavs for 2 epochs (K5 1, K3 / K4 10 a step),
              cli.generate greedy and from_pretrained;
+ 25. ctc_aug  reproduction_ctc_aug.yaml (a 12 x 256 rel_pos Conformer acoustic encoder with
+             inter-CTC and the PAE, textual 6 x 256 with serial cross-stream layers 3-6 on
+             layer 2's snapshot, inter-XCTC at 4 with xpae and the oracle at 0.5): fp32
+             beam-5 tokens card vs CPU, bf16 64 x 10 s with the encode split into acoustic /
+             adapter / textual and the textual self- and s2-attention, 10 K1f an encode;
+             fp32 training card vs CPU with the oracle (its mask drawn on the host), bf16
+             at the bench shape (10 / 10 / 5 / 5 launches a step, each CTC term's and the
+             oracle Viterbi's ms);
+ 26. sate+pds nast_pds_big.yaml (s2t_ctc_sate over 4 PDS stages of 512, textual 12 x 512,
+             XCTC) greedy at B=256 x 1000 frames through the task's generator (the acoustic
+             head, as in JAX) and through the XCTC head, fp32 tokens card vs CPU for both,
+             fp32 training card vs CPU; ctc_aug_pds_big.yaml fp32 beam-5 tokens card vs CPU
+             (30 K1f an encode);
+ 27. pds taps pds_base_8_444.yaml with every stage tap (pds_ctc, pds_xctc, both PAEs, XCTC
+             on the output) trained fp32 card vs CPU at ctc_layer 0 and 8; imputer_loss
+             and its gradient card vs CPU; Jacobi decoding against beam 1 on the card;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
-it: serving (phases 5-6, 13, 16-17, 19, 21-23) launches K1f once per encoder layer
-that attends with the fused kernel and encode (a PDS encoder: every stage's
-layers; SATE: the acoustic and the textual layers; a rel_pos layer attends
-densely and launches none); a training step (phases 7-8, 14, 15, 18, 20-24)
-launches K1f and K1b once per such layer, K3 and K4 once per CTC term (once
-without the stack; phase 22 5, 23 4, 24 10: mixup runs each term twice); a
+it: serving (phases 5-6, 13, 16-17, 19, 21-23, 25-27) launches K1f once per encoder
+layer that attends with the fused kernel and encode (a PDS encoder: every stage's
+layers; SATE: the acoustic and the textual layers, and a cross-stream layer's
+s2-attention; a rel_pos layer attends densely and launches none); a training
+step (phases 7-8, 14, 15, 18, 20-27) launches K1f and K1b once per such layer,
+K3 and K4 once per CTC term (once without the stack; phase 22 5, 23 4, 24 10:
+mixup runs each term twice; 25 5, 26 2, 27 7); a
 raw-audio forward (phases 11, 20, 21, 24, train or valid) adds K5 once; decoding
 (phases 12, 14, 18, 20, 24) launches K1f once per such layer and encode, and a
 validation batch of phase 14 runs three encodes (the loss, eval_ctc_wer,
@@ -251,7 +268,13 @@ def encoder_layers(cfg) -> int:
     encode, K1b's per step (a rel_pos layer attends densely and launches neither)."""
     if isinstance(cfg, SATEConfig):
         acoustic = cfg.pds if cfg.acoustic_encoder == "pds" else cfg.acoustic
-        text = cfg.text_encoder_layers if cfg.text_attention_type == "abs" else 0
+        # CTC-Aug's cross layers attend with abs attention whatever text_attention_type
+        # says, and their s2-attention too once the snapshot exists
+        cross = cfg.cross_attn_start_layer if cfg.xctc_cross_attn and \
+            cfg.cross_attn_start_layer > 0 else cfg.text_encoder_layers + 1
+        snap = cfg.cross_attn_layer if cross <= cfg.text_encoder_layers else 0
+        text = sum(1 + int(0 < snap < i) if i >= cross else int(cfg.text_attention_type == "abs")
+                   for i in range(1, cfg.text_encoder_layers + 1))
         return encoder_layers(acoustic) + text
     if cfg.encoder_attention_type != "abs":
         return 0
@@ -926,8 +949,9 @@ def device_profile(fn, kernels=(), sequence=()):
     kernel and copy intervals), the aten ops with the most device time, the
     device ms of the CUDA kernels whose names contain each of ``kernels``, the
     device ms of each kernel whose name contains one of ``sequence``, in launch
-    order, the device ms of the kernels each ``stage_ranges`` range launched and the
-    span of each on the device timeline, and the synchronised wall ms of the call."""
+    order, the device ms of the kernels each ``stage_ranges`` range launched, the
+    span of each on the device timeline and its host ms, and the synchronised wall
+    ms of the call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -960,11 +984,13 @@ def device_profile(fn, kernels=(), sequence=()):
     # the kernels launched inside it (over every entry of a range of that name); the
     # trace's device-side range of the same name spans the device timeline from its first
     # kernel to its last, idle gaps included
-    range_ms, range_span_ms = {}, {}
+    range_ms, range_span_ms, range_host_ms = {}, {}, {}
     for e in prof.events():
         if e.name.startswith(RANGE_PREFIXES):
             if e.device_type == torch.autograd.DeviceType.CPU:
                 range_ms[e.name] = range_ms.get(e.name, 0.0) + e.device_time_total / 1e3
+                range_host_ms[e.name] = range_host_ms.get(e.name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3
             else:
                 range_span_ms[e.name] = range_span_ms.get(e.name, 0.0) + (
                     e.time_range.end - e.time_range.start) / 1e3
@@ -974,7 +1000,7 @@ def device_profile(fn, kernels=(), sequence=()):
                           if name in e.name] for name in sequence}
     return {"busy_ms": busy_us / 1e3, "top_ops": ops[:8], "kernel_ms": kernel_ms,
             "sequence_ms": sequence_ms, "range_ms": range_ms, "range_span_ms": range_span_ms,
-            "wall_ms": wall_ms}
+            "range_host_ms": range_host_ms, "wall_ms": wall_ms}
 
 
 def by_stage(sequence_ms, cfg, names, backward=False):
@@ -1029,11 +1055,16 @@ def module_ranges(named_modules):
 
 def sate_ranges(model):
     """SATE's encode split: the acoustic encoder (with its CTC head), the adapter, the
-    textual encoder."""
+    textual encoder, and inside it every layer's self-attention and CTC-Aug's
+    s2-attention (each name sums over the layers)."""
     enc = model.encoder
     parts = [("sate_acoustic", enc.acoustic), ("sate_textual", enc.textual)]
     if enc.adapter is not None:
         parts.append(("sate_adapter", enc.adapter))
+    for layer in enc.textual.layers:
+        parts.append(("sate_text_self_attn", layer.self_attn))
+        if getattr(layer, "s2_attn", None) is not None:
+            parts.append(("sate_text_s2_attn", layer.s2_attn))
     return module_ranges(parts)
 
 
@@ -1224,6 +1255,27 @@ def ctc_term_ranges():
         CTCCriterion._one_ctc = plain
 
 
+@contextlib.contextmanager
+def viterbi_ranges():
+    """Run each call of the PAE oracle's Viterbi (``ctc_best_alignment`` as
+    ``modules/adapter.py`` calls it) inside a profiler range ``stack_viterbi``."""
+    from torch.profiler import record_function
+
+    from s2t_tpu_torch.modules import adapter
+
+    plain = adapter.ctc_best_alignment
+
+    def ranged(*args, **kw):
+        with record_function("stack_viterbi"):
+            return plain(*args, **kw)
+
+    adapter.ctc_best_alignment = ranged
+    try:
+        yield
+    finally:
+        adapter.ctc_best_alignment = plain
+
+
 def check_step_launches(counts, steps=1, per_step=None):
     per_step = per_step or TRAIN_LAUNCHES
     want = {**{k: 0 for k in counters()}, **{k: n * steps for k, n in per_step.items()}}
@@ -1321,7 +1373,7 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pds = isinstance(cfg, PDSConfig)
-    with encoder_ranges(model), ctc_term_ranges():
+    with encoder_ranges(model), ctc_term_ranges(), viterbi_ranges():
         prof = device_profile(lambda: losses.append(trainer.train_step(batch)["loss"]),
                               KERNEL_NAMES, sequence=FWD_KERNELS + BWD_KERNELS + ("ctc_beta_grad",))
     counts = read_counts()
@@ -1350,6 +1402,9 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
                                                  backward=True)
     elif prof["range_ms"]:
         res["forward_device_ms_by_part"] = prof["range_ms"]
+    if "stack_viterbi" in prof["range_ms"]:  # the PAE oracle's alignment, a loop over T
+        res["oracle_viterbi_device_ms"] = prof["range_ms"]["stack_viterbi"]
+        res["oracle_viterbi_host_ms"] = prof["range_host_ms"]["stack_viterbi"]
     if per_step["ctc_alpha"] > 1:  # each CTC term's forward, and K4 of each in launch order
         res["ctc_term_forward_device_ms"] = {k: v for k, v in prof["range_ms"].items()
                                              if k.startswith("stack_ctc_term")}
@@ -1812,8 +1867,9 @@ def phase_nast(preset=None, model_section=None, tag="nast", use_xctc=False, ense
 
     preset = preset or s2t_ctc_base
     B, T, V = NAST_SHAPE["B"], NAST_SHAPE["T"], NAST_SHAPE["V"]
-    cfg = preset(**(model_section or {}), vocab_size=V, dtype_str="bfloat16",
-                 max_target_positions=1024)
+    section = {**(model_section or {}), "vocab_size": V, "max_target_positions": 1024}
+    dtype_key = "acoustic_dtype_str" if isinstance(preset(**section), SATEConfig) else "dtype_str"
+    cfg = preset(**section, **{dtype_key: "bfloat16"})
     layers = encoder_layers(cfg)
     model = S2TCTCModel(cfg, device="cuda", seed=0)
     gen = CTCGenerator(model, CTCDecoder(), use_xctc=use_xctc)
@@ -2158,11 +2214,13 @@ CONFORMER_CTC_SMALL = {  # egs/librispeech/asr/conf/ConformerCTCSmall.yaml
               "cnn_module_kernel": 31, "encoder_attention_type": "rel_pos",
               "encoder_activation_fn": "swish"}}
 NO_DROPOUT = {"dropout": 0.0, "attention_dropout": 0.0, "activation_dropout": 0.0}
+ACOUSTIC_NO_DROPOUT = {f"acoustic_{k}": v for k, v in NO_DROPOUT.items()}  # a SATE preset's
 
 
 def sate_cfg(model, dtype="float32", **kw):
-    """s2t_sate_s at full width with a recipe's model section (V = 10000)."""
-    return s2t_sate_s(**fields(model), **PDS_S8_FIELDS, acoustic_dtype_str=dtype, **kw)
+    """s2t_sate_s at full width with a recipe's model section (V = 10000); ``kw``
+    overrides the section."""
+    return s2t_sate_s(**{**fields(model), **PDS_S8_FIELDS, "acoustic_dtype_str": dtype, **kw})
 
 
 def phase_sate_serve():
@@ -2242,7 +2300,7 @@ def phase_sate_train(root: Path):
     """(a) sate.yaml's model fp32 card vs CPU; (b) bf16 at the bench shape; (c) cli.train
     with sate.yaml from raw audio, cli.generate and from_pretrained."""
     parity, parity_launches = phase_train_parity(
-        sate_cfg(SATE_MODEL, **{f"acoustic_{k}": v for k, v in NO_DROPOUT.items()}),
+        sate_cfg(SATE_MODEL, **ACOUSTIC_NO_DROPOUT),
         S2TSATEModel, "sate train", criterion=SATE_CRITERION)
     speed, speed_launches = phase_train_speed(sate_cfg(SATE_MODEL, "bfloat16"), S2TSATEModel,
                                               "sate train speed", criterion=SATE_CRITERION)
@@ -2438,6 +2496,235 @@ def phase_stack_aipa(root: Path):
 
 
 # --------------------------------------------------------------------------- #
+# phases 25-27: the rest of the CTC research stack (the recipes' sections;
+# tests/test_torch_ctc_aug.py holds them to the files)
+CTC_AUG_MODEL = {  # the model section of egs/mustc/st/conf/reproduction_ctc_aug.yaml
+    "acoustic_encoder_layers": 12, "acoustic_macaron_style": True,
+    "acoustic_use_cnn_module": True, "acoustic_cnn_module_kernel": 15,
+    "acoustic_encoder_attention_type": "rel_pos", "acoustic_encoder_activation_fn": "swish",
+    "acoustic_encoder_embed_norm": True, "acoustic_encoder_no_scale_embedding": True,
+    "acoustic_inter_ctc_layers": [6, 9], "acoustic_share_inter_ctc": True,
+    "acoustic_ctc_pae": "inter_league", "acoustic_pae_unnorm_input": True,
+    "acoustic_dropout": 0.15, "adapter_type": "inter_league", "text_encoder_layers": 6,
+    "text_no_pos_emb": True, "textual_encoder_embed_norm": False,
+    "textual_encoder_no_scale_embedding": True, "inter_xctc_layers": [4],
+    "xctc_pae": "inter_league", "pae_unnorm_input": True, "xctc_pae_ground_truth_ratio": 0.5,
+    "xctc_pae_ground_truth_only_mistake": True, "pae_oracle_smooth": True,
+    "xctc_cross_attn": True, "cross_attn_start_layer": 3, "cross_attn_layer": 2,
+    "cross_attn_collaboration_mode": "serial", "cross_attn_league_drop_net": True,
+    "cross_attn_league_drop_net_prob": 0.1}
+CTC_AUG_CRITERION = ("label_smoothed_cross_entropy_with_ctc", {  # its criterion_cfg over basis
+    "label_smoothing": 0.1, "ctc": {"ctc_weight": 0.2, "inter_ctc_weight": 0.1,
+                                    "xctc_weight": 0.2, "inter_xctc_weight": 0.1}})
+NAST_PDS_BIG = {  # egs/mustc/st/conf/nast_pds_big.yaml
+    "arch": "s2t_ctc_sate", "criterion": "ctc",
+    "criterion_cfg": {"ctc_weight": 1.0, "xctc_weight": 1.0, "zero_infinity": True},
+    "model": {"acoustic_encoder": "pds", "acoustic_encoder_embed_dim": 512,
+              "acoustic_dropout": 0.15, "pds_stages": 4, "pds_layers": [3, 3, 3, 3],
+              "pds_ratios": [2, 2, 1, 2], "pds_embed_dims": [512, 512, 512, 512],
+              "pds_kernel_sizes": [5, 5, 5, 5], "pds_ffn_ratios": [4, 4, 4, 4],
+              "pds_attn_heads": [8, 8, 8, 8], "pds_position_embed": [1, 1, 1, 1],
+              "adapter_type": "none", "text_encoder_layers": 12, "text_attention_heads": 8,
+              "text_use_xctc": True, "text_no_pos_emb": True}}
+CTC_AUG_PDS_BIG_MODEL = {  # the model section of egs/mustc/st/conf/ctc_aug_pds_big.yaml
+    **{k: v for k, v in NAST_PDS_BIG["model"].items() if k != "text_no_pos_emb"},
+    "acoustic_decoder_embed_dim": 512, "acoustic_decoder_ffn_embed_dim": 4096,
+    "acoustic_decoder_attention_heads": 8, "xctc_cross_attn": True,
+    "cross_attn_start_layer": 7, "cross_attn_layer": 6}
+PDS_BASE_8_444 = {  # egs/mustc/st/conf/pds_base_8_444.yaml (its arch and model section)
+    "arch": "pdss2t_transformer_s",
+    "model": {"pds_stages": 3, "pds_ratios": [2, 2, 2], "pds_layers": [4, 4, 4],
+              "pds_kernel_sizes": [5, 5, 5], "pds_embed_dims": [256, 256, 256],
+              "pds_attn_heads": [4, 4, 4], "pds_ffn_ratios": [8, 8, 8],
+              "pds_position_embed": [1, 1, 1], "pds_ctc": [0, 0, 0]}}
+# phase 27's overrides: every stage tapped (the shared head and PAE), XCTC taps at stages 1-2
+# with the shared head and xpae, and XCTC on the output; then the heads at inner layers
+PDS_TAPS = {"pds_ctc": [1, 1, 1], "pds_xctc": [0, 1, 1], "ctc_pae": "inter_league",
+            "xctc_pae": "inter_league", "use_xctc": True}
+PDS_INNER_HEADS = {"ctc_layer": 8, "xctc_layer": 10}
+PDS_TAPS_CRITERION = ("label_smoothed_cross_entropy_with_ctc", {
+    "label_smoothing": 0.1, "ctc": {"ctc_weight": 0.3, "inter_ctc_weight": 0.2,
+                                    "xctc_weight": 0.3, "inter_xctc_weight": 0.2}})
+# CTC terms of a step: CTC-Aug's CTC, inter-CTC at 6 and 9, XCTC and inter-XCTC at 4;
+# nast_pds_big's CTC and XCTC; phase 27's CTC, 3 stage taps, XCTC and 2 stage taps
+CTC_AUG_TERMS, NAST_PDS_BIG_TERMS, PDS_TAPS_TERMS = 5, 2, 7
+SCORE_RTOL = 1e-5  # Jacobi's one teacher-forced scoring pass vs the beam's cached steps
+IMPUTER_RTOL = 1e-4  # the imputer NLL card vs CPU: TRAIN_RTOL's ctc_loss
+
+
+def phase_ctc_aug():
+    """CTC-Aug (reproduction_ctc_aug.yaml, V = 10000): fp32 beam-5 serving card vs CPU, bf16
+    64 x 10 s with the encode split acoustic / adapter / textual self- and s2-attention;
+    fp32 training card vs CPU with the XCTC oracle on (its mask drawn on the host); bf16 at
+    the bench shape with each CTC term's device ms and the oracle Viterbi's ms."""
+    cfg = sate_cfg(CTC_AUG_MODEL)
+    layers = encoder_layers(cfg)
+    if layers != 10:  # rel_pos acoustic: none; textual: 6 self + 4 s2 (layers 3-6)
+        raise AssertionError(f"CTC-Aug: {layers} fused-attention calls an encode, expected 10")
+    per_step = step_launches(cfg, CTC_AUG_TERMS)
+    fused_attention.launches = 0  # the main path: serving
+    encodes = phase_serve_parity(cfg, tag="ctc_aug serve")
+    more, speed = phase_speed(sate_cfg(CTC_AUG_MODEL, "bfloat16"), tag="ctc_aug speed")
+    encodes += more
+    if fused_attention.launches != layers * encodes:
+        raise AssertionError(f"CTC-Aug serving launched K1f {fused_attention.launches} times "
+                             f"for {encodes} encodes, expected {layers} each")
+    serve_launches = fused_attention.launches
+    log(f"[ctc_aug serve] attention_fwd launches {serve_launches} over {encodes} encodes "
+        f"({layers} per encode: 6 textual self-attention + 4 s2-attention)")
+    log_keys = ("inter_ctc_loss", "xctc_loss", "inter_xctc_loss")
+    parity, parity_launches = phase_train_parity(
+        sate_cfg(CTC_AUG_MODEL, **ACOUSTIC_NO_DROPOUT), S2TSATEModel, "ctc_aug train",
+        criterion=CTC_AUG_CRITERION, per_step=per_step, log_keys=log_keys)
+    train, train_launches = phase_train_speed(
+        sate_cfg(CTC_AUG_MODEL, "bfloat16"), S2TSATEModel, "ctc_aug train speed",
+        n_timed=STACK_TIMED_STEPS, criterion=CTC_AUG_CRITERION, per_step=per_step)
+    if "oracle_viterbi_device_ms" not in train:
+        raise AssertionError("the bf16 CTC-Aug step ran no oracle Viterbi")
+    launches = {k: parity_launches.get(k, 0) + train_launches[k] for k in counters()}
+    launches["attention_fwd"] += serve_launches
+    return {"serve_encodes": encodes, "speed": speed, "parity": parity, "train": train,
+            "launches_per_encode": layers, "launches_per_step": per_step}, launches
+
+
+def phase_nast_pds_big():
+    """SATE over PDS with XCTC: nast_pds_big.yaml greedy CTC serving through the task's
+    generator (the acoustic head: SATEConfig has no use_xctc, as in JAX) and through
+    CTCGenerator(use_xctc=True), fp32 training card vs CPU; ctc_aug_pds_big.yaml fp32
+    beam-5 serving card vs CPU (30 K1f an encode)."""
+    from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_sate
+
+    model = fields(NAST_PDS_BIG["model"])
+    task_xctc = getattr(s2t_ctc_sate(**model), "use_xctc", False)
+    serve, launches = {}, {k: 0 for k in counters()}
+    for use_xctc in (task_xctc, True):
+        tag = "nast_pds_big " + ("xctc" if use_xctc else "task generator")
+        res, got = phase_nast(s2t_ctc_sate, model, tag, use_xctc=use_xctc)
+        serve[tag] = res
+        launches = {k: launches[k] + got[k] for k in counters()}
+    cfg32 = s2t_ctc_sate(**{**model, **PDS_S8_FIELDS, **ACOUSTIC_NO_DROPOUT})
+    parity, parity_launches = phase_train_parity(
+        cfg32, S2TCTCModel, "nast_pds_big train",
+        criterion=(NAST_PDS_BIG["criterion"], NAST_PDS_BIG["criterion_cfg"]),
+        per_step=step_launches(cfg32, NAST_PDS_BIG_TERMS), log_keys=("xctc_loss",))
+    aug = sate_cfg(CTC_AUG_PDS_BIG_MODEL)
+    layers = encoder_layers(aug)
+    if layers != 30:  # PDS 12, textual 12 self + 6 s2 (layers 7-12)
+        raise AssertionError(f"ctc_aug_pds_big: {layers} fused-attention calls an encode")
+    fused_attention.launches = 0  # the main path: serving
+    encodes = phase_serve_parity(aug, tag="ctc_aug_pds_big serve")
+    if fused_attention.launches != layers * encodes:
+        raise AssertionError(f"ctc_aug_pds_big serving launched K1f {fused_attention.launches} "
+                             f"times for {encodes} encodes, expected {layers} each")
+    launches = {k: launches[k] + parity_launches.get(k, 0) for k in counters()}
+    launches["attention_fwd"] += fused_attention.launches
+    return {"serve": serve, "task_generator_use_xctc": task_xctc, "parity": parity,
+            "ctc_aug_pds_big_encodes": encodes,
+            "ctc_aug_pds_big_launches_per_encode": layers}, launches
+
+
+def imputer_card_vs_cpu(B=8, T=250, U=60, V=10000, seed=11):
+    """``imputer_loss`` (``ctc_loss`` over emissions masked to the forced states: K3 and
+    K4 on the card) forced on the Viterbi states of CPU-made log-probs at every third frame
+    (the rest free: forced at every frame, the lattice holds one path and the sums are
+    exact): the NLL and its gradient on the card and on the CPU, and its time on the card
+    (forward and backward).  Returns (results, the card run's launches: one K3 and one
+    K4)."""
+    from s2t_tpu_torch.ops.ctc import ctc_best_alignment, ctc_loss, imputer_loss
+
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(B, T, V, generator=g) * 3, dim=-1)
+    labels = torch.randint(3, V, (B, U), generator=g)
+    in_len = torch.randint(U + 2, T + 1, (B,), generator=g)
+    lab_len = torch.randint(U // 2, U + 1, (B,), generator=g)
+    _, states = ctc_best_alignment(lp, labels, in_len, lab_len)
+    states = torch.where(torch.arange(T)[None, :] % 3 == 0, states, -1)
+
+    def run(device):
+        x = lp.detach().to(device).requires_grad_()
+        args = [t.to(device) for t in (labels, states, in_len, lab_len)]
+        nll = imputer_loss(x, *args, reduction="none")
+        nll.sum().backward()
+        return nll.detach().cpu(), x.grad.cpu(), x, args
+
+    host, host_grad, _, _ = run("cpu")
+    reset_counts()  # the main path: one imputer loss forward and backward on the card
+    card, card_grad, x, args = run("cuda")
+    launches = read_counts()
+    if launches["ctc_alpha"] != 1 or launches["ctc_beta_grad"] != 1:
+        raise AssertionError(f"imputer_loss did not run K3 and K4 once each: {launches}")
+    free = ctc_loss(lp, labels, in_len, lab_len, reduction="none")
+    res = {"B": B, "T": T, "U": U, "V": V, "nll_rel_err": rel_err(card, host),
+           "grad_max_abs_err": (card_grad - host_grad).abs().max().item(),
+           "forced_minus_free_nll_min": (host - free).min().item(),
+           "ms": cuda_ms(lambda: imputer_loss(x, *args).backward(), iters=3, warmup=1)}
+    log(f"[pds taps] imputer_loss card vs CPU, a third of the frames forced to the Viterbi "
+        f"states: {json.dumps(res)}")
+    if not (res["nll_rel_err"] <= IMPUTER_RTOL and res["grad_max_abs_err"] <= CTC_ATOL["demit"]
+            and res["forced_minus_free_nll_min"] >= -1e-3):
+        raise AssertionError(f"imputer_loss disagrees between the card and the CPU: {res}")
+    return res, launches
+
+
+def jacobi_card():
+    """generation.jacobi's JacobiGenerator on s2t_transformer_s (fp32, V = 10000) against
+    the sequential beam-1 generator on the card: the same tokens and scores; the passes
+    the fixpoint took.  Returns (results, K1f launches: one encode each)."""
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+    from s2t_tpu_torch.inference.jacobi import JacobiGenerator
+
+    model = S2TTransformerModel(s2t_transformer_s(**PDS_S8_FIELDS), device="cuda", seed=0)
+    batch = GeneratorHub(model, None)._speech_batch(WAVS)
+    kw = dict(max_len_a=0.0, max_len_b=GEN["max_len_b"], max_target_positions=1024)
+    jac, out = JacobiGenerator(model, **kw), {}
+    fused_attention.launches = 0  # the main path: one Jacobi generation
+    jac_s = synced_s(lambda: out.update(jacobi=jac.generate(batch)))
+    if fused_attention.launches != 12:
+        raise AssertionError(f"a Jacobi generation launched K1f {fused_attention.launches} times")
+    greedy_s = synced_s(lambda: out.update(
+        greedy=SequenceGenerator(model, beam_size=1, **kw).generate(batch)))
+    (jt, js, _), (gt, gs, _) = out["jacobi"], out["greedy"]
+
+    def upto_eos(row):
+        row = row.tolist()
+        return row[:row.index(2) + 1] if 2 in row else row
+
+    same = [upto_eos(a) == upto_eos(b) for a, b in zip(jt[:, 0].cpu(), gt[:, 0].cpu())]
+    score_err = ((js - gs).abs() / gs.abs().clamp(min=1.0)).max().item()
+    res = {"tokens_identical": same, "score_rel_err": score_err, "passes": jac.last_iters,
+           "lengths": [len(upto_eos(r)) for r in jt[:, 0].cpu()], "jacobi_s": jac_s,
+           "greedy_s": greedy_s}
+    log(f"[pds taps] Jacobi vs beam-1 on the card: {json.dumps(res)}")
+    if not all(same) or not score_err <= SCORE_RTOL:
+        raise AssertionError(f"Jacobi decoding differs from beam-1 decoding: {res}")
+    return res, 12
+
+
+def phase_pds_taps():
+    """pds_base_8_444.yaml with every stage tap (CTC, PAE, XCTC, xpae, XCTC on the output)
+    fp32 training card vs CPU, at ctc_layer 0 and with the heads at inner layers;
+    imputer_loss card vs CPU; Jacobi decoding against beam 1 on the card."""
+    from s2t_tpu_torch.models.pds import pdss2t_transformer_s_16
+
+    base = {**fields(PDS_BASE_8_444["model"]), **fields(PDS_TAPS), **PDS_S8_FIELDS,
+            **NO_DROPOUT}
+    out, launches = {}, {k: 0 for k in counters()}
+    for tag, extra in (("pds taps", {}), ("pds taps inner heads", PDS_INNER_HEADS)):
+        cfg = pdss2t_transformer_s_16(**{**base, **extra})
+        res, got = phase_train_parity(
+            cfg, PDSS2TTransformerModel, tag, criterion=PDS_TAPS_CRITERION,
+            per_step=step_launches(cfg, PDS_TAPS_TERMS),
+            log_keys=("inter_ctc_loss", "xctc_loss", "inter_xctc_loss"))
+        out[tag] = res
+        launches = {k: launches[k] + got.get(k, 0) for k in counters()}
+    out["imputer"], imputer_launches = imputer_card_vs_cpu()
+    launches = {k: launches[k] + imputer_launches[k] for k in counters()}
+    out["jacobi"], jacobi_launches = jacobi_card()
+    launches["attention_fwd"] += jacobi_launches
+    return out, launches
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2489,6 +2776,14 @@ def main(argv=None) -> int:
         nast_stack, nast_stack_launches = phase_stack_nast()
         bil_ctc, bil_ctc_launches = phase_stack_bil_ctc()
         aipa, aipa_launches = phase_stack_aipa(Path(tmp))
+    # phases 25-27: the rest of the CTC research stack
+    ctc_aug, ctc_aug_launches = phase_ctc_aug()
+    nast_pds, nast_pds_launches = phase_nast_pds_big()
+    pds_taps, pds_taps_launches = phase_pds_taps()
+    log(f"[main path] the rest of the CTC research stack: CTC-Aug (serving, parity, speed) "
+        f"{json.dumps(ctc_aug_launches)}; nast_pds_big and ctc_aug_pds_big (serving, parity) "
+        f"{json.dumps(nast_pds_launches)}; PDS stage taps (parity) and Jacobi "
+        f"{json.dumps(pds_taps_launches)}")
     log(f"[main path] the CTC research stack: s2t_nast (serving, parity, speed) "
         f"{json.dumps(nast_stack_launches)}; BiL-CTC (parity, speed, serving) "
         f"{json.dumps(bil_ctc_launches)}; AIPA (parity, speed, CLI, generate, hub) "
@@ -2517,7 +2812,8 @@ def main(argv=None) -> int:
     path_launches = {k: train_launches.get(k, 0) + sum(run[k] for run in (
         audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches,
         pds_train_launches, pds_ctc_launches, sate_train_launches, conformer_launches,
-        nast_stack_launches, bil_ctc_launches, aipa_launches))
+        nast_stack_launches, bil_ctc_launches, aipa_launches, ctc_aug_launches,
+        nast_pds_launches, pds_taps_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -2608,6 +2904,7 @@ def main(argv=None) -> int:
             "pds_stage0_training_shape": bwd_pds0, "pds_serve": pds_speed, "pds_ctc": pds_ctc,
             "pds_train": pds_train, "sate_serve": sate_serve, "sate_train": sate_train,
             "conformer": conformer, "nast_stack": nast_stack, "bil_ctc": bil_ctc, "aipa": aipa,
+            "ctc_aug": ctc_aug, "nast_pds_big": nast_pds, "pds_taps": pds_taps,
             "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

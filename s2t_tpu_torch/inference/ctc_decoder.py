@@ -46,8 +46,9 @@ class CTCDecoder:
         lp = torch.log_softmax(logits.float(), dim=-1)
         if self.self_ensemble and len(inter) > 0:
             # PDS stage taps at coarser time scales cannot be averaged on the final scale
-            lps = [lp] + [torch.log_softmax(l.float(), dim=-1) for _, l in inter
-                          if l.shape[1] == logits.shape[1] and l.shape[-1] == logits.shape[-1]]
+            lps = [lp] + [torch.log_softmax(tap[1].float(), dim=-1) for tap in inter
+                          if tap[1].shape[1] == logits.shape[1]
+                          and tap[1].shape[-1] == logits.shape[-1]]
             return sum(lps) / len(lps)
         return lp
 

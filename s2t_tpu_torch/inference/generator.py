@@ -24,6 +24,19 @@ _NOT_PORTED = {
 }
 
 
+def encoder_length_bound(cfg, T: int) -> int:
+    """Conservative encoder length of T frames (s2t_tpu/inference/generator.py:397-405):
+    a staged encoder (PDS) pads T to its ``pad_multiple`` and divides by its exact
+    ``downsample_ratio``; otherwise the subsampling plan."""
+    ratio = getattr(cfg, "downsample_ratio", 0)
+    if ratio > 1:
+        mult = getattr(cfg, "pad_multiple", 1)
+        return -(-(-(-T // mult) * mult) // ratio)
+    for _ in range(cfg.subsampling_layers):
+        T = (T - 1) // cfg.subsampling_stride + 1
+    return T
+
+
 class SequenceGenerator:
     def __init__(
         self,
@@ -70,17 +83,7 @@ class SequenceGenerator:
         return int(min(self.max_len_a * enc_T + self.max_len_b, self.max_target_positions - 1))
 
     def _enc_len_bound(self, T: int) -> int:
-        """Conservative encoder length (s2t_tpu/inference/generator.py:397-405): a
-        staged encoder (PDS) pads T to its ``pad_multiple`` and divides by its exact
-        ``downsample_ratio``; otherwise the subsampling plan."""
-        cfg = self.model.cfg
-        ratio = getattr(cfg, "downsample_ratio", 0)
-        if ratio > 1:
-            mult = getattr(cfg, "pad_multiple", 1)
-            return -(-(-(-T // mult) * mult) // ratio)
-        for _ in range(cfg.subsampling_layers):
-            T = (T - 1) // cfg.subsampling_stride + 1
-        return T
+        return encoder_length_bound(self.model.cfg, T)
 
     @torch.inference_mode()
     def generate(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:

@@ -16,13 +16,17 @@ Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
 ``inter_ctc_norm{l}``, ``inter_xctc_norm{l}``, ``inter_axctc_norm{l}``,
 ``compression_norm{l}`` and ``layer_out_norm{i}`` -> ``inter_ctc_heads.{l}``,
 ... ``layer_out_norms.{i}``, the PDS encoder's ``stage{i}_layer{j}`` -> ``stages.{i}.{j}``,
-``ds{i}`` -> ``downsamplers.{i}``, ``fusion{i}`` -> ``fusion_blocks.{i}`` and
-``final_layer{j}`` -> ``final_layers.{j}``, and the tied ``shared_embed`` table
--> the decoder's ``embed_tokens``; the other names (``encoder/embed_norm``,
-``encoder/ctc_head``, ``encoder/pae``, ``encoder/xctc_head``, ``encoder/xpae``,
-``encoder/axctc_head``, SATE's ``encoder/acoustic``, ``encoder/adapter`` and
-``encoder/textual``, a Conformer layer's ``macaron_ffn`` and ``conv_module``,
-...) are the port's attribute paths.  The bare leaves ``norm_scale``,
+``ds{i}`` -> ``downsamplers.{i}``, ``fusion{i}`` -> ``fusion_blocks.{i}``,
+``final_layer{j}`` -> ``final_layers.{j}`` and its stage taps ``ctc_norm{i}``,
+``xctc_norm{i}``, ``pae{i}`` and ``ctc{i}`` -> ``ctc_norms.{i}``, ``xctc_norms.{i}``,
+``paes.{i}`` and ``ctc_heads.{i}``, and the tied ``shared_embed`` table -> the
+decoder's ``embed_tokens``; the other names (``encoder/embed_norm``,
+``encoder/ctc_head`` with its ``norm``, ``encoder/pae``, ``encoder/xctc_head``,
+``encoder/xpae``, ``encoder/axctc_head``, ``encoder/inter_ctc_head``,
+``encoder/inter_xctc_head``, SATE's ``encoder/acoustic``, ``encoder/adapter`` and
+``encoder/textual`` with its ``cross_attn_norm`` and a cross-stream layer's
+``s2_attn`` and ``cross_norm``, a Conformer layer's ``macaron_ffn`` and
+``conv_module``, ...) are the port's attribute paths.  The bare leaves ``norm_scale``,
 ``norm_bias`` (a frozen per-channel affine), ``fusion_weight``, ``pos_bias_u``,
 ``pos_bias_v`` and ``embed_adapter`` keep their names.  Any leaf left unmapped
 on either side raises.
@@ -42,20 +46,23 @@ import torch
 from torch import nn
 
 # the CTC research stack's per-layer modules: flax ``<name>{l}`` -> the port's ``<name>s.{l}``
+# and the PDS stage taps' ``ctc_norm{i}`` / ``xctc_norm{i}`` / ``pae{i}``
 _PER_LAYER = "inter_ctc_head|inter_ctc_norm|inter_xctc_norm|inter_axctc_norm|compression_norm|" \
-    "layer_out_norm"
+    "layer_out_norm|ctc_norm|xctc_norm|pae"
 # flax module name -> the port's module path, and back (on the dotted port path)
 _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
             (re.compile(r"^stage(\d+)_layer(\d+)$"), r"stages.\1.\2"),
             (re.compile(r"^ds(\d+)$"), r"downsamplers.\1"),
             (re.compile(r"^fusion(\d+)$"), r"fusion_blocks.\1"),
             (re.compile(r"^final_layer(\d+)$"), r"final_layers.\1"),
+            (re.compile(r"^ctc(\d+)$"), r"ctc_heads.\1"),
             (re.compile(r"^(layer|conv)(\d+)$"), r"\1s.\2"))
 _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
             (re.compile(r"\bdownsamplers\.(\d+)\b"), r"ds\1"),
             (re.compile(r"\bfusion_blocks\.(\d+)\b"), r"fusion\1"),
             (re.compile(r"\bfinal_layers\.(\d+)\b"), r"final_layer\1"),
+            (re.compile(r"\bctc_heads\.(\d+)\b"), r"ctc\1"),
             (re.compile(r"\b(layer|conv)s\.(\d+)\b"), r"\1\2"))
 # parameters that are leaves of their own, with the same name on both sides
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",

@@ -7,15 +7,29 @@ dropout, and pre- or post-norm layers, Conformer ones with ``macaron_style`` /
 ``use_cnn_module``.  With ``pds_fusion`` every stage's output is carried to the last
 stage's length by a ``FusionBlock`` and the results are summed with learned or
 fixed weights.  ``pds_final_layers``, the final norm and the top CTC head
-follow.  ``PDSS2TTransformerModel`` puts the port's Transformer decoder on
-top; ``S2TCTCModel`` (``s2t_ctc_pds``) takes the encoder alone.
+follow.
+
+The stage taps of the CTC research stack sit after a stage's last layer:
+inter-CTC (``pds_ctc``: the stage's ``ctc_norm{i}``, then the shared
+``inter_ctc_head`` when every tapped stage has the encoder's width and
+``share_inter_ctc``, else the stage's own head) with its PAE (shared or per
+stage, never after the last stage), and inter-XCTC (``pds_xctc``: always the
+shared ``inter_xctc_head`` and ``xpae``).  A tap records (layer, logits, the
+stage's lengths): it is scored at its own time scale.  The PAE rewrites the
+stream after the stage's output is kept, so the fusion sees it unchanged.  The
+top CTC head is the shared inter head when ``ctc_layer`` is 0; at an inner
+``ctc_layer`` / ``xctc_layer`` (a global layer index) a head with its own
+LayerNorm reads that layer's output, which is then returned as ``ctc_logits`` /
+``xctc_logits`` and scored with the final lengths, as in JAX.
+
+``PDSS2TTransformerModel`` puts the port's Transformer decoder on top;
+``S2TCTCModel`` (``s2t_ctc_pds``) takes the encoder alone.
 
 ``PDSConfig`` keeps the JAX config's field names and defaults.  The branches
 the port does not have raise ``NotImplementedError`` naming the field and the
 ROADMAP.md item that ports it (``check_supported``): attention other than abs
 and rel_pos, in-layer conv strides and a ratio of -1 with the Conv2d
-subsampler or the reference pad semantics (item 7), per-stage inter-CTC /
-XCTC, PAE and a CTC tap below the top (item 8b).
+subsampler or the reference pad semantics (item 7).
 """
 
 from __future__ import annotations
@@ -29,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from s2t_tpu_torch.device import torch_dtype
-from s2t_tpu_torch.models.s2t_transformer import ITEM7, ITEM8B, S2TTransformerModel
+from s2t_tpu_torch.models.s2t_transformer import ITEM7, S2TTransformerModel
+from s2t_tpu_torch.modules.adapter import Adapter
 from s2t_tpu_torch.modules.cast import Conv1d
 from s2t_tpu_torch.modules.ctc_head import CTCHead
 from s2t_tpu_torch.modules.dropout import dropout
@@ -182,6 +197,33 @@ class PDSConfig:
         return parts[1] if len(parts) == 2 else "conv"
 
     @property
+    def ctc_stages(self) -> Tuple[int, ...]:
+        """Stages with an inter-CTC tap (none without ``use_ctc``)."""
+        return tuple(i for i, f in enumerate(self.pds_ctc[:self.pds_stages]) if f) \
+            if self.use_ctc else ()
+
+    @property
+    def xctc_stages(self) -> Tuple[int, ...]:
+        """Stages with an inter-XCTC tap."""
+        return tuple(i for i, f in enumerate(self.pds_xctc[:self.pds_stages]) if f)
+
+    @property
+    def share_ctc(self) -> bool:
+        """The stage taps share one head: every tapped stage has the encoder's width."""
+        return self.share_inter_ctc and len(
+            {self.stage_expand_dim(i) for i in self.ctc_stages} | {self.encoder_embed_dim}) == 1
+
+    def dim_at_layer(self, layer: int) -> int:
+        """Width of the stream after global layer ``layer`` (1-indexed over the stages'
+        layers); past them, the encoder output's."""
+        end = 0
+        for i, n in enumerate(self.pds_layers[:self.pds_stages]):
+            end += n
+            if 1 <= layer <= end:
+                return self.stage_expand_dim(i)
+        return self.out_dim
+
+    @property
     def out_dim(self) -> int:
         """Width of the encoder's output: the fusion's, else the last stage's."""
         return self.encoder_embed_dim if self.fusion_stages else self.stage_expand_dim(
@@ -195,7 +237,9 @@ def _unported(field: str, value, item: str):
 
 def check_supported(cfg: PDSConfig) -> None:
     """Raise NotImplementedError on the first field that selects a branch the
-    port does not have, naming the field and the ROADMAP.md item that ports it."""
+    port does not have, naming the field and the ROADMAP.md item that ports it,
+    and ValueError where a shared stage head or adapter would meet a second
+    width (where flax's shape check fails)."""
     if cfg.encoder_attention_type not in ("abs", "rel_pos"):
         raise _unported("encoder_attention_type", cfg.encoder_attention_type, ITEM7)
     if cfg.pds_conv_strides:
@@ -210,13 +254,24 @@ def check_supported(cfg: PDSConfig) -> None:
         if cfg.subsampling_ref_pad_semantics:
             raise _unported("subsampling_ref_pad_semantics", True,
                             ITEM7 + ", under a pds_ratios entry of -1")
-    for name in ("pds_ctc", "pds_xctc"):
-        if any(getattr(cfg, name)):
-            raise _unported(name, getattr(cfg, name), ITEM8B)
-    for name, off in (("use_xctc", False), ("ctc_pae", "none"), ("xctc_pae", "none"),
-                      ("ctc_layer", 0), ("xctc_layer", 0)):
-        if getattr(cfg, name) != off:
-            raise _unported(name, getattr(cfg, name), ITEM8B)
+    # the shapes flax checks when a shared head or adapter meets a second width
+    xdims = {cfg.stage_expand_dim(i) for i in cfg.xctc_stages}
+    if len(xdims) > 1:
+        raise ValueError(f"pds_xctc taps stages of widths {sorted(xdims)}: their shared "
+                         "inter_xctc_head needs one width")
+    last = cfg.pds_embed_dims[cfg.pds_stages - 1]
+    for flag, stages, pae in (("ctc_pae", cfg.ctc_stages if cfg.share_ctc else (), cfg.ctc_pae),
+                              ("xctc_pae", cfg.xctc_stages, cfg.xctc_pae)):
+        if pae != "none" and any(cfg.stage_expand_dim(i) != last
+                                 for i in stages if i != cfg.pds_stages - 1):
+            raise ValueError(f"a shared {flag} adapter has the last stage's width {last}")
+    if cfg.use_ctc and cfg.ctc_stages and cfg.share_ctc and cfg.ctc_layer == 0 and \
+            cfg.out_dim != cfg.encoder_embed_dim:
+        raise ValueError("the top CTC head tied to the shared inter head needs an encoder "
+                         "output of encoder_embed_dim")
+    if cfg.use_xctc and xdims and cfg.xctc_layer == 0 and xdims != {cfg.out_dim}:
+        raise ValueError("the top XCTC head tied to inter_xctc_head needs the tapped stages' "
+                         "width at the encoder output")
     if cfg.decoder_learned_pos:
         raise _unported("decoder_learned_pos", True, "learned decoder positions")
     if cfg.fusion_stages and cfg.fusion_transform != "conv":
@@ -279,8 +334,11 @@ class FusionBlock(nn.Module):
 
 class PDSEncoder(nn.Module):
     """Returns the JAX encoder's keys: {"encoder_out" (B, T', D), "encoder_lengths"
-    (B,), "ctc_logits" (B, T', V_src) or None, "inter_ctc_logits" (), "xctc_logits"
-    None, "inter_xctc_logits" ()}; the per-stage taps are not ported."""
+    (B,), "ctc_logits" (B, T', V_src) or None, "inter_ctc_logits" ((layer, logits,
+    lengths), ...), "xctc_logits" (B, T', V) or None, "inter_xctc_logits" (...)}.
+    Only the modules a forward calls are built, as flax creates parameters only
+    for those (the tied top heads are the shared inter heads, so they are not
+    built twice)."""
 
     def __init__(self, cfg: PDSConfig):
         super().__init__()
@@ -320,8 +378,37 @@ class PDSEncoder(nn.Module):
                         cfg.stage_cnn_kernel(cfg.pds_stages - 1), cfg.activation_fn)
             for _ in range(cfg.pds_final_layers)])
         self.final_norm = layer_norm(cfg.out_dim) if cfg.encoder_normalize_before else None
-        self.ctc_head = (CTCHead(cfg.out_dim, cfg.ctc_vocab_size, dropout=cfg.dropout)
-                         if cfg.use_ctc else None)
+        n, Vs, drop = cfg.pds_stages, cfg.ctc_vocab_size, cfg.dropout
+
+        def adapter(dim, vocab, kind):
+            return Adapter(dim, vocab, kind, cfg.pae_ctc_temperature, cfg.pae_embed_norm,
+                           cfg.pae_out_norm)
+
+        # the stage taps (s2t_tpu/models/pds.py:350-405)
+        taps, xtaps = cfg.ctc_stages, cfg.xctc_stages
+        self.ctc_norms = nn.ModuleDict({str(i): layer_norm(dims[i]) for i in taps})
+        self.inter_ctc_head = CTCHead(D, Vs, dropout=drop) if taps and cfg.share_ctc else None
+        self.ctc_heads = nn.ModuleDict({} if cfg.share_ctc else {
+            str(i): CTCHead(dims[i], Vs, dropout=drop) for i in taps})
+        pae_stages = [i for i in taps if i != n - 1] if cfg.ctc_pae != "none" else []
+        self.pae = adapter(dims[-1], Vs, cfg.ctc_pae) if pae_stages and cfg.share_ctc else None
+        self.paes = nn.ModuleDict({} if cfg.share_ctc else {
+            str(i): adapter(dims[i], Vs, cfg.ctc_pae) for i in pae_stages})
+        self.xctc_norms = nn.ModuleDict({str(i): layer_norm(dims[i]) for i in xtaps})
+        self.inter_xctc_head = (CTCHead(dims[xtaps[0]], cfg.vocab_size, dropout=drop)
+                                if xtaps else None)
+        self.xpae = (adapter(dims[-1], cfg.vocab_size, cfg.xctc_pae)
+                     if cfg.xctc_pae != "none" and any(i != n - 1 for i in xtaps) else None)
+        # the top heads (:389-405): the shared inter head at ctc_layer 0, else a head of
+        # its own, normed when it reads an inner layer
+        self.ctc_tied = cfg.use_ctc and self.inter_ctc_head is not None and cfg.ctc_layer == 0
+        self.ctc_head = (CTCHead(cfg.dim_at_layer(cfg.ctc_layer), Vs, dropout=drop,
+                                 norm=cfg.ctc_layer != 0)
+                         if cfg.use_ctc and not self.ctc_tied else None)
+        self.xctc_tied = cfg.use_xctc and self.inter_xctc_head is not None and cfg.xctc_layer == 0
+        self.xctc_head = (CTCHead(cfg.dim_at_layer(cfg.xctc_layer), cfg.vocab_size,
+                                  dropout=drop, norm=cfg.xctc_layer != 0)
+                          if cfg.use_xctc and not self.xctc_tied else None)
 
     def _layer(self, dim: int, ffn_ratio: int, heads: int, cnn_kernel: int, conv_act: str):
         cfg = self.cfg
@@ -331,6 +418,13 @@ class PDSEncoder(nn.Module):
                                cfg.macaron_style, cfg.use_cnn_module, cnn_kernel,
                                conv_activation=conv_act, conv_norm_type=cfg.cnn_module_norm,
                                conv_bias=cfg.conv_module_bias)
+
+    def _top_ctc(self, x, generator):
+        return (self.inter_ctc_head if self.ctc_tied else self.ctc_head)(x, generator=generator)
+
+    def _top_xctc(self, x, generator):
+        return (self.inter_xctc_head if self.xctc_tied else self.xctc_head)(x,
+                                                                            generator=generator)
 
     def _positions(self, x: torch.Tensor):
         """(x, None) with the fairseq pad-aware table at this length and width added
@@ -351,7 +445,9 @@ class PDSEncoder(nn.Module):
             # every stage conv sees a length its ratio divides
             x = F.pad(x, (0, 0, 0, mult - x.shape[1] % mult))
         stage_drop = cfg.dropout if cfg.pds_dropout < 0 else cfg.pds_dropout
-        stage_outs = []
+        stage_outs, inter_ctc, inter_xctc = [], [], []
+        ctc_logits = xctc_logits = None
+        layer_idx = 0
         for i in range(cfg.pds_stages):
             x, lengths = self.downsamplers[i](x, lengths)
             pos_emb = None
@@ -361,7 +457,28 @@ class PDSEncoder(nn.Module):
             valid = lengths_to_mask(lengths, x.shape[1])
             for layer in self.stages[i]:
                 x = layer(x, valid, generator=generator, pos_emb=pos_emb)
+                layer_idx += 1
+                # the global-layer heads (s2t_tpu/models/pds.py:549-552)
+                if cfg.use_ctc and cfg.ctc_layer == layer_idx:
+                    ctc_logits = self._top_ctc(x, generator)
+                if cfg.use_xctc and cfg.xctc_layer == layer_idx:
+                    xctc_logits = self._top_xctc(x, generator)
             stage_outs.append((x, lengths))
+            key = str(i)
+            if key in self.ctc_norms:  # the stage taps and their PAE (:557-574)
+                h = self.ctc_norms[key](x)
+                head = self.ctc_heads[key] if key in self.ctc_heads else self.inter_ctc_head
+                logits = head(h, generator=generator)
+                inter_ctc.append((layer_idx, logits, lengths))
+                pae = self.paes[key] if key in self.paes else self.pae
+                if pae is not None and i != cfg.pds_stages - 1:
+                    x = pae(x if cfg.pae_unnorm_input else h, logits)
+            if key in self.xctc_norms:
+                h = self.xctc_norms[key](x)
+                logits = self.inter_xctc_head(h, generator=generator)
+                inter_xctc.append((layer_idx, logits, lengths))
+                if self.xpae is not None and i != cfg.pds_stages - 1:
+                    x = self.xpae(x if cfg.pae_unnorm_input else h, logits)
 
         fusion = cfg.fusion_stages
         if fusion:
@@ -386,9 +503,13 @@ class PDSEncoder(nn.Module):
                 x = layer(x, valid, generator=generator, pos_emb=pos_emb)
         if self.final_norm is not None:
             x = self.final_norm(x)
-        ctc_logits = None if self.ctc_head is None else self.ctc_head(x, generator=generator)
+        if cfg.use_ctc and ctc_logits is None:
+            ctc_logits = self._top_ctc(x, generator)
+        if cfg.use_xctc and xctc_logits is None:
+            xctc_logits = self._top_xctc(x, generator)
         return {"encoder_out": x, "encoder_lengths": lengths, "ctc_logits": ctc_logits,
-                "inter_ctc_logits": (), "xctc_logits": None, "inter_xctc_logits": ()}
+                "inter_ctc_logits": tuple(inter_ctc), "xctc_logits": xctc_logits,
+                "inter_xctc_logits": tuple(inter_xctc)}
 
 
 @register_model("pdss2t_transformer")

@@ -198,7 +198,6 @@ _PORTED_FIELDS = frozenset({
     "inter_mixup", "layer_out_norm",
 })
 ITEM7 = "ROADMAP.md section 1 item 7 (conformer and encoder variants)"
-ITEM8B = "ROADMAP.md section 1 item 8b (the rest of the CTC research stack)"
 ITEM12 = "ROADMAP.md section 1 item 12 (parallelism)"
 # the ROADMAP.md item that ports each unported field
 _FIELD_ITEMS = {
@@ -305,8 +304,9 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
         model.requires_grad_(False)
 
 
-# the streams of the host draws, beside the step's generator seed
-MIXUP_STREAM, ORACLE_STREAM = 1, 2
+# the streams of the host draws, beside the step's generator seed (drop-net's:
+# sate.CrossStreamTextLayer)
+MIXUP_STREAM, ORACLE_STREAM, DROPNET_STREAM = 1, 2, 3
 
 
 def draw_mixup(B: int, cfg: S2TTransformerConfig, seed: int,

@@ -1,5 +1,6 @@
-"""CTC loss over a lattice of S = 2U + 1 states, the Viterbi best alignment and
-greedy CTC decoding (counterpart of s2t_tpu/ops/ctc.py:29-302, :344-420 and :423-446).
+"""CTC loss over a lattice of S = 2U + 1 states, the imputer loss over a lattice
+constrained to given states, the Viterbi best alignment and greedy CTC decoding
+(counterpart of s2t_tpu/ops/ctc.py:29-340, :344-420 and :423-446).
 
 The emission gather stays plain PyTorch, as the JAX package leaves it to XLA;
 the lattice recurrences run in ``ops/ctc_cuda.py`` (CUDA kernels K3/K4 on the
@@ -8,14 +9,20 @@ The JAX head-input gather (``fused_head`` / ``return_fused``, :130-162) is not
 ported: gathering the same emissions from the logits is the same math
 (``_lattice_logp`` :38-64).  ``ctc_best_alignment`` is a ``lax.scan`` outside any
 Pallas kernel in JAX, so its counterpart is a plain PyTorch loop over T on
-every device.
+every device.  JAX computes ``imputer_loss`` with its own ``lax.scan``
+(``ctc_forward_alphas(force_emits=)``, which the Pallas CTC kernel does not
+take); here the imputer's constraint is folded into the emissions (every
+state but the forced one emits NEG_INF), so the constrained lattice runs
+through K3/K4 as ``ctc_loss`` does.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from s2t_tpu_torch.ops.ctc_cuda import NEG_INF, ctc_nll
+from s2t_tpu_torch.ops.ctc_cuda import NEG_INF, ctc_alpha_plain, ctc_nll
 
 
 def _extend_labels(labels: torch.Tensor, blank_id: int) -> torch.Tensor:
@@ -47,20 +54,24 @@ def _lattice_logp(log_probs: torch.Tensor, ext_labels: torch.Tensor,
     return emit
 
 
-def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch.Tensor,
-             label_lengths: torch.Tensor, blank_id: int = 0, reduction: str = "sum",
-             zero_infinity: bool = True, normalized: bool = True) -> torch.Tensor:
-    """Negative log-likelihood CTC loss (torch.nn.functional.ctc_loss semantics).
+def _constrain(emit: torch.Tensor, force_emits: torch.Tensor) -> torch.Tensor:
+    """The imputer's constraint on (B, T, S) emissions: at frame t a row with
+    force_emits (B, T) >= 0 keeps only that lattice state, and every other state
+    emits NEG_INF.  The alphas are then JAX's ``where(keep, new, NEG_INF)``
+    (s2t_tpu/ops/ctc.py:209-233) and the masked states get no gradient."""
+    f = force_emits.to(emit.device).long()[:, :, None]
+    state = torch.arange(emit.shape[2], device=emit.device)
+    return torch.where((f < 0) | (state == f), emit, NEG_INF)
 
-    log_probs: (B, T, V) log-softmax outputs, or raw logits with
-    ``normalized=False``; labels: (B, U) padded arbitrarily past
-    label_lengths; input_lengths, label_lengths: (B,).  ``zero_infinity``
-    zeroes infeasible rows (nll > 5e29, non-finite, or fewer frames than
-    labels); rows with zero frames always give 0."""
+
+def _lattice_loss(log_probs, labels, input_lengths, label_lengths, blank_id, reduction,
+                  zero_infinity, normalized, force_emits):
     if reduction not in ("sum", "mean", "none"):
         raise ValueError(f"reduction {reduction!r} not in ('sum', 'mean', 'none')")
-    ext = _extend_labels(labels, blank_id)
+    ext = _extend_labels(labels.long(), blank_id)
     emit = _lattice_logp(log_probs, ext, normalized)
+    if force_emits is not None:
+        emit = _constrain(emit, force_emits)
     skip_ok = _transition_mask(ext, blank_id)
     label_lengths = label_lengths.long()
     nll = ctc_nll(emit, skip_ok, input_lengths, 2 * label_lengths - 1, 2 * label_lengths)
@@ -73,6 +84,49 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch
     if reduction == "mean":
         return (nll / label_lengths.clamp(min=1)).mean()
     return nll
+
+
+def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch.Tensor,
+             label_lengths: torch.Tensor, blank_id: int = 0, reduction: str = "sum",
+             zero_infinity: bool = True, normalized: bool = True) -> torch.Tensor:
+    """Negative log-likelihood CTC loss (torch.nn.functional.ctc_loss semantics).
+
+    log_probs: (B, T, V) log-softmax outputs, or raw logits with
+    ``normalized=False``; labels: (B, U) padded arbitrarily past
+    label_lengths; input_lengths, label_lengths: (B,).  ``zero_infinity``
+    zeroes infeasible rows (nll > 5e29, non-finite, or fewer frames than
+    labels); rows with zero frames always give 0."""
+    return _lattice_loss(log_probs, labels, input_lengths, label_lengths, blank_id, reduction,
+                         zero_infinity, normalized, None)
+
+
+def ctc_forward_alphas(log_probs: torch.Tensor, labels: torch.Tensor,
+                       input_lengths: torch.Tensor, blank_id: int = 0,
+                       force_emits: Optional[torch.Tensor] = None, normalized: bool = True):
+    """The alpha recurrence in log space (s2t_tpu/ops/ctc.py:184-240): (final alpha
+    (B, S) f32, extended labels (B, S)).  ``force_emits`` (B, T) int: at frame t
+    a row with force_emits >= 0 keeps only that lattice state (the imputer's
+    constraint).  Frames at or past a row's length carry alpha unchanged.  The
+    plain alpha recurrence on every device, differentiable by autograd; states
+    no path reaches read NEG_INF, as JAX's."""
+    ext = _extend_labels(labels.long(), blank_id)
+    emit = _lattice_logp(log_probs, ext, normalized)
+    if force_emits is not None:
+        emit = _constrain(emit, force_emits)
+    skip = torch.where(_transition_mask(ext, blank_id), 0.0, NEG_INF)
+    alphas = ctc_alpha_plain(emit.transpose(0, 1), skip, input_lengths.to(emit.device))
+    return alphas[-1].clamp(min=NEG_INF), ext
+
+
+def imputer_loss(log_probs: torch.Tensor, labels: torch.Tensor, force_emits: torch.Tensor,
+                 input_lengths: torch.Tensor, label_lengths: torch.Tensor, blank_id: int = 0,
+                 reduction: str = "sum", zero_infinity: bool = True) -> torch.Tensor:
+    """CTC loss over the lattice constrained to ``force_emits`` (B, T) states where
+    >= 0 (s2t_tpu/ops/ctc.py:305-340, torch_imputer's ``imputer_loss``); with no
+    state forced it is the CTC loss.  log_probs: (B, T, V) log-softmax outputs.
+    ``zero_infinity`` and the rows of zero frames as in ``ctc_loss``."""
+    return _lattice_loss(log_probs, labels, input_lengths, label_lengths, blank_id, reduction,
+                         zero_infinity, True, force_emits)
 
 
 def ctc_best_alignment(log_probs: torch.Tensor, labels: torch.Tensor,

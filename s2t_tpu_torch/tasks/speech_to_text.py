@@ -15,16 +15,20 @@ target when the model's config sets a ground-truth ratio, and the step count
 
 An encoder-only model (``decoder_layers == 0``) decodes through
 ``CTCGenerator`` (greedy, or the prefix beam for ``generation.beam`` > 1; the
-XCTC head's logits when the model has one), an encoder-decoder through
-``SequenceGenerator``.  What the port does not have raises
+XCTC head's logits when the model's config sets ``use_xctc``: a SATE config has
+no such field, so ``s2t_ctc_sate`` decodes its acoustic CTC head, as in JAX), an
+encoder-decoder through ``SequenceGenerator``, or ``JacobiGenerator`` under
+``generation.jacobi`` (unless ``no_repeat_ngram_size`` > 0: then, with a
+warning, the sequential engine).  What the port does not have raises
 ``NotImplementedError`` naming it: comma-separated multilingual splits,
-latency-augmented attention capture, the CTC n-gram LM, Jacobi generation, and
+latency-augmented attention capture, the CTC n-gram LM, and
 decoding a ``use_audio_input`` split (the JAX generator feeds such a batch's
 waveforms to the encoder without an fbank, ROADMAP.md section 3).
 """
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 from typing import Optional
 
@@ -36,6 +40,7 @@ from s2t_tpu_torch.data.dataset import S2TDataConfig, SpeechToTextDataset
 from s2t_tpu_torch.data.dictionary import Dictionary
 from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
 from s2t_tpu_torch.inference.generator import SequenceGenerator
+from s2t_tpu_torch.inference.jacobi import JacobiGenerator
 from s2t_tpu_torch.ops.fbank_cuda import fbank
 from s2t_tpu_torch.registry import register_task
 from s2t_tpu_torch.tasks.base import Task
@@ -167,8 +172,17 @@ class SpeechToTextTask(Task):
                              intermediate_logit=g.ctc_inter_logit)
             return CTCGenerator(model, dec, use_xctc=getattr(model.cfg, "use_xctc", False))
         if g.jacobi:
-            raise NotImplementedError("generation.jacobi (JacobiGenerator) is not ported to "
-                                      "s2t_tpu_torch")
+            if g.no_repeat_ngram_size > 0:
+                # n-gram blocking has no parallel form: the sequential engine keeps it
+                logging.getLogger("s2t_tpu_torch").warning(
+                    "generation.jacobi ignored: no_repeat_ngram_size > 0 requires the "
+                    "sequential beam engine")
+            else:
+                return JacobiGenerator(
+                    model, max_len_a=g.max_len_a, max_len_b=g.max_len_b,
+                    max_target_positions=self.cfg.dataset.max_target_positions,
+                    min_len=g.min_len, lenpen=g.lenpen, eos_id=self.tgt_dict.eos(),
+                    pad_id=self.tgt_dict.pad())
         return SequenceGenerator(
             model,
             beam_size=g.beam,

@@ -15,10 +15,9 @@ the CPU, and the census of the recipes that use the CTC research stack.
   validation losses (rtol 1e-4) and T-/H-/D- lines;
 * the recipe census: each of the 50 ``egs/**/*.yaml`` that sets a field or a
   criterion weight of the CTC research stack resolves to the JAX preset's
-  fields and the JAX criterion's config, and either builds at a tiny depth
-  (its taps kept) and runs a forward, or raises ``NotImplementedError`` naming
-  item 8b; 43 build (the four PDS recipes among them set ``pds_ctc`` to zeros)
-  and 7 raise.
+  fields and the JAX criterion's config, builds at a tiny depth (its taps, its
+  textual taps and cross layers kept) and runs a forward with as many taps of
+  each kind as the config places.
 """
 
 import dataclasses
@@ -50,6 +49,8 @@ from s2t_tpu_torch.interop.from_flax import load_flax_params, state_dict_to_flax
 from s2t_tpu_torch.models import s2t_ctc as tctc
 from s2t_tpu_torch.models import s2t_transformer as tst
 from s2t_tpu_torch.models.build import build_model
+from s2t_tpu_torch.models.pds import PDSConfig
+from s2t_tpu_torch.models.sate import CrossStreamTextLayer, SATEConfig
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
 from s2t_tpu_torch.trainer import Trainer
 from tests.test_torch_conformer import cli_round_trip, rng_batch
@@ -247,14 +248,6 @@ STACK_WEIGHTS = {
     "inter_ctc_mixup_consistent_weight", "inter_ctc_mlo", "mixup_consistent_weight",
     "cal_mixup_loss"}
 TAP_FIELDS = ("inter_ctc_layers", "inter_xctc_layers", "inter_axctc_layers", "compression_layers")
-# SATE's textual XCTC / PAE / oracle and the CTC-Aug cross-attention (item 8b); the four
-# PDS recipes that set pds_ctc set it to all zeros, so they build
-REFUSED = {f"egs/mustc/st/conf/{n}.yaml" for n in (
-    "ctc_aug_base", "ctc_aug_big", "ctc_aug_pds_big", "nast_pds_big",
-    "reproduction_bil_ctc_progressive", "reproduction_bil_ctc_progressive2",
-    "reproduction_ctc_aug")}
-
-
 def _leaves(d, prefix=""):
     for k, v in (d or {}).items():
         if isinstance(v, dict):
@@ -282,12 +275,20 @@ def stack_recipes():
 
 def _tiny(arch, model, cfg):
     """The recipe at its shallowest depth that keeps every tap of its resolved config
-    ``cfg`` (one layer past the deepest), one decoder / textual layer."""
+    ``cfg`` (one layer past the deepest), one decoder layer; SATE's textual layers up to
+    one past its deepest tap, first cross layer and snapshot, and a PDS acoustic
+    encoder's stages at one layer each."""
     enc = getattr(cfg, "acoustic", cfg)
     deepest = max([1] + [max(getattr(enc, f, ()) or (0,)) for f in TAP_FIELDS])
     if arch.startswith("s2t_sate") or arch == "s2t_ctc_sate":
-        return {**model, "acoustic_encoder_layers": deepest + 1, "text_encoder_layers": 1,
-                "acoustic_decoder_layers": 1}
+        # the textual layers up to one past the deepest tap, the first cross layer and
+        # the snapshot
+        text = max([1] + [l + 1 for l in cfg.inter_xctc_layers] + (
+            [cfg.cross_attn_start_layer, cfg.cross_attn_layer + 1] if cfg.xctc_cross_attn
+            else []))
+        pds = {"pds_layers": (1,) * cfg.pds.pds_stages} if cfg.pds is not None else {}
+        return {**model, "acoustic_encoder_layers": deepest + 1, "text_encoder_layers": text,
+                **pds, **({} if arch == "s2t_ctc_sate" else {"acoustic_decoder_layers": 1})}
     if "pds" in arch:
         return {**model, "decoder_layers": 1}
     return {**model, "encoder_layers": deepest + 1,
@@ -303,34 +304,45 @@ def _same_fields(want, got, where):
             assert g == w, (where, f.name)
 
 
+def _inter_ctc_taps(cfg):
+    """Inter-CTC taps a forward returns: the acoustic encoder's (SATE) or the model's,
+    a PDS encoder's by stage."""
+    if isinstance(cfg, SATEConfig):
+        cfg = cfg.pds if cfg.acoustic_encoder == "pds" else cfg.acoustic
+    if isinstance(cfg, PDSConfig):
+        return len(cfg.ctc_stages)
+    return len({l for l in cfg.inter_ctc_layers if 1 <= l < cfg.encoder_layers}) \
+        if cfg.use_ctc else 0
+
+
 def test_every_stack_recipe_builds_or_raises_by_item():
     from s2t_tpu.registry import ARCHS as JAX_ARCHS
     from s2t_tpu_torch.registry import ARCHS
 
     _jax_archs()
     recipes = stack_recipes()
-    built, refused = [], {}
+    built = []
     for path, (arch, model, criterion, crit_cfg) in recipes.items():
         cfg = ARCHS.get(arch)[1](**model)
         _same_fields(JAX_ARCHS.get(arch)[1](**model), cfg, path)
         _same_fields(jax_build_criterion(criterion, crit_cfg).cfg,
                      build_criterion(criterion, crit_cfg).cfg, path)
-        try:
-            m = build_model(arch, _tiny(arch, model, cfg), device="cpu", vocab_size=V)
-        except NotImplementedError as e:
-            refused[path] = str(e)
-            continue
+        m = build_model(arch, _tiny(arch, model, cfg), device="cpu", vocab_size=V)
         with torch.no_grad():
             out = m(torch.randn(2, 48, 80), torch.tensor([48, 30]), torch.full((2, 3), 2))
         assert torch.isfinite(out["encoder_out"]).all(), path
-        enc_cfg = getattr(m.cfg, "acoustic", m.cfg)
-        taps = set(getattr(enc_cfg, "inter_ctc_layers", ()))  # PDS stage taps: item 8b
-        assert len(out["inter_ctc_logits"]) == len(taps), path
         built.append(path)
-    assert set(refused) == REFUSED, sorted(refused)
-    for path, msg in refused.items():
-        assert "item 8b" in msg and "Config." in msg, (path, msg)
-    assert len(recipes) == 50 and len(built) == 43 and len(refused) == 7
+        assert len(out["inter_ctc_logits"]) == _inter_ctc_taps(m.cfg), path
+        if isinstance(m.cfg, SATEConfig):  # the textual taps and cross layers
+            text = m.cfg.text_encoder_layers
+            assert len(out["inter_xctc_logits"]) == len(
+                {l for l in m.cfg.inter_xctc_layers if 1 <= l < text}), path
+            cross = [l for l in m.encoder.textual.layers
+                     if isinstance(l, CrossStreamTextLayer) and l.s2_attn is not None]
+            assert bool(cross) == m.cfg.xctc_cross_attn, path
+            if m.cfg.text_use_xctc or m.cfg.inter_xctc_layers:
+                assert out["xctc_logits"].shape[-1] == V, path
+    assert len(recipes) == 50 and len(built) == 50
 
 
 def test_chip_smoke_carries_the_stack_recipes():

@@ -255,13 +255,6 @@ def test_loss_and_grads_match_jax(arch, criterion):
     ("pds_conv_strides", (1, 2, 1), "item 7"),
     ("pds_ratios", (-1, 1, 2), "subsampling_ref_pad_semantics"),
     ("subsampling_type", "conv2d", "item 7"),
-    ("pds_ctc", (1, 0, 0), "item 8"),
-    ("pds_xctc", (0, 1, 0), "item 8"),
-    ("use_xctc", True, "item 8"),
-    ("ctc_pae", "inter_league", "item 8"),
-    ("xctc_pae", "inter_league", "item 8"),
-    ("ctc_layer", 2, "item 8"),
-    ("xctc_layer", 2, "item 8"),
     ("pds_fusion_method", "all_pool", "only 'conv'"),
 ])
 def test_unported_branches_raise_by_name(field, value, names):
@@ -275,6 +268,31 @@ def test_unported_branches_raise_by_name(field, value, names):
     assert names in str(e.value)
     if field not in ("pds_ratios", "pds_fusion_method"):
         assert f"PDSConfig.{field}=" in str(e.value)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("pds_ctc", (1, 0, 0)), ("pds_xctc", (0, 1, 0)), ("use_xctc", True),
+    ("ctc_pae", "inter_league"), ("xctc_pae", "inter_league"), ("ctc_layer", 2),
+    ("xctc_layer", 2)])
+def test_stage_tap_fields_build_and_run(field, value):
+    """The CTC research stack's PDS fields build and run a forward (their parity with
+    JAX is tests/test_torch_pds_taps.py's); a PAE with no tap and an XCTC layer with no
+    XCTC head are inert, as in JAX."""
+    m = build_model("pdss2t_transformer_s_8", {**TINY, field: value}, device="cpu")
+    with torch.no_grad():
+        out = m(torch.randn(2, 61, 80), torch.tensor([61, 40]), torch.full((2, 3), 2))
+    assert torch.isfinite(out["encoder_out"]).all()
+    # T = 61 pads to 64; stages 0 and 1 (ratios 2, 1) run at 32 frames, lengths 31 and 20
+    taps = {"pds_ctc": ("inter_ctc_logits", 1), "pds_xctc": ("inter_xctc_logits", 2)}
+    if field in taps:  # (layer, logits at the stage's length, the stage's lengths)
+        key, layer = taps[field]
+        ((got_layer, logits, lengths),) = out[key]
+        assert got_layer == layer and logits.shape[1] == 32 and lengths.tolist() == [31, 20]
+    else:
+        assert out["inter_ctc_logits"] == () and out["inter_xctc_logits"] == ()
+    assert (out["xctc_logits"] is not None) == (field == "use_xctc")
+    if field == "ctc_layer":  # the normed head reads stage 1's output
+        assert out["ctc_logits"].shape[1] == 32 and m.encoder.ctc_head.norm is not None
 
 
 def test_ratio_minus_one_takes_the_conv1d_subsampler():

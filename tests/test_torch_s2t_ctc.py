@@ -125,8 +125,13 @@ def test_ctc_criterion_loss_and_grads_match_jax(variant):
 
 
 def test_unported_presets_and_encoders_raise():
-    with pytest.raises(NotImplementedError, match="pds_xctc"):
-        build_model("s2t_ctc_pds", dict(vocab_size=32, pds_xctc=(0, 1, 0, 0)), device="cpu")
+    with pytest.raises(NotImplementedError, match="pds_conv_strides"):
+        build_model("s2t_ctc_pds", dict(vocab_size=32, pds_conv_strides=(1, 2, 1, 1)),
+                    device="cpu")
+    # the PDS stage taps are ported (tests/test_torch_pds_taps.py)
+    taps = build_model("s2t_ctc_pds", dict(vocab_size=32, pds_layers=(1, 1, 1, 1),
+                                           pds_xctc=(0, 1, 0, 0)), device="cpu")
+    assert set(taps.encoder.xctc_norms) == {"1"}
     with pytest.raises(TypeError, match="SATEConfig"):
         tctc.S2TCTCModel(object(), device="cpu")
     # the SATE encoder is ported (tests/test_torch_sate.py): its preset builds an encoder-only model

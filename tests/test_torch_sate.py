@@ -25,13 +25,15 @@ T = 40 with lengths (40, 33, 21, 1).
 * the textual encoder takes the fused-attention path: one call per acoustic and
   textual layer an encode;
 * ``s2t_ctc_sate``: greedy and prefix-beam tokens identical;
-* ``from_flax`` both ways; the unported SATE fields raise by name;
+* ``from_flax`` both ways; the unported SATE fields raise by name, and the
+  textual CTC research stack's fields build and run a forward;
 * the registry: every JAX architecture is registered in the port, and each
   unported one raises ``NotImplementedError`` naming its ROADMAP.md item;
 * the recipe census: every ``egs/**/*.yaml`` that names a SATE or Conformer
   arch or sets rel_pos / macaron_style / use_cnn_module resolves to the JAX
-  preset's fields and builds at a tiny depth, or raises naming an item-7 or
-  item-8b field;
+  preset's fields and builds at a tiny depth (36, the CTC-Aug and BiL-CTC
+  progressive recipes among them), or raises naming an item-7 field (the two
+  EffecientConformer recipes);
 * ``cli.train`` (2 epochs from raw audio, one flax init) and ``cli.generate`` of
   a SATE config give the JAX CLIs' validation losses (rtol 1e-4) and
   T-/H-/D- lines.
@@ -168,8 +170,9 @@ def test_textual_encoder_zero_length_row_matches_jax_dense():
     params = perturb(flax_init(jm, x, lens))
     want, _, _ = jm.apply({"params": params}, x, lens)
     tm = load_module(tsate.TextualEncoder(tsate.s2t_sate_s(**kw)), params)
-    with torch.no_grad():
-        got = tm(torch.from_numpy(x), torch.from_numpy(lens).long())
+    with torch.no_grad():  # (x, XCTC logits, inter-XCTC taps), as JAX's
+        got, xctc, taps = tm(torch.from_numpy(x), torch.from_numpy(lens).long())
+    assert xctc is None and taps == ()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
@@ -298,15 +301,31 @@ def test_s2t_ctc_sate_tokens_identical(beam):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("text_use_xctc", True, "item 8"), ("inter_xctc_layers", (1,), "item 8"),
-    ("xctc_pae", "inter_league", "item 8"), ("xctc_cross_attn", True, "item 8"),
-    ("xctc_pae_ground_truth_ratio", 0.1, "item 8"), ("text_attention_type", "rope", "item 7"),
-    ("acoustic_use_enc_dlcl", True, "item 7"),
+    ("text_attention_type", "rope", "item 7"), ("acoustic_use_enc_dlcl", True, "item 7"),
 ])
 def test_unported_sate_fields_raise_by_name(field, value, item):
     with pytest.raises(NotImplementedError, match=item) as e:
         build_model("s2t_sate_s", {**SATE, field: value}, device="cpu")
     assert field.replace("acoustic_", "") + "=" in str(e.value)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("text_use_xctc", True), ("inter_xctc_layers", (1,)), ("xctc_pae", "inter_league"),
+    ("xctc_cross_attn", True), ("xctc_pae_ground_truth_ratio", 0.1)])
+def test_ctc_stack_sate_fields_build_and_run(field, value):
+    """The textual CTC research stack's fields build and run a forward (their parity with
+    JAX is tests/test_torch_ctc_aug.py's); with one textual layer a tap there is skipped,
+    a PAE with no tap, a cross-attention with no cross layer and an oracle ratio with no
+    PAE are inert, as in JAX."""
+    m = build_model("s2t_sate_s", {**SATE, field: value}, device="cpu")
+    feats, lens = rng_batch(0)
+    with torch.no_grad():
+        out = m(torch.from_numpy(feats), torch.from_numpy(lens).long(), torch.full((4, 3), 2))
+    assert torch.isfinite(out["encoder_out"]).all() and out["inter_xctc_logits"] == ()
+    xctc = field in ("text_use_xctc", "inter_xctc_layers")
+    assert (out["xctc_logits"] is not None) == xctc
+    if xctc:
+        assert out["xctc_logits"].shape[-1] == 32
 
 
 # --------------------------------------------------------------------------- #
@@ -341,15 +360,12 @@ def test_every_jax_arch_is_registered_and_each_unported_one_raises_by_item():
 # the recipe census
 SATE_BUILDS = {f"egs/mustc/st/conf/{n}.yaml" for n in (
     "sate", "sate_deep", "sate_big", "reproduction_sate", "sate_pds_8", "sate_pds_8_444",
-    "sate_pds_16", "sate_pds_base_8", "sate_pds_deep_8", "sate_big_pds")}
+    "sate_pds_16", "sate_pds_base_8", "sate_pds_deep_8", "sate_big_pds",
+    # the textual CTC research stack and CTC-Aug
+    "ctc_aug_base", "ctc_aug_big", "ctc_aug_pds_big", "nast_pds_big",
+    "reproduction_bil_ctc_progressive", "reproduction_bil_ctc_progressive2",
+    "reproduction_ctc_aug")}
 REFUSED = {  # recipe -> what its first unported field names
-    "egs/mustc/st/conf/ctc_aug_base.yaml": "item 8b",
-    "egs/mustc/st/conf/ctc_aug_big.yaml": "item 8b",
-    "egs/mustc/st/conf/ctc_aug_pds_big.yaml": "item 8b",
-    "egs/mustc/st/conf/nast_pds_big.yaml": "item 8b",
-    "egs/mustc/st/conf/reproduction_bil_ctc_progressive.yaml": "item 8b",
-    "egs/mustc/st/conf/reproduction_bil_ctc_progressive2.yaml": "item 8b",
-    "egs/mustc/st/conf/reproduction_ctc_aug.yaml": "item 8b",
     "egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml": "item 7",
     "egs/librispeech/asr/conf/EffecientConformerCTCMedium.yaml": "item 7",
 }
@@ -422,7 +438,7 @@ def test_every_sate_and_conformer_recipe_builds_or_raises_by_name():
     assert set(refused) == set(REFUSED), refused
     for path, msg in refused.items():
         assert REFUSED[path] in msg and "Config." in msg, (path, msg)
-    assert len(recipes) == len(built) + len(refused) == 38 and len(built) == 29
+    assert len(recipes) == len(built) + len(refused) == 38 and len(built) == 36
 
 
 # --------------------------------------------------------------------------- #
