@@ -1,5 +1,5 @@
-"""Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer and CTC
-research-stack slices on one NVIDIA H100.
+"""Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer, CTC
+research-stack and encoder-variant slices on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -150,14 +150,27 @@ Phases (any failure ends the run with a non-zero exit):
  27. pds taps pds_base_8_444.yaml with every stage tap (pds_ctc, pds_xctc, both PAEs, XCTC
              on the output) trained fp32 card vs CPU at ctc_layer 0 and 8; imputer_loss
              and its gradient card vs CPU; Jacobi decoding against beam 1 on the card;
+ 28. variants dlcl.yaml (DLCL), relative.yaml (s2t_transformer_s_relative: Shaw relative
+             keys in the encoder, clip 100, and the decoder, clip 20), local_attn.yaml
+             (Gaussian local attention), dynamic.yaml (s2t_dynamic_transformer_s) and
+             rope on s2t_transformer_s at full s width: fp32 beam-5 tokens card vs CPU,
+             the device ms of the self-attention sublayers (dense, convolving or fused)
+             in a bf16 64 x 1000-frame encode, 3 fp32 Trainer steps card vs CPU; K1f /
+             K1b 12 an encode / a step under DLCL and rope, none in the dense and
+             convolving variants;
+ 29. efficient EffecientConformerCTCSmall.yaml (s2t_ctc_pds with in-layer strided,
+             widening conv modules behind a Conv2d subsampler) as phase 13 with each
+             stage's device ms, and one fp32 Trainer step card vs CPU;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
-it: serving (phases 5-6, 13, 16-17, 19, 21-23, 25-27) launches K1f once per encoder
-layer that attends with the fused kernel and encode (a PDS encoder: every stage's
-layers; SATE: the acoustic and the textual layers, and a cross-stream layer's
-s2-attention; a rel_pos layer attends densely and launches none); a training
-step (phases 7-8, 14, 15, 18, 20-27) launches K1f and K1b once per such layer,
+it: serving (phases 5-6, 13, 16-17, 19, 21-23, 25-29) launches K1f once per encoder
+layer that attends with the fused kernel and encode (abs or rope under a padding
+mask; a PDS encoder: every stage's layers; SATE: the acoustic and the textual
+layers, and a cross-stream layer's s2-attention; a rel_pos, Shaw-relative or
+Gaussian layer attends densely and a lightweight or dynamic one convolves: they
+launch none); a training step (phases 7-8, 14, 15, 18, 20-29) launches K1f and K1b
+once per such layer,
 K3 and K4 once per CTC term (once without the stack; phase 22 5, 23 4, 24 10:
 mixup runs each term twice; 25 5, 26 2, 27 7); a
 raw-audio forward (phases 11, 20, 21, 24, train or valid) adds K5 once; decoding
@@ -205,6 +218,7 @@ from s2t_tpu_torch.ops.ctc import _extend_labels, _lattice_logp, _transition_mas
 from s2t_tpu_torch.ops.ctc_cuda import (
     NEG_INF, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, ctc_chain_floor)
 from s2t_tpu_torch.ops.fbank_cuda import fbank, mel_bin_ranges
+from s2t_tpu_torch.registry import ARCHS
 from s2t_tpu_torch.trainer import Trainer
 from s2t_tpu_torch.utils.flops import s2t_train_flops
 from s2t_tpu_torch.utils.masking import lengths_to_mask
@@ -263,9 +277,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the attention types that take K1f / K1b under a padding mask (the JAX module's
+# condition, s2t_tpu/modules/attention.py:264-269), written here and not read from the
+# port, so that the expected launches do not follow a fault in the port's routing
+KERNEL_ATTENTION_TYPES = ("abs", "rope")
+
+
 def encoder_layers(cfg) -> int:
     """Encoder self-attention layers that run the fused kernel: K1f's launches per
-    encode, K1b's per step (a rel_pos layer attends densely and launches neither)."""
+    encode, K1b's per step (a dense layer launches neither; neither does a windowed or
+    reduced abs / rope layer, which carries a bias or fewer keys)."""
     if isinstance(cfg, SATEConfig):
         acoustic = cfg.pds if cfg.acoustic_encoder == "pds" else cfg.acoustic
         # CTC-Aug's cross layers attend with abs attention whatever text_attention_type
@@ -273,13 +294,16 @@ def encoder_layers(cfg) -> int:
         cross = cfg.cross_attn_start_layer if cfg.xctc_cross_attn and \
             cfg.cross_attn_start_layer > 0 else cfg.text_encoder_layers + 1
         snap = cfg.cross_attn_layer if cross <= cfg.text_encoder_layers else 0
-        text = sum(1 + int(0 < snap < i) if i >= cross else int(cfg.text_attention_type == "abs")
+        text = sum(1 + int(0 < snap < i) if i >= cross
+                   else int(cfg.text_attention_type in KERNEL_ATTENTION_TYPES)
                    for i in range(1, cfg.text_encoder_layers + 1))
         return encoder_layers(acoustic) + text
-    if cfg.encoder_attention_type != "abs":
+    if cfg.encoder_attention_type not in KERNEL_ATTENTION_TYPES:
         return 0
     if isinstance(cfg, PDSConfig):
         return sum(cfg.pds_layers) + cfg.pds_final_layers
+    if cfg.encoder_attention_window > 0 or cfg.encoder_attention_stride > 1:
+        return 0
     return cfg.encoder_layers
 
 
@@ -1024,7 +1048,7 @@ def by_stage(sequence_ms, cfg, names, backward=False):
     return out
 
 
-RANGE_PREFIXES = ("pds_", "sate_", "conformer_", "stack_")  # the profiler ranges below
+RANGE_PREFIXES = ("pds_", "sate_", "conformer_", "stack_", "variant_")  # the ranges below
 
 
 @contextlib.contextmanager
@@ -2725,6 +2749,114 @@ def phase_pds_taps():
 
 
 # --------------------------------------------------------------------------- #
+# phases 28-29: the encoder variants (ROADMAP item 7); tests/test_torch_variants_recipes.py
+# holds these copies to the recipe files
+VARIANT_RECIPES = {  # name -> (arch, model section); an overlay runs on s2t_transformer_s
+    "dlcl": ("s2t_transformer_s", {"use_enc_dlcl": True}),  # egs/*/*/conf/dlcl.yaml
+    "relative": ("s2t_transformer_s_relative", {}),  # egs/mustc/st/conf/relative.yaml
+    "local_attn": ("s2t_transformer_s", {  # egs/librispeech/asr/conf/local_attn.yaml
+        "encoder_attention_type": "local", "hard_mask_window": 0, "gauss_mask_sigma": 3,
+        "init_mask_weight": 0}),
+    "dynamic": ("s2t_dynamic_transformer_s", {}),  # egs/mustc/st/conf/dynamic.yaml
+}
+# rope has no recipe of its own: an overlay on s2t_transformer_s
+VARIANT_OVERLAYS = {"rope": ("s2t_transformer_s", {"encoder_attention_type": "rope"})}
+# K1f launches an encode (K1b a step): 12 layers under DLCL and rope, none in the dense
+# Shaw-relative and Gaussian attention and the dynamic convolutions
+VARIANT_K1F = {"dlcl": 12, "relative": 0, "local_attn": 0, "dynamic": 0, "rope": 12}
+EFFICIENT_CONFORMER_SMALL = {  # egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml
+    "arch": "s2t_ctc_pds", "criterion": "ctc", "criterion_cfg": {"ctc_weight": 1.0},
+    "model": {"pds_stages": 3, "pds_ratios": [-1, 0, 0], "pds_layers": [5, 5, 5],
+              "pds_kernel_sizes": [3, 3, 3], "pds_embed_dims": [120, 168, 240],
+              "pds_attn_heads": [4, 4, 4], "pds_ffn_ratios": [4, 4, 4],
+              "pds_position_embed": [1, 1, 1], "pds_conv_strides": [2, 2, 1],
+              "encoder_embed_dim": 240, "subsampling_type": "conv2d", "subsampling_layers": 1,
+              "subsampling_filter": 120, "subsampling_kernel": 3, "subsampling_stride": 2,
+              "subsampling_norm": "batch2d", "subsampling_activation": "swish",
+              "macaron_style": True, "use_cnn_module": True, "cnn_module_kernel": 15,
+              "encoder_attention_type": "rel_pos", "encoder_activation_fn": "swish"}}
+VARIANT_SPLIT_SHAPE = dict(B=64, T=1000)  # the encode split: 64 x 10 s of bf16 frames
+
+
+def variant_parts(enc):
+    """An encode of an encoder variant: the whole encoder, and every layer's self-attention
+    sublayer (the dense Shaw-relative or Gaussian attention, the dynamic conv block, or
+    under DLCL the attention that runs K1f), each name summed over the layers."""
+    return [("variant_encoder", enc)] + [("variant_attention", l.self_attn) for l in enc.layers]
+
+
+def variant_encode_split(cfg, tag):
+    """One bf16 encode of VARIANT_SPLIT_SHAPE random frames after a warm-up, under the
+    variant ranges: the device ms of the encoder and of its self-attention sublayers."""
+    B, T = VARIANT_SPLIT_SHAPE["B"], VARIANT_SPLIT_SHAPE["T"]
+    model = S2TTransformerModel(cfg.replace(dtype_str="bfloat16"), device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    feats = torch.randn((B, T, 80), generator=g, device="cuda")
+    lens = torch.full((B,), T, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        model.encode(feats, lens)
+        with module_ranges(variant_parts(model.encoder)):
+            prof = device_profile(lambda: model.encode(feats, lens), sequence=FWD_KERNELS)
+    ranges = prof["range_ms"]
+    res = {"batch": B, "frames": T, "encode_device_ms_by_part": ranges,
+           "encode_device_span_ms_by_part": prof["range_span_ms"],
+           "share_of_encoder_device_ms": range_shares(ranges, "variant_encoder"),
+           "profiled_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
+           "k1f_device_ms": sum(prof["sequence_ms"]["attention_fwd"]),
+           "k1f_launches_in_trace": len(prof["sequence_ms"]["attention_fwd"]),
+           "top_aten_ops_device_ms": prof["top_ops"]}
+    log(f"[{tag} split] bf16 encode: {json.dumps(res)}")
+    return res
+
+
+def phase_variants():
+    """Phase 28: dlcl.yaml, relative.yaml, local_attn.yaml, dynamic.yaml and the rope
+    overlay at full s width (12 x 256, 6 decoder layers, V=10000): fp32 fixture wavs card
+    vs CPU, beam 5 (the relative decoder's self-attention in the beam's cached steps), the
+    bf16 encode split, and 3 fp32 Trainer steps card vs CPU; K1f / K1b launch VARIANT_K1F
+    times an encode / a step.  Returns (results, launches)."""
+    out, launches = {}, {k: 0 for k in counters()}
+    for name, (arch, model) in {**VARIANT_RECIPES, **VARIANT_OVERLAYS}.items():
+        cfg = ARCHS.get(arch)[1](**fields(model), **PDS_S8_FIELDS)
+        layers = VARIANT_K1F[name]
+        reset_counts()  # the main path: serving, then the split's warm-up and profiled encode
+        encodes = phase_serve_parity(cfg, tag=f"{name} serve")
+        split = variant_encode_split(cfg, name)
+        counts = read_counts()
+        check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": layers * (encodes + 2)},
+                     f"{name} serving ({encodes + 2} encodes)")
+        parity, got = phase_train_parity(
+            cfg.replace(**NO_DROPOUT), S2TTransformerModel, f"{name} train",
+            per_step={"attention_fwd": layers, "attention_bwd": layers, "ctc_alpha": 1,
+                      "ctc_beta_grad": 1})
+        out[name] = {"serve_encodes": encodes + 2, "k1f_per_encode": layers,
+                     "encode_split": split, "train_parity": parity}
+        launches = {k: launches[k] + counts[k] + got.get(k, 0) for k in counters()}
+    log(f"[main path] the encoder variants: {json.dumps(launches)}")
+    return out, launches
+
+
+def phase_efficient_conformer():
+    """Phase 29: EffecientConformerCTCSmall.yaml (s2t_ctc_pds: a Conv2d subsampler, stages of
+    5 x 120 / 168 / 240 whose last layers stride and widen the stream, rel_pos, V=10000) as
+    phase 13 (bf16 greedy at 256 x 1000 frames with each stage's device ms; fp32 greedy and
+    beam-5 tokens card vs CPU), then one fp32 Trainer step card vs CPU.  No K1f / K1b: the
+    attention is rel_pos."""
+    from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_pds
+
+    model = fields(EFFICIENT_CONFORMER_SMALL["model"])
+    serve, serve_launches = phase_nast(s2t_ctc_pds, model, "efficient conformer")
+    crit = (EFFICIENT_CONFORMER_SMALL["criterion"],
+            {**EFFICIENT_CONFORMER_SMALL["criterion_cfg"], "zero_infinity": True})
+    parity, parity_launches = phase_train_parity(
+        s2t_ctc_pds(**model, **PDS_S8_FIELDS, **NO_DROPOUT), S2TCTCModel,
+        "efficient conformer train", steps=1, criterion=crit)
+    launches = {k: serve_launches[k] + parity_launches.get(k, 0) for k in counters()}
+    log(f"[main path] EffecientConformerCTCSmall (serving, parity): {json.dumps(launches)}")
+    return {"serve": serve, "train_parity": parity}, launches
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2780,6 +2912,9 @@ def main(argv=None) -> int:
     ctc_aug, ctc_aug_launches = phase_ctc_aug()
     nast_pds, nast_pds_launches = phase_nast_pds_big()
     pds_taps, pds_taps_launches = phase_pds_taps()
+    # phases 28-29: the encoder variants
+    variants, variant_launches = phase_variants()
+    efficient, efficient_launches = phase_efficient_conformer()
     log(f"[main path] the rest of the CTC research stack: CTC-Aug (serving, parity, speed) "
         f"{json.dumps(ctc_aug_launches)}; nast_pds_big and ctc_aug_pds_big (serving, parity) "
         f"{json.dumps(nast_pds_launches)}; PDS stage taps (parity) and Jacobi "
@@ -2813,7 +2948,7 @@ def main(argv=None) -> int:
         audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches,
         pds_train_launches, pds_ctc_launches, sate_train_launches, conformer_launches,
         nast_stack_launches, bil_ctc_launches, aipa_launches, ctc_aug_launches,
-        nast_pds_launches, pds_taps_launches))
+        nast_pds_launches, pds_taps_launches, variant_launches, efficient_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -2905,6 +3040,7 @@ def main(argv=None) -> int:
             "pds_train": pds_train, "sate_serve": sate_serve, "sate_train": sate_train,
             "conformer": conformer, "nast_stack": nast_stack, "bil_ctc": bil_ctc, "aipa": aipa,
             "ctc_aug": ctc_aug, "nast_pds_big": nast_pds, "pds_taps": pds_taps,
+            "variants": variants, "efficient_conformer": efficient,
             "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -28,8 +28,11 @@ decoder's ``embed_tokens``; the other names (``encoder/embed_norm``,
 ``s2_attn`` and ``cross_norm``, a Conformer layer's ``macaron_ffn`` and
 ``conv_module``, ...) are the port's attribute paths.  The bare leaves ``norm_scale``,
 ``norm_bias`` (a frozen per-channel affine), ``fusion_weight``, ``pos_bias_u``,
-``pos_bias_v`` and ``embed_adapter`` keep their names.  Any leaf left unmapped
-on either side raises.
+``pos_bias_v``, ``embed_adapter``, Shaw attention's ``relative_position_keys``, the
+Gaussian attention's ``gauss_sigma`` / ``gauss_mask_weight``, DLCL's ``weights`` and
+a lightweight conv's (H, k) ``weight`` keep their names; DLCL's and the Conv1d
+subsampler's ``norm{i}`` -> ``norms.{i}``.  Any leaf left unmapped on either side
+raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
 say) as the nested flax tree, so it can be compared leaf by leaf with a JAX
@@ -51,6 +54,7 @@ _PER_LAYER = "inter_ctc_head|inter_ctc_norm|inter_xctc_norm|inter_axctc_norm|com
     "layer_out_norm|ctc_norm|xctc_norm|pae"
 # flax module name -> the port's module path, and back (on the dotted port path)
 _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
+            (re.compile(r"^norm(\d+)$"), r"norms.\1"),
             (re.compile(r"^stage(\d+)_layer(\d+)$"), r"stages.\1.\2"),
             (re.compile(r"^ds(\d+)$"), r"downsamplers.\1"),
             (re.compile(r"^fusion(\d+)$"), r"fusion_blocks.\1"),
@@ -58,6 +62,7 @@ _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
             (re.compile(r"^ctc(\d+)$"), r"ctc_heads.\1"),
             (re.compile(r"^(layer|conv)(\d+)$"), r"\1s.\2"))
 _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
+            (re.compile(r"\bnorms\.(\d+)\b"), r"norm\1"),
             (re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
             (re.compile(r"\bdownsamplers\.(\d+)\b"), r"ds\1"),
             (re.compile(r"\bfusion_blocks\.(\d+)\b"), r"fusion\1"),
@@ -66,7 +71,8 @@ _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\b(layer|conv)s\.(\d+)\b"), r"\1\2"))
 # parameters that are leaves of their own, with the same name on both sides
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
-                   "embed_adapter"})
+                   "embed_adapter", "relative_position_keys", "gauss_sigma",
+                   "gauss_mask_weight", "weights"})
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -97,7 +103,7 @@ def _leaf(name: str, arr: np.ndarray):
         raise ValueError(f"kernel of rank {arr.ndim} has no port layout")
     if name in ("scale", "embedding"):
         return "weight", arr
-    if name in ("bias", *_BARE):
+    if name in ("bias", "weight", *_BARE):  # "weight": a lightweight conv's (H, k) kernel
         return name, arr
     raise KeyError(name)
 
@@ -150,6 +156,8 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
         raise KeyError(name)
     if module.endswith("embed_tokens"):
         return "embedding", arr
+    if module.endswith(".conv") and arr.ndim == 2:  # a lightweight conv's (H, k) kernel
+        return "weight", arr
     if arr.ndim == 1:
         return "scale", arr
     if arr.ndim == 2:

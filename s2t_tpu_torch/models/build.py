@@ -2,7 +2,9 @@
 (counterpart of s2t_tpu/models/build.py).
 
 The ported presets: the ``s2t_transformer`` ones (base, s, xs, sp, m, mp, l,
-lp and the Conformer ``s2t_conformer``), the 13
+lp, the Conformer ``s2t_conformer``, the encoder variants ``s2t_transformer_s_relative``,
+``s2t_dynamic_transformer_s``, ``s2t_light_transformer_s``, ``s2t_transformer_s_dlcl``
+and the ESPnet-ST ``convtransformer`` / ``convtransformer_espnet``), the 13
 ``pdss2t_transformer_*`` ones, SATE's ``s2t_sate`` / ``s2t_sate_s`` and the
 encoder-only ``s2t_ctc``, ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``.
 Every other architecture of the JAX registry is registered here too, as a preset that
@@ -17,11 +19,9 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from s2t_tpu_torch.models import pds, s2t_ctc, s2t_transformer, sate  # noqa: F401  (the presets)
-from s2t_tpu_torch.models.s2t_transformer import ITEM7
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 _ITEMS = {
-    7: ITEM7,
     9: "ROADMAP.md section 1 item 9 (other speech families)",
     10: "ROADMAP.md section 1 item 10 (inference breadth: LM fusion)",
     11: "ROADMAP.md section 1 item 11 (the text and MT zoo)",
@@ -29,13 +29,6 @@ _ITEMS = {
 
 # every arch of the JAX registry the port lacks -> (its model, what it needs, the item)
 UNPORTED_ARCHS = {
-    "s2t_transformer_s_relative": ("s2t_transformer", "Shaw relative-position attention", 7),
-    "s2t_dynamic_transformer_s": ("s2t_transformer", "dynamic convolutions", 7),
-    "s2t_light_transformer_s": ("s2t_transformer", "lightweight convolutions", 7),
-    "s2t_transformer_s_dlcl": ("s2t_transformer", "the dynamic linear combination of layers",
-                               7),
-    **{a: ("s2t_transformer", "the ESPnet-ST Conv2d front-end presets", 7)
-       for a in ("convtransformer", "convtransformer_espnet")},
     **{a: ("s2t_dual", "the dual-encoder S2 layers", 9) for a in ("s2t_dual", "s2t_dual_s")},
     **{a: ("s2t_multibranch", "the multibranch S2 layers", 9)
        for a in ("s2t_multibranch", "s2t_multibranch_s")},

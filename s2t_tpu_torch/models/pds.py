@@ -1,13 +1,16 @@
 """PDS: the Progressive Down-Sampling encoder (counterpart of s2t_tpu/models/pds.py).
 
 The encoder runs in stages; each stage is a strided-conv ``Downsampling`` (or
-the Conv1d subsampler for a ratio of -1), that stage's sinusoidal positions at
-its own length and width (or its relative-position table, under rel_pos),
-dropout, and pre- or post-norm layers, Conformer ones with ``macaron_style`` /
-``use_cnn_module``.  With ``pds_fusion`` every stage's output is carried to the last
-stage's length by a ``FusionBlock`` and the results are summed with learned or
-fixed weights.  ``pds_final_layers``, the final norm and the top CTC head
-follow.
+the Conv1d or Conv2d subsampler for a ratio of -1), that stage's sinusoidal
+positions at its own length and width (its relative-position table under
+rel_pos, none under rope), dropout, and pre- or post-norm layers, Conformer ones
+with ``macaron_style`` / ``use_cnn_module``, of any self-attention type the JAX
+layer takes from ``encoder_attention_type`` alone.  With ``pds_conv_strides`` the
+last layer of a stage strides its conv module and widens the stream to the next
+stage's width (EffecientConformer): the lengths shrink there.  With ``pds_fusion``
+every stage's output is carried to the last stage's length by a ``FusionBlock``
+and the results are summed with learned or fixed weights.  ``pds_final_layers``,
+the final norm and the top CTC head follow.
 
 The stage taps of the CTC research stack sit after a stage's last layer:
 inter-CTC (``pds_ctc``: the stage's ``ctc_norm{i}``, then the shared
@@ -25,11 +28,10 @@ LayerNorm reads that layer's output, which is then returned as ``ctc_logits`` /
 ``PDSS2TTransformerModel`` puts the port's Transformer decoder on top;
 ``S2TCTCModel`` (``s2t_ctc_pds``) takes the encoder alone.
 
-``PDSConfig`` keeps the JAX config's field names and defaults.  The branches
-the port does not have raise ``NotImplementedError`` naming the field and the
-ROADMAP.md item that ports it (``check_supported``): attention other than abs
-and rel_pos, in-layer conv strides and a ratio of -1 with the Conv2d
-subsampler or the reference pad semantics (item 7).
+``PDSConfig`` keeps the JAX config's field names and defaults.  What fails in
+JAX raises ``ValueError``: Shaw relative attention (the config carries no clip
+length, so the layer's attention refuses it), conv strides without the conv
+module (``check_supported``).
 """
 
 from __future__ import annotations
@@ -43,14 +45,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from s2t_tpu_torch.device import torch_dtype
-from s2t_tpu_torch.models.s2t_transformer import ITEM7, S2TTransformerModel
+from s2t_tpu_torch.models.s2t_transformer import S2TTransformerModel
 from s2t_tpu_torch.modules.adapter import Adapter
 from s2t_tpu_torch.modules.cast import Conv1d
 from s2t_tpu_torch.modules.ctc_head import CTCHead
 from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
 from s2t_tpu_torch.modules.positional import relative_table, sinusoidal_table
-from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling
+from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling, Conv2dSubsampling
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
@@ -215,12 +217,12 @@ class PDSConfig:
 
     def dim_at_layer(self, layer: int) -> int:
         """Width of the stream after global layer ``layer`` (1-indexed over the stages'
-        layers); past them, the encoder output's."""
+        layers; a stage's last layer may widen it); past them, the encoder output's."""
         end = 0
         for i, n in enumerate(self.pds_layers[:self.pds_stages]):
             end += n
             if 1 <= layer <= end:
-                return self.stage_expand_dim(i)
+                return self.stage_expand_dim(i) if layer == end else self.pds_embed_dims[i]
         return self.out_dim
 
     @property
@@ -240,20 +242,9 @@ def check_supported(cfg: PDSConfig) -> None:
     port does not have, naming the field and the ROADMAP.md item that ports it,
     and ValueError where a shared stage head or adapter would meet a second
     width (where flax's shape check fails)."""
-    if cfg.encoder_attention_type not in ("abs", "rel_pos"):
-        raise _unported("encoder_attention_type", cfg.encoder_attention_type, ITEM7)
-    if cfg.pds_conv_strides:
-        raise _unported("pds_conv_strides", cfg.pds_conv_strides, ITEM7)
-    if -1 in cfg.pds_ratios:
-        # the shared subsampler: the port has the Conv1d one, masked between layers
-        if cfg.subsampling_type != "conv1d":
-            raise _unported("subsampling_type", cfg.subsampling_type,
-                            ITEM7 + ", under a pds_ratios entry of -1")
-        if cfg.subsampling_norm != "none":
-            raise _unported("subsampling_norm", cfg.subsampling_norm, ITEM7)
-        if cfg.subsampling_ref_pad_semantics:
-            raise _unported("subsampling_ref_pad_semantics", True,
-                            ITEM7 + ", under a pds_ratios entry of -1")
+    if cfg.pds_conv_strides and not cfg.use_cnn_module:
+        raise ValueError("pds_conv_strides downsample inside the conv module: use_cnn_module "
+                         "must be on")
     # the shapes flax checks when a shared head or adapter meets a second width
     xdims = {cfg.stage_expand_dim(i) for i in cfg.xctc_stages}
     if len(xdims) > 1:
@@ -344,22 +335,21 @@ class PDSEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         dims = cfg.pds_embed_dims
+        # the width of each stage's output: its last layer may widen the stream
+        outs = [cfg.stage_expand_dim(i) for i in range(cfg.pds_stages)]
         in_dim = cfg.input_feat_per_channel * cfg.input_channels
         downs, stages = [], []
         for i in range(cfg.pds_stages):
             if cfg.pds_ratios[i] == -1:
-                downs.append(Conv1dSubsampling(
-                    in_dim, cfg.subsampling_layers, cfg.subsampling_filter, dims[i],
-                    cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation))
+                downs.append(self._subsampler(in_dim, dims[i]))
             else:
                 downs.append(Downsampling(in_dim, dims[i], cfg.pds_kernel_sizes[i],
                                           cfg.pds_ratios[i], cfg.pds_embed_norm))
             # a stage's conv modules take the encoder activation (s2t_tpu/models/pds.py:298)
             stages.append(nn.ModuleList([
-                self._layer(dims[i], cfg.pds_ffn_ratios[i], cfg.pds_attn_heads[i],
-                            cfg.stage_cnn_kernel(i), cfg.enc_act)
-                for _ in range(cfg.pds_layers[i])]))
-            in_dim = dims[i]
+                self._stage_layer(i, j == cfg.pds_layers[i] - 1)
+                for j in range(cfg.pds_layers[i])]))
+            in_dim = outs[i]
         self.downsamplers = nn.ModuleList(downs)
         self.stages = nn.ModuleList(stages)
         fusion = cfg.fusion_stages
@@ -368,13 +358,15 @@ class PDSEncoder(nn.Module):
             ratio = 1
             for v in cfg.pds_ratios[i + 1:]:
                 ratio *= max(v, 1)
-            self.fusion_blocks[str(i)] = FusionBlock(dims[i], cfg.encoder_embed_dim, ratio)
+            for v in cfg.pds_conv_strides[i + 1:]:
+                ratio *= max(v, 1)
+            self.fusion_blocks[str(i)] = FusionBlock(outs[i], cfg.encoder_embed_dim, ratio)
         self.fusion_weight = (nn.Parameter(torch.full((len(fusion),), 1.0 / len(fusion)))
                               if fusion and not cfg.pds_fusion_weight else None)
         D = cfg.encoder_embed_dim
         # the final layers' conv modules take activation_fn (s2t_tpu/models/pds.py:472)
         self.final_layers = nn.ModuleList([
-            self._layer(D, cfg.pds_ffn_ratios[-1], cfg.pds_attn_heads[-1],
+            self._layer(D, D * cfg.pds_ffn_ratios[-1], cfg.pds_attn_heads[-1],
                         cfg.stage_cnn_kernel(cfg.pds_stages - 1), cfg.activation_fn)
             for _ in range(cfg.pds_final_layers)])
         self.final_norm = layer_norm(cfg.out_dim) if cfg.encoder_normalize_before else None
@@ -386,16 +378,16 @@ class PDSEncoder(nn.Module):
 
         # the stage taps (s2t_tpu/models/pds.py:350-405)
         taps, xtaps = cfg.ctc_stages, cfg.xctc_stages
-        self.ctc_norms = nn.ModuleDict({str(i): layer_norm(dims[i]) for i in taps})
+        self.ctc_norms = nn.ModuleDict({str(i): layer_norm(outs[i]) for i in taps})
         self.inter_ctc_head = CTCHead(D, Vs, dropout=drop) if taps and cfg.share_ctc else None
         self.ctc_heads = nn.ModuleDict({} if cfg.share_ctc else {
-            str(i): CTCHead(dims[i], Vs, dropout=drop) for i in taps})
+            str(i): CTCHead(outs[i], Vs, dropout=drop) for i in taps})
         pae_stages = [i for i in taps if i != n - 1] if cfg.ctc_pae != "none" else []
         self.pae = adapter(dims[-1], Vs, cfg.ctc_pae) if pae_stages and cfg.share_ctc else None
         self.paes = nn.ModuleDict({} if cfg.share_ctc else {
-            str(i): adapter(dims[i], Vs, cfg.ctc_pae) for i in pae_stages})
-        self.xctc_norms = nn.ModuleDict({str(i): layer_norm(dims[i]) for i in xtaps})
-        self.inter_xctc_head = (CTCHead(dims[xtaps[0]], cfg.vocab_size, dropout=drop)
+            str(i): adapter(outs[i], Vs, cfg.ctc_pae) for i in pae_stages})
+        self.xctc_norms = nn.ModuleDict({str(i): layer_norm(outs[i]) for i in xtaps})
+        self.inter_xctc_head = (CTCHead(outs[xtaps[0]], cfg.vocab_size, dropout=drop)
                                 if xtaps else None)
         self.xpae = (adapter(dims[-1], cfg.vocab_size, cfg.xctc_pae)
                      if cfg.xctc_pae != "none" and any(i != n - 1 for i in xtaps) else None)
@@ -410,14 +402,41 @@ class PDSEncoder(nn.Module):
                                   dropout=drop, norm=cfg.xctc_layer != 0)
                           if cfg.use_xctc and not self.xctc_tied else None)
 
-    def _layer(self, dim: int, ffn_ratio: int, heads: int, cnn_kernel: int, conv_act: str):
+    def _subsampler(self, in_dim: int, out_dim: int) -> nn.Module:
+        """The shared subsampler of a ratio of -1 (s2t_tpu/models/pds.py:311-329): the
+        Conv1d one with ``subsampling_norm`` and the pad semantics, or the Conv2d one
+        at its defaults (valid padding, masked between layers; no norm reaches it)."""
         cfg = self.cfg
-        return S2TEncoderLayer(dim, dim * ffn_ratio, heads, cfg.enc_act,
+        if cfg.subsampling_type == "conv1d":
+            return Conv1dSubsampling(
+                in_dim, cfg.subsampling_layers, cfg.subsampling_filter, out_dim,
+                cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation,
+                cfg.subsampling_norm, not cfg.subsampling_ref_pad_semantics)
+        return Conv2dSubsampling(in_dim, cfg.subsampling_layers, cfg.subsampling_filter, out_dim,
+                                 cfg.subsampling_kernel, cfg.subsampling_stride,
+                                 cfg.subsampling_activation)
+
+    def _stage_layer(self, i: int, last: bool) -> S2TEncoderLayer:
+        """Layer of stage i (s2t_tpu/models/pds.py:282-305): the last one carries the
+        stage's conv stride and widens to ``stage_expand_dim``, with an FFN as wide as
+        the new width times the stage's ratio; the macaron FFN keeps the stage's."""
+        cfg = self.cfg
+        dim, ratio = cfg.pds_embed_dims[i], cfg.pds_ffn_ratios[i]
+        expand = cfg.stage_expand_dim(i) if last else dim
+        return self._layer(dim, expand * ratio, cfg.pds_attn_heads[i], cfg.stage_cnn_kernel(i),
+                           cfg.enc_act, conv_expand_dim=expand if expand != dim else 0,
+                           conv_stride=cfg.stage_conv_stride(i) if last else 1,
+                           macaron_ffn_dim=dim * ratio)
+
+    def _layer(self, dim: int, ffn_dim: int, heads: int, cnn_kernel: int, conv_act: str,
+               **conv):
+        cfg = self.cfg
+        return S2TEncoderLayer(dim, ffn_dim, heads, cfg.enc_act,
                                cfg.encoder_normalize_before, cfg.dropout, cfg.attention_dropout,
                                cfg.activation_dropout, cfg.encoder_attention_type,
                                cfg.macaron_style, cfg.use_cnn_module, cnn_kernel,
                                conv_activation=conv_act, conv_norm_type=cfg.cnn_module_norm,
-                               conv_bias=cfg.conv_module_bias)
+                               conv_bias=cfg.conv_module_bias, **conv)
 
     def _top_ctc(self, x, generator):
         return (self.inter_ctc_head if self.ctc_tied else self.ctc_head)(x, generator=generator)
@@ -428,9 +447,12 @@ class PDSEncoder(nn.Module):
 
     def _positions(self, x: torch.Tensor):
         """(x, None) with the fairseq pad-aware table at this length and width added
-        (valid frame i -> pad + 1 + i), or (x, the relative table) under rel_pos."""
+        (valid frame i -> pad + 1 + i), (x, the relative table) under rel_pos, or
+        (x, None) under rope."""
         if self.cfg.encoder_attention_type == "rel_pos":
             return x, relative_table(x.shape[1], x.shape[2], x.dtype, x.device)
+        if self.cfg.encoder_attention_type == "rope":
+            return x, None
         return x + sinusoidal_table(x.shape[1], x.shape[2], self.cfg.pad_id, x.dtype,
                                     x.device)[None], None
 
@@ -458,6 +480,9 @@ class PDSEncoder(nn.Module):
             for layer in self.stages[i]:
                 x = layer(x, valid, generator=generator, pos_emb=pos_emb)
                 layer_idx += 1
+                if layer.conv_stride > 1:  # a stage's strided last layer (:536-540)
+                    lengths = (lengths - 1) // layer.conv_stride + 1
+                    valid = lengths_to_mask(lengths, x.shape[1])
                 # the global-layer heads (s2t_tpu/models/pds.py:549-552)
                 if cfg.use_ctc and cfg.ctc_layer == layer_idx:
                     ctc_logits = self._top_ctc(x, generator)

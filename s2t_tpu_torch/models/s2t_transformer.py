@@ -2,9 +2,14 @@
 s2t_tpu/models/s2t_transformer.py).
 
 The encoder: a Conv1d-GLU or Conv2d subsampler -> scaled features +
-sinusoidal positions ("abs" attention) or a relative-position table
-("rel_pos") -> pre- or post-norm layers, optionally Conformer (macaron FFN,
-convolution module) -> CTC head; a Transformer decoder on top.  It serves and
+sinusoidal positions (none under rope, a relative-position table under
+rel_pos) -> [embed_linear] -> pre- or post-norm layers, optionally Conformer
+(macaron FFN, convolution module), with any self-attention type of the JAX
+layer (abs, rope, Shaw relative, Gaussian local, windowed, reduced keys,
+rel_pos, lightweight or dynamic convolutions) and optionally DLCL (every layer
+reads a learned combination of the outputs before it) -> CTC head; a
+Transformer decoder on top, whose self-attention is Shaw relative when
+``max_decoder_relative_length`` > 0.  It serves and
 trains (``forward(..., train=True, generator=g)``: every dropout site of the
 JAX modules, drawn from the step's generator).
 
@@ -38,8 +43,12 @@ from s2t_tpu_torch.device import resolve_device, torch_dtype
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.modules.adapter import Adapter, ctc_oracle_probs, host_uniform
 from s2t_tpu_torch.modules.ctc_head import CTCHead
+from s2t_tpu_torch.modules.attention import local_window_bias, padding_bias
+from s2t_tpu_torch.modules.cast import Linear
+from s2t_tpu_torch.modules.dlcl import DLCL
 from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
+from s2t_tpu_torch.modules.lightconv import LightweightConv
 from s2t_tpu_torch.modules.positional import (
     fairseq_sinusoidal_encoding, relative_table, sinusoidal_table)
 from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling, Conv2dSubsampling
@@ -165,7 +174,7 @@ class S2TTransformerConfig:
 
 
 # fields the port reads, plus knobs that only act when a switch that must keep its
-# default is on (remat_policy, pipeline_microbatches, init_mask_weight);
+# default is on (remat_policy, pipeline_microbatches);
 # encoder_layerdrop > 0 and checkpoint_activations raise when training
 # (_check_trainable); every other field must keep its default
 _PORTED_FIELDS = frozenset({
@@ -192,21 +201,18 @@ _PORTED_FIELDS = frozenset({
     # the Conformer block and the Conv2d subsampler, checked in check_supported
     "encoder_attention_type", "macaron_style", "use_cnn_module", "subsampling_type",
     "subsampling_norm",
+    # the encoder variants
+    "subsampling_ref_pad_semantics", "encoder_lconv_kernels", "max_encoder_relative_length",
+    "max_decoder_relative_length", "encoder_attention_window", "hard_mask_window",
+    "gauss_mask_sigma", "encoder_attention_stride", "use_enc_dlcl", "encoder_embed_linear",
     # the CTC research stack of the layer loop
     "inter_ctc_layers", "ctc_pae", "use_xctc", "inter_xctc_layers", "xctc_pae",
     "share_xctc_and_embed", "use_axctc", "inter_axctc_layers", "compression_layers",
     "inter_mixup", "layer_out_norm",
 })
-ITEM7 = "ROADMAP.md section 1 item 7 (conformer and encoder variants)"
 ITEM12 = "ROADMAP.md section 1 item 12 (parallelism)"
 # the ROADMAP.md item that ports each unported field
-_FIELD_ITEMS = {
-    "subsampling_ref_pad_semantics": ITEM7, "encoder_lconv_kernels": ITEM7,
-    "max_encoder_relative_length": ITEM7, "max_decoder_relative_length": ITEM7,
-    "encoder_attention_window": ITEM7, "hard_mask_window": ITEM7, "gauss_mask_sigma": ITEM7,
-    "encoder_attention_stride": ITEM7, "use_enc_dlcl": ITEM7, "encoder_embed_linear": ITEM7,
-    "seq_parallel": ITEM12, "pipeline_parallel": ITEM12,
-}
+_FIELD_ITEMS = {"seq_parallel": ITEM12, "pipeline_parallel": ITEM12}
 
 
 def _check_trainable(cfg: S2TTransformerConfig) -> None:
@@ -230,19 +236,13 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
                 f"S2TTransformerConfig.{f.name}={getattr(cfg, f.name)!r} is not ported "
                 f"to s2t_tpu_torch ({_FIELD_ITEMS.get(f.name, 'not on the ROADMAP.md queue')})"
             )
-    if cfg.encoder_attention_type not in ("abs", "rel_pos"):
-        raise NotImplementedError(
-            f"S2TTransformerConfig.encoder_attention_type={cfg.encoder_attention_type!r} is not "
-            f"ported to s2t_tpu_torch ({ITEM7}: only 'abs' and 'rel_pos' are)")
     if cfg.subsampling_type not in ("conv1d", "conv2d"):
         raise NotImplementedError(
             f"S2TTransformerConfig.subsampling_type={cfg.subsampling_type!r} is not ported to "
             "s2t_tpu_torch")
-    if cfg.subsampling_type == "conv1d" and cfg.subsampling_norm != "none":
-        # under conv2d the JAX subsampler takes no norm, so the field is inert there
-        raise NotImplementedError(
-            f"S2TTransformerConfig.subsampling_norm={cfg.subsampling_norm!r} under the Conv1d "
-            f"subsampler is not ported to s2t_tpu_torch ({ITEM7})")
+    if cfg.inter_mixup_keep_org and cfg.use_enc_dlcl and cfg.inter_mixup_layer > 0:
+        raise ValueError("inter_mixup_keep_org grows the batch mid-stack, which is incompatible "
+                         "with DLCL history; use inter_mixup_layer<=0")
     if cfg.share_ctc_and_embed or cfg.share_xctc_and_embed:
         if cfg.encoder_embed_dim != cfg.decoder_embed_dim:
             raise ValueError("share_(x)ctc_and_embed requires encoder_embed_dim == "
@@ -263,9 +263,11 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
     """Flax-like init on the CPU from ``seed`` (dense and conv kernels
     N(0, 1/fan_in), biases 0, LayerNorm 1/0, token embeddings N(0, 1/D); the
     frozen affines' ``norm_scale`` 1 / ``norm_bias`` 0, the PDS fusion's
-    ``fusion_weight`` 1/len, the relative attention's ``pos_bias_u`` /
-    ``pos_bias_v`` Xavier-uniform and the adapters' ``embed_adapter``
-    N(0, 1/D)), then onto ``device``: for serving stored in
+    ``fusion_weight`` 1/len, the relative attentions' ``pos_bias_u`` /
+    ``pos_bias_v`` / ``relative_position_keys`` Xavier-uniform, the adapters'
+    ``embed_adapter`` N(0, 1/D), a lightweight conv's kernel N(0, 0.01); the
+    Gaussian attention's and DLCL's constants keep their values from
+    construction), then onto ``device``: for serving stored in
     ``cfg.dtype``, frozen, in eval mode; ``for_training`` keeps float32 master
     parameters and casts only the buffers."""
     g = torch.Generator().manual_seed(seed)
@@ -287,11 +289,13 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
                 nn.init.zeros_(p)
             elif name == "fusion_weight":
                 nn.init.constant_(p, 1.0 / p.numel())
-            elif name in ("pos_bias_u", "pos_bias_v"):
+            elif name in ("pos_bias_u", "pos_bias_v", "relative_position_keys"):
                 limit = math.sqrt(6.0 / sum(p.shape))
                 nn.init.uniform_(p, -limit, limit, generator=g)
             elif name == "embed_adapter":
                 nn.init.normal_(p, std=p.shape[1] ** -0.5, generator=g)
+            elif name == "weight" and isinstance(mod, LightweightConv):
+                nn.init.normal_(p, std=0.1, generator=g)
     if for_training:
         model.to(device=device)
         for mod in model.modules():
@@ -396,26 +400,37 @@ class S2TTransformerEncoder(nn.Module):
         self.cfg = cfg
         D = cfg.encoder_embed_dim
         in_dim = cfg.input_feat_per_channel * cfg.input_channels
+        mask_between = not cfg.subsampling_ref_pad_semantics
         if cfg.subsampling_type == "conv2d":
             # s2t_tpu/models/s2t_transformer.py:347-353: no subsampling_norm reaches it
             self.subsample = Conv2dSubsampling(
                 in_dim, cfg.subsampling_layers, cfg.subsampling_filter, D,
                 cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation,
-                cfg.subsampling_padding)
+                cfg.subsampling_padding, mask_between)
         else:
             self.subsample = Conv1dSubsampling(
                 in_dim, cfg.subsampling_layers, cfg.subsampling_filter, D,
-                cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation)
+                cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation,
+                cfg.subsampling_norm, mask_between)
+        kernels = cfg.encoder_lconv_kernels
         self.layers = nn.ModuleList([
             S2TEncoderLayer(D, cfg.encoder_ffn_embed_dim, cfg.encoder_attention_heads,
                             cfg.enc_act, cfg.encoder_normalize_before, cfg.dropout,
                             cfg.attention_dropout, cfg.activation_dropout,
                             cfg.encoder_attention_type, cfg.macaron_style, cfg.use_cnn_module,
                             cfg.cnn_module_kernel, conv_activation=cfg.activation_fn,
-                            conv_norm_type=cfg.cnn_module_norm, conv_bias=cfg.conv_module_bias)
-            for _ in range(cfg.encoder_layers)
+                            conv_norm_type=cfg.cnn_module_norm, conv_bias=cfg.conv_module_bias,
+                            attention_stride=cfg.encoder_attention_stride,
+                            max_relative_length=cfg.max_encoder_relative_length,
+                            gauss_mask_sigma=cfg.gauss_mask_sigma,
+                            init_mask_weight=cfg.init_mask_weight,
+                            # the kernel plan, its last width repeated (s2t_transformer.py:361-368)
+                            lconv_kernel=kernels[min(i, len(kernels) - 1)] if kernels else 15)
+            for i in range(cfg.encoder_layers)
         ])
+        self.dlcl = DLCL(cfg.encoder_layers, D) if cfg.use_enc_dlcl else None
         self.embed_norm = layer_norm(D) if cfg.encoder_embed_norm else None
+        self.embed_linear = Linear(D, D) if cfg.encoder_embed_linear else None
         self.final_norm = layer_norm(D) if cfg.encoder_normalize_before else None
         self.ctc_head = (
             CTCHead(D, cfg.ctc_vocab_size, tied=cfg.share_ctc_and_embed, dropout=cfg.dropout)
@@ -454,12 +469,23 @@ class S2TTransformerEncoder(nn.Module):
                                                if i % iv == 0})
                                 if cfg.layer_out_norm else None)
         self.rel_pos = cfg.encoder_attention_type == "rel_pos"
-        if not self.rel_pos:
+        # abs positions for every type but rel_pos and rope (s2t_transformer.py:721-725)
+        self.abs_pos = cfg.encoder_attention_type not in ("rel_pos", "rope")
+        if self.abs_pos:
             self.register_buffer(
                 "positions",
                 fairseq_sinusoidal_encoding(cfg.max_source_positions, D, cfg.pad_id),
                 persistent=False,
             )
+
+    def _window(self, T: int) -> int:
+        """The attention window at length T: ``encoder_attention_window``, or under local
+        attention a ``hard_mask_window`` (a share of the padded T when in (0, 1])."""
+        cfg = self.cfg
+        hw = cfg.hard_mask_window
+        if cfg.encoder_attention_type == "local" and hw:
+            return int(T * hw) if 0 < hw <= 1 else int(hw)
+        return cfg.encoder_attention_window
 
     def _mixup(self, x, lengths, generator, num_updates):
         draws = draw_mixup(x.shape[0], self.cfg, generator.initial_seed(), num_updates)
@@ -516,20 +542,36 @@ class S2TTransformerEncoder(nn.Module):
         pos_emb = None
         if self.rel_pos:
             pos_emb = relative_table(T, cfg.encoder_embed_dim, x.dtype, x.device)
-        else:
+        elif self.abs_pos:
             # fairseq table: valid frame i gets absolute position pad+1+i
             x = x + self.positions[:T][None]
+        if self.embed_linear is not None:
+            x = self.embed_linear(x)
         x = dropout(x, cfg.dropout, generator)
         mixup = None
         if train and cfg.inter_mixup and cfg.inter_mixup_layer <= 0:
             x, lengths, mixup = self._mixup(x, lengths, generator, num_updates)
         valid = lengths_to_mask(lengths, T)
+        # None: a pure padding mask (the fused kernel's case); a window adds a band
+        window = self._window(T)
+
+        def window_bias(valid):
+            if window <= 0:
+                return None
+            return padding_bias(valid, x.dtype) + local_window_bias(T, window, x.dtype, x.device)
+
+        bias = window_bias(valid)
+        history = [x] if self.dlcl is not None else None
         inter_ctc, inter_xctc, inter_axctc = [], [], []
         for i, layer in enumerate(self.layers):
+            if self.dlcl is not None:
+                x = self.dlcl.combine(history, i)
             if train and cfg.inter_mixup and mixup is None and cfg.inter_mixup_layer == i + 1:
                 x, lengths, mixup = self._mixup(x, lengths, generator, num_updates)
                 valid = lengths_to_mask(lengths, T)
-            x = layer(x, valid, generator=generator, pos_emb=pos_emb)
+                # as in JAX (s2t_transformer.py:781), a window is not rebuilt here
+                bias = None if bias is None else padding_bias(valid, x.dtype)
+            x = layer(x, valid, bias, generator=generator, pos_emb=pos_emb)
             if self.layer_out_norms is not None and str(i) in self.layer_out_norms:
                 x = self.layer_out_norms[str(i)](x)
             l = i + 1
@@ -548,6 +590,7 @@ class S2TTransformerEncoder(nn.Module):
                 if l in cfg.compression_layers:
                     x, lengths = self._compress(x, logits, lengths, l)
                     valid = lengths_to_mask(lengths, T)
+                    bias = window_bias(valid)
             if l in self.xctc_taps:
                 h = (self.final_norm if cfg.share_inter_xctc_norm
                      else self.inter_xctc_norms[str(l)])(x)
@@ -562,6 +605,10 @@ class S2TTransformerEncoder(nn.Module):
             if l in self.axctc_taps:
                 h = self.inter_axctc_norms[str(l)](x)
                 inter_axctc.append((l, self.axctc_head(h, None, generator)))
+            if history is not None:
+                history.append(x)
+        if self.dlcl is not None:
+            x = self.dlcl.combine(history, cfg.encoder_layers)
         if self.final_norm is not None and cfg.encoder_apply_final_norm:
             x = self.final_norm(x)
 
@@ -611,6 +658,7 @@ class S2TTransformerModel(nn.Module):
             dropout=dec.dropout,
             attention_dropout=dec.attention_dropout,
             activation_dropout=dec.activation_dropout,
+            **self.decoder_self_attention(dec),
         )
         init_and_place(self, cfg, device, seed, for_training)
 
@@ -625,6 +673,13 @@ class S2TTransformerModel(nn.Module):
     def decoder_config(cfg):
         """The config whose decoder fields build the decoder (a subclass's may nest it)."""
         return cfg
+
+    @staticmethod
+    def decoder_self_attention(dec) -> Dict[str, Any]:
+        """The decoder's self-attention: Shaw relative when ``max_decoder_relative_length``
+        > 0 (s2t_tpu/models/s2t_transformer.py:969-971)."""
+        L = getattr(dec, "max_decoder_relative_length", 0)
+        return {"self_attn_type": "relative" if L > 0 else "abs", "max_relative_length": L}
 
     build_encoder = S2TTransformerEncoder
     # the decoder rows follow the encoder's mixup (s2t_tpu/models/s2t_transformer.py:994-1004);
@@ -756,3 +811,64 @@ def s2t_conformer(**kw) -> S2TTransformerConfig:
         use_cnn_module=True, activation_fn="swish",
     ).replace(**kw)
 
+
+@register_model_architecture("s2t_transformer", "s2t_transformer_s_relative")
+def s2t_transformer_s_relative(**kw) -> S2TTransformerConfig:
+    """Shaw clipped relative keys in the encoder's self-attention (clip 100) and the
+    decoder's (clip 20)."""
+    return s2t_transformer_s(
+        encoder_attention_type="relative", max_encoder_relative_length=100,
+        max_decoder_relative_length=20,
+    ).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "convtransformer")
+def convtransformer(**kw) -> S2TTransformerConfig:
+    """ESPnet-ST's Conv2d front end (k 3, stride 2, padding k // 2, ReLU, as many
+    channels as the embedding) under a post-norm 512-wide 6 + 6 layer Transformer
+    with no CTC."""
+    embed = int(kw.get("encoder_embed_dim", 512))
+    return s2t_transformer_s(
+        subsampling_type="conv2d", subsampling_kernel=3,
+        subsampling_padding="same", subsampling_activation="relu",
+        encoder_embed_dim=512, encoder_ffn_embed_dim=2048,
+        encoder_layers=6, encoder_attention_heads=8,
+        decoder_embed_dim=512, decoder_ffn_embed_dim=2048,
+        decoder_layers=6, decoder_attention_heads=8,
+        encoder_normalize_before=False, decoder_normalize_before=False,
+        attention_dropout=0.0, activation_dropout=0.0,
+        use_ctc=False, subsampling_filter=embed,
+    ).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "convtransformer_espnet")
+def convtransformer_espnet(**kw) -> S2TTransformerConfig:
+    """The 256-wide 12-layer, 4-head variant."""
+    embed = int(kw.get("encoder_embed_dim", 256))
+    return convtransformer(
+        encoder_embed_dim=256, encoder_layers=12, encoder_attention_heads=4,
+        decoder_attention_heads=4, subsampling_filter=embed,
+    ).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_dynamic_transformer_s")
+def s2t_dynamic_transformer_s(**kw) -> S2TTransformerConfig:
+    """Dynamic convolutions in place of self-attention, kernels growing 3 .. 31."""
+    return s2t_transformer_s(
+        encoder_attention_type="dynamic",
+        encoder_lconv_kernels=(3, 7, 15, 31, 31, 31, 31),
+    ).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_light_transformer_s")
+def s2t_light_transformer_s(**kw) -> S2TTransformerConfig:
+    """Lightweight convolutions in place of self-attention, kernels growing 3 .. 31."""
+    return s2t_transformer_s(
+        encoder_attention_type="light",
+        encoder_lconv_kernels=(3, 7, 15, 31, 31, 31, 31),
+    ).replace(**kw)
+
+
+@register_model_architecture("s2t_transformer", "s2t_transformer_s_dlcl")
+def s2t_transformer_s_dlcl(**kw) -> S2TTransformerConfig:
+    return s2t_transformer_s(use_enc_dlcl=True).replace(**kw)

@@ -9,7 +9,7 @@ Transformer decoder on top; ``S2TCTCModel`` (``s2t_ctc_sate``) takes the
 encoder alone.  ``freeze_*`` stops the gradient at an encoder's output.
 
 The textual encoder's self-attention takes a padding-only mask, so its "abs"
-layers run the fused attention kernel (K1f / K1b), where the JAX module passes
+and "rope" layers run the fused attention kernel (K1f / K1b), where the JAX module passes
 an explicit padding bias and attends densely: the two agree, a 0-length row
 (every frame of a row the CTC shrink calls blank) included, where both attend
 uniformly over all T keys.
@@ -31,9 +31,11 @@ The acoustic encoder's CTC research stack (inter-CTC taps, PAE and its
 oracle from the transcript, mixup) comes with it, and its keys pass through
 the encoder's dict, as in JAX (``**enc``).
 
-``SATEConfig`` keeps the JAX field names and defaults.  What the port does not
-have raises ``NotImplementedError`` naming the field and its ROADMAP.md item
-(``check_supported``): textual attention other than abs and rel_pos (item 7).
+``SATEConfig`` keeps the JAX field names and defaults.  ``text_attention_type``
+takes every type the JAX layer builds from the type alone (abs, rope, local,
+rel_pos, light, dynamic; the textual positions are sinusoidal for all but
+rel_pos, rope included, as in JAX); "relative" raises ``ValueError``, as the
+layers get no clip length (the JAX layer asserts one).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from torch import nn
 
 from s2t_tpu_torch.models import pds as pds_mod
 from s2t_tpu_torch.models.s2t_transformer import (
-    DROPNET_STREAM, ITEM7, ORACLE_STREAM, S2TTransformerConfig, S2TTransformerEncoder, S2TTransformerModel,
+    DROPNET_STREAM, ORACLE_STREAM, S2TTransformerConfig, S2TTransformerEncoder, S2TTransformerModel,
     _check_trainable, _taps, s2t_transformer_s)
 from s2t_tpu_torch.models.s2t_transformer import check_supported as check_acoustic
 from s2t_tpu_torch.modules.adapter import (
@@ -131,16 +133,9 @@ class SATEConfig:
         return self.acoustic.ctc_pae_ground_truth_ratio
 
 
-def _unported(field: str, value, item: str):
-    return NotImplementedError(f"SATEConfig.{field}={value!r} is not ported to s2t_tpu_torch "
-                               f"({item})")
-
-
 def check_supported(cfg: SATEConfig, for_training: bool = False) -> None:
     """Raise NotImplementedError on the first field that selects a branch the port
     does not have, naming the field and the ROADMAP.md item that ports it."""
-    if cfg.text_attention_type not in ("abs", "rel_pos"):
-        raise _unported("text_attention_type", cfg.text_attention_type, ITEM7)
     if cfg.adapter_type not in ADAPTER_TYPES + ("shrink",):
         raise ValueError(f"SATEConfig.adapter_type {cfg.adapter_type!r} not supported")
     a = cfg.acoustic
@@ -416,6 +411,11 @@ class S2TSATEModel(S2TTransformerModel):
 
     build_encoder = S2TSATEEncoder
     decoder_mixup = False  # the JAX SATE model hands its decoder the tokens as they are
+
+    @staticmethod
+    def decoder_self_attention(dec) -> Dict[str, Any]:
+        """abs: the JAX SATE decoder takes no relative length (s2t_tpu/models/sate.py:417-428)."""
+        return {}
 
 
 @register_model_architecture("s2t_sate", "s2t_sate")

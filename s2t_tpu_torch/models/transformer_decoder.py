@@ -5,7 +5,8 @@ Entry points: ``forward`` (teacher-forced, (B, U) tokens -> (B, U, V)
 logits; with a ``generator`` it trains: embedding dropout after the
 positions, :102/:151, and the layers' dropouts) and ``step`` (one incremental
 decode step on a cache from ``init_cache``).  Sinusoidal positions, tied or
-separate output projection.  The positions table sets the compute dtype.
+separate output projection; the self-attention is "abs" or Shaw "relative"
+(``self_attn_type``, clipped at ``max_relative_length``).  The positions table sets the compute dtype.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ class TransformerDecoder(nn.Module):
                  num_layers: int = 6, num_heads: int = 4, activation: str = "relu",
                  normalize_before: bool = True, share_input_output_embed: bool = True,
                  max_positions: int = 1024, pad_id: int = 1, dropout: float = 0.0,
-                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 self_attn_type: str = "abs", max_relative_length: int = 0):
         super().__init__()
         self.embed_dim = embed_dim
         self.dropout = dropout
@@ -38,7 +40,8 @@ class TransformerDecoder(nn.Module):
         self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
-                                    dropout, attention_dropout, activation_dropout)
+                                    dropout, attention_dropout, activation_dropout,
+                                    self_attn_type, max_relative_length)
             for _ in range(num_layers)
         ])
         self.final_norm = layer_norm(embed_dim) if normalize_before else None

@@ -1,8 +1,10 @@
 """Multi-head attention with an explicit incremental KV cache, and the
 Conformer's relative-position attention (counterpart of
-s2t_tpu/modules/attention.py: "abs" attention and ``RelPositionMultiHeadAttention``).
+s2t_tpu/modules/attention.py: ``MultiHeadAttention`` with its abs, rope, Shaw
+relative and Gaussian local types and reduced (strided) keys, and
+``RelPositionMultiHeadAttention``).
 
-Encoder self-attention with a pure padding mask goes to the fused kernel
+Encoder self-attention (abs or rope) with a pure padding mask goes to the fused kernel
 (``ops/attention_cuda.py``) under the condition of the JAX module
 (attention.py:264-269); there is no sequence-length gate.  It gets the
 attention-dropout rate and a seed drawn from the step's generator
@@ -27,6 +29,7 @@ from torch import nn
 
 from s2t_tpu_torch.modules.cast import Linear
 from s2t_tpu_torch.modules.dropout import dropout as drop
+from s2t_tpu_torch.modules.positional import apply_rope, rope_table
 from s2t_tpu_torch.ops.attention_cuda import fused_attention
 
 NEG = -1e9
@@ -52,25 +55,65 @@ def dot_attention_weights(q, k, bias, dtype):
     return torch.softmax(scores.float(), dim=-1).to(dtype)
 
 
+def local_window_bias(T: int, window: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(1, 1, T, T) band mask: keys farther than ``window`` frames are hidden."""
+    i = torch.arange(T, device=device)
+    band = (i[:, None] - i[None, :]).abs() <= window
+    return torch.where(band, 0.0, NEG).to(dtype)[None, None]
+
+
 def kernel_seed(generator: torch.Generator) -> torch.Tensor:
     """A (1,) int64 dropout seed for the fused kernel, drawn on the generator's
     device (no host sync)."""
     return torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device)
 
 
+# the attention types of ``MultiHeadAttention`` (rel_pos is ``RelPositionMultiHeadAttention``),
+# and those that take the fused kernel under a pure padding mask
+ATTENTION_TYPES = ("abs", "rope", "relative", "local")
+FUSED_ATTENTION_TYPES = ("abs", "rope")
+# the length of rope's tables (the JAX module's ``max_positions`` default)
+ROPE_MAX_POSITIONS = 4096
+
+
 class MultiHeadAttention(nn.Module):
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    """``attention_type``: "abs"; "rope" (q and k rotated, s2t_tpu/modules/attention.py:420-431);
+    "relative" (Shaw: learned keys of the clipped distance key - query, an additive
+    score, :338-349, :588-597); "local" (with ``gauss_mask_sigma`` a per-head learned
+    Gaussian of the distance mixed into the probabilities, :619-640).  ``kv_stride``
+    keeps every s-th key and value outside incremental decoding (:402-406).  Only
+    abs and rope attention under a pure padding mask with Tq == Tk reach the fused
+    kernel, as in JAX (:443-472); the rest is dense."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 attention_type: str = "abs", kv_stride: int = 1, max_relative_length: int = 0,
+                 gauss_mask_sigma: float = 0.0, init_mask_weight: float = 0.5):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
+        if attention_type not in ATTENTION_TYPES:
+            raise ValueError(f"attention type {attention_type!r} not in {ATTENTION_TYPES}")
+        if attention_type == "relative" and max_relative_length <= 0:
+            raise ValueError("relative attention needs max_relative_length > 0")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
+        self.attention_type = attention_type
+        self.kv_stride = kv_stride
+        self.max_relative_length = max_relative_length
         self.q_proj = Linear(embed_dim, embed_dim)
         self.k_proj = Linear(embed_dim, embed_dim)
         self.v_proj = Linear(embed_dim, embed_dim)
         self.out_proj = Linear(embed_dim, embed_dim)
+        if attention_type == "relative":
+            self.relative_position_keys = nn.Parameter(
+                torch.zeros(2 * max_relative_length + 1, self.head_dim))
+        self.gauss = attention_type == "local" and gauss_mask_sigma != 0
+        if self.gauss:
+            self.gauss_sigma = nn.Parameter(torch.full((num_heads, 1, 1), float(gauss_mask_sigma)))
+            self.gauss_mask_weight = nn.Parameter(
+                torch.full((num_heads, 1, 1), float(init_mask_weight)))
 
     def _split(self, x):
         B, T, _ = x.shape
@@ -101,6 +144,46 @@ class MultiHeadAttention(nn.Module):
         value = key if value is None else value
         return self._split(self.k_proj(key)), self._split(self.v_proj(value))
 
+    def _rope(self, q, k, start: Optional[int]):
+        """q and k rotated at positions 0.. each (``start`` None), or both at ``start``
+        (one incremental step)."""
+        n = max(q.shape[1], k.shape[1]) if start is None else start + 1
+        if n > ROPE_MAX_POSITIONS:
+            raise ValueError(f"rope attention over {n} positions > {ROPE_MAX_POSITIONS}")
+        cos, sin = rope_table(ROPE_MAX_POSITIONS, self.head_dim, q.dtype, q.device)
+        if start is not None:
+            cos, sin = cos[start:start + 1], sin[start:start + 1]
+            return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        Tq, Tk = q.shape[1], k.shape[1]
+        return apply_rope(q, cos[:Tq], sin[:Tq]), apply_rope(k, cos[:Tk], sin[:Tk])
+
+    def relative_bias(self, q, key_pos, q_pos):
+        """The Shaw score q . keys[clip(key_pos - q_pos, -L, L) + L] / sqrt(Dh) as an
+        additive (B, H, Tq, Tk) bias: the products with the 2L + 1 learned keys,
+        gathered by distance."""
+        L = self.max_relative_length
+        dist = torch.clamp(key_pos[None, :] - q_pos[:, None], -L, L) + L  # (Tq, Tk)
+        qr = torch.einsum("bqhd,ld->bhql", q, self.relative_position_keys.to(q.dtype))
+        B, H, Tq, _ = qr.shape
+        rel = torch.gather(qr, 3, dist[None, None].expand(B, H, Tq, dist.shape[1]))
+        return rel / torch.tensor(math.sqrt(self.head_dim), dtype=q.dtype)
+
+    def _gauss_mix(self, w, valid_mask):
+        """((1 - g) w + g p_gauss) / 2 with g = sigmoid(gauss_mask_weight) and p_gauss
+        the softmax over keys of -(k - q)^2 / (2 sigma^2), which sees no padding; the
+        padded keys are zeroed after the mix, with no renormalisation (:619-640)."""
+        Tq, Tk = w.shape[2], w.shape[3]
+        d = torch.arange(Tk, dtype=torch.float32, device=w.device)
+        dis2 = -((d[None, :] - d[:Tq, None]) ** 2) / 2.0
+        inv_sig2 = 1.0 / torch.square(self.gauss_sigma.float())
+        p_gauss = torch.softmax(dis2[None] * inv_sig2, dim=-1)[None].to(w.dtype)
+        mw = torch.sigmoid(self.gauss_mask_weight.float())[None].to(w.dtype)
+        w = ((1.0 - mw) * w + mw * p_gauss) / 2.0
+        if valid_mask is not None:
+            vm = valid_mask[:, ::self.kv_stride] if self.kv_stride > 1 else valid_mask
+            w = w * vm[:, None, None, :].to(w.dtype)
+        return w
+
     def forward(
         self,
         query: torch.Tensor,
@@ -118,6 +201,11 @@ class MultiHeadAttention(nn.Module):
         Incremental mode: pass ``cache`` and ``cache_index`` (a Python int);
         query then has Tq == 1 and key/value are the new step only.
         ``generator``: the training step's; None means no dropout."""
+        s = self.kv_stride
+        if s > 1 and cache is None:
+            key, value = key[:, ::s], value[:, ::s]
+            if bias is not None:
+                bias = bias[..., ::s]
         q = self._split(self.q_proj(query))
         if kv_override is not None:
             k, v = kv_override
@@ -127,28 +215,41 @@ class MultiHeadAttention(nn.Module):
         else:
             k = self._split(self.k_proj(key))
             v = self._split(self.v_proj(value))
+        i = None if cache is None else int(cache_index)
+        if self.attention_type == "rope":
+            q, k = self._rope(q, k, i)
 
         if bias is None and valid_mask is not None and cache is None and kv_override is None:
-            if q.shape[1] == k.shape[1]:
+            if self.attention_type in FUSED_ATTENTION_TYPES and q.shape[1] == k.shape[1]:
                 # encoder self-attention with a pure padding mask: the fused
                 # kernel (the (B, H, T, T) probabilities never reach memory)
                 rate = self.dropout if generator is not None else 0.0
                 seed = kernel_seed(generator) if rate > 0 else None
                 out = fused_attention(q, k, v, valid_mask, rate, seed)
                 return self.out_proj(self._merge(out)), None
-            bias = padding_bias(valid_mask, q.dtype)
+            # the dense path rebuilds the padding bias, strided as the keys are
+            bias = padding_bias(valid_mask[:, ::s] if s > 1 else valid_mask, q.dtype)
 
         if cache is not None:
             if q.shape[1] != 1:
                 raise ValueError("incremental attention takes one query step at a time")
-            i = int(cache_index)
             cache["k"][:, i:i + 1] = k
             cache["v"][:, i:i + 1] = v
             k, v = cache["k"][:, :i + 1], cache["v"][:, :i + 1]
             if bias is not None:
                 bias = bias[..., :i + 1]
 
-        w = drop(dot_attention_weights(q, k, bias, q.dtype), self.dropout, generator)
+        if self.attention_type == "relative":
+            dev = q.device
+            q_pos = torch.arange(q.shape[1], device=dev) + (0 if i is None else i)
+            key_pos = torch.arange(k.shape[1], device=dev) * (s if cache is None else 1)
+            rel = self.relative_bias(q, key_pos, q_pos)
+            bias = rel if bias is None else bias + rel
+
+        w = dot_attention_weights(q, k, bias, q.dtype)
+        if self.gauss and cache is None:
+            w = self._gauss_mix(w, valid_mask)
+        w = drop(w, self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out_proj(self._merge(out)), cache
 

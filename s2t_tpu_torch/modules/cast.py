@@ -15,6 +15,9 @@ import torch.nn.functional as F
 from torch import nn
 
 
+LN_EPS = 1e-6  # flax's LayerNorm epsilon (torch defaults to 1e-5)
+
+
 def _as(p, dtype):
     return None if p is None else p.to(dtype)
 

@@ -1,6 +1,7 @@
 """Transformer encoder/decoder layers, optionally Conformer (counterpart of
 s2t_tpu/modules/layers.py:29-450: the attention + FFN layers, pre- or post-norm,
-with the macaron FFN, the convolution module and relative-position attention).
+with the macaron FFN, the strided / widening convolution module, every
+self-attention type of the JAX layer and the convolutions in its place).
 
 Every LayerNorm uses epsilon 1e-6, flax's default (torch defaults to 1e-5).
 Dropout sits where the JAX layers put it: activation dropout inside the FFN
@@ -17,12 +18,11 @@ import torch
 from torch import nn
 
 from s2t_tpu_torch.modules.attention import (
-    MultiHeadAttention, RelPositionMultiHeadAttention, padding_bias)
-from s2t_tpu_torch.modules.cast import Conv1d, LayerNorm, Linear
+    ATTENTION_TYPES, MultiHeadAttention, RelPositionMultiHeadAttention, padding_bias)
+from s2t_tpu_torch.modules.cast import LN_EPS, Conv1d, LayerNorm, Linear
 from s2t_tpu_torch.modules.dropout import dropout
+from s2t_tpu_torch.modules.lightconv import LightConvBlock
 from s2t_tpu_torch.modules.subsampling import get_activation
-
-LN_EPS = 1e-6
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -45,30 +45,35 @@ class FeedForward(nn.Module):
 
 class ConformerConvModule(nn.Module):
     """Pointwise conv -> GLU -> depthwise conv -> norm -> activation -> pointwise
-    conv -> dropout (s2t_tpu/modules/layers.py:46-107), at stride 1 and the
-    input's width.  Padded frames are zeroed before the first pointwise conv
-    and before the depthwise conv, so the conv never mixes padding into valid
-    frames.  ``norm_type`` "layer_norm", or "batch_norm": the reference's
-    BatchNorm1d as a frozen per-channel affine (``norm_scale``, ``norm_bias``)."""
+    conv -> dropout (s2t_tpu/modules/layers.py:46-107).  Padded frames are zeroed
+    before the first pointwise conv and before the depthwise conv, so the conv
+    never mixes padding into valid frames.  ``out_dim`` (0: the input's width)
+    widens the module from the first pointwise conv on; a depthwise ``stride``
+    above 1 gives T' = (T - 1) // stride + 1 frames, whose padding is zeroed
+    again (the caller shrinks the lengths the same way).  ``norm_type``
+    "layer_norm", or "batch_norm": the reference's BatchNorm1d as a frozen
+    per-channel affine (``norm_scale``, ``norm_bias``)."""
 
     def __init__(self, dim: int, kernel_size: int = 31, dropout: float = 0.0,
                  norm_type: str = "layer_norm", use_bias: bool = True,
-                 activation: str = "swish"):
+                 activation: str = "swish", out_dim: int = 0, stride: int = 1):
         super().__init__()
         if norm_type not in ("layer_norm", "batch_norm"):
             raise ValueError(f"conv-module norm {norm_type!r} not in ('layer_norm', 'batch_norm')")
+        D = out_dim or dim
         self.dropout = dropout
-        self.pointwise_conv1 = Linear(dim, 2 * dim, bias=use_bias)
-        self.depthwise_conv = Conv1d(dim, dim, kernel_size, padding=(kernel_size - 1) // 2,
-                                     groups=dim, bias=use_bias)
+        self.stride = stride
+        self.pointwise_conv1 = Linear(dim, 2 * D, bias=use_bias)
+        self.depthwise_conv = Conv1d(D, D, kernel_size, stride, padding=(kernel_size - 1) // 2,
+                                     groups=D, bias=use_bias)
         if norm_type == "batch_norm":
             self.norm = None
-            self.norm_scale = nn.Parameter(torch.ones(dim))
-            self.norm_bias = nn.Parameter(torch.zeros(dim))
+            self.norm_scale = nn.Parameter(torch.ones(D))
+            self.norm_bias = nn.Parameter(torch.zeros(D))
         else:
-            self.norm = layer_norm(dim)
+            self.norm = layer_norm(D)
         self.act = get_activation(activation)
-        self.pointwise_conv2 = Linear(dim, dim, bias=use_bias)
+        self.pointwise_conv2 = Linear(D, D, bias=use_bias)
 
     def forward(self, x: torch.Tensor, valid_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -80,16 +85,30 @@ class ConformerConvModule(nn.Module):
             h = h * self.norm_scale.to(h.dtype) + self.norm_bias.to(h.dtype)
         else:
             h = self.norm(h)
-        return dropout(self.pointwise_conv2(self.act(h)), self.dropout, generator)
+        h = self.pointwise_conv2(self.act(h))
+        if self.stride > 1:
+            h = h.masked_fill(~valid_mask[:, ::self.stride, None], 0.0)
+        return dropout(h, self.dropout, generator)
+
+
+# the encoder layer's self-attention types: MultiHeadAttention's, rel_pos and the convolutions
+ENCODER_ATTENTION_TYPES = ATTENTION_TYPES + ("rel_pos", "light", "dynamic")
 
 
 class S2TEncoderLayer(nn.Module):
     """[macaron FFN x 1/2] -> self-attention -> [conv module] -> FFN (x 1/2 with
     macaron) -> [final norm with the conv module], each sublayer with a residual,
-    pre- or post-norm (s2t_tpu/modules/layers.py:168-322).  ``attention_type``
-    "abs" (the fused kernel under a padding-only mask) or "rel_pos" (dense
-    relative-position attention over ``pos_emb``).  The conv residual adds the
-    module's output with no dropout of its own, as in JAX."""
+    pre- or post-norm (s2t_tpu/modules/layers.py:168-322).  ``attention_type``:
+    "abs" or "rope" (the fused kernel under a padding-only mask), "relative" /
+    "local" (``MultiHeadAttention``'s dense Shaw and Gaussian types; ``attention_stride``
+    strides the keys), "rel_pos" (dense relative-position attention over ``pos_emb``),
+    or "light" / "dynamic" (a ``LightConvBlock`` of width ``lconv_kernel`` in its
+    place).  The conv residual adds the module's output with no dropout of its own,
+    as in JAX.  ``conv_expand_dim`` / ``conv_stride``: the conv module widens and
+    strides the stream, its residual goes through the strided ``conv_res`` projection
+    (or is strided), and the FFN and norms after it run at the new width; the caller
+    shrinks the lengths.  ``macaron_ffn_dim`` (0: ``ffn_dim``) is the macaron FFN's
+    hidden width."""
 
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
                  activation: str = "relu", normalize_before: bool = True,
@@ -97,31 +116,54 @@ class S2TEncoderLayer(nn.Module):
                  activation_dropout: float = 0.0, attention_type: str = "abs",
                  macaron_style: bool = False, use_cnn_module: bool = False,
                  cnn_kernel: int = 31, conv_activation: str = "swish",
-                 conv_norm_type: str = "layer_norm", conv_bias: bool = True):
+                 conv_norm_type: str = "layer_norm", conv_bias: bool = True,
+                 attention_stride: int = 1, max_relative_length: int = 0,
+                 gauss_mask_sigma: float = 0.0, init_mask_weight: float = 0.5,
+                 lconv_kernel: int = 15, conv_expand_dim: int = 0, conv_stride: int = 1,
+                 macaron_ffn_dim: int = 0):
         super().__init__()
-        if attention_type not in ("abs", "rel_pos"):
-            raise ValueError(f"encoder attention {attention_type!r} not in ('abs', 'rel_pos')")
+        if attention_type not in ENCODER_ATTENTION_TYPES:
+            raise ValueError(f"encoder attention {attention_type!r} not in "
+                             f"{ENCODER_ATTENTION_TYPES}")
         self.normalize_before = normalize_before
         self.dropout = dropout
-        self.rel_pos = attention_type == "rel_pos"
+        self.attention_type = attention_type
         self.ffn_scale = 0.5 if macaron_style else 1.0
         if macaron_style:
             self.macaron_norm = layer_norm(dim)
-            self.macaron_ffn = FeedForward(dim, ffn_dim, activation, activation_dropout)
+            self.macaron_ffn = FeedForward(dim, macaron_ffn_dim or ffn_dim, activation,
+                                           activation_dropout)
         else:
             self.macaron_norm = self.macaron_ffn = None
         self.attn_norm = layer_norm(dim)
-        attn_cls = RelPositionMultiHeadAttention if self.rel_pos else MultiHeadAttention
-        self.self_attn = attn_cls(dim, num_heads, attention_dropout)
+        if attention_type in ("light", "dynamic"):
+            self.self_attn = LightConvBlock(
+                dim, dim, lconv_kernel, num_heads,
+                "lightweight" if attention_type == "light" else "dynamic",
+                weight_dropout=attention_dropout)
+        elif attention_type == "rel_pos":
+            self.self_attn = RelPositionMultiHeadAttention(dim, num_heads, attention_dropout)
+        else:
+            self.self_attn = MultiHeadAttention(
+                dim, num_heads, attention_dropout, attention_type, attention_stride,
+                max_relative_length, gauss_mask_sigma, init_mask_weight)
+        out_dim = dim
+        self.conv_stride = conv_stride
+        self.conv_res = None
         if use_cnn_module:
-            self.conv_norm = layer_norm(dim)
+            out_dim = conv_expand_dim or dim
+            # one norm, called on the input (pre-norm) or on the widened sum (post-norm)
+            self.conv_norm = layer_norm(dim if normalize_before else out_dim)
             self.conv_module = ConformerConvModule(dim, cnn_kernel, dropout, conv_norm_type,
-                                                   conv_bias, conv_activation)
-            self.final_norm = layer_norm(dim)
+                                                   conv_bias, conv_activation, out_dim,
+                                                   conv_stride)
+            if out_dim != dim:
+                self.conv_res = Linear(dim, out_dim)
+            self.final_norm = layer_norm(out_dim)
         else:
             self.conv_norm = self.conv_module = self.final_norm = None
-        self.ffn_norm = layer_norm(dim)
-        self.ffn = FeedForward(dim, ffn_dim, activation, activation_dropout)
+        self.ffn_norm = layer_norm(out_dim)
+        self.ffn = FeedForward(out_dim, ffn_dim, activation, activation_dropout)
 
     def _ffn(self, x, norm, ffn, generator):
         res = x
@@ -134,12 +176,15 @@ class S2TEncoderLayer(nn.Module):
                 attn_bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``pos_emb``: the (2T-1, D) relative table, for rel_pos attention."""
+        """``attn_bias``: an additive bias beyond padding (a window), or None;
+        ``pos_emb``: the (2T-1, D) relative table, for rel_pos attention."""
         if self.macaron_ffn is not None:
             x = self._ffn(x, self.macaron_norm, self.macaron_ffn, generator)
         res = x
         h = self.attn_norm(x) if self.normalize_before else x
-        if self.rel_pos:
+        if self.attention_type in ("light", "dynamic"):
+            h, _ = self.self_attn(h, valid_mask, generator)
+        elif self.attention_type == "rel_pos":
             bias = padding_bias(valid_mask, h.dtype) if attn_bias is None else attn_bias
             h = self.self_attn(h, pos_emb, bias, generator)
         else:
@@ -150,7 +195,13 @@ class S2TEncoderLayer(nn.Module):
         if self.conv_module is not None:
             res = x
             h = self.conv_norm(x) if self.normalize_before else x
-            x = res + self.conv_module(h, valid_mask, generator)
+            h = self.conv_module(h, valid_mask, generator)
+            s = self.conv_stride
+            if self.conv_res is not None:
+                res = self.conv_res(res[:, ::s])
+            elif s > 1:
+                res = res[:, ::s]
+            x = res + h
             if not self.normalize_before:
                 x = self.conv_norm(x)
         x = self._ffn(x, self.ffn_norm, self.ffn, generator)
@@ -160,17 +211,20 @@ class S2TEncoderLayer(nn.Module):
 
 
 class TransformerDecoderLayer(nn.Module):
-    """Causal self-attention (cacheable) -> cross-attention -> FFN."""
+    """Causal self-attention (cacheable; "abs" or Shaw "relative", whose query
+    position in a decode step is the step's index) -> cross-attention -> FFN."""
 
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
                  activation: str = "relu", normalize_before: bool = True,
                  dropout: float = 0.0, attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0):
+                 activation_dropout: float = 0.0, self_attn_type: str = "abs",
+                 max_relative_length: int = 0):
         super().__init__()
         self.normalize_before = normalize_before
         self.dropout = dropout
         self.self_attn_norm = layer_norm(dim)
-        self.self_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
+        self.self_attn = MultiHeadAttention(dim, num_heads, attention_dropout, self_attn_type,
+                                            max_relative_length=max_relative_length)
         self.cross_attn_norm = layer_norm(dim)
         self.cross_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
         self.ffn_norm = layer_norm(dim)

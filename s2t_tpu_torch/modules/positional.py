@@ -1,4 +1,5 @@
-"""Sinusoidal and relative positions (counterpart of s2t_tpu/modules/positional.py:26-54)."""
+"""Sinusoidal, relative and rotary positions (counterpart of
+s2t_tpu/modules/positional.py:26-78)."""
 
 from __future__ import annotations
 
@@ -51,3 +52,26 @@ def relative_table(T: int, dim: int, dtype: torch.dtype, device: torch.device) -
     (the JAX encoders build it per call at the call's T)."""
     with torch.inference_mode(False):
         return relative_encoding(T, dim).to(device=device, dtype=dtype)
+
+
+def rope_tables(max_len: int, head_dim: int, base: float = 10000.0, dtype=torch.float32):
+    """(cos, sin) tables of shape (max_len, head_dim // 2): position t, frequency
+    base ** (-2i / head_dim), computed in float64 and rounded once to ``dtype``."""
+    inv_freq = 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+    freqs = np.outer(np.arange(max_len, dtype=np.float64), inv_freq)
+    return torch.from_numpy(np.cos(freqs)).to(dtype), torch.from_numpy(np.sin(freqs)).to(dtype)
+
+
+@lru_cache(maxsize=32)
+def rope_table(max_len: int, head_dim: int, dtype: torch.dtype, device: torch.device):
+    """``rope_tables(max_len, head_dim)`` in ``dtype`` on ``device``, made once per key."""
+    with torch.inference_mode(False):
+        return tuple(t.to(device) for t in rope_tables(max_len, head_dim, dtype=dtype))
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs (x[..., 0::2], x[..., 1::2]) of x (B, T, H, Dh) by
+    the (T, Dh // 2) angles of ``cos`` / ``sin``."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c, s = cos[:, None, :], sin[:, None, :]
+    return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)

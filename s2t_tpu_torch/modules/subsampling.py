@@ -1,8 +1,9 @@
 """Subsampling front-ends (counterpart of s2t_tpu/modules/subsampling.py:23-155).
 
 ``Conv1dSubsampling``: a stack of strided 1-D convs with GLU (default),
-halving T per layer; the padded tail is re-zeroed before every conv so valid
-outputs do not depend on bucket padding.  Length recurrence per layer:
+halving T per layer; the padded tail is re-zeroed before every conv (unless the
+reference's pad semantics are asked for) so valid outputs do not depend on
+bucket padding.  Length recurrence per layer:
 L' = (L - 1) // stride + 1.
 
 ``Conv2dSubsampling``: strided 2-D convs over (time, frequency), ESPnet style,
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from s2t_tpu_torch.modules.cast import Conv1d, Conv2d, Linear
+from s2t_tpu_torch.modules.cast import LN_EPS, Conv1d, Conv2d, LayerNorm, Linear
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
 
@@ -40,30 +41,40 @@ def get_activation(name: str):
 class Conv1dSubsampling(nn.Module):
     """Channel plan: intermediate layers output ``filters``, the last outputs
     ``out_dim``; with GLU each conv emits 2x channels which the gate halves
-    (``a * sigmoid(b)``, ``a`` the first half)."""
+    (``a * sigmoid(b)``, ``a`` the first half).  ``norm`` "layer": a LayerNorm
+    (``norms.{i}``) over each conv's output before the gate; any other value is
+    inert, as in JAX (s2t_tpu/modules/subsampling.py:86-87).
+    ``mask_between_layers`` False: the padded tail is zeroed only before the first
+    conv, so valid frames at a length boundary read what the conv left there (the
+    torch reference's semantics)."""
 
     def __init__(self, in_dim: int, num_layers: int = 2, filters: int = 1024,
                  out_dim: int = 512, kernel_size: int = 5, stride: int = 2,
-                 activation: str = "glu"):
+                 activation: str = "glu", norm: str = "none", mask_between_layers: bool = True):
         super().__init__()
         self.stride = stride
         self.glu = activation == "glu"
         self.act = None if self.glu else get_activation(activation)
-        convs = []
+        self.mask_between_layers = mask_between_layers
+        convs, widths = [], []
         for i in range(num_layers):
             ch = out_dim if i == num_layers - 1 else filters
-            convs.append(Conv1d(
-                in_dim, ch * 2 if self.glu else ch, kernel_size, stride,
-                padding=(kernel_size - 1) // 2,
-            ))
+            widths.append(ch * 2 if self.glu else ch)
+            convs.append(Conv1d(in_dim, widths[-1], kernel_size, stride,
+                                padding=(kernel_size - 1) // 2))
             in_dim = ch
         self.convs = nn.ModuleList(convs)
+        self.norms = (nn.ModuleList(LayerNorm(w, eps=LN_EPS) for w in widths)
+                      if norm == "layer" else None)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         # x: (B, T, D_in); lengths: (B,)
-        for conv in self.convs:
-            x = x.masked_fill(~lengths_to_mask(lengths, x.shape[1])[..., None], 0.0)
+        for i, conv in enumerate(self.convs):
+            if i == 0 or self.mask_between_layers:
+                x = x.masked_fill(~lengths_to_mask(lengths, x.shape[1])[..., None], 0.0)
             x = conv(x.transpose(1, 2)).transpose(1, 2)
+            if self.norms is not None:
+                x = self.norms[i](x)
             if self.glu:
                 a, b = x.chunk(2, dim=-1)
                 x = a * torch.sigmoid(b)

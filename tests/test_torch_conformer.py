@@ -374,20 +374,42 @@ def test_conv2d_front_end_post_norm_forward_matches_jax():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("encoder_attention_type", "relative", "item 7"),
-    ("encoder_attention_type", "rope", "item 7"),
-    ("subsampling_ref_pad_semantics", True, "item 7"),
-    ("use_enc_dlcl", True, "item 7"),
     ("pipeline_parallel", 2, "item 12"),
 ])
 def test_unported_conformer_branches_raise_by_name(field, value, item):
     with pytest.raises(NotImplementedError, match=item) as e:
         tst.S2TTransformerModel(tst.s2t_conformer(**{**CONFORMER, field: value}), device="cpu")
     assert f"S2TTransformerConfig.{field}=" in str(e.value)
-    # subsampling_norm is inert under conv2d (as in JAX) and refused under conv1d
-    with pytest.raises(NotImplementedError, match="subsampling_norm"):
-        tst.S2TTransformerModel(tst.s2t_conformer(**CONFORMER, subsampling_norm="batch2d"),
+    # subsampling_norm is inert under conv2d and, but for "layer", under conv1d (as in JAX)
+    m = tst.S2TTransformerModel(tst.s2t_conformer(**CONFORMER, subsampling_norm="batch2d"),
                                 device="cpu")
+    assert m.encoder.subsample.norms is None
+
+
+@pytest.mark.parametrize("field,value", [
+    ("encoder_attention_type", "relative"),
+    ("encoder_attention_type", "rope"),
+    ("subsampling_ref_pad_semantics", True),
+    ("use_enc_dlcl", True),
+])
+def test_conformer_variant_branches_match_jax(field, value):
+    """The encoder variants inside a Conformer block (macaron FFN, conv module): the
+    forward agrees with JAX within 1e-5 of each tensor's largest magnitude."""
+    kw = {**CONFORMER, field: value}
+    if value == "relative":
+        kw["max_encoder_relative_length"] = 4
+    jm = jst.S2TTransformerModel(jst.s2t_conformer(**kw))
+    feats, lens = rng_batch(9)
+    prev = np.random.default_rng(9).integers(3, 32, size=(4, 5)).astype(np.int32)
+    params = perturb(flax_init(jm, feats, lens, prev))
+    tm = load_flax_params(tst.S2TTransformerModel(tst.s2t_conformer(**kw), device="cpu"), params)
+    ref = jm.apply({"params": params}, feats, lens, prev)
+    with torch.no_grad():
+        out = tm(torch.from_numpy(feats), torch.from_numpy(lens).long(), torch.from_numpy(prev))
+    for key in ("encoder_out", "ctc_logits", "decoder_logits"):
+        want = np.asarray(ref[key])
+        np.testing.assert_allclose(out[key].numpy(), want, err_msg=key,
+                                   atol=ATOL * max(1.0, np.abs(want).max()))
 
 
 # --------------------------------------------------------------------------- #

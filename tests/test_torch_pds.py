@@ -249,25 +249,53 @@ def test_loss_and_grads_match_jax(arch, criterion):
 
 
 @pytest.mark.parametrize("field,value,names", [
-    ("encoder_attention_type", "rope", "item 7"),
-    ("encoder_attention_type", "relative", "item 7"),
-    ("encoder_attention_type", "local", "item 7"),
-    ("pds_conv_strides", (1, 2, 1), "item 7"),
-    ("pds_ratios", (-1, 1, 2), "subsampling_ref_pad_semantics"),
-    ("subsampling_type", "conv2d", "item 7"),
     ("pds_fusion_method", "all_pool", "only 'conv'"),
 ])
 def test_unported_branches_raise_by_name(field, value, names):
-    kw = {**TINY, field: value}
-    if field == "subsampling_type":
-        kw["pds_ratios"] = (-1, 1, 2)
-    if field == "pds_fusion_method":
-        kw["pds_fusion"] = True
+    kw = {**TINY, field: value, "pds_fusion": True}
     with pytest.raises(NotImplementedError) as e:
         build_model("pdss2t_transformer_s_8", kw, device="cpu")
     assert names in str(e.value)
-    if field not in ("pds_ratios", "pds_fusion_method"):
-        assert f"PDSConfig.{field}=" in str(e.value)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("encoder_attention_type", "rope"),
+    ("encoder_attention_type", "relative"),
+    ("encoder_attention_type", "local"),
+    ("pds_conv_strides", (1, 2, 1)),
+    ("pds_ratios", (-1, 1, 2)),
+    ("subsampling_type", "conv2d"),
+])
+def test_item7_branches_match_jax(field, value):
+    """The encoder-variant branches of PDS: the forward agrees with JAX (lengths equal,
+    tensors within 1e-5 of their largest magnitude); relative attention, which gets no
+    clip length here, fails in both."""
+    kw = {**TINY, field: value}
+    if field == "subsampling_type":
+        kw["pds_ratios"] = (-1, 1, 2)
+    if field == "pds_conv_strides":
+        kw.update(use_cnn_module=True, cnn_module_kernel=3)
+    if "pds_ratios" in kw and kw["pds_ratios"][0] == -1:
+        kw["subsampling_filter"] = 16
+    jm = jpds.PDSS2TTransformerModel(jpds.pdss2t_transformer_s_8(**kw))
+    feats, lens, prev = make_batch()
+    if value == "relative":
+        with pytest.raises(AssertionError):
+            jax_params(jm, feats, lens, prev)
+        with pytest.raises(ValueError, match="relative"):
+            build_model("pdss2t_transformer_s_8", kw, device="cpu")
+        return
+    params = jax_params(jm, feats, lens, prev)
+    tm = load_flax_params(build_model("pdss2t_transformer_s_8", kw, device="cpu"), params)
+    ref = jm.apply({"params": params}, feats, lens, prev)
+    with torch.no_grad():
+        out = tm(torch.from_numpy(feats), torch.from_numpy(lens).long(), torch.from_numpy(prev))
+    np.testing.assert_array_equal(out["encoder_lengths"].numpy(),
+                                  np.asarray(ref["encoder_lengths"]))
+    for key in ("encoder_out", "decoder_logits"):
+        want = np.asarray(ref[key])
+        np.testing.assert_allclose(out[key].numpy(), want, err_msg=key,
+                                   atol=ATOL * max(1.0, np.abs(want).max()))
 
 
 @pytest.mark.parametrize("field,value", [
@@ -315,10 +343,7 @@ def test_ratio_minus_one_takes_the_conv1d_subsampler():
 # --------------------------------------------------------------------------- #
 # the recipes
 # --------------------------------------------------------------------------- #
-UNPORTED_RECIPES = {
-    "egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml": "item 7",
-    "egs/librispeech/asr/conf/EffecientConformerCTCMedium.yaml": "item 7",
-}
+UNPORTED_RECIPES = {}  # recipe -> what its refusal names
 
 
 def pds_recipes():
@@ -352,7 +377,7 @@ def test_every_pds_recipe_resolves_as_jax_or_raises_by_name():
             refused[path] = str(e)
             continue
         built.append(path)
-    assert len(recipes) == 75 and len(built) == 73 and len(refused) == 2, refused
+    assert len(recipes) == 75 and len(built) == 75 and len(refused) == 0, refused
     assert set(refused) == set(UNPORTED_RECIPES)
     for path, msg in refused.items():
         assert UNPORTED_RECIPES[path] in msg and "PDSConfig." in msg, (path, msg)
@@ -367,9 +392,11 @@ def test_every_pds_recipe_resolves_as_jax_or_raises_by_name():
     assert isinstance(m, tctc.S2TCTCModel) and m.cfg.downsample_ratio == 8
     assert [s[0].self_attn.num_heads for s in m.encoder.stages] == [4, 4, 4, 4]
     assert [s[0].attn_norm.normalized_shape[0] for s in m.encoder.stages] == [200, 256, 256, 360]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_model(*recipes["egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml"],
-                    device="cpu")
+    # EffecientConformer: a Conv2d subsampler, then two strided, widening stages
+    m = build_model(*recipes["egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml"],
+                    device="cpu", vocab_size=32)
+    assert m.cfg.downsample_ratio == 8 and m.cfg.out_dim == 240
+    assert [s[-1].conv_stride for s in m.encoder.stages] == [2, 2, 1]
 
 
 def test_chip_smoke_carries_the_pds_recipes():

@@ -125,7 +125,9 @@ def test_ctc_criterion_loss_and_grads_match_jax(variant):
 
 
 def test_unported_presets_and_encoders_raise():
-    with pytest.raises(NotImplementedError, match="pds_conv_strides"):
+    # in-layer conv strides are ported (tests/test_torch_variants_pds.py); they need the
+    # conv module, as in JAX
+    with pytest.raises(ValueError, match="pds_conv_strides"):
         build_model("s2t_ctc_pds", dict(vocab_size=32, pds_conv_strides=(1, 2, 1, 1)),
                     device="cpu")
     # the PDS stage taps are ported (tests/test_torch_pds_taps.py)

@@ -138,13 +138,14 @@ def test_end_to_end_wavs_through_hub(pairs):
 
 
 def test_unported_branches_raise():
-    # rel_pos and the conv module are ported (tests/test_torch_conformer.py); Shaw's
-    # relative attention and DLCL are not
-    with pytest.raises(NotImplementedError, match="encoder_attention_type"):
+    # rel_pos and the conv module are ported (tests/test_torch_conformer.py), and so are
+    # Shaw's relative attention and DLCL (tests/test_torch_variants_models.py); relative
+    # attention without a clip length fails, as it does in JAX
+    with pytest.raises(ValueError, match="max_relative_length"):
         tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY, encoder_attention_type="relative"),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="use_enc_dlcl"):
-        tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY, use_enc_dlcl=True), device="cpu")
+    dlcl = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY, use_enc_dlcl=True), device="cpu")
+    assert dlcl.encoder.dlcl.weights.shape == (3, 3)
     tm = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY), device="cpu")
     with pytest.raises(NotImplementedError, match="sampling"):
         SequenceGenerator(tm, sampling=True)

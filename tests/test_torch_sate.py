@@ -300,13 +300,19 @@ def test_s2t_ctc_sate_tokens_identical(beam):
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("text_attention_type", "rope", "item 7"), ("acoustic_use_enc_dlcl", True, "item 7"),
+@pytest.mark.parametrize("field,value", [
+    ("text_attention_type", "rope"), ("acoustic_use_enc_dlcl", True),
 ])
-def test_unported_sate_fields_raise_by_name(field, value, item):
-    with pytest.raises(NotImplementedError, match=item) as e:
-        build_model("s2t_sate_s", {**SATE, field: value}, device="cpu")
-    assert field.replace("acoustic_", "") + "=" in str(e.value)
+def test_item7_sate_fields_build_and_run(field, value):
+    """Rope textual attention and an acoustic DLCL build and run a forward (their parity
+    with JAX is tests/test_torch_variants_recipes.py's)."""
+    m = build_model("s2t_sate_s", {**SATE, field: value}, device="cpu")
+    feats, lens = rng_batch(0)
+    with torch.no_grad():
+        out = m(torch.from_numpy(feats), torch.from_numpy(lens).long(), torch.full((4, 3), 2))
+    assert torch.isfinite(out["encoder_out"]).all()
+    if field == "acoustic_use_enc_dlcl":
+        assert m.encoder.acoustic.dlcl is not None
 
 
 @pytest.mark.parametrize("field,value", [
@@ -365,10 +371,7 @@ SATE_BUILDS = {f"egs/mustc/st/conf/{n}.yaml" for n in (
     "ctc_aug_base", "ctc_aug_big", "ctc_aug_pds_big", "nast_pds_big",
     "reproduction_bil_ctc_progressive", "reproduction_bil_ctc_progressive2",
     "reproduction_ctc_aug")}
-REFUSED = {  # recipe -> what its first unported field names
-    "egs/librispeech/asr/conf/EffecientConformerCTCSmall.yaml": "item 7",
-    "egs/librispeech/asr/conf/EffecientConformerCTCMedium.yaml": "item 7",
-}
+REFUSED = {}  # recipe -> what its first unported field names
 TINY_DEPTH = {"encoder_layers": 1, "decoder_layers": 1, "text_encoder_layers": 1,
               "acoustic_encoder_layers": 1, "acoustic_decoder_layers": 1}
 
@@ -438,7 +441,7 @@ def test_every_sate_and_conformer_recipe_builds_or_raises_by_name():
     assert set(refused) == set(REFUSED), refused
     for path, msg in refused.items():
         assert REFUSED[path] in msg and "Config." in msg, (path, msg)
-    assert len(recipes) == len(built) + len(refused) == 38 and len(built) == 36
+    assert len(recipes) == len(built) + len(refused) == 38 and len(built) == 38
 
 
 # --------------------------------------------------------------------------- #
