@@ -1,5 +1,5 @@
 """Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer, CTC
-research-stack and encoder-variant slices on one NVIDIA H100.
+research-stack, encoder-variant and generator slices on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -161,10 +161,18 @@ Phases (any failure ends the run with a non-zero exit):
  29. efficient EffecientConformerCTCSmall.yaml (s2t_ctc_pds with in-layer strided,
              widening conv modules behind a Conv2d subsampler) as phase 13 with each
              stage's device ms, and one fp32 Trainer step card vs CPU;
+ 30. generator s2t_transformer_s at full width: fp32 fixture wavs card vs CPU with joint
+             CTC at 0.2 (phase 5's beam), then 20-token cases of prefix forcing, diverse
+             groups, sampling on handed-over uniforms, ordered constraints, a 2-member
+             ensemble (24 K1f an encode), LM fusion with a seeded transformer_lm and the
+             int8 cache; lazy = eager tokens on the card; bf16 at phase 6's shape (64 x
+             10 s, beam 5, features precomputed): plain, joint CTC, int8 and lazy in
+             turns, RTF, busy ms and the prefix scorer's device ms; s2t_ctc_base beam 5
+             with an ARPA n-gram LM card vs CPU; ctc_rescore.yaml through cli.generate;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
-it: serving (phases 5-6, 13, 16-17, 19, 21-23, 25-29) launches K1f once per encoder
+it: serving (phases 5-6, 13, 16-17, 19, 21-23, 25-30) launches K1f once per encoder
 layer that attends with the fused kernel and encode (abs or rope under a padding
 mask; a PDS encoder: every stage's layers; SATE: the acoustic and the textual
 layers, and a cross-stream layer's s2-attention; a rel_pos, Shaw-relative or
@@ -1048,7 +1056,8 @@ def by_stage(sequence_ms, cfg, names, backward=False):
     return out
 
 
-RANGE_PREFIXES = ("pds_", "sate_", "conformer_", "stack_", "variant_")  # the ranges below
+RANGE_PREFIXES = ("pds_", "sate_", "conformer_", "stack_", "variant_",  # the ranges below
+                  "joint_ctc_", "generator_")
 
 
 @contextlib.contextmanager
@@ -1580,8 +1589,9 @@ def write_wav(path: Path, samples: np.ndarray) -> None:
         w.writeframes(np.clip(np.rint(samples), -32768, 32767).astype("<i2").tobytes())
 
 
-def write_corpus(root: Path, seed: int = 0) -> None:
-    """A seeded raw-audio corpus: 16-bit wavs of 4-12 s (sigma-2000 noise),
+def write_corpus(root: Path, seed: int = 0, corpus=None) -> None:
+    """A seeded raw-audio corpus (``corpus``: split -> utterances, CORPUS by
+    default): 16-bit wavs of 4-12 s (sigma-2000 noise),
     targets of 10-30 words drawn from a Zipf(1.1) law over SYMBOLS words (so a
     model can learn something from the text alone), ``src_text`` = the target
     words for CTC, and ``dict.txt``."""
@@ -1590,7 +1600,7 @@ def write_corpus(root: Path, seed: int = 0) -> None:
     (root / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
     p = 1.0 / np.arange(1, SYMBOLS + 1) ** 1.1
     p /= p.sum()
-    for split, n in CORPUS.items():
+    for split, n in (corpus or CORPUS).items():
         lines = ["id\taudio\tn_frames\ttgt_text\tsrc_text"]
         for i in range(n):
             samples = int(rng.integers(4 * 16000, 12 * 16000 + 1))
@@ -2857,6 +2867,408 @@ def phase_efficient_conformer():
 
 
 # --------------------------------------------------------------------------- #
+# phase 30: the generator's full breadth (tests/test_torch_search.py holds the recipe copies)
+CTC_RESCORE_GENERATION = {  # egs/mustc/st/conf/ctc_rescore.yaml's generation over basis.yaml's
+    "beam": 5, "lenpen": 1.0, "scoring": "sacrebleu", "post_process": "sentencepiece",
+    "infer_ctc_weight": 0.2, "ctc_infer": True}
+MUSTC_ST_DATASET = {"max_tokens": 40000, "max_source_positions": 6000,  # basis.yaml's dataset
+                    "max_target_positions": 1024, "num_buckets": 12}
+GEN_SHORT = dict(GEN, max_len_b=20)  # the short card-vs-CPU cases and the profiled decodes
+SEARCH_CASES = {  # name -> (generator options, encodes a decode)
+    "prefix": (dict(prefix_size=3), 1),
+    "diverse_groups": (dict(beam_size=4, diverse_beam_groups=2), 1),
+    "sampling_noise": (dict(sampling=True, sampling_topk=10), 1),
+    "constraints_ordered": (dict(constraints_mode="ordered"), 1),
+    "ensemble": ({}, 2),
+    "lm_fusion": (dict(lm_weight=0.3), 1),
+}
+# the int8 cache card vs CPU, teacher-forced on the CPU's top hypotheses: the encoder
+# outputs differ by ~2e-5 between the devices (phase 5), ~1e-3 of a quantisation step
+# (absmax / 127 at absmax ~3), so ~2e-3 of the K / V entries round the other way, each
+# by one step; such flips move the step logits by ~1e-3, a fault in the path by O(1)
+INT8_FLIP_SHARE = 1e-2
+INT8_LOGIT_ATOL = 0.05
+SEARCH_CONSTRAINTS = [[[11, 12]], [[13], [14, 15]], [[16, 17, 18]], []]
+SPEED_MODES = {"plain": {}, "joint_ctc": {"infer_ctc_weight": 0.2},
+               "int8": {"kv_cache_dtype": "int8"}, "lazy": {"lazy_beam_reorder": True}}
+NGRAM_WORDS = 200  # the CTC n-gram LM's sentences draw from the first 200 words
+NGRAM_LM_WEIGHT = 0.5
+
+
+@contextlib.contextmanager
+def scorer_ranges():
+    """Run the joint-CTC prefix scorer's ``score_candidates`` and ``select`` inside
+    torch.profiler ranges ``joint_ctc_score_candidates`` / ``joint_ctc_select``; yields
+    the count of calls of each."""
+    from torch.profiler import record_function
+
+    from s2t_tpu_torch.inference.ctc_prefix import CTCPrefixScorer
+
+    saved = {name: getattr(CTCPrefixScorer, name) for name in ("score_candidates", "select")}
+    calls = {name: 0 for name in saved}
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            with record_function(f"joint_ctc_{name}"):
+                return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(CTCPrefixScorer, name, ranged(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(CTCPrefixScorer, name, fn)
+
+
+@contextlib.contextmanager
+def decode_ranges(model):
+    """Run ``model``'s encode inside the torch.profiler range ``generator_encode`` and count
+    its decode steps; yields the count of each."""
+    from torch.profiler import record_function
+
+    calls = {"encode": 0, "decode_step": 0}
+    encode, decode_step = model.encode, model.decode_step
+
+    def ranged_encode(*args, **kw):
+        calls["encode"] += 1
+        with record_function("generator_encode"):
+            return encode(*args, **kw)
+
+    def counted_step(*args, **kw):
+        calls["decode_step"] += 1
+        return decode_step(*args, **kw)
+
+    model.encode, model.decode_step = ranged_encode, counted_step
+    try:
+        yield calls
+    finally:
+        del model.encode, model.decode_step
+
+
+def search_card_vs_cpu(tag, card_gen, host_gen, batch, encodes=1):
+    """One decode of ``batch`` by two generators over the same seeded weights, on the card
+    and on the CPU: K1f launches 12 times an encode on the card; the tokens must be
+    identical, or differ only where the scores of the differing hypotheses agree within
+    ENC_ATOL (a near-tie broken by float error).  Returns the result."""
+    before = fused_attention.launches
+    tc, sc, _ = card_gen.generate(batch)
+    torch.cuda.synchronize()
+    if fused_attention.launches - before != 12 * encodes:
+        raise AssertionError(f"[{tag}] the decode launched K1f {fused_attention.launches - before} "
+                             f"times, expected {12 * encodes}")
+    th, sh, _ = host_gen.generate(batch)
+    tc, sc = tc.cpu(), sc.float().cpu()
+    differ = (tc != th).any(dim=-1)  # (B, K)
+    score_err = (sc - sh).abs()
+    res = {"identical": not bool(differ.any()), "max_score_err": score_err.max().item(),
+           "top_lengths": [int((row != 1).sum()) for row in th[:, 0]]}
+    if differ.any():
+        gaps = score_err[differ]
+        res["differing_hypotheses"] = int(differ.sum())
+        res["differing_score_gaps"] = gaps.tolist()
+        if not gaps.max().item() <= ENC_ATOL:
+            raise AssertionError(f"[{tag}] tokens differ card vs CPU and the scores by "
+                                 f"{gaps.max().item():.3e} (> {ENC_ATOL}): no near-tie")
+    log(f"[{tag}] card vs CPU tokens {'identical' if res['identical'] else 'differ (near-tie)'} "
+        f"{json.dumps(res)}")
+    return res, tc
+
+
+def int8_card_vs_cpu(card, host, batch, seed=0):
+    """The int8 cache on the card vs the CPU: a 20-token beam on each (tokens reported:
+    a rounding flip may move a near-tie), then the CPU's top hypotheses teacher-forced
+    through the card's and the CPU's int8 decode steps: the step logits within
+    INT8_LOGIT_ATOL, at most INT8_FLIP_SHARE of the cached int8 entries one step apart
+    (none further), the bf16 scales within one bf16 step.  Two encodes on the card."""
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+
+    kw = dict(GEN_SHORT, kv_cache_dtype="int8")
+    tc, sc, _ = SequenceGenerator(card, **kw).generate(batch)
+    th, sh, _ = SequenceGenerator(host, **kw).generate(batch)
+    tokens = th[:, 0]  # (B, L) the CPU's top hypotheses, pad after EOS
+    feats = torch.from_numpy(batch["features"])
+    lens = torch.from_numpy(batch["feat_lengths"]).long()
+    B, L = tokens.shape
+    prev = torch.cat([torch.full((B, 1), 2, dtype=torch.long), tokens[:, :-1].long()], dim=1)
+    caches, steps = [], []
+    with torch.inference_mode():
+        for model, dev in ((card, "cuda"), (host, "cpu")):
+            enc = model.encode(feats.to(dev), lens.to(dev))
+            mask = lengths_to_mask(enc["encoder_lengths"], enc["encoder_out"].shape[1])
+            cache = model.init_cache(B, L, kv_int8=True)
+            steps.append([model.decode_step(prev[:, i:i + 1].to(dev), cache, i,
+                                            enc["encoder_out"], mask)[0].float().cpu()
+                          for i in range(L)])
+            caches.append(cache)
+    logit_err = max((a - b).abs().max().item() for a, b in zip(*steps))
+    flips, worst, scale_err, n = 0, 0, 0.0, 0
+    for layer in caches[1]:
+        for name in ("k", "v"):
+            d = (caches[0][layer][name].cpu().int() - caches[1][layer][name].int()).abs()
+            flips += int((d > 0).sum())
+            worst = max(worst, int(d.max()))
+            n += d.numel()
+            sc_c = caches[0][layer][f"{name}_scale"].cpu().float()
+            sc_h = caches[1][layer][f"{name}_scale"].float()
+            scale_err = max(scale_err,
+                            ((sc_c - sc_h).abs() / sc_h.abs().clamp(min=1e-8)).max().item())
+    res = {"decode_identical": torch.equal(tc.cpu(), th),
+           "decode_max_score_err": (sc.float().cpu() - sh).abs().max().item(),
+           "teacher_forced_logit_max_err": logit_err, "int8_entries_flipped_share": flips / n,
+           "int8_max_step": worst, "scale_max_rel_err": scale_err}
+    log(f"[generator int8] weight seed {seed}: {json.dumps(res)}")
+    if not (logit_err <= INT8_LOGIT_ATOL and flips / n <= INT8_FLIP_SHARE and worst <= 1
+            and scale_err <= 2 ** -7):
+        raise AssertionError(f"the int8 cache disagrees card vs CPU: {res}")
+    return res
+
+
+def decode_speed(model, batch, B, seconds, n_timed=3):
+    """Each mode of SPEED_MODES decodes ``batch`` (features on the card) with ``model`` at
+    GEN's length once to warm up, then n_timed times in turns; then each decodes it at
+    GEN_SHORT's length once under the profiler (the encode and the prefix scorer inside
+    ranges; a 100-token trace takes ~40 s of host time to read, a 20-token one a fifth).
+    Returns name -> RTF (audio seconds over the median synchronised wall of a decode,
+    features precomputed), decode steps, the profiled decode's busy ms with the encode's
+    share and the busy ms a step, the scorer's device and host ms, and the tokens."""
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+
+    gens = {name: SequenceGenerator(model, **GEN, **kw) for name, kw in SPEED_MODES.items()}
+    out = {}
+    for name, gen in gens.items():
+        with decode_ranges(model) as calls:
+            tokens = gen.generate(batch)[0].cpu()
+        out[name] = {"tokens": tokens, "wall_s": [], "decode_steps": calls["decode_step"]}
+    for _ in range(n_timed):
+        for name, gen in gens.items():
+            out[name]["wall_s"].append(synced_s(lambda: gen.generate(batch)))
+    for name, kw in SPEED_MODES.items():
+        gen = SequenceGenerator(model, **GEN_SHORT, **kw)
+        with scorer_ranges(), decode_ranges(model) as calls:
+            prof = device_profile(lambda: gen.generate(batch))
+        wall = float(np.median(out[name]["wall_s"]))
+        encode_ms = prof["range_ms"]["generator_encode"]
+        step_ms = (prof["busy_ms"] - encode_ms) / calls["decode_step"]
+        scorer = {k: v for k, v in prof["range_ms"].items() if k.startswith("joint_ctc_")}
+        out[name].update({
+            "rtf": B * seconds / wall, "median_wall_s": wall,
+            "wall_ms_per_step": wall * 1e3 / out[name]["decode_steps"],
+            "profiled_steps": calls["decode_step"],
+            "profiled_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
+            "device_busy_share": prof["busy_ms"] / prof["wall_ms"],
+            "profiled_encode_device_ms": encode_ms, "device_busy_ms_per_step": step_ms,
+            "scorer_device_ms": scorer,
+            "scorer_host_ms": {k: v for k, v in prof["range_host_ms"].items()
+                               if k.startswith("joint_ctc_")},
+            "scorer_share_of_step_busy": sum(scorer.values()) / (prof["busy_ms"] - encode_ms),
+            "top_aten_ops_device_ms": prof["top_ops"][:5]})
+    return out
+
+
+def ctc_ngram_card_vs_cpu():
+    """s2t_ctc_base at full width (V=10000) in fp32, beam 5 with an ARPA LM (order 3, trained
+    on 200 seeded sentences over the first NGRAM_WORDS words, written and loaded back): the
+    re-ranked tokens card vs CPU, identical, or, where the CTC beams themselves differ, the
+    CTC near-tie of phase 13.  Returns (result, launches)."""
+    from s2t_tpu_torch.data.dictionary import Dictionary
+    from s2t_tpu_torch.data.ngram_lm import ArpaLM, train_ngram_lm
+    from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
+    from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_base
+
+    d = Dictionary()
+    for i in range(SYMBOLS):
+        d.add_symbol(f"w{i}")
+    rng = np.random.default_rng(4)
+    lines = [" ".join(f"w{j}" for j in rng.integers(0, NGRAM_WORDS, size=int(rng.integers(3, 12))))
+             for _ in range(200)]
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_arpa_") as tmp:
+        train_ngram_lm(lines, order=3).save(Path(tmp) / "lm.arpa")
+        lm = ArpaLM.load(Path(tmp) / "lm.arpa")
+    cfg = s2t_ctc_base(vocab_size=len(d), max_target_positions=1024)
+    card, host = (S2TCTCModel(cfg, device=dev, seed=0) for dev in ("cuda", "cpu"))
+    batch = GeneratorHub(card, None)._speech_batch(WAVS)
+    dec = CTCDecoder(beam_size=5)
+    reset_counts()  # the main path: the card's plain and n-gram decodes
+    out = {}
+    for name, kw in (("plain", {}), ("ngram", dict(ngram_lm=lm, lm_weight=NGRAM_LM_WEIGHT,
+                                                   dictionary=d))):
+        tc, sc, ec = CTCGenerator(card, dec, **kw).generate(batch)
+        th, sh, eh = CTCGenerator(host, dec, **kw).generate(batch)
+        out[name] = (tc.cpu(), sc.cpu(), th, sh, ec, eh)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(launches, {**{k: 0 for k in launches}, "attention_fwd": 2 * encoder_layers(cfg)},
+                 "the CTC n-gram case")
+    tc, _, th, _, ec, eh = out["plain"]
+    nc, nsc, nh, nsh, _, _ = out["ngram"]
+    res = {"plain_identical": torch.equal(tc, th), "ngram_identical": torch.equal(nc, nh),
+           "reranked_rows": int((nc[:, 0] != tc[:, 0]).any(dim=-1).sum()),
+           "ngram_score_max_err": (nsc - nsh).abs().max().item()}
+    if not res["ngram_identical"]:
+        ok, report = ctc_near_tie(ec, eh, tc, th, 5)
+        res["near_tie"] = report
+        if res["plain_identical"] or not ok:
+            raise AssertionError(f"[ctc ngram] re-ranked tokens differ card vs CPU: {res}")
+    log(f"[ctc ngram] s2t_ctc_base fp32 beam 5 with an order-3 ARPA LM (weight "
+        f"{NGRAM_LM_WEIGHT}): {json.dumps(res)}")
+    return res, launches
+
+
+def ctc_rescore_cli(root: Path):
+    """cli.generate decodes TEST_UTTS utterances of a seeded feature split with
+    ctc_rescore.yaml's generation section over basis.yaml's (joint CTC at 0.2, ctc_infer,
+    beam 5) and basis.yaml's dataset caps, from a seeded s2t_transformer_s state dict;
+    cut: scoring wer (sacreBLEU is not installed here), no sentencepiece, max_len_b 100.
+    Returns (result, launches)."""
+    from s2t_tpu_torch.cli import generate as cli_generate
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    write_corpus(root, seed=5, corpus={"dev": TEST_UTTS})
+    write_feature_split(root, "dev", "test")
+    cfg = from_dict(TrainConfig, {
+        "task": "speech_to_text", "arch": "s2t_transformer_s",
+        "dataset": {"data": str(root), "gen_subset": "test", **MUSTC_ST_DATASET},
+        "checkpoint": {"save_dir": str(root / "ckpt")},
+        "generation": {**CTC_RESCORE_GENERATION, "scoring": "wer", "post_process": None,
+                       "max_len_b": 100, "results_path": str(root / "gen")}})
+    task = audio_task(cfg, use_audio=False)
+    params = S2TTransformerModel(s2t_transformer_s(vocab_size=len(task.tgt_dict),
+                                                   max_target_positions=1024),
+                                 device="cuda", seed=2).state_dict()
+    reset_counts()  # the main path: cli.generate with joint CTC
+    with scorer_ranges() as calls:
+        out = cli_generate.main(cfg, params, task=task, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    encodes = len(task.get_batch_iterator(task.datasets["test"], max_tokens=cfg.dataset.max_tokens,
+                                          shuffle=False))
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * encodes},
+                 "cli.generate with ctc_rescore.yaml")
+    text = (root / "gen" / "generate-test.txt").read_text().splitlines()
+    ctc = (root / "gen" / "translation-test.txt.ctc").read_text().splitlines()
+    if sum(line.startswith("H-") for line in text) != TEST_UTTS or len(ctc) != TEST_UTTS:
+        raise AssertionError(f"ctc_rescore cli.generate wrote {len(text)} lines and {len(ctc)} "
+                             "CTC transcripts")
+    if not calls["score_candidates"]:
+        raise AssertionError("cli.generate with ctc_rescore.yaml never called the prefix scorer")
+    res = {"utterances": out["n_utts"], "score": text[-1], "gen_time_s": out["gen_time"],
+           "rtf": out["rtf"], "scorer_calls": calls, "launches": counts,
+           "first_lines": text[:3]}
+    log(f"[ctc_rescore] {json.dumps(res)}")
+    return res, counts
+
+
+def phase_generator():
+    """Phase 30: the generator's options on s2t_transformer_s at full width (V=10000).
+    (a) fp32 fixture wavs card vs CPU: joint CTC at 0.2 with phase 5's beam (5, 100 tokens);
+    prefix forcing, diverse groups, sampling on handed-over uniforms, ordered constraints,
+    a 2-member ensemble, LM fusion with a seeded transformer_lm and the int8 cache (at two
+    weight seeds) at 20 tokens; lazy = eager tokens on the card. (b) bf16 at phase 6's shape
+    (64 x 10 s, beam 5): plain, joint CTC, int8 and lazy in turns, 3 timed decodes each and
+    one profiled 20-token decode each. (c) the CTC n-gram
+    LM on s2t_ctc_base. (d) ctc_rescore.yaml through cli.generate.  Returns (results,
+    launches)."""
+    from s2t_tpu_torch.inference.constrained import pack_constraints
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+    from s2t_tpu_torch.models.transformer_lm import TransformerLM, transformer_lm_base
+
+    t0 = time.perf_counter()
+    part_s = {}
+    cfg = s2t_transformer_s(vocab_size=10000, max_target_positions=1024)
+    card, host = (S2TTransformerModel(cfg, device=d, seed=0) for d in ("cuda", "cpu"))
+    card2, host2 = (S2TTransformerModel(cfg, device=d, seed=1) for d in ("cuda", "cpu"))
+    lm_cfg = transformer_lm_base(vocab_size=10000, dropout=0.0)
+    card_lm, host_lm = (TransformerLM(lm_cfg, device=d, seed=2) for d in ("cuda", "cpu"))
+    batch = GeneratorHub(card, None)._speech_batch(WAVS)
+    B = len(WAVS)
+    rng = np.random.default_rng(6)
+    batch["target"] = rng.integers(4, 10000, size=(B, 5)).astype(np.int32)
+    batch["constraints"] = pack_constraints(SEARCH_CONSTRAINTS)
+
+    reset_counts()  # the main path: every card decode of (a)
+    parity = {}
+    parity["joint_ctc"], _ = search_card_vs_cpu(
+        "generator joint_ctc", SequenceGenerator(card, **GEN, infer_ctc_weight=0.2),
+        SequenceGenerator(host, **GEN, infer_ctc_weight=0.2), batch)
+    probe = SequenceGenerator(card, **GEN_SHORT)
+    max_len = probe._max_len_for(probe._enc_len_bound(batch["features"].shape[1]))
+    noise = rng.uniform(size=(max_len, B * GEN_SHORT["beam_size"])).astype(np.float32)
+    for name, (kw, encodes) in SEARCH_CASES.items():
+        kw = {**GEN_SHORT, **kw}
+        if name == "sampling_noise":
+            kw["sampling_noise"] = noise
+        sides = [dict(kw), dict(kw)]
+        if name == "ensemble":
+            sides[0]["extra_models"], sides[1]["extra_models"] = [card2], [host2]
+        if name == "lm_fusion":
+            sides[0]["lm_model"], sides[1]["lm_model"] = card_lm, host_lm
+        parity[name], tokens = search_card_vs_cpu(
+            f"generator {name}", SequenceGenerator(card, **sides[0]),
+            SequenceGenerator(host, **sides[1]), batch, encodes)
+        if name == "prefix" and not (tokens[:, :, :3] == torch.from_numpy(
+                batch["target"][:, None, :3]).long()).all():
+            raise AssertionError("prefix forcing did not force the targets' first 3 tokens")
+    eager_t, eager_s, _ = SequenceGenerator(card, **GEN).generate(batch)
+    lazy_t, lazy_s, _ = SequenceGenerator(card, **GEN, lazy_beam_reorder=True).generate(batch)
+    # the int8 bounds held at two weight seeds (the ensemble's second member is seed 1)
+    parity["int8"] = {f"seed{seed}": int8_card_vs_cpu(c, h, batch, seed)
+                      for seed, (c, h) in enumerate(((card, host), (card2, host2)))}
+    parity["lazy_vs_eager_card"] = {"identical": torch.equal(lazy_t, eager_t),
+                                    "max_score_err": (lazy_s - eager_s).abs().max().item()}
+    log(f"[generator lazy] card fp32 lazy vs eager {json.dumps(parity['lazy_vs_eager_card'])}")
+    if not parity["lazy_vs_eager_card"]["identical"]:
+        raise AssertionError("the lazy reorder decodes other tokens than the eager one")
+    counts = read_counts()
+    encodes = 1 + sum(e for _, e in SEARCH_CASES.values()) + 2 + 2 * len(parity["int8"])
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * encodes},
+                 f"phase 30 (a) ({encodes} encodes)")
+    launches = dict(counts)
+    del card2, host2, card_lm, host_lm, host
+    part_s["card_vs_cpu"] = time.perf_counter() - t0
+
+    # (b) bf16 serving at phase 6's shape; the features are computed once on the host
+    cfg16 = cfg.replace(dtype_str="bfloat16")
+    model = S2TTransformerModel(cfg16, device="cuda", seed=0)
+    n, seconds = 64, 10.0
+    waves = list((np.random.default_rng(0).normal(size=(n, int(16000 * seconds))) * 3000.0)
+                 .astype(np.float32))
+    fb = GeneratorHub(model, None)._speech_batch(waves)
+    fb = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
+    reset_counts()  # the main path: 5 decodes of each mode
+    speed = decode_speed(model, fb, n, seconds)
+    counts = read_counts()
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * 5 * len(SPEED_MODES)},
+                 "phase 30 (b)")
+    launches = {k: launches[k] + counts[k] for k in counts}
+    plain = speed["plain"].pop("tokens")
+    for name in SPEED_MODES:
+        if name != "plain":
+            t = speed[name].pop("tokens")
+            speed[name]["top_tokens_equal_plain_share"] = (
+                (t[:, 0] == plain[:, 0]).all(dim=-1).float().mean().item())
+    if speed["lazy"]["top_tokens_equal_plain_share"] != 1.0:
+        log("[generator speed] bf16 lazy and eager top tokens differ on some rows (bf16 "
+            "attention over a gathered or a sliced cache)")
+    log(f"[generator speed] bf16 64 x 10 s, beam 5 (generate only): {json.dumps(speed)}")
+    part_s["speed"] = time.perf_counter() - t0 - sum(part_s.values())
+
+    ngram, ngram_launches = ctc_ngram_card_vs_cpu()
+    launches = {k: launches[k] + ngram_launches[k] for k in launches}
+    part_s["ctc_ngram"] = time.perf_counter() - t0 - sum(part_s.values())
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_rescore_") as tmp:
+        rescore, rescore_launches = ctc_rescore_cli(Path(tmp))
+    launches = {k: launches[k] + rescore_launches[k] for k in launches}
+    part_s["ctc_rescore"] = time.perf_counter() - t0 - sum(part_s.values())
+    log(f"[main path] the generator (card-vs-CPU cases, speed, CTC n-gram, ctc_rescore "
+        f"cli.generate): {json.dumps(launches)}; host seconds by part {json.dumps(part_s)}")
+    return {"parity": parity, "speed": speed, "ctc_ngram": ngram, "ctc_rescore": rescore,
+            "seconds_by_part": part_s}, launches
+
+
+# --------------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2915,6 +3327,8 @@ def main(argv=None) -> int:
     # phases 28-29: the encoder variants
     variants, variant_launches = phase_variants()
     efficient, efficient_launches = phase_efficient_conformer()
+    # phase 30: the generator's full breadth
+    generator, generator_launches = phase_generator()
     log(f"[main path] the rest of the CTC research stack: CTC-Aug (serving, parity, speed) "
         f"{json.dumps(ctc_aug_launches)}; nast_pds_big and ctc_aug_pds_big (serving, parity) "
         f"{json.dumps(nast_pds_launches)}; PDS stage taps (parity) and Jacobi "
@@ -2948,7 +3362,8 @@ def main(argv=None) -> int:
         audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches,
         pds_train_launches, pds_ctc_launches, sate_train_launches, conformer_launches,
         nast_stack_launches, bil_ctc_launches, aipa_launches, ctc_aug_launches,
-        nast_pds_launches, pds_taps_launches, variant_launches, efficient_launches))
+        nast_pds_launches, pds_taps_launches, variant_launches, efficient_launches,
+        generator_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -3040,7 +3455,7 @@ def main(argv=None) -> int:
             "pds_train": pds_train, "sate_serve": sate_serve, "sate_train": sate_train,
             "conformer": conformer, "nast_stack": nast_stack, "bil_ctc": bil_ctc, "aipa": aipa,
             "ctc_aug": ctc_aug, "nast_pds_big": nast_pds, "pds_taps": pds_taps,
-            "variants": variants, "efficient_conformer": efficient,
+            "variants": variants, "efficient_conformer": efficient, "generator": generator,
             "path_launches": path_launches,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

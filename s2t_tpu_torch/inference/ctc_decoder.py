@@ -5,8 +5,9 @@ Plain tensor ops on the model's device, as the JAX package leaves them to
 XLA: the greedy decode has no host sync, the prefix beam one Python step a
 frame over static (B, K, T) buffers.  ``CTCGenerator`` keeps the
 ``SequenceGenerator`` interface (``generate(batch)`` -> tokens, scores, the
-encoder dict) and with ``use_xctc`` decodes the XCTC head's logits (NAST
-translation).  Its n-gram LM re-ranking is not ported and raises.
+encoder dict), with ``use_xctc`` decodes the XCTC head's logits (NAST
+translation), and with an ``ngram_lm`` (``data/ngram_lm.py``) re-ranks the
+beam's n-best on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from s2t_tpu_torch.data.ngram_lm import rescore_nbest
 from s2t_tpu_torch.inference.beam_search import stable_topk
 from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
 
@@ -68,15 +70,18 @@ class CTCDecoder:
 class CTCGenerator:
     """One encoder pass, then CTC greedy or prefix-beam decoding
     (s2t_tpu/inference/ctc_decoder.py:79-137); ``use_xctc`` decodes the XCTC
-    logits in place of the CTC ones when the encoder emits them."""
+    logits in place of the CTC ones when the encoder emits them.  With an
+    ``ngram_lm`` and its ``dictionary``, the beam's n-best is re-ranked by
+    score + lm_weight ln p_LM(words) (greedy output is not)."""
 
-    def __init__(self, model, decoder: CTCDecoder, use_xctc: bool = False, ngram_lm=None):
-        if ngram_lm is not None:
-            raise NotImplementedError("CTCGenerator's n-gram LM re-ranking (ngram_lm) is not "
-                                      "ported to s2t_tpu_torch")
+    def __init__(self, model, decoder: CTCDecoder, use_xctc: bool = False, ngram_lm=None,
+                 lm_weight: float = 0.5, dictionary=None):
         self.model = model
         self.decoder = decoder
         self.use_xctc = use_xctc
+        self.ngram_lm = ngram_lm
+        self.lm_weight = lm_weight
+        self.dictionary = dictionary
 
     @torch.inference_mode()
     def generate(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
@@ -92,6 +97,11 @@ class CTCGenerator:
         tokens, second = self.decoder.decode(enc)
         if tokens.dim() == 2:
             return tokens[:, None, :], torch.zeros((tokens.shape[0], 1), device=dev), enc
+        if self.ngram_lm is not None and self.dictionary is not None:
+            tokens, second = rescore_nbest(tokens.cpu().numpy(), second.cpu().numpy(),
+                                           self.dictionary, self.ngram_lm, self.lm_weight,
+                                           pad_id=self.decoder.pad_id)
+            return torch.from_numpy(tokens).to(dev), torch.from_numpy(second).to(dev), enc
         return tokens, second, enc
 
 

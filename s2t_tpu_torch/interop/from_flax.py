@@ -1,5 +1,6 @@
 """Carry a JAX ``S2TTransformerModel``, ``PDSS2TTransformerModel``,
-``S2TSATEModel`` or ``S2TCTCModel`` ``.init(...)["params"]`` tree into the port.
+``S2TSATEModel``, ``S2TCTCModel`` or ``TransformerLM`` ``.init(...)["params"]``
+tree into the port.
 
 The tree arrives as nested mappings of numpy arrays (``jax.tree.map(np.asarray,
 params)``); no jax is imported here.  Layouts:
@@ -20,7 +21,9 @@ Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
 ``final_layer{j}`` -> ``final_layers.{j}`` and its stage taps ``ctc_norm{i}``,
 ``xctc_norm{i}``, ``pae{i}`` and ``ctc{i}`` -> ``ctc_norms.{i}``, ``xctc_norms.{i}``,
 ``paes.{i}`` and ``ctc_heads.{i}``, and the tied ``shared_embed`` table -> the
-decoder's ``embed_tokens``; the other names (``encoder/embed_norm``,
+decoder's ``embed_tokens``, as is an LM's adaptive input ``adaptive_embed`` (its
+``embed{k}`` tables and ``proj{k}`` kernels, like the adaptive softmax's ``head``,
+``proj{k}`` and ``tail{k}``, keep their names); the other names (``encoder/embed_norm``,
 ``encoder/ctc_head`` with its ``norm``, ``encoder/pae``, ``encoder/xctc_head``,
 ``encoder/xpae``, ``encoder/axctc_head``, ``encoder/inter_ctc_head``,
 ``encoder/inter_xctc_head``, SATE's ``encoder/acoustic``, ``encoder/adapter`` and
@@ -86,8 +89,8 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 
 
 def _module_path(parts) -> str:
-    if parts == ("shared_embed",):
-        return "decoder.embed_tokens"
+    if parts[:1] in (("shared_embed",), ("adaptive_embed",)):
+        parts = ("decoder", "embed_tokens", *parts[1:])
     return ".".join(next((pat.sub(repl, p) for pat, repl in _TO_PORT if pat.match(p)), p)
                     for p in parts)
 
@@ -144,6 +147,8 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
 def _flax_module_path(name: str, shared_embed: bool) -> tuple:
     if name == "decoder.embed_tokens" and shared_embed:
         return ("shared_embed",)
+    if name.startswith("decoder.embed_tokens."):  # an LM's adaptive input
+        return ("adaptive_embed", *name.split(".")[2:])
     for pattern, repl in _TO_FLAX:
         name = pattern.sub(repl, name)
     return tuple(name.split("."))
@@ -154,7 +159,7 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
         return name, arr
     if name != "weight":
         raise KeyError(name)
-    if module.endswith("embed_tokens"):
+    if re.search(r"(embed_tokens|embed_positions|embed\d+)$", module):
         return "embedding", arr
     if module.endswith(".conv") and arr.ndim == 2:  # a lightweight conv's (H, k) kernel
         return "weight", arr

@@ -6,7 +6,9 @@ lp, the Conformer ``s2t_conformer``, the encoder variants ``s2t_transformer_s_re
 ``s2t_dynamic_transformer_s``, ``s2t_light_transformer_s``, ``s2t_transformer_s_dlcl``
 and the ESPnet-ST ``convtransformer`` / ``convtransformer_espnet``), the 13
 ``pdss2t_transformer_*`` ones, SATE's ``s2t_sate`` / ``s2t_sate_s`` and the
-encoder-only ``s2t_ctc``, ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``.
+encoder-only ``s2t_ctc``, ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``, and the
+language models ``transformer_lm``, ``transformer_lm_big``, ``transformer_lm_wiki103``
+and ``transformer_lm_baevski_wiki103``.
 Every other architecture of the JAX registry is registered here too, as a preset that
 raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
 ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
@@ -18,12 +20,12 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from s2t_tpu_torch.models import pds, s2t_ctc, s2t_transformer, sate  # noqa: F401  (the presets)
+from s2t_tpu_torch.models import (  # noqa: F401  (the presets)
+    pds, s2t_ctc, s2t_transformer, sate, transformer_lm)
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 _ITEMS = {
     9: "ROADMAP.md section 1 item 9 (other speech families)",
-    10: "ROADMAP.md section 1 item 10 (inference breadth: LM fusion)",
     11: "ROADMAP.md section 1 item 11 (the text and MT zoo)",
 }
 
@@ -42,9 +44,6 @@ UNPORTED_ARCHS = {
     "wav2vec_ctc": ("wav2vec_ctc", "the wav2vec 2.0 encoder", 9),
     "wav2vec_seq2seq": ("wav2vec_seq2seq", "the wav2vec 2.0 encoder", 9),
     **{a: ("emformer", "the streaming Emformer", 9) for a in ("emformer", "emformer_s")},
-    **{a: ("transformer_lm", "the Transformer language model", 10)
-       for a in ("transformer_lm", "transformer_lm_baevski_wiki103", "transformer_lm_big",
-                 "transformer_lm_wiki103")},
     **{a: ("transformer", "the text Transformer", 11)
        for a in ("transformer", "transformer_ctc", "transformer_iwslt_de_en",
                  "transformer_wmt_en_de_big", "transformer_wmt_en_de_big_t2t")},

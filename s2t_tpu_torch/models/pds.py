@@ -547,6 +547,9 @@ class PDSS2TTransformerModel(S2TTransformerModel):
         check_supported(cfg)
 
     build_encoder = PDSEncoder
+    # the JAX PDS model's init_cache / decode_step take neither (s2t_tpu/models/pds.py:651-660)
+    kv_int8_cache = False
+    lazy_reorder = False
 
 
 # --------------------------------------------------------------------------- #

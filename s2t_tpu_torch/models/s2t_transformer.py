@@ -728,15 +728,22 @@ class S2TTransformerModel(nn.Module):
     def decode(self, prev_tokens, encoder_out, encoder_valid_mask):
         return self.decoder(prev_tokens, encoder_out, encoder_valid_mask)
 
-    def decode_step(self, tokens, cache, index, encoder_out, encoder_valid_mask, cross_kv=None):
+    # the generator's cache modes this model takes, as the JAX model's signatures
+    # say (s2t_tpu/models/s2t_transformer.py:1017-1027): the int8 cache and the
+    # lazy reorder's ancestry map
+    kv_int8_cache = True
+    lazy_reorder = True
+
+    def decode_step(self, tokens, cache, index, encoder_out, encoder_valid_mask, cross_kv=None,
+                    ancestry=None):
         return self.decoder.step(tokens, cache, index, encoder_out, encoder_valid_mask,
-                                 cross_kv=cross_kv)
+                                 cross_kv=cross_kv, ancestry=ancestry)
 
     def precompute_cross(self, encoder_out):
         return self.decoder.precompute_cross(encoder_out)
 
-    def init_cache(self, batch_size: int, max_len: int):
-        return self.decoder.init_cache(batch_size, max_len)
+    def init_cache(self, batch_size: int, max_len: int, kv_int8: bool = False):
+        return self.decoder.init_cache(batch_size, max_len, kv_int8=kv_int8)
 
 
 # --------------------------------------------------------------------------- #

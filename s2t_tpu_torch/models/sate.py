@@ -411,6 +411,7 @@ class S2TSATEModel(S2TTransformerModel):
 
     build_encoder = S2TSATEEncoder
     decoder_mixup = False  # the JAX SATE model hands its decoder the tokens as they are
+    lazy_reorder = False  # its decode_step takes no ancestry (s2t_tpu/models/sate.py:447-456)
 
     @staticmethod
     def decoder_self_attention(dec) -> Dict[str, Any]:

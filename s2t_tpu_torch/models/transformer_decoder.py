@@ -4,9 +4,13 @@
 Entry points: ``forward`` (teacher-forced, (B, U) tokens -> (B, U, V)
 logits; with a ``generator`` it trains: embedding dropout after the
 positions, :102/:151, and the layers' dropouts) and ``step`` (one incremental
-decode step on a cache from ``init_cache``).  Sinusoidal positions, tied or
-separate output projection; the self-attention is "abs" or Shaw "relative"
-(``self_attn_type``, clipped at ``max_relative_length``).  The positions table sets the compute dtype.
+decode step on a cache from ``init_cache``: full precision, or int8 with
+per-(position, head) scales; with an ``ancestry`` map for the lazy beam
+reorder).  Sinusoidal or learned positions, tied or separate output
+projection, an optional token-embedding module (the LM's adaptive input); the
+self-attention is "abs" or Shaw "relative" (``self_attn_type``, clipped at
+``max_relative_length``); ``no_cross_attention`` makes it a decoder-only LM.
+The sinusoidal table sets the compute dtype.
 """
 
 from __future__ import annotations
@@ -30,18 +34,24 @@ class TransformerDecoder(nn.Module):
                  normalize_before: bool = True, share_input_output_embed: bool = True,
                  max_positions: int = 1024, pad_id: int = 1, dropout: float = 0.0,
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
-                 self_attn_type: str = "abs", max_relative_length: int = 0):
+                 self_attn_type: str = "abs", max_relative_length: int = 0,
+                 no_cross_attention: bool = False, learned_pos: bool = False,
+                 embed_tokens: Optional[nn.Module] = None):
         super().__init__()
         self.embed_dim = embed_dim
         self.dropout = dropout
         self.num_heads = num_heads
         self.normalize_before = normalize_before
         self.pad_id = pad_id
-        self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
+        self.embed_tokens = (nn.Embedding(vocab_size, embed_dim) if embed_tokens is None
+                             else embed_tokens)
+        self.embed_positions = nn.Embedding(max_positions, embed_dim) if learned_pos else None
+        self.no_cross_attention = no_cross_attention
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
                                     dropout, attention_dropout, activation_dropout,
-                                    self_attn_type, max_relative_length)
+                                    self_attn_type, max_relative_length,
+                                    has_cross_attention=not no_cross_attention)
             for _ in range(num_layers)
         ])
         self.final_norm = layer_norm(embed_dim) if normalize_before else None
@@ -57,6 +67,9 @@ class TransformerDecoder(nn.Module):
 
     def _embed(self, tokens: torch.Tensor, pos_offset: int) -> torch.Tensor:
         pos = self.positions[pos_offset:pos_offset + tokens.shape[1]]
+        if self.embed_positions is not None:
+            idx = torch.arange(pos_offset, pos_offset + tokens.shape[1], device=tokens.device)
+            pos = self.embed_positions(idx).to(pos.dtype)
         x = self.embed_tokens(tokens).to(pos.dtype) * math.sqrt(self.embed_dim)
         return x + pos[None]
 
@@ -83,7 +96,7 @@ class TransformerDecoder(nn.Module):
             tgt_valid = tgt_valid | (mix["tokens2"] != self.pad_id)
         x = drop(x, self.dropout, generator)
         self_bias = causal_bias(U, x.dtype, x.device) + padding_bias(tgt_valid, x.dtype)
-        cross_bias = padding_bias(encoder_valid_mask, x.dtype)
+        cross_bias = None if self.no_cross_attention else padding_bias(encoder_valid_mask, x.dtype)
         for layer in self.layers:
             x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator)
         if self.final_norm is not None:
@@ -97,11 +110,19 @@ class TransformerDecoder(nn.Module):
         return self._output(self.forward_features(prev_tokens, encoder_out, encoder_valid_mask,
                                                   generator, mix))
 
-    def init_cache(self, batch_size: int, max_len: int) -> dict:
+    def init_cache(self, batch_size: int, max_len: int, kv_int8: bool = False) -> dict:
         """Zeroed KV cache: per layer (B, max_len, H, Dh) k/v tensors in the
-        model's compute dtype and device."""
+        model's compute dtype and device; ``kv_int8``: int8 k/v with (B,
+        max_len, H) bf16 scales (s2t_tpu/models/transformer_decoder.py:186-211)."""
         ref = self.positions
         shape = (batch_size, max_len, self.num_heads, self.embed_dim // self.num_heads)
+        if kv_int8:
+            return {f"layer{i}": {
+                "k": ref.new_zeros(shape, dtype=torch.int8),
+                "k_scale": ref.new_zeros(shape[:3], dtype=torch.bfloat16),
+                "v": ref.new_zeros(shape, dtype=torch.int8),
+                "v_scale": ref.new_zeros(shape[:3], dtype=torch.bfloat16),
+            } for i in range(len(self.layers))}
         return {
             f"layer{i}": {
                 "k": ref.new_zeros(shape),
@@ -114,16 +135,22 @@ class TransformerDecoder(nn.Module):
         """Per-layer static cross-attention K/V, projected once."""
         return tuple(layer.cross_kv(encoder_out) for layer in self.layers)
 
-    def step(self, tokens: torch.Tensor, cache: dict, index: int, encoder_out: torch.Tensor,
-             encoder_valid_mask: torch.Tensor, cross_kv=None) -> Tuple[torch.Tensor, dict]:
+    def step(self, tokens: torch.Tensor, cache: dict, index: int,
+             encoder_out: Optional[torch.Tensor], encoder_valid_mask: Optional[torch.Tensor],
+             cross_kv=None, ancestry: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
         """One decode step: (B, 1) tokens at position ``index`` -> (B, V)
-        logits; the cache is written in place and returned."""
+        logits; the cache is written in place and returned.  ``ancestry``: the
+        lazy reorder's (B, K, L) slot map; this step's row is each beam's own slot."""
         x = self._embed(tokens, index)
-        cross_bias = padding_bias(encoder_valid_mask, x.dtype)
+        cross_bias = None if encoder_valid_mask is None else padding_bias(encoder_valid_mask,
+                                                                          x.dtype)
+        if ancestry is not None:
+            ancestry = ancestry.clone()
+            ancestry[:, :, index] = torch.arange(ancestry.shape[1], device=ancestry.device)
         for i, layer in enumerate(self.layers):
             x, cache[f"layer{i}"] = layer(
                 x, encoder_out, None, cross_bias, cache=cache[f"layer{i}"], cache_index=index,
-                enc_kv=None if cross_kv is None else cross_kv[i],
+                enc_kv=None if cross_kv is None else cross_kv[i], cache_ancestry=ancestry,
             )
         if self.final_norm is not None:
             x = self.final_norm(x)

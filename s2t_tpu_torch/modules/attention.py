@@ -16,6 +16,12 @@ Incremental decoding: ``cache`` = {"k": (N, L, H, Dh), "v": ...} is updated
 IN PLACE at ``cache_index`` (the JAX module returns a new cache), and the
 step attends over the written prefix ``[:cache_index + 1]`` only, which
 equals the JAX module's attention over all L slots with a -1e9 step mask.
+Two more cache forms of the JAX module (attention.py:304-395): the int8 cache
+(a cache with ``k_scale`` / ``v_scale`` leaves: int8 k / v with per-(position,
+head) bf16 absmax scales, applied after the contractions), and the lazy beam
+reorder's ancestry map
+(``cache_ancestry`` (B, K, L): the beam slot that holds each position of each
+beam's history; every beam writes its own slot).
 """
 
 from __future__ import annotations
@@ -53,6 +59,25 @@ def dot_attention_weights(q, k, bias, dtype):
     if bias is not None:
         scores = scores + bias
     return torch.softmax(scores.float(), dim=-1).to(dtype)
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., Dh) -> (int8 values, bf16 scales (...)): absmax / 127 per row with a
+    1e-8 floor, rounded half to even and clipped to +-127."""
+    x = x.float()
+    scale = torch.clamp(x.abs().amax(dim=-1) / 127.0, min=1e-8)
+    return torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8), \
+        scale.to(torch.bfloat16)
+
+
+def select_ancestors(kv: torch.Tensor, ancestry: torch.Tensor) -> torch.Tensor:
+    """kv (B*K, T, H, Dh) written in place by each beam at its own slot; ancestry
+    (B, K, >= T) the slot that holds each position of each beam's history ->
+    each beam's own history (B*K, T, H, Dh)."""
+    N, T, H, Dh = kv.shape
+    B, K = ancestry.shape[:2]
+    idx = ancestry[:, :, :T, None].expand(B, K, T, H * Dh)
+    return kv.reshape(B, K, T, H * Dh).gather(1, idx).reshape(N, T, H, Dh)
 
 
 def local_window_bias(T: int, window: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -195,12 +220,15 @@ class MultiHeadAttention(nn.Module):
         valid_mask: Optional[torch.Tensor] = None,
         kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        cache_ancestry: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Returns (output (B, Tq, D), cache).
 
         Incremental mode: pass ``cache`` and ``cache_index`` (a Python int);
         query then has Tq == 1 and key/value are the new step only.
-        ``generator``: the training step's; None means no dropout."""
+        ``generator``: the training step's; None means no dropout.
+        ``cache_ancestry``: the lazy reorder's (B, K, L) slot map, this step's
+        column already each beam's own slot."""
         s = self.kv_stride
         if s > 1 and cache is None:
             key, value = key[:, ::s], value[:, ::s]
@@ -230,12 +258,20 @@ class MultiHeadAttention(nn.Module):
             # the dense path rebuilds the padding bias, strided as the keys are
             bias = padding_bias(valid_mask[:, ::s] if s > 1 else valid_mask, q.dtype)
 
+        int8 = cache is not None and "k_scale" in cache
         if cache is not None:
             if q.shape[1] != 1:
                 raise ValueError("incremental attention takes one query step at a time")
-            cache["k"][:, i:i + 1] = k
-            cache["v"][:, i:i + 1] = v
-            k, v = cache["k"][:, :i + 1], cache["v"][:, :i + 1]
+            if int8:
+                (cache["k"][:, i:i + 1], cache["k_scale"][:, i:i + 1]) = quantize_int8(k)
+                (cache["v"][:, i:i + 1], cache["v_scale"][:, i:i + 1]) = quantize_int8(v)
+                k, v = cache["k"][:, :i + 1].to(q.dtype), cache["v"][:, :i + 1].to(q.dtype)
+            else:
+                cache["k"][:, i:i + 1] = k
+                cache["v"][:, i:i + 1] = v
+                k, v = cache["k"][:, :i + 1], cache["v"][:, :i + 1]
+                if cache_ancestry is not None:
+                    k, v = select_ancestors(k, cache_ancestry), select_ancestors(v, cache_ancestry)
             if bias is not None:
                 bias = bias[..., :i + 1]
 
@@ -246,12 +282,29 @@ class MultiHeadAttention(nn.Module):
             rel = self.relative_bias(q, key_pos, q_pos)
             bias = rel if bias is None else bias + rel
 
+        if int8:
+            return self.out_proj(self._merge(self._int8_attend(q, k, v, cache, i, bias))), cache
         w = dot_attention_weights(q, k, bias, q.dtype)
         if self.gauss and cache is None:
             w = self._gauss_mix(w, valid_mask)
         w = drop(w, self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out_proj(self._merge(out)), cache
+
+    @staticmethod
+    def _int8_attend(q, k8, v8, cache, i: int, bias):
+        """One step over the int8 cache (s2t_tpu/modules/attention.py:345-395): the
+        per-(position, head) scales commute out of the head-dim contractions, so
+        scores = (q . k8) / sqrt(Dh) * s_k and out = sum_t (w s_v)[t] v8[t]; ``k8`` /
+        ``v8``: the written prefix, in q's dtype."""
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k8) / torch.tensor(
+            math.sqrt(q.shape[-1]), dtype=q.dtype)
+        scores = scores * cache["k_scale"][:, :i + 1].to(q.dtype).transpose(1, 2)[:, :, None, :]
+        if bias is not None:
+            scores = scores + bias
+        w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        wv = w * cache["v_scale"][:, :i + 1].to(q.dtype).transpose(1, 2)[:, :, None, :]
+        return torch.einsum("bhqk,bkhd->bqhd", wv, v8)
 
 
 class RelPositionMultiHeadAttention(nn.Module):

@@ -212,21 +212,24 @@ class S2TEncoderLayer(nn.Module):
 
 class TransformerDecoderLayer(nn.Module):
     """Causal self-attention (cacheable; "abs" or Shaw "relative", whose query
-    position in a decode step is the step's index) -> cross-attention -> FFN."""
+    position in a decode step is the step's index) -> cross-attention (none in a
+    decoder-only LM, ``has_cross_attention=False``) -> FFN."""
 
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
                  activation: str = "relu", normalize_before: bool = True,
                  dropout: float = 0.0, attention_dropout: float = 0.0,
                  activation_dropout: float = 0.0, self_attn_type: str = "abs",
-                 max_relative_length: int = 0):
+                 max_relative_length: int = 0, has_cross_attention: bool = True):
         super().__init__()
         self.normalize_before = normalize_before
         self.dropout = dropout
         self.self_attn_norm = layer_norm(dim)
         self.self_attn = MultiHeadAttention(dim, num_heads, attention_dropout, self_attn_type,
                                             max_relative_length=max_relative_length)
-        self.cross_attn_norm = layer_norm(dim)
-        self.cross_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
+        self.has_cross_attention = has_cross_attention
+        if has_cross_attention:
+            self.cross_attn_norm = layer_norm(dim)
+            self.cross_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
         self.ffn_norm = layer_norm(dim)
         self.ffn = FeedForward(dim, ffn_dim, activation, activation_dropout)
 
@@ -244,22 +247,24 @@ class TransformerDecoderLayer(nn.Module):
         cache_index: Optional[int] = None,
         enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
+        cache_ancestry: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         res = x
         h = self.self_attn_norm(x) if self.normalize_before else x
         h, cache = self.self_attn(h, h, h, self_bias, cache=cache, cache_index=cache_index,
-                                  generator=generator)
+                                  generator=generator, cache_ancestry=cache_ancestry)
         x = res + dropout(h, self.dropout, generator)
         if not self.normalize_before:
             x = self.self_attn_norm(x)
 
-        res = x
-        h = self.cross_attn_norm(x) if self.normalize_before else x
-        h, _ = self.cross_attn(h, encoder_out, encoder_out, cross_bias, kv_override=enc_kv,
-                               generator=generator)
-        x = res + dropout(h, self.dropout, generator)
-        if not self.normalize_before:
-            x = self.cross_attn_norm(x)
+        if self.has_cross_attention:
+            res = x
+            h = self.cross_attn_norm(x) if self.normalize_before else x
+            h, _ = self.cross_attn(h, encoder_out, encoder_out, cross_bias, kv_override=enc_kv,
+                                   generator=generator)
+            x = res + dropout(h, self.dropout, generator)
+            if not self.normalize_before:
+                x = self.cross_attn_norm(x)
 
         res = x
         h = self.ffn_norm(x) if self.normalize_before else x

@@ -19,9 +19,12 @@ XCTC head's logits when the model's config sets ``use_xctc``: a SATE config has
 no such field, so ``s2t_ctc_sate`` decodes its acoustic CTC head, as in JAX), an
 encoder-decoder through ``SequenceGenerator``, or ``JacobiGenerator`` under
 ``generation.jacobi`` (unless ``no_repeat_ngram_size`` > 0: then, with a
-warning, the sequential engine).  What the port does not have raises
-``NotImplementedError`` naming it: comma-separated multilingual splits,
-latency-augmented attention capture, the CTC n-gram LM, and
+warning, the sequential engine); a ``generation.lm_path`` ending in ``.arpa``
+gives the CTC generator its n-gram LM (``lm_weight``), and the sequence
+generator takes every generation option of the JAX task (joint CTC decoding,
+sampling, prefix forcing, diverse search, constraints, the int8 cache).  What
+the port does not have raises ``NotImplementedError`` naming it:
+comma-separated multilingual splits, latency-augmented attention capture, and
 decoding a ``use_audio_input`` split (the JAX generator feeds such a batch's
 waveforms to the encoder without an fbank, ROADMAP.md section 3).
 """
@@ -38,6 +41,7 @@ from s2t_tpu_torch.config import TrainConfig
 from s2t_tpu_torch.data.audio.transforms import CompositeTransform
 from s2t_tpu_torch.data.dataset import S2TDataConfig, SpeechToTextDataset
 from s2t_tpu_torch.data.dictionary import Dictionary
+from s2t_tpu_torch.data.ngram_lm import ArpaLM
 from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
 from s2t_tpu_torch.inference.generator import SequenceGenerator
 from s2t_tpu_torch.inference.jacobi import JacobiGenerator
@@ -164,13 +168,15 @@ class SpeechToTextTask(Task):
                 "a split of fbank features instead")
         if getattr(model.cfg, "decoder_layers", 1) == 0:
             # encoder-only model: decode from CTC (s2t_tpu/tasks/speech_to_text.py:182-202)
+            ngram_lm = None
             if g.lm_path and str(g.lm_path).endswith(".arpa"):
-                raise NotImplementedError("generation.lm_path: the CTC n-gram LM (ArpaLM "
-                                          "re-ranking) is not ported to s2t_tpu_torch")
+                ngram_lm = ArpaLM.load(g.lm_path)
             dec = CTCDecoder(beam_size=g.beam, pad_id=self.tgt_dict.pad(),
                              self_ensemble=g.ctc_self_ensemble,
                              intermediate_logit=g.ctc_inter_logit)
-            return CTCGenerator(model, dec, use_xctc=getattr(model.cfg, "use_xctc", False))
+            return CTCGenerator(model, dec, use_xctc=getattr(model.cfg, "use_xctc", False),
+                                ngram_lm=ngram_lm, lm_weight=g.lm_weight,
+                                dictionary=self.tgt_dict)
         if g.jacobi:
             if g.no_repeat_ngram_size > 0:
                 # n-gram blocking has no parallel form: the sequential engine keeps it
@@ -201,6 +207,7 @@ class SpeechToTextTask(Task):
             sampling_topp=g.sampling_topp,
             prefix_size=g.prefix_size,
             diverse_beam_groups=g.diverse_beam_groups,
+            diverse_beam_strength=g.diverse_beam_strength,
             diversity_rate=g.diversity_rate,
             constraints_mode=g.constraints,
             kv_cache_dtype=g.kv_cache_dtype,

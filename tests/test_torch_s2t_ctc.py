@@ -21,6 +21,8 @@ from s2t_tpu.inference.ctc_decoder import CTCDecoder as JaxCTCDecoder
 from s2t_tpu.inference.ctc_decoder import CTCGenerator as JaxCTCGenerator
 from s2t_tpu.models import s2t_ctc as jctc
 from s2t_tpu_torch.criterions.build import build_criterion
+from s2t_tpu_torch.data.dictionary import Dictionary
+from s2t_tpu_torch.data.ngram_lm import train_ngram_lm
 from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
 from s2t_tpu_torch.interop.from_flax import flax_to_state_dict, load_flax_params, state_dict_to_flax
 from s2t_tpu_torch.models import s2t_ctc as tctc
@@ -143,7 +145,15 @@ def test_unported_presets_and_encoders_raise():
     # the PDS encoder is ported (tests/test_torch_pds.py): its preset builds an encoder-only model
     pds = build_model("s2t_ctc_pds", dict(vocab_size=32, pds_layers=(1, 1, 1, 1)), device="cpu")
     assert isinstance(pds, tctc.S2TCTCModel) and pds.cfg.decoder_layers == 0
-    with pytest.raises(NotImplementedError, match="ngram_lm"):
-        CTCGenerator(None, CTCDecoder(), ngram_lm=object())
     model = build_model("s2t_ctc", dict(TINY), device="cpu")
     assert isinstance(model, tctc.S2TCTCModel) and model.cfg.decoder_layers == 0
+    # the n-gram LM re-ranking is ported (tests/test_torch_ngram_lm.py): it re-ranks a beam
+    d = Dictionary()
+    for i in range(28):
+        d.add_symbol(f"w{i}")
+    lm = train_ngram_lm(["w0 w1", "w1 w2 w3"], order=2)
+    feats, lens = make_batch()
+    tokens, scores, _ = CTCGenerator(model, CTCDecoder(beam_size=3), ngram_lm=lm, lm_weight=1.0,
+                                     dictionary=d).generate({"features": feats,
+                                                             "feat_lengths": lens})
+    assert tokens.shape[:2] == (4, 3) and (scores[:, :-1] >= scores[:, 1:]).all()

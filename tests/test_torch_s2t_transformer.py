@@ -147,5 +147,11 @@ def test_unported_branches_raise():
     dlcl = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY, use_enc_dlcl=True), device="cpu")
     assert dlcl.encoder.dlcl.weights.shape == (3, 3)
     tm = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        SequenceGenerator(tm, sampling=True)
+    # sampling is ported (tests/test_torch_search.py): it draws K samples a sentence
+    feats, lens, _ = make_batch()
+    tokens, scores, _ = SequenceGenerator(tm, beam_size=2, max_len_b=6, sampling=True).generate(
+        {"features": feats, "feat_lengths": lens})
+    assert tokens.shape[:2] == (4, 2) and torch.isfinite(scores).all()
+    # an option the port refuses as JAX does: groups that do not divide the beam
+    with pytest.raises(ValueError, match="divisible"):
+        SequenceGenerator(tm, beam_size=5, diverse_beam_groups=3)
