@@ -1,5 +1,6 @@
 """Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer, CTC
-research-stack, encoder-variant and generator slices on one NVIDIA H100.
+research-stack, encoder-variant, generator, wav2vec 2.0 and dual / multibranch slices on
+one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -45,9 +46,13 @@ Phases (any failure ends the run with a non-zero exit):
              card (kernel) and on the CPU (plain): encoder outputs within
              ENC_ATOL and identical top-beam tokens, or a printed near-tie;
   6. speed   the same model in bf16 on 64 synthetic 10 s waveforms;
-  7. train   s2t_transformer_m at full width, fp32, dropout 0: 3 steps of the
+  7. train   s2t_transformer_m at full width, fp32, dropout 0: 2 steps of the
              port's Trainer on the card (kernels) and on the CPU (plain),
-             per-step loss / ctc_loss / gnorm and the parameters after 3 steps;
+             per-step loss / ctc_loss / gnorm and the parameters after 2 steps
+             (every earlier phase's fp32 training parity takes 2 steps, phases
+             32-34 take 3; the serving parity of phases 5, 16, 19, 21, 23, 25,
+             26, 28 decodes 20 tokens; phase 6's timing takes 2 batches and profiles
+             a 20-token decode, as phases 16, 19, 21, 25 and phase 30's modes);
   8. train   s2t_transformer_m in bf16 at the bench shape (B=40, T=1000, U=30,
      speed   V=10000, preset dropouts, ctc_weight 0.3): one warm-up step, 20
              timed steps, steps/s, frames/s, tokens/s, MFU, and one profiled
@@ -90,7 +95,7 @@ Phases (any failure ends the run with a non-zero exit):
              phase 13's B=256 x 1000 frames (RTF, busy share, each stage's
              device ms); fp32 fixture wavs greedy and beam 5 card vs CPU;
  18. pds      (a) pds_big.yaml's model (pdss2t_transformer_m_8 with fusion) in
-     train    fp32, dropout 0, 3 Trainer steps card vs CPU at TRAIN_RTOL; (b) the
+     train    fp32, dropout 0, 2 Trainer steps card vs CPU at TRAIN_RTOL; (b) the
              same model in bf16 at the bench shape (B=40, T=1000, U=30, V=10000,
              label-smoothed CE + 0.3 CTC), 20 timed steps, one profiled step and
              K1f's / K1b's device ms split by stage; (c) cli.train on phase 14's
@@ -104,7 +109,7 @@ Phases (any failure ends the run with a non-zero exit):
              in bf16, 18 K1f launches an encode, the encode's device ms split
              acoustic / adapter / textual by forward-hook ranges; the same for
              sate_pds_8.yaml's model (a PDS acoustic encoder, 3/3/3/3 layers);
- 20. sate     (a) s2t_sate_s fp32, dropout 0, 3 Trainer steps card vs CPU at
+ 20. sate     (a) s2t_sate_s fp32, dropout 0, 2 Trainer steps card vs CPU at
      train    TRAIN_RTOL; (b) bf16 at the bench shape, 18/18/1/1 launches a step;
              (c) cli.train with sate.yaml (bf16) from phase 11's wav corpus (K5
              in the step), 2 epochs, cli.generate (beam 5) on the feature split
@@ -155,7 +160,7 @@ Phases (any failure ends the run with a non-zero exit):
              (Gaussian local attention), dynamic.yaml (s2t_dynamic_transformer_s) and
              rope on s2t_transformer_s at full s width: fp32 beam-5 tokens card vs CPU,
              the device ms of the self-attention sublayers (dense, convolving or fused)
-             in a bf16 64 x 1000-frame encode, 3 fp32 Trainer steps card vs CPU; K1f /
+             in a bf16 64 x 1000-frame encode, 2 fp32 Trainer steps card vs CPU; K1f /
              K1b 12 an encode / a step under DLCL and rope, none in the dense and
              convolving variants;
  29. efficient EffecientConformerCTCSmall.yaml (s2t_ctc_pds with in-layer strided,
@@ -169,6 +174,28 @@ Phases (any failure ends the run with a non-zero exit):
              10 s, beam 5, features precomputed): plain, joint CTC, int8 and lazy in
              turns, RTF, busy ms and the prefix scorer's device ms; s2t_ctc_base beam 5
              with an ARPA n-gram LM card vs CPU; ctc_rescore.yaml through cli.generate;
+ 31. w2v2     wav2vec2_base.yaml (wav2vec2_base, 12 x 768, the 7-layer conv extractor):
+     pretrain fp32 card vs CPU on 2 crops (3 s, 2.2 s) with handed-over span uniforms,
+             negatives and Gumbel uniforms (loss, codes, every gradient); bf16 as the
+             recipe sets it, 3 timed steps of 4 x 250,000-sample crops with the forward
+             split into extractor / positional conv / layers / quantizer / loss ranges;
+             cli.train from seeded wavs, 2 updates;
+ 32. w2v2 st  w2v2.yaml (s2t_w2v2_transformer_base): cli.generate beam-5 decodes 16 x 10
+             s waveforms from a use_audio_input directory (the repaired path: the
+             waveforms reach the encoder as collated), fp32 tokens card vs CPU (20
+             tokens), hub.from_pretrained; 3 fp32 Trainer steps card vs CPU through
+             waveform_forward on handed-over span uniforms;
+ 33. w2v ctc  wav2vec_ctc_finetune.yaml: 3 fp32 steps under tri_stage card vs CPU, then
+             greedy CTC tokens of 4 x 10 s card vs CPU;
+ 34. league   dual.yaml / multibranch.yaml (s2t_dual_s, s2t_multibranch_s) under
+             join_speech_and_text_loss: 3 fp32 steps card vs CPU, 5 bf16 steps at 40 x
+             1000 frames, fp32 inference card vs CPU (the beam generator refuses both,
+             as JAX's does; CTC and teacher-forced decoder argmax), the league
+             attention's share of a bf16 64 x 1000-frame encode;
+ 35. item 15  quant_noise.yaml and multilingual.yaml (3 language splits) through cli.train,
+             2 updates each;
+ 36. w2v attn K1f / K1b at wav2vec2_base's shape (B=4, T'=781, H=12, D=64, bf16, K1b at p =
+             0.1) against their plain versions, timed beside SDPA (run after phase 4);
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
@@ -184,7 +211,11 @@ mixup runs each term twice; 25 5, 26 2, 27 7); a
 raw-audio forward (phases 11, 20, 21, 24, train or valid) adds K5 once; decoding
 (phases 12, 14, 18, 20, 24) launches K1f once per such layer and encode, and a
 validation batch of phase 14 runs three encodes (the loss, eval_ctc_wer,
-eval_wer), of phase 18 two (the loss, eval_wer).
+eval_wer), of phase 18 two (the loss, eval_wer).  Phases 31-35 count the same way:
+every self-attention of the wav2vec 2.0 stacks, the w2v2 model's post-w2v layers, the
+dual text encoder and the multibranch branches takes a padding-only mask and runs K1f /
+K1b (12 a wav2vec2_base encode, 18 for w2v2.yaml's model and the dual model, 24 for the
+multibranch one); the league (s2) attention is dense and launches none.
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -265,7 +296,7 @@ ALPHA_KERNELS = ("ctc_alpha_warp_kernel", "ctc_alpha_kernel")  # K3's two kernel
 # (purectc_pds_large_8), 360/4 (the growth360 recipes), 384/4 (encoder_embed_dim 384)
 NEW_HEAD_DIMS = ((44, 4), (80, 8), (90, 4), (96, 4))
 NO_SPILL_KERNELS = ("fbank_kernel",)  # kernels whose -Xptxas -v line must show no spill
-# fp32 training card vs CPU over 3 steps (the same f32 math, reductions in another
+# fp32 training card vs CPU over 2-3 steps (the same f32 math, reductions in another
 # order through 18 layers): loss and ctc_loss relative, gnorm relative
 TRAIN_RTOL = {"loss": 1e-4, "ctc_loss": 1e-4, "gnorm": 1e-3}
 TRAIN_LAUNCHES = {"attention_fwd": 12, "attention_bwd": 12, "ctc_alpha": 1, "ctc_beta_grad": 1}
@@ -295,6 +326,21 @@ def encoder_layers(cfg) -> int:
     """Encoder self-attention layers that run the fused kernel: K1f's launches per
     encode, K1b's per step (a dense layer launches neither; neither does a windowed or
     reduced abs / rope layer, which carries a bias or fewer keys)."""
+    from s2t_tpu_torch.models.s2t_dual import S2TDualConfig
+    from s2t_tpu_torch.models.s2t_multibranch import S2TMultiBranchConfig
+    from s2t_tpu_torch.models.s2t_w2v2_transformer import S2TW2V2Config
+    from s2t_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    # the wav2vec 2.0 family's, the dual text encoder's and the multibranch branches'
+    # layers all attend under a padding-only mask (their league attention is dense)
+    if isinstance(cfg, Wav2Vec2Config):
+        return cfg.encoder_layers
+    if isinstance(cfg, S2TW2V2Config):
+        return cfg.w2v.encoder_layers + cfg.encoder_layers
+    if isinstance(cfg, S2TDualConfig):
+        return encoder_layers(cfg.speech) + cfg.text.encoder_layers
+    if isinstance(cfg, S2TMultiBranchConfig):
+        return encoder_layers(cfg.junior) + cfg.senior_layers + cfg.textual_layers
     if isinstance(cfg, SATEConfig):
         acoustic = cfg.pds if cfg.acoustic_encoder == "pds" else cfg.acoustic
         # CTC-Aug's cross layers attend with abs attention whatever text_attention_type
@@ -909,8 +955,8 @@ def phase_serve_parity(cfg=None, tag="serve"):
     seeded weights (``cfg``: s2t_transformer_s by default).  Returns the encodes."""
     cfg = cfg or s2t_transformer_s(vocab_size=10000, max_target_positions=1024)
     layers = encoder_layers(cfg)
-    card = GeneratorHub.build(cfg, device="cuda", seed=0, **GEN)
-    host = GeneratorHub.build(cfg, device="cpu", seed=0, **GEN)
+    card = GeneratorHub.build(cfg, device="cuda", seed=0, **GEN_SHORT)
+    host = GeneratorHub.build(cfg, device="cpu", seed=0, **GEN_SHORT)
     batch = card._speech_batch(WAVS)
     feats = torch.from_numpy(batch["features"])
     lens = torch.from_numpy(batch["feat_lengths"]).long()
@@ -1057,7 +1103,7 @@ def by_stage(sequence_ms, cfg, names, backward=False):
 
 
 RANGE_PREFIXES = ("pds_", "sate_", "conformer_", "stack_", "variant_",  # the ranges below
-                  "joint_ctc_", "generator_")
+                  "joint_ctc_", "generator_", "w2v_", "dual_", "mb_")
 
 
 @contextlib.contextmanager
@@ -1125,6 +1171,8 @@ def encoder_ranges(model):
     """The ranges of ``model``'s encoder: PDS stages, SATE parts, Conformer sublayers, the
     CTC research stack's parts, or none."""
     cfg = model.cfg
+    if hasattr(cfg, "encoder_league_s1_ratio"):  # the dual and multibranch models
+        return module_ranges(league_parts(model))
     if isinstance(cfg, PDSConfig):
         return stage_ranges(model.encoder)
     if isinstance(cfg, SATEConfig):
@@ -1176,10 +1224,12 @@ def stage_ranges(encoder):
             h.remove()
 
 
-def phase_speed(cfg=None, tag="speed", n_timed: int = 3, B: int = 64, seconds: float = 10.0):
+def phase_speed(cfg=None, tag="speed", n_timed: int = 2, B: int = 64, seconds: float = 10.0):
     """bf16 serving of B synthetic waveforms of ``seconds`` each, beam 5 (``cfg``:
     s2t_transformer_s by default); for a PDS, SATE or Conformer model also the device ms
     of each stage or part of one encode (``encoder_ranges``).  Returns (encodes, results)."""
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+
     cfg = cfg or s2t_transformer_s(vocab_size=10000, max_target_positions=1024,
                                    dtype_str="bfloat16")
     hub = GeneratorHub.build(cfg, device="cuda", seed=0, **GEN)
@@ -1207,16 +1257,20 @@ def phase_speed(cfg=None, tag="speed", n_timed: int = 3, B: int = 64, seconds: f
         raise AssertionError("non-finite encoder output")
     beam_s = synced_s(lambda: hub.generator.generate(batch))
     pds = isinstance(cfg, PDSConfig)
+    # the profiled decode stops at GEN_SHORT's 20 tokens: a 100-token trace takes ~40 s of
+    # host time to read (as phase 30 profiles its modes)
+    short = SequenceGenerator(hub.model, **GEN_SHORT)
     with encoder_ranges(hub.model):
-        prof = device_profile(lambda: hub.generator.generate(batch), sequence=FWD_KERNELS)
+        prof = device_profile(lambda: short.generate(batch), sequence=FWD_KERNELS)
     busy_ms, top_ops = prof["busy_ms"], prof["top_ops"]
     encodes += 3
     wall = float(np.median(walls))
     res = {"batch": B, "audio_s_per_request": seconds, "wall_s": walls,
            "utt_per_s": B / wall, "rtf": B * seconds / wall,
            "host_fbank_s": fbank_s, "encode_s": encode_s, "encode_plus_beam_s": beam_s,
-           "profiled_device_busy_ms": busy_ms,
-           "device_busy_share_of_encode_plus_beam": busy_ms / 1e3 / beam_s,
+           "profiled_tokens": GEN_SHORT["max_len_b"], "profiled_device_busy_ms": busy_ms,
+           "profiled_wall_ms": prof["wall_ms"],
+           "device_busy_share_of_profiled_decode": busy_ms / prof["wall_ms"],
            "top_aten_ops_device_ms": top_ops}
     if pds:
         res["encode_device_ms_by_stage"] = prof["range_ms"]
@@ -1316,27 +1370,34 @@ def check_step_launches(counts, steps=1, per_step=None):
         raise AssertionError(f"{steps} training step(s) launched {counts}, expected {want}")
 
 
-def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 3,
-                       criterion=CRITERION, per_step=None, U: int = 30, log_keys=()):
+def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 2,
+                       criterion=CRITERION, per_step=None, U: int = 30, log_keys=(),
+                       batches=None, forward_fn=None, opt=None):
     """fp32, dropout 0: the port's Trainer on the card and on the CPU from the same
     seeded weights and batches (``cfg``: s2t_transformer_m by default; 12 encoder
     layers, so TRAIN_LAUNCHES a step; another model, ``step_launches`` or
     ``per_step``), through ``stack_forward`` (the task's encoder inputs: the PAE
     oracle's targets).  ``log_keys``: more CTC terms, reported every step and held
     at ctc_loss's rtol on the first (the same weights on both devices; later
-    steps start from parameters Adam has moved apart by up to 2 lr)."""
+    steps start from parameters Adam has moved apart by up to 2 lr).  ``batches``,
+    ``forward_fn`` and ``opt`` replace the seeded feature batches, ``stack_forward`` and
+    the inverse_sqrt optimizer (the wav2vec 2.0 family's waveform batches); a model
+    without a CTC loss is held on the rest."""
     cfg = cfg or s2t_transformer_m(vocab_size=10000, max_target_positions=1024, dropout=0.0,
                                    attention_dropout=0.0, activation_dropout=0.0)
     per_step = per_step or step_launches(cfg)
     first_rtol = {k: TRAIN_RTOL["ctc_loss"] for k in log_keys}
-    opt = OptimizationConfig(lr=2e-3, warmup_updates=3, clip_norm=10.0, adam_eps=1e-6)
-    rng = np.random.default_rng(0)
-    batches = [train_batch(rng, 4, 1000, U, 10000, [1000, 873, 640, 412]) for _ in range(steps)]
+    opt = opt or OptimizationConfig(lr=2e-3, warmup_updates=3, clip_norm=10.0, adam_eps=1e-6)
+    if batches is None:
+        rng = np.random.default_rng(0)
+        batches = [train_batch(rng, 4, 1000, U, 10000, [1000, 873, 640, 412])
+                   for _ in range(steps)]
+    steps = len(batches)
     runs, launches = {}, {k: 0 for k in per_step}
     for device in ("cuda", "cpu"):
         model = model_cls(cfg, device=device, seed=0, for_training=True)
         trainer = Trainer(model, build_criterion(*criterion), opt, device=device, seed=1,
-                          forward_fn=stack_forward)
+                          forward_fn=forward_fn or stack_forward)
         metrics, t0 = [], time.perf_counter()
         for batch in batches:
             reset_counts()  # the main path: one training step on the card
@@ -1347,12 +1408,12 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
                 check_step_launches(counts, per_step=per_step)
                 launches = {k: launches[k] + counts[k] for k in launches}
             metrics.append({k: float(m[k]) for k in ("loss", "ctc_loss", "gnorm", "lr",
-                                                     *log_keys)})
+                                                     *log_keys) if k in m})
         secs = time.perf_counter() - t0
         runs[device] = (metrics, {n: p.detach().cpu() for n, p in model.named_parameters()})
         log(f"[{tag}] fp32 {device}: {steps} steps in {secs:.2f} s: {json.dumps(metrics)}")
     (card, card_p), (host, host_p) = runs["cuda"], runs["cpu"]
-    errs = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in (*TRAIN_RTOL, *log_keys)}
+    errs = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in (*TRAIN_RTOL, *log_keys) if k in b}
             for a, b in zip(card, host)]
     diffs = {n: (card_p[n] - host_p[n]).abs() for n in host_p}
     worst = sorted(diffs, key=lambda n: -diffs[n].max().item())[:3]
@@ -1374,7 +1435,7 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
         f"max param difference after {steps} steps {param_err:.3e} (bound 2 sum(lr) = "
         f"{param_bound:.3e}; worst {json.dumps(res['worst_params'])}, {over} of {n_params} "
         f"entries differ by more than 1e-5); launches per step {per_step}")
-    if any(not e[k] <= TRAIN_RTOL[k] for e in errs for k in TRAIN_RTOL) or \
+    if any(not e[k] <= TRAIN_RTOL[k] for e in errs for k in TRAIN_RTOL if k in e) or \
             any(not errs[0][k] <= r for k, r in first_rtol.items()) or \
             not param_err <= param_bound:
         raise AssertionError("fp32 training disagrees between the card and the CPU")
@@ -2353,7 +2414,7 @@ def phase_sate_train(root: Path):
 
 def phase_conformer(root: Path):
     """s2t_conformer served as phases 5-6 (rel_pos: no K1f); ConformerCTCSmall's model
-    fp32 card vs CPU for 3 steps, through cli.train from raw audio, and served as
+    fp32 card vs CPU for 2 steps, through cli.train from raw audio, and served as
     phase 13.  Returns (results, launches)."""
     from s2t_tpu_torch.models.s2t_ctc import S2TCTCModel, s2t_ctc_base
 
@@ -2823,7 +2884,7 @@ def phase_variants():
     """Phase 28: dlcl.yaml, relative.yaml, local_attn.yaml, dynamic.yaml and the rope
     overlay at full s width (12 x 256, 6 decoder layers, V=10000): fp32 fixture wavs card
     vs CPU, beam 5 (the relative decoder's self-attention in the beam's cached steps), the
-    bf16 encode split, and 3 fp32 Trainer steps card vs CPU; K1f / K1b launch VARIANT_K1F
+    bf16 encode split, and 2 fp32 Trainer steps card vs CPU; K1f / K1b launch VARIANT_K1F
     times an encode / a step.  Returns (results, launches)."""
     out, launches = {}, {k: 0 for k in counters()}
     for name, (arch, model) in {**VARIANT_RECIPES, **VARIANT_OVERLAYS}.items():
@@ -3026,7 +3087,10 @@ def int8_card_vs_cpu(card, host, batch, seed=0):
     return res
 
 
-def decode_speed(model, batch, B, seconds, n_timed=3):
+SPEED_TIMED = 2  # timed decodes of each mode in phase 30
+
+
+def decode_speed(model, batch, B, seconds, n_timed=SPEED_TIMED):
     """Each mode of SPEED_MODES decodes ``batch`` (features on the card) with ``model`` at
     GEN's length once to warm up, then n_timed times in turns; then each decodes it at
     GEN_SHORT's length once under the profiler (the encode and the prefix scorer inside
@@ -3237,10 +3301,11 @@ def phase_generator():
                  .astype(np.float32))
     fb = GeneratorHub(model, None)._speech_batch(waves)
     fb = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
-    reset_counts()  # the main path: 5 decodes of each mode
-    speed = decode_speed(model, fb, n, seconds)
+    reset_counts()  # the main path: a warm-up, the timed and a profiled decode of each mode
+    speed = decode_speed(model, fb, n, seconds, n_timed=SPEED_TIMED)
     counts = read_counts()
-    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * 5 * len(SPEED_MODES)},
+    check_counts(counts, {**{k: 0 for k in counts},
+                          "attention_fwd": 12 * (SPEED_TIMED + 2) * len(SPEED_MODES)},
                  "phase 30 (b)")
     launches = {k: launches[k] + counts[k] for k in counts}
     plain = speed["plain"].pop("tokens")
@@ -3269,6 +3334,699 @@ def phase_generator():
 
 
 # --------------------------------------------------------------------------- #
+# --------------------------------------------------------------------------- #
+# phases 31-36: the wav2vec 2.0 family, the dual / multibranch models, quant noise and
+# multilingual training (the card has no yaml package: the script carries the recipes'
+# sections, and tests/test_torch_item9_recipes.py holds them to the files)
+W2V2_BASE_RECIPE = {  # egs/librispeech/pretraining/wav2vec2_base.yaml
+    "task": "audio_pretraining", "arch": "wav2vec2_base", "criterion": "wav2vec",
+    "criterion_cfg": {"prob_ppl_weight": 0.1, "features_pen_weight": 10.0},
+    "model": {"dtype_str": "bfloat16"},
+    "dataset": {"max_tokens": 1400000, "num_buckets": 8},
+    "optimization": {"optimizer": "adam", "lr": 0.0005, "adam_betas": [0.9, 0.98],
+                     "weight_decay": 0.01, "lr_scheduler": "polynomial_decay",
+                     "warmup_updates": 32000, "max_update": 400000, "clip_norm": 25.0},
+    "common": {"dtype": "bfloat16"},
+    "task_cfg": {"max_sample_size": 250000}}
+W2V2_ST_RECIPE = {  # egs/mustc/st/conf/w2v2.yaml
+    "arch": "s2t_w2v2_transformer_base", "task_cfg": {"use_audio_input": True},
+    "criterion_cfg": {"label_smoothing": 0.1, "ctc": {"ctc_weight": 0.0}}}
+W2V_CTC_RECIPE = {  # egs/librispeech/pretraining/wav2vec_ctc_finetune.yaml
+    "task": "speech_to_text", "arch": "wav2vec_ctc", "criterion": "ctc",
+    "criterion_cfg": {"ctc_weight": 1.0}, "model": {"final_dropout": 0.1, "mask_prob": 0.5},
+    "optimization": {"lr": 0.00003, "lr_scheduler": "tri_stage", "max_update": 80000}}
+JOIN_CFG = {"label_smoothing": 0.1, "ctc": {"ctc_weight": 0.3}}
+DUAL_RECIPE = {"arch": "s2t_dual_s", "criterion": "join_speech_and_text_loss",
+               "criterion_cfg": JOIN_CFG}  # egs/mustc/st/conf/dual.yaml
+MULTIBRANCH_RECIPE = {"arch": "s2t_multibranch_s", "criterion": "join_speech_and_text_loss",
+                      "criterion_cfg": JOIN_CFG}  # egs/mustc/st/conf/multibranch.yaml
+QUANT_NOISE_RECIPE = {  # egs/mustc/st/conf/quant_noise.yaml
+    "optimization": {"quant_noise_p": 0.1, "quant_noise_block_size": 8}}
+MULTILINGUAL_RECIPE = {  # egs/mustc/st_multilingual/multilingual.yaml
+    "task": "speech_to_text", "arch": "s2t_transformer_m",
+    "criterion": "label_smoothed_cross_entropy_with_ctc",
+    "criterion_cfg": {"label_smoothing": 0.1, "ctc": {"ctc_weight": 0.3}},
+    "dataset": {"train_subset": "train_de_st,train_fr_st,train_es_st",
+                "valid_subset": "dev_de_st", "max_tokens": 40000},
+    "optimization": {"lr": 0.002, "warmup_updates": 10000}}
+MUSTC_ST_BASIS = {  # the parts of egs/mustc/st/conf/basis.yaml that cli.train reads here
+    "criterion": "label_smoothed_cross_entropy_with_ctc",
+    "dataset": {"max_tokens": 40000, "max_source_positions": 6000,
+                "max_target_positions": 1024, "num_buckets": 12},
+    "optimization": {"optimizer": "adam", "lr": 2.0e-3, "lr_scheduler": "inverse_sqrt",
+                     "warmup_updates": 10000, "warmup_init_lr": 1.0e-7, "clip_norm": 10.0}}
+W2V_N = 250000  # wav2vec2_base.yaml's crop: T' = 781 frames
+W2V_BENCH_B = 4  # 4 crops, 1.0M samples, under the recipe's max_tokens of 1.4M
+
+
+def w2v_draws(cfg, lengths, n_samples, seed, pretraining=True):
+    """Host draws handed to both devices: the span uniforms and, for pretraining, the
+    negatives and the Gumbel uniforms (the port's ``draws`` contract)."""
+    from s2t_tpu_torch.models.wav2vec2 import conv_out_lengths, mask_span_count
+
+    B = len(lengths)
+    T = int(conv_out_lengths(torch.tensor([n_samples]), cfg.conv_feature_layers)[0])
+    n = mask_span_count(T, cfg.mask_prob, cfg.mask_length, cfg.min_masks)
+    rng = np.random.default_rng(seed)
+    draws = {"mask_uniform": rng.random((B, n), dtype=np.float32)}
+    if pretraining:
+        M = n * cfg.mask_length
+        draws["negatives"] = rng.integers(0, max(M - 1, 1), size=(B, M, cfg.num_negatives))
+        draws["gumbel_uniform"] = (rng.random((B, M, cfg.latent_groups, cfg.latent_vars),
+                                              dtype=np.float32) * (1 - 2e-6) + 1e-6)
+    return {k: torch.from_numpy(v) for k, v in draws.items()}
+
+
+def wave_batch(rng, lengths, n_samples, scale=0.1):
+    src = np.zeros((len(lengths), n_samples), np.float32)
+    for i, n in enumerate(lengths):
+        src[i, :n] = rng.normal(size=n) * scale
+    return src
+
+
+def grads_card_vs_cpu(card, host, floor=1e-4):
+    """Per parameter max |card - CPU| over its largest CPU entry, or over ``floor`` times
+    the largest entry of any gradient where that is more: the key projections' biases
+    have a gradient of 0 in exact arithmetic (the softmax ignores a shift of a query's
+    scores), float32 noise on both devices.  The worst three."""
+    top = max(g.abs().max().item() for g in host.values())
+    errs = {n: ((card[n] - host[n]).abs().max() / max(host[n].abs().max().item(),
+                                                      floor * top)).item()
+            for n in host}
+    worst = sorted(errs, key=lambda n: -errs[n])[:3]
+    return max(errs.values()), {n: errs[n] for n in worst}
+
+
+# fp32 card vs CPU, each gradient relative to its largest entry: the last layers' query and
+# key projections read 2.2e-3 (their gradients are sums of cancelling terms over 180
+# masked frames x 100 negatives)
+W2V_GRAD_RTOL = 5e-3
+
+
+def w2v2_pretrain_parity():
+    """fp32 at full width, dropout 0, the same seeded weights on both devices: one
+    forward / loss / backward of 2 crops (3 s and 2.2 s) on the same handed-over masks,
+    negatives and Gumbel uniforms; the loss, the quantizer's codes and every gradient."""
+    from s2t_tpu_torch.models.wav2vec2 import Wav2Vec2Model, wav2vec2_base
+    from s2t_tpu_torch.tasks.audio_pretraining import gumbel_temperature
+
+    cfg = wav2vec2_base(dropout=0.0, attention_dropout=0.0, dropout_input=0.0,
+                        dropout_features=0.0)
+    lengths, N = [48000, 35000], 48000
+    src = wave_batch(np.random.default_rng(31), lengths, N)
+    draws = w2v_draws(cfg, lengths, N, seed=31)
+    crit = build_criterion(W2V2_BASE_RECIPE["criterion"], W2V2_BASE_RECIPE["criterion_cfg"])
+    runs, counts = {}, None
+    for device in ("cuda", "cpu"):
+        model = Wav2Vec2Model(cfg, device=device, seed=0, for_training=True)
+        codes = []
+        hook = model.quantizer.register_forward_hook(lambda m, i, o: codes.append(o[3].cpu()))
+        reset_counts()  # the main path: one training forward and backward
+        out = model(torch.from_numpy(src).to(device), torch.tensor(lengths).to(device),
+                    train=True, generator=torch.Generator(device=device).manual_seed(0),
+                    temp=gumbel_temperature(cfg.latent_temp, 0),
+                    draws={k: v.to(device) for k, v in draws.items()})
+        loss, size, logs = crit(out, {})
+        loss.backward()
+        hook.remove()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        runs[device] = {"loss": loss.item(), "size": size.item(),
+                        "prob_perplexity": logs["prob_perplexity"].item(),
+                        "features_pen": logs["features_pen"].item(), "codes": codes[0],
+                        "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()}}
+    card, host = runs["cuda"], runs["cpu"]
+    loss_err = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    grad_err, worst = grads_card_vs_cpu(card["grads"], host["grads"])
+    code_flips = int((card["codes"] != host["codes"]).sum())
+    res = {"loss": [card["loss"], host["loss"]], "loss_rel_err": loss_err,
+           "sample_size": card["size"], "prob_perplexity": [card["prob_perplexity"],
+                                                            host["prob_perplexity"]],
+           "features_pen": [card["features_pen"], host["features_pen"]],
+           "code_flips": code_flips, "max_grad_rel_err": grad_err, "worst_grads": worst,
+           "grad_rtol": W2V_GRAD_RTOL, "launches": counts}
+    log(f"[w2v2 pretrain] fp32 card vs CPU at full width: {json.dumps(res)}")
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12, "attention_bwd": 12},
+                 "w2v2 pretraining step")
+    if code_flips or not loss_err <= TRAIN_RTOL["loss"] or not grad_err <= W2V_GRAD_RTOL:
+        raise AssertionError("wav2vec 2.0 pretraining disagrees between the card and the CPU")
+    return res, counts
+
+
+def w2v_task_cfg(recipe, data, **sections):
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    d = {k: v for k, v in recipe.items()}
+    for key, val in sections.items():
+        d[key] = {**d.get(key, {}), **val}
+    d.setdefault("dataset", {})["data"] = str(data)
+    return from_dict(TrainConfig, d)
+
+
+def w2v2_pretrain_speed(n_timed=3):
+    """bf16 as the recipe sets it (preset dropouts, its optimizer) on 4 crops of 250,000
+    samples: a warm-up, ``n_timed`` timed steps and one profiled step whose forward is
+    split by ranges (extractor, positional conv, layers, quantizer, loss)."""
+    from s2t_tpu_torch.models.wav2vec2 import Wav2Vec2Model, wav2vec2_base
+    from s2t_tpu_torch.tasks.audio_pretraining import AudioPretrainingTask
+
+    cfg = wav2vec2_base(**fields(W2V2_BASE_RECIPE["model"]))
+    tcfg = w2v_task_cfg(W2V2_BASE_RECIPE, "")
+    task = AudioPretrainingTask(tcfg)
+    model = Wav2Vec2Model(cfg, device="cuda", seed=0, for_training=True)
+    crit = task.build_criterion()
+
+    def ranged_crit(out, batch):
+        from torch.profiler import record_function
+
+        with record_function("w2v_loss"):
+            return crit(out, batch)
+
+    trainer = Trainer(model, ranged_crit, tcfg.optimization, device="cuda", seed=1,
+                      forward_fn=task.forward_fn())
+    B = W2V_BENCH_B
+    batch = {"source": torch.randn(B, W2V_N, device="cuda") * 0.1,
+             "lengths": torch.full((B,), W2V_N, device="cuda"),
+             "ntokens": torch.tensor(float(B * W2V_N), device="cuda")}
+    reset_counts()  # the main path: 1 warm-up + n_timed timed + 1 profiled step
+    losses = [trainer.train_step(batch)["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        losses.append(trainer.train_step(batch)["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    parts = ([("w2v_extractor", model.feature_extractor), ("w2v_pos_conv", model.pos_conv),
+              ("w2v_quantizer", model.quantizer)]
+             + [("w2v_layers", layer) for layer in model.layers])
+    with module_ranges(parts):
+        prof = device_profile(lambda: losses.append(trainer.train_step(batch)["loss"]),
+                              KERNEL_NAMES)
+    counts = read_counts()
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * (n_timed + 2),
+                          "attention_bwd": 12 * (n_timed + 2)}, "w2v2 bf16 steps")
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"wav2vec 2.0 bf16 loss is not finite: {losses}")
+    step_ms = wall / n_timed * 1e3
+    res = {"batch": B, "samples": W2V_N, "frames": 781, "timed_steps": n_timed,
+           "step_ms": step_ms, "samples_per_s": B * W2V_N / (step_ms / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses.tolist(), "profiled_step_wall_ms": prof["wall_ms"],
+           "profiled_device_busy_ms": prof["busy_ms"],
+           "device_idle_share_of_profiled_step": 1 - prof["busy_ms"] / prof["wall_ms"],
+           "device_busy_share_of_timed_step": prof["busy_ms"] / step_ms,
+           "forward_device_ms_by_part": prof["range_ms"], "kernel_device_ms": prof["kernel_ms"],
+           "top_aten_ops_device_ms": prof["top_ops"]}
+    log(f"[w2v2 pretrain speed] bf16 untuned first measurement: {json.dumps(res)}")
+    return res, counts
+
+
+def write_manifest(root: Path, splits, seed=31):
+    """Seeded 16-bit wavs (4-16 s) and fairseq-style manifests (root, then
+    relpath<TAB>samples) for audio_pretraining."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for split, n in splits.items():
+        lines = [str(root)]
+        for i in range(n):
+            samples = int(rng.integers(4 * 16000, 16 * 16000 + 1))
+            write_wav(root / f"{split}{i}.wav", rng.normal(size=samples) * 2000.0)
+            lines.append(f"{split}{i}.wav\t{samples}")
+        (root / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+
+
+def w2v2_pretrain_cli(root: Path):
+    """cli.train with wav2vec2_base.yaml from seeded wavs, cut to 2 updates."""
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.tasks.audio_pretraining import AudioPretrainingTask
+
+    data = root / "w2v_pretrain"
+    write_manifest(data, {"train": 8, "valid": 2})
+    cfg = w2v_task_cfg(W2V2_BASE_RECIPE, data, optimization={"max_update": 2},
+                       dataset={"valid_subset": "valid"},
+                       checkpoint={"save_dir": str(root / "w2v_pretrain_ckpt"), "no_save": True},
+                       common={"seed": 1, "log_interval": 1})
+    task = AudioPretrainingTask(cfg)
+    reset_counts()  # the main path: cli.train
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, task=task, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_valid = len(task.get_batch_iterator(task.datasets["valid"], shuffle=False))
+    steps = out["trainer"].step
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": 12 * (steps + n_valid),
+                          "attention_bwd": 12 * steps}, "w2v2 cli.train")
+    losses = [r["loss"] for r in out["train_log"]]
+    if steps != 2 or not np.isfinite(losses).all() or not np.isfinite(out["history"][-1]["loss"]):
+        raise AssertionError(f"wav2vec 2.0 cli.train: {out['train_log']} {out['history']}")
+    res = {"steps": steps, "wall_s": wall, "train_log": out["train_log"],
+           "valid": out["history"][-1], "timing": out["timing"]}
+    log(f"[w2v2 pretrain cli] {json.dumps(res)}")
+    return res, counts
+
+
+def phase_w2v2_pretrain(root: Path):
+    """Phase 31: wav2vec2_base.yaml (fp32 card vs CPU, bf16 steps, cli.train)."""
+    parity, c1 = w2v2_pretrain_parity()
+    speed, c2 = w2v2_pretrain_speed()
+    cli, c3 = w2v2_pretrain_cli(root)
+    counts = {k: c1[k] + c2[k] + c3[k] for k in c1}
+    return {"parity": parity, "speed": speed, "cli": cli}, counts
+
+
+def rescore_decoder(model, features, lengths, tokens, eos_id):
+    """``rescore`` for a model without ``decode``: teacher forcing through its decoder."""
+    dev = model.device
+    with torch.inference_mode():
+        enc = model.encode(features.to(dev), lengths.to(dev))
+        hyp = torch.as_tensor(tokens, device=dev)[None]
+        prev = torch.cat([torch.full((1, 1), eos_id, device=dev), hyp[:, :-1]], dim=1)
+        mask = lengths_to_mask(enc["encoder_lengths"], enc["encoder_out"].shape[1])
+        lp = torch.log_softmax(model.decoder(prev, enc["encoder_out"], mask).float(), dim=-1)
+        return lp[0].gather(-1, hyp[0, :, None])[:, 0].cumsum(0).cpu()
+
+
+def tokens_near_tie(card_model, host_model, feats, lens, tok_card, tok_host, eos_id, tag):
+    """Rows whose decoded tokens differ must be near-ties: at the first differing step
+    the two candidates' prefix scores lie within ENC_ATOL on both devices."""
+    for b, (a, c) in enumerate(zip(tok_card, tok_host)):
+        if np.array_equal(a, c):
+            continue
+        n = min(len(a), len(c))
+        step = int(np.flatnonzero(a[:n] != c[:n])[0]) if (a[:n] != c[:n]).any() else n
+        hyp_a = np.append(a, eos_id)[: step + 1]
+        hyp_c = np.append(c, eos_id)[: step + 1]
+        gaps = []
+        for model in (card_model, host_model):
+            sa = rescore_decoder(model, feats[b:b + 1], lens[b:b + 1], hyp_a, eos_id)[-1].item()
+            sc = rescore_decoder(model, feats[b:b + 1], lens[b:b + 1], hyp_c, eos_id)[-1].item()
+            gaps.append(abs(sa - sc))
+        log(f"[{tag}] request {b} diverges at step {step}: score gaps {gaps}")
+        if not max(gaps) <= ENC_ATOL:
+            raise AssertionError(f"{tag}: request {b}'s tokens differ and the gap {max(gaps):.3e}"
+                                 f" is no near-tie (tolerance {ENC_ATOL})")
+    return all(np.array_equal(a, c) for a, c in zip(tok_card, tok_host))
+
+
+W2V2_ST_GEN = {"beam": 5, "max_len_b": 20, "post_process": None}  # 20-token outputs (cut)
+
+
+def w2v2_st_decode(root: Path):
+    """s2t_w2v2_transformer_base (w2v2.yaml) at full width, fp32, seeded weights: cli.generate
+    beam-5 decodes 16 seeded waveforms of 10 s from a use_audio_input data directory (the
+    waveforms reach the encoder as collated) on the card and on the CPU (tokens identical
+    or a near-tie), then hub.from_pretrained transcribes 4 of them to cli.generate's D-
+    strings on the card."""
+    from s2t_tpu_torch.cli import generate as cli_generate
+    from s2t_tpu_torch.config import TrainConfig, from_dict, to_dict
+    from s2t_tpu_torch.data.dataset import S2TDataConfig
+    from s2t_tpu_torch.data.dictionary import Dictionary
+    from s2t_tpu_torch.hub import from_pretrained
+    from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
+    from s2t_tpu_torch.utils.checkpoint import save_tree
+
+    data = root / "w2v2_st"
+    data.mkdir()
+    rng = np.random.default_rng(32)
+    words = [f"w{i}" for i in range(SYMBOLS)]
+    (data / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    lines = ["id\taudio\tn_frames\ttgt_text\tsrc_text"]
+    for i in range(16):
+        write_wav(data / f"u{i}.wav", rng.normal(size=160000) * 2000.0)
+        text = " ".join(rng.choice(words, size=12))
+        lines.append(f"u{i}\tu{i}.wav\t160000\t{text}\t{text}")
+    (data / "test.tsv").write_text("\n".join(lines) + "\n")
+
+    def cfg_for(device):
+        return from_dict(TrainConfig, {
+            "arch": W2V2_ST_RECIPE["arch"], "criterion": MUSTC_ST_BASIS["criterion"],
+            "criterion_cfg": W2V2_ST_RECIPE["criterion_cfg"],
+            "dataset": {"data": str(data), "gen_subset": "test", "max_tokens": 1_280_000,
+                        "max_source_positions": 200_000, "max_target_positions": 1024},
+            "generation": {**W2V2_ST_GEN, "scoring": "wer",
+                           "results_path": str(root / f"w2v2_gen_{device}")},
+            "checkpoint": {"save_dir": str(root / "w2v2_ckpt")}})
+
+    def task_for(cfg):
+        return SpeechToTextTask(cfg, S2TDataConfig(use_audio_input=True),
+                                Dictionary.load(data / "dict.txt"))
+
+    host_task = task_for(cfg_for("cpu"))
+    host_model = host_task.build_model(device="cpu")
+    ckpt = root / "w2v2.pt"
+    save_tree(ckpt, {"params": host_model.state_dict()})
+    layers = encoder_layers(host_model.cfg)
+    card_cfg = cfg_for("cuda")
+    card_task = task_for(card_cfg)
+    reset_counts()  # the main path: cli.generate from waveforms
+    card = cli_generate.main(card_cfg, host_model.state_dict(), task=card_task, device="cuda")
+    torch.cuda.synchronize()
+    gen_counts = read_counts()
+    encodes = len(card_task.get_batch_iterator(card_task.datasets["test"],
+                                               max_tokens=card_cfg.dataset.max_tokens,
+                                               shuffle=False))
+    check_counts(gen_counts, {**{k: 0 for k in gen_counts}, "attention_fwd": layers * encodes},
+                 "w2v2 cli.generate")
+    t0 = time.perf_counter()
+    host = cli_generate.main(cfg_for("cpu"), host_model.state_dict(), task=host_task, device="cpu")
+    host_s = time.perf_counter() - t0
+    ids = sorted(host["results"])
+    tok = {who: [np.array(out["results"][i]["hyp_tokens"].split()) for i in ids]
+           for who, out in (("card", card), ("cpu", host))}
+    identical = all(np.array_equal(a, c) for a, c in zip(tok["card"], tok["cpu"]))
+    if not identical:  # compare as ids: a near-tie at the first differing step
+        batch = host_task.datasets["test"].collater([host_task.datasets["test"][i] for i in ids])
+        feats = torch.from_numpy(batch["features"])
+        lens = torch.from_numpy(batch["feat_lengths"]).long()
+        as_ids = {who: [np.array([host_task.tgt_dict.index(w) for w in t]) for t in ts]
+                  for who, ts in tok.items()}
+        card_model = card_task.build_model(device="cuda")
+        card_model.load_state_dict(host_model.state_dict())
+        tokens_near_tie(card_model, host_model, feats, lens, as_ids["card"], as_ids["cpu"],
+                        host_task.tgt_dict.eos(), "w2v2 decode")
+    reset_counts()  # the main path: the hub
+    hub = from_pretrained(ckpt, data, config=to_dict(card_cfg), device="cuda", task=card_task)
+    paths = [str(data / f"u{i}.wav") for i in range(4)]
+    strings = hub.generate(paths)
+    torch.cuda.synchronize()
+    hub_counts = read_counts()
+    check_counts(hub_counts, {**{k: 0 for k in hub_counts}, "attention_fwd": layers},
+                 "w2v2 hub.from_pretrained")
+    want = [card["results"][i]["hyp"] for i in range(4)]
+    if strings != want:
+        raise AssertionError(f"w2v2: from_pretrained's strings differ from cli.generate's: "
+                             f"{strings} vs {want}")
+    res = {"utterances": 16, "seconds_each": 10.0, "beam": 5, "max_len_b": W2V2_ST_GEN["max_len_b"],
+           "card_gen_s": card["gen_time"], "card_rtf": card["rtf"], "cpu_gen_s": host_s,
+           "tokens_identical": identical, "encodes": encodes, "k1f_per_encode": layers}
+    log(f"[w2v2 decode] {json.dumps(res)}")
+    counts = {k: gen_counts[k] + hub_counts[k] for k in gen_counts}
+    return res, counts
+
+
+def w2v_train_batches(rng, cfg, steps, B, N, lengths, U, V, pretraining=False, seed=0):
+    """Seeded waveform batches with targets, the w2v front end's span uniforms handed over."""
+    w2v = getattr(cfg, "w2v", cfg)
+    out = []
+    for s in range(steps):
+        b = train_batch(rng, B, 1, U, V, lengths)
+        del b["features"]
+        b["features"] = wave_batch(rng, lengths, N)
+        b["draws"] = w2v_draws(w2v, lengths, N, seed + s, pretraining)
+        out.append(b)
+    return out
+
+
+def phase_w2v2_st(root: Path):
+    """Phase 32: w2v2.yaml serving through the repaired use_audio_input path, and 3 fp32
+    Trainer steps card vs CPU through ``waveform_forward``."""
+    from s2t_tpu_torch.models.s2t_w2v2_transformer import (
+        S2TW2V2TransformerModel, s2t_w2v2_transformer_base)
+    from s2t_tpu_torch.models.wav2vec2 import waveform_forward
+
+    decode, c1 = w2v2_st_decode(root)
+    cfg = s2t_w2v2_transformer_base(vocab_size=10000, dropout=0.0, attention_dropout=0.0,
+                                    activation_dropout=0.0, w2v_dropout=0.0,
+                                    w2v_attention_dropout=0.0, w2v_dropout_input=0.0,
+                                    w2v_dropout_features=0.0)
+    lengths, N = [48000, 40000], 48000
+    batches = w2v_train_batches(np.random.default_rng(32), cfg, 3, 2, N, lengths, 20, 10000)
+    train, c2 = phase_train_parity(
+        cfg, S2TW2V2TransformerModel, "w2v2 train", batches=batches,
+        forward_fn=waveform_forward, criterion=(MUSTC_ST_BASIS["criterion"],
+                                                W2V2_ST_RECIPE["criterion_cfg"]),
+        per_step=step_launches(cfg, ctc_terms=0))
+    return {"decode": decode, "train": train}, {k: c1[k] + c2.get(k, 0) for k in c1}
+
+
+def phase_w2v_ctc():
+    """Phase 33: wav2vec_ctc_finetune.yaml at full width: 3 fp32 Trainer steps under
+    tri_stage card vs CPU (span-masked on handed-over uniforms), then greedy CTC tokens of
+    4 seeded 10 s waveforms card vs CPU (identical, or every differing frame a near-tie)."""
+    from s2t_tpu_torch.models.wav2vec2 import Wav2VecCtc, waveform_forward, wav2vec_ctc_arch
+    from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
+
+    model_section = {**W2V_CTC_RECIPE["model"], "final_dropout": 0.0}
+    cfg = wav2vec_ctc_arch(**model_section, dropout=0.0, attention_dropout=0.0,
+                           dropout_input=0.0, dropout_features=0.0)
+    lengths, N = [48000, 40000], 48000
+    batches = w2v_train_batches(np.random.default_rng(33), cfg, 3, 2, N, lengths, 20,
+                                cfg.vocab_size)
+    opt = OptimizationConfig(**{**W2V_CTC_RECIPE["optimization"], "adam_eps": 1e-6})
+    train, c1 = phase_train_parity(
+        cfg, Wav2VecCtc, "w2v ctc train", batches=batches, forward_fn=waveform_forward,
+        criterion=(W2V_CTC_RECIPE["criterion"], W2V_CTC_RECIPE["criterion_cfg"]), opt=opt,
+        per_step=step_launches(cfg))
+    src = torch.from_numpy(wave_batch(np.random.default_rng(34), [160000] * 4, 160000))
+    lens = torch.full((4,), 160000)
+    encs, toks = {}, {}
+    for device in ("cuda", "cpu"):
+        model = Wav2VecCtc(cfg, device=device, seed=0)
+        if device == "cuda":
+            reset_counts()  # the main path: one encode
+        with torch.inference_mode():
+            enc = model(src.to(device), lens.to(device))
+            toks[device] = ctc_greedy_decode(enc["ctc_logits"], enc["encoder_lengths"])[0].cpu()
+        encs[device] = enc
+        if device == "cuda":
+            torch.cuda.synchronize()
+            c2 = read_counts()
+    check_counts(c2, {**{k: 0 for k in c2}, "attention_fwd": 12}, "wav2vec_ctc greedy encode")
+    ok, report = ctc_near_tie(encs["cuda"], encs["cpu"], toks["cuda"][:, None],
+                              toks["cpu"][:, None], beam=1)
+    identical = torch.equal(toks["cuda"], toks["cpu"])
+    log(f"[w2v ctc] greedy tokens card vs CPU identical {identical}; {json.dumps(report)}")
+    if not ok:
+        raise AssertionError("wav2vec_ctc greedy tokens differ beyond a near-tie")
+    res = {"train": train, "greedy_tokens_identical": identical, "greedy_report": report}
+    return res, {k: c1.get(k, 0) + c2[k] for k in c2}
+
+
+def league_parts(model):
+    """The dual / multibranch encode split: the speech (junior) encoder, the other
+    stacks, and every layer's league (s2) attention; each name sums its calls."""
+    from s2t_tpu_torch.models.s2t_dual import S2TDualModel
+
+    if isinstance(model, S2TDualModel):
+        parts = [("dual_speech", model.speech_encoder), ("dual_text", model.text_encoder)]
+        layers = list(model.text_encoder.layers)
+    else:
+        enc = model.encoder
+        parts = [("mb_junior", enc.junior)]
+        layers = list(enc.senior_stack) + list(enc.textual_stack)
+        parts += [("mb_branches", layer) for layer in layers]
+    prefix = "dual" if isinstance(model, S2TDualModel) else "mb"
+    parts += [(f"{prefix}_league", layer.s2_attn) for layer in layers
+              if getattr(layer, "s2_attn", None) is not None]
+    return parts
+
+
+def league_encode(model_cls, cfg, tag, B=64, T=1000):
+    """One bf16 encode of B x T frames profiled with the league ranges; its launches."""
+    model = model_cls(cfg, device="cuda", seed=0)
+    feats = torch.randn(B, T, 80, device="cuda")
+    lens = torch.full((B,), T, device="cuda")
+    with torch.inference_mode():
+        model.encode(feats, lens)  # warm-up
+        reset_counts()
+        with module_ranges(league_parts(model)):
+            prof = device_profile(lambda: model.encode(feats, lens))
+    counts = read_counts()
+    check_counts(counts, {**{k: 0 for k in counts}, "attention_fwd": encoder_layers(cfg)},
+                 f"{tag} profiled encode")
+    league = sum(v for k, v in prof["range_ms"].items() if k.endswith("_league"))
+    res = {"batch": B, "frames": T, "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+           "range_ms": prof["range_ms"], "league_share_of_busy": league / prof["busy_ms"]}
+    log(f"[{tag} encode] bf16 {B} x {T} frames: {json.dumps(res)}")
+    return res, counts
+
+
+def league_inference_card_vs_cpu(model_cls, cfg32, tag):
+    """fp32 on the fixture wavs' features: the beam generator raises on both devices (no
+    incremental decoder, as in JAX); the CTC argmax and the argmax of the inference
+    forward's teacher-forced decoder logits (the dual text stream from the greedy CTC
+    hypothesis) card vs CPU, identical or a near-tie."""
+    from s2t_tpu_torch.hub import request_features
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+    from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
+
+    feats = [request_features(w) for w in WAVS]
+    T = max(f.shape[0] for f in feats)
+    x = np.zeros((len(feats), T, 80), np.float32)
+    for i, f in enumerate(feats):
+        x[i, :f.shape[0]] = f
+    lens = torch.tensor([f.shape[0] for f in feats])
+    prev = torch.from_numpy(train_batch(np.random.default_rng(35), len(feats), 1, 12, 10000,
+                                        [1] * len(feats))["prev_tokens"]).long()
+    outs, raised = {}, []
+    for device in ("cuda", "cpu"):
+        model = model_cls(cfg32, device=device, seed=0)
+        try:
+            SequenceGenerator(model, **GEN).generate({"features": x, "feat_lengths": lens})
+        except AttributeError as e:
+            raised.append(str(e))
+        with torch.inference_mode():
+            outs[device] = model(torch.from_numpy(x).to(device), lens.to(device),
+                                 prev.to(device))
+    if len(raised) != 2:
+        raise AssertionError(f"{tag}: the beam generator did not refuse the model: {raised}")
+    card, host = outs["cuda"], outs["cpu"]
+    ctc_tok = {d: ctc_greedy_decode(o["ctc_logits"], o["encoder_lengths"])[0].cpu()
+               for d, o in outs.items()}
+    ok, report = ctc_near_tie(card, host, ctc_tok["cuda"][:, None], ctc_tok["cpu"][:, None], 1)
+    dl = {d: o["decoder_logits"].float().cpu() for d, o in outs.items()}
+    err = (dl["cuda"] - dl["cpu"]).abs().max().item()
+    a, c = dl["cuda"].argmax(-1), dl["cpu"].argmax(-1)
+    lp = torch.log_softmax(dl["cpu"], -1)
+    gaps = (lp.gather(-1, c[..., None]) - lp.gather(-1, a[..., None]))[a != c].tolist()
+    dec_ok = all(g <= 2 * err for g in gaps)
+    res = {"generator_refuses": raised[0], "ctc_tokens_identical": torch.equal(*ctc_tok.values()),
+           "ctc_report": report, "decoder_logits_max_abs_err": err,
+           "decoder_argmax_identical": bool((a == c).all()), "decoder_argmax_gaps": gaps}
+    log(f"[{tag} inference] fp32 card vs CPU: {json.dumps(res)}")
+    if not (ok and dec_ok):
+        raise AssertionError(f"{tag}: inference disagrees between the card and the CPU")
+    return res
+
+
+def phase_league():
+    """Phase 34: dual.yaml and multibranch.yaml (s2t_dual_s, s2t_multibranch_s) under
+    join_speech_and_text_loss: 3 fp32 steps card vs CPU, bf16 steps at the bench shape,
+    inference card vs CPU, the league's share of a bf16 encode."""
+    from s2t_tpu_torch.models.s2t_dual import S2TDualModel, s2t_dual_s
+    from s2t_tpu_torch.models.s2t_multibranch import S2TMultiBranchModel, s2t_multibranch_s
+
+    out, counts = {}, {k: 0 for k in counters()}
+    for name, model_cls, preset, recipe, zero in (
+            ("dual", S2TDualModel, s2t_dual_s, DUAL_RECIPE,
+             dict(speech_dropout=0.0, speech_attention_dropout=0.0,
+                  speech_activation_dropout=0.0)),
+            ("multibranch", S2TMultiBranchModel, s2t_multibranch_s, MULTIBRANCH_RECIPE,
+             dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0))):
+        base = dict(vocab_size=10000, max_target_positions=1024)
+        cfg32 = preset(**base, **zero)
+        crit = (recipe["criterion"], recipe["criterion_cfg"])
+        parity, c1 = phase_train_parity(cfg32, model_cls, f"{name} train", steps=3,
+                                        criterion=crit)
+        speed, c2 = phase_train_speed(preset(**base, **({"speech_dtype_str": "bfloat16"}
+                                                        if name == "dual" else
+                                                        {"dtype_str": "bfloat16"})),
+                                      model_cls, f"{name} train speed", n_timed=5,
+                                      criterion=crit)
+        inference = league_inference_card_vs_cpu(model_cls, cfg32, name)
+        encode, c3 = league_encode(model_cls, preset(**base, **({"speech_dtype_str": "bfloat16"}
+                                                               if name == "dual" else
+                                                               {"dtype_str": "bfloat16"})),
+                                   name)
+        out[name] = {"parity": parity, "speed": speed, "inference": inference, "encode": encode}
+        counts = {k: counts[k] + c1.get(k, 0) + c2[k] + c3[k] for k in counts}
+    return out, counts
+
+
+def write_feature_corpus(root: Path, splits, words, seed=35, lang=None):
+    """Seeded (T, 80) feature .npy files (400-1200 frames) and TSVs over ``words``;
+    ``lang``: a tgt_lang column per split."""
+    rng = np.random.default_rng(seed)
+    for split, n in splits.items():
+        cols = "id\taudio\tn_frames\ttgt_text\tsrc_text" + ("\ttgt_lang" if lang else "")
+        lines = [cols]
+        for i in range(n):
+            t = int(rng.integers(400, 1201))
+            np.save(root / f"{split}{i}.npy", rng.normal(size=(t, 80)).astype(np.float32))
+            text = " ".join(rng.choice(words[:2000], size=int(rng.integers(10, 31))))
+            row = f"{split}{i}\t{split}{i}.npy\t{t}\t{text}\t{text}"
+            lines.append(row + (f"\t{lang[split]}" if lang else ""))
+        (root / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+
+
+def recipe_cli(root: Path, tag, sections, data_cfg_kw, splits, lang=None, basis=True):
+    """cli.train on a seeded feature corpus for 2 updates and one validation (no BLEU:
+    the cut keeps the validation to its losses), the recipe's ``sections`` over mustc/st
+    basis.yaml's when ``basis``."""
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+    from s2t_tpu_torch.data.dataset import S2TDataConfig
+    from s2t_tpu_torch.data.dictionary import Dictionary
+    from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
+
+    data = root / tag
+    data.mkdir()
+    words = [f"w{i}" for i in range(SYMBOLS - (3 if lang else 0))]
+    tags = [f"<lang:{l}>" for l in sorted(set((lang or {}).values()))]
+    (data / "dict.txt").write_text("".join(f"{w} 1\n" for w in words + tags))
+    write_feature_corpus(data, splits, words, lang=lang)
+    d = {"task": "speech_to_text", "common": {"seed": 1, "log_interval": 1},
+         "dataset": {}, "optimization": {}}
+    if basis:
+        d["criterion"] = MUSTC_ST_BASIS["criterion"]
+        for section in ("dataset", "optimization"):
+            d[section] = dict(MUSTC_ST_BASIS[section])
+    for key, val in sections.items():
+        d[key] = {**d.get(key, {}), **val} if isinstance(val, dict) else val
+    d["dataset"].update(data=str(data), max_source_positions=6000)
+    d["dataset"].setdefault("valid_subset", "dev")
+    d["optimization"]["max_update"] = 2
+    d["checkpoint"] = {"save_dir": str(root / f"{tag}_ckpt"), "no_save": True}
+    cfg = from_dict(TrainConfig, d)
+    task = SpeechToTextTask(cfg, S2TDataConfig(**data_cfg_kw), Dictionary.load(data / "dict.txt"))
+    reset_counts()  # the main path: cli.train
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, task=task, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = out["trainer"].step
+    n_valid = len(task.get_batch_iterator(task.datasets[cfg.dataset.valid_subset],
+                                          max_tokens=cfg.dataset.max_tokens, shuffle=False))
+    check_counts(counts, {**path_counts(steps, steps + n_valid * len(out["history"])),
+                          "fbank": 0}, f"{tag} cli.train")
+    losses = [r["loss"] for r in out["train_log"]]
+    if steps != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} cli.train: {out['train_log']}")
+    res = {"arch": cfg.arch or "s2t_transformer_s", "steps": steps, "wall_s": wall,
+           "train_log": out["train_log"], "valid": out["history"][-1]}
+    log(f"[{tag} cli] {json.dumps(res)}")
+    return res, counts
+
+
+def phase_item15(root: Path):
+    """Phase 35: quant_noise.yaml (over mustc/st basis.yaml: s2t_transformer_s, CE + CTC)
+    and multilingual.yaml (s2t_transformer_m, 3 language splits upsampled at alpha 0.5,
+    <lang:xx> tags) through cli.train, 2 updates each."""
+    qn, c1 = recipe_cli(root, "quant_noise", QUANT_NOISE_RECIPE, {},
+                        {"train": 24, "dev": 4})
+    langs = {"train_de_st": "de", "train_fr_st": "fr", "train_es_st": "es", "dev_de_st": "de"}
+    ml, c2 = recipe_cli(root, "multilingual", MULTILINGUAL_RECIPE,
+                        {"prepend_tgt_lang_tag": True, "sampling_alpha": 0.5},
+                        {"train_de_st": 24, "train_fr_st": 8, "train_es_st": 4, "dev_de_st": 4},
+                        lang=langs, basis=False)
+    return {"quant_noise": qn, "multilingual": ml}, {k: c1[k] + c2[k] for k in c1}
+
+
+def phase_w2v2_attention():
+    """Phase 36: K1f and K1b at wav2vec2_base's shape (B=4 crops of 250,000 samples,
+    T'=781, H=12, D=64, bf16; K1b at the recipe's attention dropout 0.1) against their
+    plain versions, timed beside scaled_dot_product_attention; and ragged lengths."""
+    T = 781
+    with torch.inference_mode():
+        fwd = attention_case(W2V_BENCH_B, T, 12, 64, torch.bfloat16, "native", [T] * 4,
+                             seed=36, time_it=True)
+        ragged = attention_case(4, T, 12, 64, torch.float32, "native", [781, 500, 0, 93],
+                                seed=37, time_it=False)
+    bwd = grad_case(W2V_BENCH_B, T, 12, 64, torch.bfloat16, "native", [T] * 4, 0.1, seed=38,
+                    time_it=True)
+    log(f"[w2v2 attention] K1f {json.dumps(fwd)}; ragged fp32 {json.dumps(ragged)}; "
+        f"K1b {json.dumps(bwd)}")
+    if not (fwd["max_abs_err"] <= fwd["atol"] and ragged["max_abs_err"] <= ragged["atol"]):
+        raise AssertionError("K1f disagrees with its plain version at the wav2vec2 shape")
+    check_grad_case(bwd)
+    return {"k1f": fwd, "k1f_ragged_fp32": ragged, "k1b": bwd}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3277,19 +4035,34 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA H100", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def mark(name):  # the seconds each phase took, logged and kept for the JSON
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - last[0]
+        last[0] = now
+        log(f"[phase time] {name}: {now - t_start:.1f} s in, {phase_s[name]:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     sass = phase_build()
+    mark("phase_build")
     cases, main_shape, fwd_by_dim, fwd_pds0 = phase_kernel()
+    mark("phase_kernel")
     grad_cases, kept_share, grad_main, bwd_by_dim, bwd_pds0 = phase_attention_grad()
+    mark("phase_attention_grad")
     ctc_cases = phase_ctc()
+    mark("phase_ctc")
+    w2v_attention = phase_w2v2_attention()  # phase 36: K1f / K1b at the wav2vec2 shape
+    mark("phase_w2v2_attention")
 
     reset_counts()
     encodes = phase_serve_parity()
+    mark("phase_serve_parity")
     more, speed = phase_speed()
+    mark("phase_speed")
     encodes += more
     serve_launches = fused_attention.launches
     if serve_launches != 12 * encodes:
@@ -3298,37 +4071,76 @@ def main(argv=None) -> int:
     log(f"[main path] serving: attention_fwd launches {serve_launches} over {encodes} encodes "
         f"({serve_launches // encodes} per encode)")
     parity, parity_launches = phase_train_parity()
+    mark("phase_train_parity")
     train_speed, speed_launches = phase_train_speed()
+    mark("phase_train_speed")
     train_launches = {k: parity_launches[k] + speed_launches[k] for k in TRAIN_LAUNCHES}
     steps = train_launches["ctc_alpha"]
     log(f"[main path] training: {json.dumps(train_launches)} over {steps} steps "
         f"({json.dumps(TRAIN_LAUNCHES)} per step)")
 
     fbank_main = phase_fbank()
+    mark("phase_fbank")
     nast, nast_launches = phase_nast()
+    mark("phase_nast")
     with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_") as tmp:
         audio, audio_launches = phase_train_audio(Path(tmp))
+        mark("phase_train_audio")
         generate, gen_launches = phase_generate(Path(tmp))
+        mark("phase_generate")
         train_ctc, ctc_launches = phase_train_ctc(Path(tmp))
+        mark("phase_train_ctc")
         sanity, sanity_launches = phase_wer_sanity()
+        mark("phase_wer_sanity")
         # phase 18 trains through the CLI on phase 14's feature splits
         pds_train, pds_train_launches = phase_pds_train(Path(tmp))
+        mark("phase_pds_train")
         # phases 20-21 train from phase 11's wavs and decode phase 14's feature split
         sate_train, sate_train_launches = phase_sate_train(Path(tmp))
+        mark("phase_sate_train")
         conformer, conformer_launches = phase_conformer(Path(tmp))
+        mark("phase_conformer")
         # phases 22-24: the CTC research stack; 24 trains from phase 11's wavs
         nast_stack, nast_stack_launches = phase_stack_nast()
+        mark("phase_stack_nast")
         bil_ctc, bil_ctc_launches = phase_stack_bil_ctc()
+        mark("phase_stack_bil_ctc")
         aipa, aipa_launches = phase_stack_aipa(Path(tmp))
+        mark("phase_stack_aipa")
     # phases 25-27: the rest of the CTC research stack
     ctc_aug, ctc_aug_launches = phase_ctc_aug()
+    mark("phase_ctc_aug")
     nast_pds, nast_pds_launches = phase_nast_pds_big()
+    mark("phase_nast_pds_big")
     pds_taps, pds_taps_launches = phase_pds_taps()
+    mark("phase_pds_taps")
     # phases 28-29: the encoder variants
     variants, variant_launches = phase_variants()
+    mark("phase_variants")
     efficient, efficient_launches = phase_efficient_conformer()
+    mark("phase_efficient_conformer")
     # phase 30: the generator's full breadth
     generator, generator_launches = phase_generator()
+    mark("phase_generator")
+    # phases 31-36: the wav2vec 2.0 family, the dual / multibranch models, quant noise and
+    # multilingual training, K1f / K1b at the wav2vec2 shape
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_w2v_") as tmp:
+        w2v_pretrain, w2v_pretrain_launches = phase_w2v2_pretrain(Path(tmp))
+        mark("phase_w2v2_pretrain")
+        w2v_st, w2v_st_launches = phase_w2v2_st(Path(tmp))
+        mark("phase_w2v2_st")
+        item15, item15_launches = phase_item15(Path(tmp))
+        mark("phase_item15")
+    w2v_ctc, w2v_ctc_launches = phase_w2v_ctc()
+    mark("phase_w2v_ctc")
+    league, league_launches = phase_league()
+    mark("phase_league")
+    log(f"[main path] wav2vec2_base pretraining (parity, speed, CLI) "
+        f"{json.dumps(w2v_pretrain_launches)}; w2v2.yaml (decode, hub, parity) "
+        f"{json.dumps(w2v_st_launches)}; wav2vec_ctc (parity, greedy) "
+        f"{json.dumps(w2v_ctc_launches)}; dual and multibranch (parity, speed, encode) "
+        f"{json.dumps(league_launches)}; quant noise and multilingual (CLI) "
+        f"{json.dumps(item15_launches)}")
     log(f"[main path] the rest of the CTC research stack: CTC-Aug (serving, parity, speed) "
         f"{json.dumps(ctc_aug_launches)}; nast_pds_big and ctc_aug_pds_big (serving, parity) "
         f"{json.dumps(nast_pds_launches)}; PDS stage taps (parity) and Jacobi "
@@ -3346,6 +4158,7 @@ def main(argv=None) -> int:
 
     fused_attention.launches = 0
     pds_encodes, pds_speed = phase_pds_serve()
+    mark("phase_pds_serve")
     pds_serve_launches = fused_attention.launches
     if pds_serve_launches != 12 * pds_encodes:
         raise AssertionError(f"PDS serving launched the attention kernel {pds_serve_launches} "
@@ -3353,17 +4166,20 @@ def main(argv=None) -> int:
     from s2t_tpu_torch.models.s2t_ctc import s2t_ctc_pds
 
     pds_ctc, pds_ctc_launches = phase_nast(s2t_ctc_pds, fields(GROWTH360_MODEL), "pds ctc")
+    mark("phase_nast")
     log(f"[main path] PDS serving: attention_fwd launches {pds_serve_launches} over "
         f"{pds_encodes} encodes (12 per encode); PDS CTC serving: {json.dumps(pds_ctc_launches)} "
         f"(16 per encode)")
     sate_serve, sate_serve_launches = phase_sate_serve()
+    mark("phase_sate_serve")
     log(f"[main path] SATE serving: attention_fwd launches {sate_serve_launches} (18 per encode)")
     path_launches = {k: train_launches.get(k, 0) + sum(run[k] for run in (
         audio_launches, gen_launches, nast_launches, ctc_launches, sanity_launches,
         pds_train_launches, pds_ctc_launches, sate_train_launches, conformer_launches,
         nast_stack_launches, bil_ctc_launches, aipa_launches, ctc_aug_launches,
         nast_pds_launches, pds_taps_launches, variant_launches, efficient_launches,
-        generator_launches))
+        generator_launches, w2v_pretrain_launches, w2v_st_launches, w2v_ctc_launches,
+        league_launches, item15_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -3456,7 +4272,9 @@ def main(argv=None) -> int:
             "conformer": conformer, "nast_stack": nast_stack, "bil_ctc": bil_ctc, "aipa": aipa,
             "ctc_aug": ctc_aug, "nast_pds_big": nast_pds, "pds_taps": pds_taps,
             "variants": variants, "efficient_conformer": efficient, "generator": generator,
-            "path_launches": path_launches,
+            "w2v2_pretrain": w2v_pretrain, "w2v2_st": w2v_st, "w2v_ctc": w2v_ctc,
+            "league": league, "item15": item15, "w2v2_attention_shape": w2v_attention,
+            "path_launches": path_launches, "phase_s": phase_s,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,8 @@ Usage:
 
 Decodes ``dataset.gen_subset`` with the task's generator (the beam of
 ``SequenceGenerator``, or CTC greedy / prefix-beam decoding of
-``CTCGenerator`` for an encoder-only model) and writes ``generate-<subset>.txt``
+``CTCGenerator`` for an encoder-only model; a ``use_audio_input`` split's
+waveforms go to the encoder as collated) and writes ``generate-<subset>.txt``
 (T-/H-/D- lines and the score line) and ``translation-<subset>.txt`` to
 ``generation.results_path`` (default ``checkpoint.save_dir``);
 ``generation.ctc_infer`` adds ``translation-<subset>.txt.ctc``, the greedy CTC
@@ -127,8 +128,14 @@ def main(cfg, params, task=None, device="cuda") -> Dict[str, Any]:
             for sid in sorted(results):
                 f.write(results[sid].get("ctc", "") + "\n")
 
-    # RTF: audio seconds over wall seconds (features are 10 ms frames)
-    rtf = total_frames * 0.01 / gen_time if gen_time > 0 else 0.0
+    # RTF: audio seconds over wall seconds (10 ms frames, or with use_audio_input the
+    # collated 16 kHz sample counts)
+    data_cfg = getattr(task, "data_cfg", None)
+    if getattr(data_cfg, "use_audio_input", False):
+        audio_s = total_frames / float(getattr(data_cfg, "sample_rate", 16000))
+    else:
+        audio_s = total_frames * 0.01
+    rtf = audio_s / gen_time if gen_time > 0 else 0.0
     logger.info("decoded %d utterances in %.1fs (%.2f utt/s, RTF %.1fx) | %s",
                 n_utts, gen_time, n_utts / max(gen_time, 1e-9), rtf, score_str)
     return {"results": results, "score_str": score_str, "scorer": scorer, "n_utts": n_utts,

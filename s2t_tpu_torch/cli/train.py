@@ -10,10 +10,15 @@ is given.  Each epoch trains, validates (every scalar log of the criterion),
 saves ``checkpoint<epoch>.pt`` / ``checkpoint_last.pt`` / ``checkpoint_best.pt``
 and checks patience; ``checkpoint.save_interval_updates`` adds mid-epoch
 saves.  A run resumes from ``checkpoint.restore_file`` in ``save_dir`` with
-the optimizer and the epoch iterator's state unless they are reset.
+the optimizer and the epoch iterator's state unless they are reset; before
+that, ``checkpoint.load_pretrained_encoder_from`` /
+``load_pretrained_decoder_from`` transplant a component of another checkpoint
+and ``finetune_from_model`` starts from a whole one (no resume then).
 
 Validation can decode as the JAX CLI does: ``eval.eval_ctc_wer`` scores the
-greedy CTC transcript of every utterance (``ctc_wer``, ``ctc_cer``), and
+greedy CTC transcript of every utterance (``ctc_wer``, ``ctc_cer``; the
+batch's features go to ``encode`` as collated, the waveforms of a
+``use_audio_input`` split included), and
 ``eval.eval_wer`` / ``eval_bleu`` score the task's generator (``wer`` or
 ``bleu``); ``checkpoint.best_checkpoint_metric`` may name any of them.
 Settings the port does not have raise ``NotImplementedError`` before
@@ -91,6 +96,27 @@ def _accumulate_ctc_wer(task, model, batch, counts) -> None:
         counts["c_len"] += len(" ".join(ref))
 
 
+def transplant_pretrained(ck, model) -> None:
+    """``load_pretrained_encoder_from`` / ``load_pretrained_decoder_from`` copy
+    that component of another checkpoint of the port into ``model`` (strictly,
+    ``utils.checkpoint.transplant_component``); ``finetune_from_model`` loads a
+    whole model and skips the resume (s2t_tpu/cli/train.py:230-254)."""
+    from s2t_tpu_torch.utils.checkpoint import load_checkpoint, transplant_component
+
+    for comp, path in (("encoder", ck.load_pretrained_encoder_from),
+                       ("decoder", ck.load_pretrained_decoder_from)):
+        if path:
+            tree, _ = load_checkpoint(path)
+            src = tree["params"] if "params" in tree else tree
+            model.load_state_dict(transplant_component(model.state_dict(), src, comp),
+                                  strict=True)
+            logger.info("loaded pretrained %s from %s", comp, path)
+    if ck.finetune_from_model:
+        tree, _ = load_checkpoint(ck.finetune_from_model)
+        model.load_state_dict(tree["params"] if "params" in tree else tree, strict=True)
+        logger.info("finetuning from %s", ck.finetune_from_model)
+
+
 def validate(cfg, task, trainer, valid_ds, generator=None) -> Dict[str, float]:
     """Sample-size-weighted mean of every scalar log over the valid split, and
     with ``eval.eval_ctc_wer`` the greedy CTC ``ctc_wer`` / ``ctc_cer``, with
@@ -145,11 +171,6 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s")
     check_train_supported(cfg)
     task = task or setup_task(cfg)
-    if cfg.eval.eval_ctc_wer and getattr(getattr(task, "data_cfg", None), "use_audio_input",
-                                         False):
-        raise NotImplementedError(
-            "eval.eval_ctc_wer on a use_audio_input data config: the JAX CLI feeds the "
-            "waveforms to the encoder without an fbank (ROADMAP.md section 3)")
     train_ds = task.load_dataset(cfg.dataset.train_subset, is_train=True)
     valid_ds = task.load_dataset(cfg.dataset.valid_subset)
     model = task.build_model(device=device, for_training=True)
@@ -165,8 +186,9 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
         keep_best_checkpoints=ck.keep_best_checkpoints, best_metric=ck.best_checkpoint_metric,
         maximize_best=ck.maximize_best_checkpoint_metric, async_save=ck.async_save)
 
+    transplant_pretrained(ck, model)
     last = Path(ck.save_dir) / (ck.restore_file + ".pt")
-    if last.exists():
+    if last.exists() and not ck.finetune_from_model:
         tree, meta = load_checkpoint(last)
         trainer.load_state_dict(tree, params_only=ck.reset_optimizer)
         if not ck.reset_dataloader and "epoch_itr" in meta:

@@ -11,10 +11,9 @@ The port trains on one device through the plain data-parallel-free step, so
 a non-default value of a setting it does not have raises
 ``NotImplementedError`` naming it (``check_supported`` for the optimisation
 section, ``check_train_supported`` for the rest).  Settings read only by
-branches that raise anyway (``min_lr``, ``stop_min_lr``, ``lr_shrink``,
-``lr_patience``, ``lr_milestones`` of the other schedulers,
-``quant_noise_block_size`` of quant-noise, ``fp16_init_scale``) are kept
-for config compatibility.
+branches that raise anyway (``stop_min_lr``, ``lr_shrink``, ``lr_patience``,
+``lr_milestones`` of the other schedulers, ``fp16_init_scale``) are kept for
+config compatibility.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 PORTED_OPTIMIZERS = ("adam", "adamw")
-PORTED_SCHEDULERS = ("inverse_sqrt",)
+PORTED_SCHEDULERS = ("inverse_sqrt", "tri_stage", "polynomial_decay")
 # the JAX rng_impl knob picks a PRNG implementation; the port's bits come from
 # torch.Generators seeded per step, whichever of the two is named
 RNG_IMPLS = ("rbg", "threefry")
@@ -367,8 +366,6 @@ def check_supported(cfg: OptimizationConfig) -> None:
             f"s2t_tpu_torch (only {PORTED_SCHEDULERS})")
     if cfg.lr_groups:
         raise NotImplementedError("OptimizationConfig.lr_groups is not ported to s2t_tpu_torch")
-    if cfg.quant_noise_p > 0:
-        raise NotImplementedError("OptimizationConfig.quant_noise_p is not ported to s2t_tpu_torch")
     if cfg.rng_impl not in RNG_IMPLS:
         raise NotImplementedError(
             f"OptimizationConfig.rng_impl={cfg.rng_impl!r} is not ported to s2t_tpu_torch")
@@ -401,6 +398,4 @@ def check_train_supported(cfg: TrainConfig) -> None:
         _raise_if_set("distributed", name, dist, " (one device)")
     for name in ("profile", "tensorboard_logdir", "wandb_project", "azureml_logging", "user_dir"):
         _raise_if_set("common", name, cfg.common)
-    for name in ("finetune_from_model", "load_pretrained_encoder_from",
-                 "load_pretrained_decoder_from"):
-        _raise_if_set("checkpoint", name, cfg.checkpoint, " (flax msgpack checkpoints)")
+

@@ -12,13 +12,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
-from s2t_tpu_torch.criterions.ctc import CTCCriterion, LabelSmoothedCEWithCTC
+from s2t_tpu_torch.criterions.ctc import (
+    CTCCriterion, JoinSpeechAndTextLoss, LabelSmoothedCEWithCTC)
 from s2t_tpu_torch.criterions.label_smoothed_ce import LabelSmoothedCE
+from s2t_tpu_torch.criterions.wav2vec import Wav2VecCriterion
 
 CRITERIONS = {
     "label_smoothed_cross_entropy_with_ctc": LabelSmoothedCEWithCTC,
     "ctc": CTCCriterion,
     "label_smoothed_cross_entropy": LabelSmoothedCE,
+    "join_speech_and_text_loss": JoinSpeechAndTextLoss,
+    "wav2vec": Wav2VecCriterion,
 }
 
 

@@ -1,4 +1,4 @@
-"""CTC criteria (counterpart of s2t_tpu/criterions/ctc.py:31-296 and :342-404).
+"""CTC criteria (counterpart of s2t_tpu/criterions/ctc.py:31-404).
 
 ``CTCCriterion.compute_ctc_loss`` composes every CTC branch of the JAX
 criterion: the final CTC head against the transcript (or the target with EOS
@@ -11,7 +11,9 @@ detached as the teacher).  Under encoder mixup every CTC term scores each row
 against both source utterances' labels, so it runs the lattice twice.  An
 inter tap has no lengths of its own: it is scored with the final encoder
 lengths, as in JAX.  ``LabelSmoothedCEWithCTC`` adds the label-smoothed CE,
-with mixup and the decoder's mixup consistency.
+with mixup and the decoder's mixup consistency; ``JoinSpeechAndTextLoss``
+(the dual and multibranch models' criterion) down-weights that CE by the main
+CTC weight: (1 - w) CE + the CTC terms.
 """
 
 from __future__ import annotations
@@ -266,4 +268,33 @@ class LabelSmoothedCEWithCTC:
                 "nsentences": nsent, **ctc_logs}
         if cfg.report_accuracy:
             logs["n_correct"], logs["total"] = ce_accuracy(logits, acc_targets, cfg.pad_id)
+        return loss, sample_size, logs
+
+
+class JoinSpeechAndTextLoss:
+    """(1 - ctc_weight) CE + the CTC branches, for the dual and multibranch
+    models (s2t_tpu/criterions/ctc.py:306-340): ``LabelSmoothedCEWithCTC``'s
+    loss less ctc_weight times its CE term, logged as ``trans_loss``."""
+
+    @dataclass
+    class Config:
+        label_smoothing: float = 0.1
+        sentence_avg: bool = False
+        report_accuracy: bool = True
+        pad_id: int = 1
+        ctc: "CTCCriterion.Config" = field(default_factory=lambda: CTCCriterion.Config())
+
+    def __init__(self, cfg: "JoinSpeechAndTextLoss.Config"):
+        self.cfg = cfg
+        self.inner = LabelSmoothedCEWithCTC(LabelSmoothedCEWithCTC.Config(
+            label_smoothing=cfg.label_smoothing, sentence_avg=cfg.sentence_avg,
+            report_accuracy=cfg.report_accuracy, pad_id=cfg.pad_id, ctc=cfg.ctc))
+
+    def __call__(self, model_out, batch):
+        loss, sample_size, logs = self.inner(model_out, batch)
+        w = self.cfg.ctc.ctc_weight
+        if w > 0:
+            ce = logs["ce_loss"]
+            loss = loss - w * ce
+            logs = {**logs, "loss": loss, "trans_loss": (1.0 - w) * ce}
         return loss, sample_size, logs

@@ -15,8 +15,10 @@ or ``s2t_sate`` config from seeded weights with no task and returns token ids.
 
 A request is a wav path (features are computed on the host with
 ``fbank_numpy``), a ``.npy`` feature path, a 1-D waveform array or a 2-D
-(T, C) feature array.  Text requests need the text tasks, which are not
-ported: ``_text_batch`` raises.
+(T, C) feature array; under a ``use_audio_input`` data config a wav path or
+a 1-D array is served as its waveform, with no fbank (a wav2vec 2.0 front
+end).  Text requests need the text tasks, which are not ported:
+``_text_batch`` raises.
 """
 
 from __future__ import annotations
@@ -59,9 +61,16 @@ class GeneratorHub:
         return cls(model, SequenceGenerator(model, **generation))
 
     def _speech_batch(self, requests: Sequence[Request]):
-        feats = [request_features(r) for r in requests]
+        """(B, T, C) features, or with a ``use_audio_input`` task the (B, N)
+        waveforms, which the generator hands to ``encode`` as they are
+        (s2t_tpu/hub.py:31-51)."""
+        if getattr(getattr(self.task, "data_cfg", None), "use_audio_input", False):
+            feats = [np.asarray(r, np.float32) if isinstance(r, np.ndarray)
+                     else load_waveform(r) for r in requests]
+        else:
+            feats = [request_features(r) for r in requests]
         T = max(f.shape[0] for f in feats)
-        arr = np.zeros((len(feats), T, feats[0].shape[1]), np.float32)
+        arr = np.zeros((len(feats), T, *feats[0].shape[1:]), np.float32)
         lens = np.zeros((len(feats),), np.int32)
         for i, f in enumerate(feats):
             arr[i, : f.shape[0]] = f
@@ -99,12 +108,14 @@ class GeneratorHub:
 
 
 def from_pretrained(checkpoint: Union[str, Path], data_dir: Optional[str] = None,
-                    config: Optional[dict] = None, device="cuda", **overrides) -> GeneratorHub:
+                    config: Optional[dict] = None, device="cuda", task=None,
+                    **overrides) -> GeneratorHub:
     """Load a checkpoint of the port and build the task, model and generator
     (s2t_tpu/hub.py:90-116).  ``config``: the TrainConfig as a dict (arch,
     model section, generation, ...); a ``model`` section in the checkpoint's
     metadata is used when ``config`` has none; ``overrides`` set
-    ``generation`` fields."""
+    ``generation`` fields; ``task``: a prebuilt task (a data config made in
+    Python), as ``cli.train.main`` takes one; default ``setup_task``."""
     from s2t_tpu_torch.config import TrainConfig, from_dict
     from s2t_tpu_torch.tasks import setup_task
     from s2t_tpu_torch.utils.checkpoint import load_checkpoint
@@ -118,7 +129,7 @@ def from_pretrained(checkpoint: Union[str, Path], data_dir: Optional[str] = None
         cfg.dataset.data = str(data_dir)
     for k, v in overrides.items():
         setattr(cfg.generation, k, v)
-    task = setup_task(cfg)
+    task = task or setup_task(cfg)
     model = task.build_model(device=device)
     model.load_state_dict(tree["params"] if "params" in tree else tree, strict=True)
     return GeneratorHub(model, task.build_generator(model), task)

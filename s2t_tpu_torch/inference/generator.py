@@ -43,8 +43,10 @@ def encoder_length_bound(cfg, T: int) -> int:
     if ratio > 1:
         mult = getattr(cfg, "pad_multiple", 1)
         return -(-(-(-T // mult) * mult) // ratio)
-    for _ in range(cfg.subsampling_layers):
-        T = (T - 1) // cfg.subsampling_stride + 1
+    # a config without a subsampling plan (a wav2vec 2.0 front end over samples)
+    # takes JAX's getattr defaults, 2 layers of stride 2
+    for _ in range(getattr(cfg, "subsampling_layers", 2)):
+        T = (T - 1) // getattr(cfg, "subsampling_stride", 2) + 1
     return T
 
 
@@ -155,6 +157,10 @@ class SequenceGenerator:
         ``constraints`` (B, C, Lc) with ``constraints_mode``.  Returns (tokens
         (B, K, L), scores (B, K), the encoder dict)."""
         model = self.model
+        if not hasattr(model, "init_cache"):
+            # the dual and multibranch models: JAX's generator fails on init_cache too
+            raise AttributeError(f"{type(model).__name__} has no incremental decoder "
+                                 "(init_cache / decode_step) for the beam generator")
         dev = model.device
         features = torch.as_tensor(batch[self.input_keys[0]], dtype=torch.float32).to(dev)
         feat_lengths = torch.as_tensor(batch[self.input_keys[1]]).to(device=dev, dtype=torch.long)

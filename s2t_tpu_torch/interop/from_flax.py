@@ -63,6 +63,7 @@ _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
             (re.compile(r"^fusion(\d+)$"), r"fusion_blocks.\1"),
             (re.compile(r"^final_layer(\d+)$"), r"final_layers.\1"),
             (re.compile(r"^ctc(\d+)$"), r"ctc_heads.\1"),
+            (re.compile(r"^(senior|textual)(\d+)$"), r"\1_stack.\2"),
             (re.compile(r"^(layer|conv)(\d+)$"), r"\1s.\2"))
 _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bnorms\.(\d+)\b"), r"norm\1"),
@@ -71,11 +72,12 @@ _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bfusion_blocks\.(\d+)\b"), r"fusion\1"),
             (re.compile(r"\bfinal_layers\.(\d+)\b"), r"final_layer\1"),
             (re.compile(r"\bctc_heads\.(\d+)\b"), r"ctc\1"),
+            (re.compile(r"\b(senior|textual)_stack\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\b(layer|conv)s\.(\d+)\b"), r"\1\2"))
 # parameters that are leaves of their own, with the same name on both sides
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
                    "embed_adapter", "relative_position_keys", "gauss_sigma",
-                   "gauss_mask_weight", "weights"})
+                   "gauss_mask_weight", "weights", "mask_emb", "vars"})
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -120,7 +122,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         except KeyError:
             unmapped.append("/".join(path))
             continue
-        sd[f"{_module_path(path[:-1])}.{name}"] = torch.from_numpy(np.array(val))
+        module = _module_path(path[:-1])
+        sd[f"{module}.{name}" if module else name] = torch.from_numpy(np.array(val))
     if unmapped:
         raise KeyError(f"flax leaves with no port counterpart: {unmapped}")
     return sd
@@ -145,6 +148,8 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
 
 
 def _flax_module_path(name: str, shared_embed: bool) -> tuple:
+    if not name:  # a parameter of the model itself (wav2vec 2.0's mask_emb)
+        return ()
     if name == "decoder.embed_tokens" and shared_embed:
         return ("shared_embed",)
     if name.startswith("decoder.embed_tokens."):  # an LM's adaptive input
@@ -172,6 +177,14 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
     if arr.ndim == 4:
         return "kernel", arr.transpose(2, 3, 1, 0)
     raise KeyError(name)
+
+
+def flax_path(key: str, ndim: int, shared_embed: bool = False) -> tuple:
+    """The flax path (module parts, then the leaf name) of the port parameter
+    ``key`` of rank ``ndim``, without its values."""
+    module, _, name = key.rpartition(".")
+    leaf, _ = _flax_leaf(module, name, np.empty((0,) * ndim))
+    return (*_flax_module_path(module, shared_embed), leaf)
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],

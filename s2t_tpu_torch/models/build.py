@@ -6,9 +6,12 @@ lp, the Conformer ``s2t_conformer``, the encoder variants ``s2t_transformer_s_re
 ``s2t_dynamic_transformer_s``, ``s2t_light_transformer_s``, ``s2t_transformer_s_dlcl``
 and the ESPnet-ST ``convtransformer`` / ``convtransformer_espnet``), the 13
 ``pdss2t_transformer_*`` ones, SATE's ``s2t_sate`` / ``s2t_sate_s`` and the
-encoder-only ``s2t_ctc``, ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``, and the
+encoder-only ``s2t_ctc``, ``s2t_nast``, ``s2t_ctc_pds`` and ``s2t_ctc_sate``, the
 language models ``transformer_lm``, ``transformer_lm_big``, ``transformer_lm_wiki103``
-and ``transformer_lm_baevski_wiki103``.
+and ``transformer_lm_baevski_wiki103``, the dual / multibranch models ``s2t_dual``,
+``s2t_dual_s``, ``s2t_multibranch``, ``s2t_multibranch_s``, and the wav2vec 2.0
+family ``wav2vec2_base``, ``wav2vec2_large``, ``wav2vec_ctc``, ``wav2vec_seq2seq``,
+``s2t_w2v2_transformer`` and ``s2t_w2v2_transformer_base``.
 Every other architecture of the JAX registry is registered here too, as a preset that
 raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
 ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
@@ -21,7 +24,8 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from s2t_tpu_torch.models import (  # noqa: F401  (the presets)
-    pds, s2t_ctc, s2t_transformer, sate, transformer_lm)
+    pds, s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer, s2t_w2v2_transformer, sate,
+    transformer_lm, wav2vec2)
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 _ITEMS = {
@@ -31,18 +35,10 @@ _ITEMS = {
 
 # every arch of the JAX registry the port lacks -> (its model, what it needs, the item)
 UNPORTED_ARCHS = {
-    **{a: ("s2t_dual", "the dual-encoder S2 layers", 9) for a in ("s2t_dual", "s2t_dual_s")},
-    **{a: ("s2t_multibranch", "the multibranch S2 layers", 9)
-       for a in ("s2t_multibranch", "s2t_multibranch_s")},
     **{a: ("berard", "the Berard LSTM encoder-decoder", 9)
        for a in ("berard", "berard_512_3_2", "s2t_berard", "s2t_berard_256_3_3",
                  "s2t_berard_512_3_2", "s2t_berard_512_5_3")},
-    **{a: ("s2t_w2v2_transformer", "the wav2vec 2.0 encoder", 9)
-       for a in ("s2t_w2v2_transformer", "s2t_w2v2_transformer_base")},
-    **{a: ("wav2vec2", "the wav2vec 2.0 model", 9) for a in ("wav2vec2_base", "wav2vec2_large")},
     **{a: ("wav2vec", "the wav2vec model", 9) for a in ("wav2vec", "wav2vec_large")},
-    "wav2vec_ctc": ("wav2vec_ctc", "the wav2vec 2.0 encoder", 9),
-    "wav2vec_seq2seq": ("wav2vec_seq2seq", "the wav2vec 2.0 encoder", 9),
     **{a: ("emformer", "the streaming Emformer", 9) for a in ("emformer", "emformer_s")},
     **{a: ("transformer", "the text Transformer", 11)
        for a in ("transformer", "transformer_ctc", "transformer_iwslt_de_en",

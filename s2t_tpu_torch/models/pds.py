@@ -52,7 +52,8 @@ from s2t_tpu_torch.modules.ctc_head import CTCHead
 from s2t_tpu_torch.modules.dropout import dropout
 from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
 from s2t_tpu_torch.modules.positional import relative_table, sinusoidal_table
-from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling, Conv2dSubsampling
+from s2t_tpu_torch.modules.subsampling import (
+    Conv1dSubsampling, Conv2dSubsampling, check_features)
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
@@ -461,6 +462,7 @@ class PDSEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """``embedding`` is None: a PDS encoder's CTC head has its own projection."""
         cfg = self.cfg
+        check_features(features)
         x = features.to(cfg.dtype)
         mult = cfg.pad_multiple
         if mult > 1 and x.shape[1] % mult:

@@ -51,7 +51,8 @@ from s2t_tpu_torch.modules.layers import S2TEncoderLayer, layer_norm
 from s2t_tpu_torch.modules.lightconv import LightweightConv
 from s2t_tpu_torch.modules.positional import (
     fairseq_sinusoidal_encoding, relative_table, sinusoidal_table)
-from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling, Conv2dSubsampling
+from s2t_tpu_torch.modules.subsampling import (
+    Conv1dSubsampling, Conv2dSubsampling, check_features)
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
@@ -265,7 +266,8 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
     frozen affines' ``norm_scale`` 1 / ``norm_bias`` 0, the PDS fusion's
     ``fusion_weight`` 1/len, the relative attentions' ``pos_bias_u`` /
     ``pos_bias_v`` / ``relative_position_keys`` Xavier-uniform, the adapters'
-    ``embed_adapter`` N(0, 1/D), a lightweight conv's kernel N(0, 0.01); the
+    ``embed_adapter`` N(0, 1/D), a lightweight conv's kernel N(0, 0.01), wav2vec
+    2.0's ``mask_emb`` and codebook ``vars`` U[0, 1); the
     Gaussian attention's and DLCL's constants keep their values from
     construction), then onto ``device``: for serving stored in
     ``cfg.dtype``, frozen, in eval mode; ``for_training`` keeps float32 master
@@ -294,6 +296,8 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
                 nn.init.uniform_(p, -limit, limit, generator=g)
             elif name == "embed_adapter":
                 nn.init.normal_(p, std=p.shape[1] ** -0.5, generator=g)
+            elif name in ("mask_emb", "vars"):  # wav2vec 2.0: flax uniform(1.0)
+                nn.init.uniform_(p, 0.0, 1.0, generator=g)
             elif name == "weight" and isinstance(mod, LightweightConv):
                 nn.init.normal_(p, std=0.1, generator=g)
     if for_training:
@@ -532,6 +536,7 @@ class S2TTransformerEncoder(nn.Module):
                 num_updates: Optional[int] = None) -> Dict[str, Any]:
         cfg = self.cfg
         train = generator is not None
+        check_features(features)
         x, lengths = self.subsample(features.to(cfg.dtype), lengths)
         # the JAX order (s2t_transformer.py:714-729): embed_norm, scale, positions, dropout
         if self.embed_norm is not None:

@@ -9,7 +9,10 @@ per-(position, head) scales; with an ``ancestry`` map for the lazy beam
 reorder).  Sinusoidal or learned positions, tied or separate output
 projection, an optional token-embedding module (the LM's adaptive input); the
 self-attention is "abs" or Shaw "relative" (``self_attn_type``, clipped at
-``max_relative_length``); ``no_cross_attention`` makes it a decoder-only LM.
+``max_relative_length``); ``no_cross_attention`` makes it a decoder-only LM;
+``collaboration_mode`` gives every layer the dual / multibranch models'
+cross-attention over a second stream (training forward only: a decode step
+takes none, as in JAX).
 The sinusoidal table sets the compute dtype.
 """
 
@@ -36,7 +39,8 @@ class TransformerDecoder(nn.Module):
                  attention_dropout: float = 0.0, activation_dropout: float = 0.0,
                  self_attn_type: str = "abs", max_relative_length: int = 0,
                  no_cross_attention: bool = False, learned_pos: bool = False,
-                 embed_tokens: Optional[nn.Module] = None):
+                 embed_tokens: Optional[nn.Module] = None, collaboration_mode: str = "none",
+                 league_s1_ratio: float = 0.5, league_s2_ratio: float = 0.5):
         super().__init__()
         self.embed_dim = embed_dim
         self.dropout = dropout
@@ -51,7 +55,10 @@ class TransformerDecoder(nn.Module):
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
                                     dropout, attention_dropout, activation_dropout,
                                     self_attn_type, max_relative_length,
-                                    has_cross_attention=not no_cross_attention)
+                                    has_cross_attention=not no_cross_attention,
+                                    collaboration_mode=collaboration_mode,
+                                    league_s1_ratio=league_s1_ratio,
+                                    league_s2_ratio=league_s2_ratio)
             for _ in range(num_layers)
         ])
         self.final_norm = layer_norm(embed_dim) if normalize_before else None
@@ -81,11 +88,13 @@ class TransformerDecoder(nn.Module):
     def forward_features(self, prev_tokens: torch.Tensor, encoder_out: torch.Tensor,
                          encoder_valid_mask: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
-                         mix: Optional[dict] = None) -> torch.Tensor:
+                         mix: Optional[dict] = None, s2_out: Optional[torch.Tensor] = None,
+                         s2_valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Hidden states before the output projection: (B, U, D).  ``mix`` =
         {"tokens2", "coef", "flag"} blends the embeddings of a second token
         sequence into the flagged rows (encoder mixup,
-        s2t_tpu/models/transformer_decoder.py:131-150)."""
+        s2t_tpu/models/transformer_decoder.py:131-150); ``s2_out`` and its
+        ``s2_valid_mask``: the second stream of a league decoder."""
         U = prev_tokens.shape[1]
         x = self._embed(prev_tokens, 0)
         tgt_valid = prev_tokens != self.pad_id
@@ -97,18 +106,21 @@ class TransformerDecoder(nn.Module):
         x = drop(x, self.dropout, generator)
         self_bias = causal_bias(U, x.dtype, x.device) + padding_bias(tgt_valid, x.dtype)
         cross_bias = None if self.no_cross_attention else padding_bias(encoder_valid_mask, x.dtype)
+        s2_bias = None if s2_valid_mask is None else padding_bias(s2_valid_mask, x.dtype)
         for layer in self.layers:
-            x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator)
+            x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator,
+                         s2_out=s2_out, s2_bias=s2_bias)
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x
 
     def forward(self, prev_tokens, encoder_out, encoder_valid_mask,
-                generator: Optional[torch.Generator] = None, mix: Optional[dict] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, mix: Optional[dict] = None,
+                s2_out: Optional[torch.Tensor] = None,
+                s2_valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced forward: (B, U) tokens -> (B, U, V) logits."""
         return self._output(self.forward_features(prev_tokens, encoder_out, encoder_valid_mask,
-                                                  generator, mix))
+                                                  generator, mix, s2_out, s2_valid_mask))
 
     def init_cache(self, batch_size: int, max_len: int, kv_int8: bool = False) -> dict:
         """Zeroed KV cache: per layer (B, max_len, H, Dh) k/v tensors in the

@@ -1,7 +1,8 @@
 """Transformer encoder/decoder layers, optionally Conformer (counterpart of
 s2t_tpu/modules/layers.py:29-450: the attention + FFN layers, pre- or post-norm,
 with the macaron FFN, the strided / widening convolution module, every
-self-attention type of the JAX layer and the convolutions in its place).
+self-attention type of the JAX layer and the convolutions in its place, and the
+dual / multibranch models' cross-stream "league" attention in both layers).
 
 Every LayerNorm uses epsilon 1e-6, flax's default (torch defaults to 1e-5).
 Dropout sits where the JAX layers put it: activation dropout inside the FFN
@@ -93,6 +94,8 @@ class ConformerConvModule(nn.Module):
 
 # the encoder layer's self-attention types: MultiHeadAttention's, rel_pos and the convolutions
 ENCODER_ATTENTION_TYPES = ATTENTION_TYPES + ("rel_pos", "light", "dynamic")
+# the cross-stream "league" of the dual / multibranch layers
+LEAGUE_MODES = ("none", "parallel", "serial")
 
 
 class S2TEncoderLayer(nn.Module):
@@ -120,7 +123,9 @@ class S2TEncoderLayer(nn.Module):
                  attention_stride: int = 1, max_relative_length: int = 0,
                  gauss_mask_sigma: float = 0.0, init_mask_weight: float = 0.5,
                  lconv_kernel: int = 15, conv_expand_dim: int = 0, conv_stride: int = 1,
-                 macaron_ffn_dim: int = 0):
+                 macaron_ffn_dim: int = 0, collaboration_mode: str = "none",
+                 league_s1_ratio: float = 0.5, league_s2_ratio: float = 0.5,
+                 s2_apply_norm: bool = False):
         super().__init__()
         if attention_type not in ENCODER_ATTENTION_TYPES:
             raise ValueError(f"encoder attention {attention_type!r} not in "
@@ -147,6 +152,16 @@ class S2TEncoderLayer(nn.Module):
             self.self_attn = MultiHeadAttention(
                 dim, num_heads, attention_dropout, attention_type, attention_stride,
                 max_relative_length, gauss_mask_sigma, init_mask_weight)
+        if collaboration_mode not in LEAGUE_MODES:
+            raise ValueError(f"collaboration_mode {collaboration_mode!r} not in {LEAGUE_MODES}")
+        self.collaboration_mode = collaboration_mode
+        self.league_ratios = (league_s1_ratio, league_s2_ratio)
+        # the league's modules exist only where a second stream arrives (flax
+        # creates them at the first call that passes one)
+        if collaboration_mode != "none":
+            self.s2_norm = layer_norm(dim) if s2_apply_norm else None
+            self.s2_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
+            self.s2_attn_norm = layer_norm(dim) if collaboration_mode == "serial" else None
         out_dim = dim
         self.conv_stride = conv_stride
         self.conv_res = None
@@ -175,9 +190,16 @@ class S2TEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, valid_mask: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_emb: Optional[torch.Tensor] = None,
+                s2: Optional[torch.Tensor] = None,
+                s2_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``attn_bias``: an additive bias beyond padding (a window), or None;
-        ``pos_emb``: the (2T-1, D) relative table, for rel_pos attention."""
+        ``pos_emb``: the (2T-1, D) relative table, for rel_pos attention; ``s2``
+        (B, T2, D) and its padding bias ``s2_bias``: the second stream the league
+        attends (s2t_tpu/modules/layers.py:233-256), densely, from the normed
+        input beside the self-attention ("parallel": s1 r1 + s2 r2 before the one
+        residual, and no post-norm after it, as in JAX) or in a pre-norm block of
+        its own after it ("serial")."""
         if self.macaron_ffn is not None:
             x = self._ffn(x, self.macaron_norm, self.macaron_ffn, generator)
         res = x
@@ -189,9 +211,19 @@ class S2TEncoderLayer(nn.Module):
             h = self.self_attn(h, pos_emb, bias, generator)
         else:
             h, _ = self.self_attn(h, h, h, attn_bias, valid_mask=valid_mask, generator=generator)
-        x = res + dropout(h, self.dropout, generator)
-        if not self.normalize_before:
-            x = self.attn_norm(x)
+        h = dropout(h, self.dropout, generator)
+        mode = self.collaboration_mode if s2 is not None else "none"
+        if mode == "parallel":
+            h2 = self._s2_attend(self.attn_norm(res) if self.normalize_before else res, s2,
+                                 s2_bias, generator)
+            r1, r2 = self.league_ratios
+            x = res + (h * r1 + h2 * r2)
+        else:
+            x = res + h
+            if not self.normalize_before:
+                x = self.attn_norm(x)
+            if mode == "serial":
+                x = x + self._s2_attend(self.s2_attn_norm(x), s2, s2_bias, generator)
         if self.conv_module is not None:
             res = x
             h = self.conv_norm(x) if self.normalize_before else x
@@ -210,6 +242,12 @@ class S2TEncoderLayer(nn.Module):
         return x
 
 
+    def _s2_attend(self, h, s2, s2_bias, generator):
+        s2v = self.s2_norm(s2) if self.s2_norm is not None else s2
+        out, _ = self.s2_attn(h, s2v, s2v, s2_bias, generator=generator)
+        return dropout(out, self.dropout, generator)
+
+
 class TransformerDecoderLayer(nn.Module):
     """Causal self-attention (cacheable; "abs" or Shaw "relative", whose query
     position in a decode step is the step's index) -> cross-attention (none in a
@@ -219,8 +257,12 @@ class TransformerDecoderLayer(nn.Module):
                  activation: str = "relu", normalize_before: bool = True,
                  dropout: float = 0.0, attention_dropout: float = 0.0,
                  activation_dropout: float = 0.0, self_attn_type: str = "abs",
-                 max_relative_length: int = 0, has_cross_attention: bool = True):
+                 max_relative_length: int = 0, has_cross_attention: bool = True,
+                 collaboration_mode: str = "none", league_s1_ratio: float = 0.5,
+                 league_s2_ratio: float = 0.5):
         super().__init__()
+        if collaboration_mode not in LEAGUE_MODES:
+            raise ValueError(f"collaboration_mode {collaboration_mode!r} not in {LEAGUE_MODES}")
         self.normalize_before = normalize_before
         self.dropout = dropout
         self.self_attn_norm = layer_norm(dim)
@@ -230,6 +272,12 @@ class TransformerDecoderLayer(nn.Module):
         if has_cross_attention:
             self.cross_attn_norm = layer_norm(dim)
             self.cross_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
+        # the second stream's cross-attention (s2t_tpu/models/transformer_decoder.py:343-380)
+        self.collaboration_mode = collaboration_mode if has_cross_attention else "none"
+        self.league_ratios = (league_s1_ratio, league_s2_ratio)
+        if self.collaboration_mode != "none":
+            self.s2_cross_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
+            self.s2_cross_norm = layer_norm(dim) if collaboration_mode == "serial" else None
         self.ffn_norm = layer_norm(dim)
         self.ffn = FeedForward(dim, ffn_dim, activation, activation_dropout)
 
@@ -248,7 +296,12 @@ class TransformerDecoderLayer(nn.Module):
         enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
         cache_ancestry: Optional[torch.Tensor] = None,
+        s2_out: Optional[torch.Tensor] = None,
+        s2_bias: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """``s2_out`` / ``s2_bias``: a second encoder stream and its padding bias,
+        cross-attended beside the first ("parallel", no post-norm after the
+        combined residual) or after it in a pre-norm block ("serial")."""
         res = x
         h = self.self_attn_norm(x) if self.normalize_before else x
         h, cache = self.self_attn(h, h, h, self_bias, cache=cache, cache_index=cache_index,
@@ -260,11 +313,23 @@ class TransformerDecoderLayer(nn.Module):
         if self.has_cross_attention:
             res = x
             h = self.cross_attn_norm(x) if self.normalize_before else x
+            cross_in = h
             h, _ = self.cross_attn(h, encoder_out, encoder_out, cross_bias, kv_override=enc_kv,
                                    generator=generator)
-            x = res + dropout(h, self.dropout, generator)
-            if not self.normalize_before:
-                x = self.cross_attn_norm(x)
+            h = dropout(h, self.dropout, generator)
+            mode = self.collaboration_mode if s2_out is not None else "none"
+            if mode == "parallel":
+                h2, _ = self.s2_cross_attn(cross_in, s2_out, s2_out, s2_bias, generator=generator)
+                r1, r2 = self.league_ratios
+                x = res + (h * r1 + dropout(h2, self.dropout, generator) * r2)
+            else:
+                x = res + h
+                if not self.normalize_before:
+                    x = self.cross_attn_norm(x)
+                if mode == "serial":
+                    h2, _ = self.s2_cross_attn(self.s2_cross_norm(x), s2_out, s2_out, s2_bias,
+                                               generator=generator)
+                    x = x + dropout(h2, self.dropout, generator)
 
         res = x
         h = self.ffn_norm(x) if self.normalize_before else x

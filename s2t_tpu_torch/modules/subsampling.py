@@ -23,6 +23,17 @@ from s2t_tpu_torch.modules.cast import LN_EPS, Conv1d, Conv2d, LayerNorm, Linear
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
 
+def check_features(features: torch.Tensor) -> None:
+    """An encoder with a subsampler takes (B, T, C) features; the (B, N)
+    waveforms of a ``use_audio_input`` split fed to it as they are (the
+    generators' and validation's batches) raise here, as JAX's conv fails."""
+    if features.dim() != 3:
+        raise ValueError(
+            f"this encoder takes (B, T, C) features, got a tensor of shape "
+            f"{tuple(features.shape)}: the (B, N) waveforms of a use_audio_input split go to "
+            "the encoder without an fbank when decoding, which a wav2vec 2.0 front end reads")
+
+
 def get_activation(name: str):
     if name == "relu":
         return F.relu

@@ -1,5 +1,6 @@
-"""LR schedule and optimizer of the training step (counterpart of
-s2t_tpu/optim/builders.py:30-45 and :180-269).
+"""LR schedules and optimizer of the training step (counterpart of
+s2t_tpu/optim/builders.py:30-45, :60-87 and :180-269): ``inverse_sqrt``,
+``tri_stage`` and ``polynomial_decay``.
 
 Plain PyTorch, as the JAX package leaves this to XLA.  Everything stays on
 the device: the schedule is evaluated on the optimizer's count tensor and the
@@ -36,9 +37,49 @@ def inverse_sqrt(cfg: OptimizationConfig) -> Callable:
     return schedule
 
 
+def tri_stage(cfg: OptimizationConfig) -> Callable:
+    """Linear warm-up to lr, a hold at lr, then an exponential decay to
+    max(min_lr, lr / 100); the stages are ``warmup_updates`` (or 10 % of
+    max_update when 0), 40 % and the rest of max_update (builders.py:60-75)."""
+    total = max(cfg.max_update, 1)
+    w = cfg.warmup_updates or int(0.1 * total)
+    h = int(0.4 * total)
+    d = max(total - w - h, 1)
+    peak = cfg.lr
+    log_final = math.log(max(cfg.min_lr, peak * 0.01) / peak)
+
+    def schedule(step) -> torch.Tensor:
+        s = torch.as_tensor(step).float()
+        warm = peak * torch.clamp(s / max(w, 1), max=1.0)
+        decay = peak * torch.exp(log_final * torch.clamp((s - w - h) / d, 0.0, 1.0))
+        return torch.where(s < w, warm, torch.where(s < w + h, torch.full_like(s, peak), decay))
+
+    return schedule
+
+
+def polynomial_decay(cfg: OptimizationConfig) -> Callable:
+    """``optax.linear_schedule(lr, min_lr, max_update - warmup_updates,
+    transition_begin=warmup_updates)`` as JAX builds it (builders.py:78-84): lr
+    is HELD through the warm-up, with no ramp (a reference quirk), then falls
+    linearly to min_lr."""
+    steps = max(cfg.max_update - cfg.warmup_updates, 1)
+    begin = max(cfg.warmup_updates, 0)
+    init, end = cfg.lr, cfg.min_lr
+
+    def schedule(step) -> torch.Tensor:
+        count = torch.clamp(torch.as_tensor(step).float() - begin, 0.0, float(steps))
+        return (init - end) * (1.0 - count / steps) + end
+
+    return schedule
+
+
+SCHEDULES = {"inverse_sqrt": inverse_sqrt, "tri_stage": tri_stage,
+             "polynomial_decay": polynomial_decay}
+
+
 def build_lr_schedule(cfg: OptimizationConfig) -> Callable:
     check_supported(cfg)
-    return inverse_sqrt(cfg)
+    return SCHEDULES[cfg.lr_scheduler](cfg)
 
 
 class FusedAdamWSkipNonFinite:

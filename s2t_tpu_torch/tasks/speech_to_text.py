@@ -41,6 +41,7 @@ from s2t_tpu_torch.config import TrainConfig
 from s2t_tpu_torch.data.audio.transforms import CompositeTransform
 from s2t_tpu_torch.data.dataset import S2TDataConfig, SpeechToTextDataset
 from s2t_tpu_torch.data.dictionary import Dictionary
+from s2t_tpu_torch.data.multilingual import MultilingualS2TDataset
 from s2t_tpu_torch.data.ngram_lm import ArpaLM
 from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
 from s2t_tpu_torch.inference.generator import SequenceGenerator
@@ -66,8 +67,12 @@ def encoder_inputs(mcfg, batch, train: bool) -> dict:
     (s2t_tpu/tasks/speech_to_text.py:139-158): the oracle's ``transcript`` and
     the target with EOS (2) rewritten to pad (1) and its lengths less one, when
     the config sets a ground-truth ratio; ``num_updates`` (the batch's
-    ``_step``) under mixup's ratio decay.  Nothing in eval."""
+    ``_step``) under mixup's ratio decay; in training and eval alike, the
+    transcript of a model that ``consumes_transcript`` (:139-141)."""
     kw = {}
+    if getattr(mcfg, "consumes_transcript", False) and "transcript" in batch:
+        kw["transcript"] = batch["transcript"]
+        kw["transcript_lengths"] = batch["transcript_lengths"]
     if not train:
         return kw
     if getattr(mcfg, "ctc_pae_ground_truth_ratio", 0.0) > 0 or \
@@ -106,13 +111,18 @@ class SpeechToTextTask(Task):
         return cls(cfg, data_cfg, tgt_dict, src_dict)
 
     def load_dataset(self, split: str, is_train: bool = False):
-        if "," in split:
-            raise NotImplementedError(
-                f"split {split!r}: comma-separated multilingual splits (temperature "
-                "resampling) are not ported to s2t_tpu_torch")
         root = Path(self.cfg.dataset.data)
-        ds = SpeechToTextDataset(root / f"{split}.tsv", self.data_cfg, self.tgt_dict,
-                                 self.src_dict, is_train=is_train, root=str(root))
+
+        def one(name):
+            return SpeechToTextDataset(root / f"{name}.tsv", self.data_cfg, self.tgt_dict,
+                                       self.src_dict, is_train=is_train, root=str(root))
+
+        if "," in split:
+            # per-language splits, upsampled by temperature (s2t_tpu/tasks/speech_to_text.py:73-80)
+            ds = MultilingualS2TDataset([one(s.strip()) for s in split.split(",")],
+                                        alpha=self.data_cfg.sampling_alpha, resample=is_train)
+        else:
+            ds = one(split)
         self.datasets[split] = ds
         return ds
 
@@ -161,11 +171,6 @@ class SpeechToTextTask(Task):
 
     def build_generator(self, model, gen_cfg=None):
         g = gen_cfg or self.cfg.generation
-        if self.data_cfg.use_audio_input:
-            raise NotImplementedError(
-                "decoding a use_audio_input data config: the JAX generator feeds the "
-                "waveforms to the encoder without an fbank (ROADMAP.md section 3); decode "
-                "a split of fbank features instead")
         if getattr(model.cfg, "decoder_layers", 1) == 0:
             # encoder-only model: decode from CTC (s2t_tpu/tasks/speech_to_text.py:182-202)
             ngram_lm = None

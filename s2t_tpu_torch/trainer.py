@@ -1,7 +1,7 @@
 """Trainer: one training step, forward with dropout -> loss -> backward -> clip ->
 AdamW -> non-finite skip, the validation step and the trainer state
 (counterpart of s2t_tpu/trainer.py:57-77, 80-375, 227-275 and 644-651, without
-the mesh, BMUF or quant-noise).
+the mesh or BMUF).
 
 ``Trainer(model, criterion, opt_cfg, device, seed, forward_fn).train_step(batch)``
 is the step ``bench.py`` section B drives through the JAX ``Trainer``; the
@@ -24,6 +24,13 @@ of ``jax.random.fold_in`` (trainer.py:325, :334), so a step is reproducible.
 The model must be built with ``for_training=True`` (float32 master
 parameters, compute in ``cfg.dtype``).
 
+With ``quant_noise_p`` > 0 every forward and backward of a step runs on
+block-noised copies of the dense kernels and embeddings
+(``modules/quant_noise.py``) through ``torch.func.functional_call``; the
+optimizer updates the un-noised parameters.  The masks come from a generator
+seeded by the step's seed folded with 0x51AE, as JAX folds its key; a
+``quant_noise_masks`` dict handed to ``train_step`` replaces the draw.
+
 ``valid_step(batch)`` runs the adapter in eval mode without gradients and
 returns the summed loss, the sample size and the criterion's logs.
 ``state_dict()`` / ``load_state_dict()`` carry the float32 master
@@ -37,12 +44,15 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from s2t_tpu_torch.config import OptimizationConfig, check_supported
 from s2t_tpu_torch.device import resolve_device
+from s2t_tpu_torch.modules.quant_noise import quant_noise_params
 from s2t_tpu_torch.optim.builders import FusedAdamWSkipNonFinite, build_lr_schedule
 
 _MASK64 = (1 << 64) - 1
+QUANT_NOISE_FOLD = 0x51AE  # the JAX step folds its dropout key with this for quant noise
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -63,6 +73,19 @@ def s2t_forward(model, batch: Dict[str, torch.Tensor], train: bool = False,
         kw["num_updates"] = int(batch["_step"])
     return model(batch["features"], batch["feat_lengths"], batch["prev_tokens"],
                  train=train, generator=generator, **kw)
+
+
+class _Forward(nn.Module):
+    """``forward_fn`` over ``model`` as a module, so ``functional_call`` can swap
+    the model's parameters for their noised copies for one call."""
+
+    def __init__(self, model, forward_fn):
+        super().__init__()
+        self.model = model
+        self.forward_fn = forward_fn
+
+    def forward(self, batch, train, generator):
+        return self.forward_fn(self.model, batch, train=train, generator=generator)
 
 
 class Trainer:
@@ -86,9 +109,12 @@ class Trainer:
                                                  max_consecutive_errors=8)
         self.step = 0  # updates attempted, skipped ones included (the JAX state.step)
 
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         out = {}
         for key, val in batch.items():
+            if isinstance(val, dict):  # nested inputs (handed-over draws)
+                out[key] = self._to_device(val)
+                continue
             t = val if isinstance(val, torch.Tensor) else torch.as_tensor(np.asarray(val))
             out[key] = t.to(self.device, non_blocking=True)
         return out
@@ -110,7 +136,24 @@ class Trainer:
             seed = fold_in(seed, micro)
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _forward_train(self, micro, gen, quant_noise_masks=None):
+        cfg = self.opt_cfg
+        if cfg.quant_noise_p <= 0:
+            return self.forward_fn(self.model, micro, train=True, generator=gen)
+        params = dict(self.model.named_parameters())
+        qn_gen = torch.Generator(device=self.device).manual_seed(
+            fold_in(gen.initial_seed(), QUANT_NOISE_FOLD))
+        noised = quant_noise_params(params, cfg.quant_noise_p, cfg.quant_noise_block_size,
+                                    qn_gen, quant_noise_masks)
+        return torch.func.functional_call(
+            _Forward(self.model, self.forward_fn), {f"model.{k}": v for k, v in noised.items()},
+            (micro, True, gen))
+
+    def train_step(self, batch: Dict[str, Any],
+                   quant_noise_masks: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One update.  ``quant_noise_masks``: the quant-noise drop masks to use in
+        place of this step's draw (parameter name -> bool mask, the port's layout)."""
         self.model.train()
         for p in self.optimizer.params:
             p.grad = None
@@ -120,7 +163,7 @@ class Trainer:
             gen = self._generator(self.step, None if len(micros) == 1 else i)
             # the update count, for forward adapters with an in-step schedule (trainer.py:316)
             micro = {**micro, "_step": self.step}
-            out = self.forward_fn(self.model, micro, train=True, generator=gen)
+            out = self._forward_train(micro, gen, quant_noise_masks)
             loss, sample_size, logs = self.criterion(out, micro)
             loss.float().backward()
             loss_sum = loss_sum + loss.detach().float()

@@ -1,12 +1,14 @@
 """Checkpointing: save and resume, last / best / epoch / interval files,
-rotation, best-k tracking and averaging (counterpart of
-s2t_tpu/utils/checkpoint.py:44-201).
+rotation, best-k tracking, averaging and pretrained-component transplant
+(counterpart of s2t_tpu/utils/checkpoint.py:44-277).
 
 The file format is the port's own: ``torch.save`` of a tree of tensors and
 plain Python values (``Trainer.state_dict()``), with the metadata (step,
 epoch, validation metric, the epoch iterator's state) in a ``.json``
 sidecar, as in the JAX package.  ``async_save`` writes on a thread.  Loading
 the JAX package's msgpack checkpoints waits for the interop slice.
+``transplant_component`` copies one component of a state dict into another
+(``--load-pretrained-{encoder,decoder}-from``), components named as in JAX.
 """
 
 from __future__ import annotations
@@ -162,3 +164,50 @@ def average_checkpoints(paths: List[str | Path]) -> Dict[str, torch.Tensor]:
             for k, v in params.items():
                 acc[k] += v.double()
     return {k: (v / len(paths)).float() for k, v in acc.items()}
+
+
+def _component_keys(params: Dict[str, torch.Tensor], component: str) -> Dict[tuple, str]:
+    """The keys of ``params`` under ``component`` ("encoder", "decoder",
+    "encoder/acoustic", ...), by their path below it in the flax tree (the
+    port's names through ``interop/from_flax.py``'s map)."""
+    from s2t_tpu_torch.interop.from_flax import flax_path
+
+    parts = tuple(component.split("/"))
+    out = {}
+    for key, val in params.items():
+        path = flax_path(key, val.dim())
+        if path[:len(parts)] == parts:
+            out[path[len(parts):]] = key
+    return out
+
+
+def transplant_component(target_params: Dict[str, torch.Tensor],
+                         source_params: Dict[str, torch.Tensor], component: str,
+                         strict: bool = True, source_component: Optional[str] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A copy of ``target_params`` (a state dict) whose ``component`` comes from
+    ``source_params`` (s2t_tpu/utils/checkpoint.py:204-277).  ``source_component``
+    names it in the source when the path differs (SATE: "encoder" into
+    "encoder/acoustic").  Every target entry of the component must be in the
+    source with its shape; ``strict`` also refuses source entries the target
+    lacks (``strict=False``: a wav2vec 2.0 pretraining checkpoint's quantizer and
+    projections into a fine-tuning model).  Raises KeyError otherwise."""
+    tgt = _component_keys(target_params, component)
+    src = _component_keys(source_params, source_component or component)
+    if not src:
+        raise KeyError(f"component path {source_component or component!r} missing in the source")
+    if not tgt:
+        raise KeyError(f"component path {component!r} missing in the target")
+    missing, extra = set(tgt) - set(src), set(src) - set(tgt)
+    if missing or (extra and strict):
+        raise KeyError(f"component {component} structure mismatch: target only "
+                       f"{sorted('/'.join(m) for m in missing)}, source only "
+                       f"{sorted('/'.join(e) for e in extra)}")
+    out = dict(target_params)
+    for path, key in tgt.items():
+        val = source_params[src[path]]
+        if tuple(val.shape) != tuple(target_params[key].shape):
+            raise KeyError(f"shape mismatch at {component}/{'/'.join(path)}: "
+                           f"{tuple(target_params[key].shape)} vs {tuple(val.shape)}")
+        out[key] = val.clone()
+    return out

@@ -246,14 +246,16 @@ def test_training_cli_refuses_unported_settings():
     for section, name, value in (("bmuf", "active", True), ("distributed", "fsdp", True),
                                  ("common", "profile", True),
                                  ("common", "tensorboard_logdir", "tb"),
-                                 ("checkpoint", "finetune_from_model", "x.pt"),
+                                 ("common", "user_dir", "plugins"),
                                  ("optimization", "lr_scheduler", "cosine")):
         cfg = TrainConfig()
         setattr(getattr(cfg, section), name, value)
         with pytest.raises(NotImplementedError, match=name if section != "optimization"
                            else "cosine"):
             check_train_supported(cfg)
-    # validation-time decoding is ported
+    # validation-time decoding, the pretrained-component transplant and quant noise are ported
     cfg = TrainConfig()
     cfg.eval.eval_wer = cfg.eval.eval_bleu = cfg.eval.eval_ctc_wer = True
+    cfg.checkpoint.finetune_from_model = cfg.checkpoint.load_pretrained_encoder_from = "x.pt"
+    cfg.optimization.quant_noise_p = 0.1
     check_train_supported(cfg)

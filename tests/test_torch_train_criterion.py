@@ -103,8 +103,10 @@ def test_loss_logs_and_grads_match_jax(transcript):
 def test_unported_criteria_and_branches_raise():
     with pytest.raises(NotImplementedError, match="cross_entropy_with_alignment"):
         build_criterion("label_smoothed_cross_entropy_with_alignment")
-    with pytest.raises(NotImplementedError, match="join_speech_and_text_loss"):
-        build_criterion("join_speech_and_text_loss", {"ctc": {"inter_ctc_weight": 0.5}})
+    # join_speech_and_text_loss is ported (tests/test_torch_dual.py); wav2vec v1's CPC
+    # loss is not
+    with pytest.raises(NotImplementedError, match="CPC"):
+        build_criterion("wav2vec")({"cpc_logits": None}, {})
     with pytest.raises(NotImplementedError, match="nat_loss"):
         build_criterion("nat_loss")
     with pytest.raises(KeyError, match="no_such_field"):
