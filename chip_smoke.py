@@ -1,6 +1,6 @@
 """Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer, CTC
-research-stack, encoder-variant, generator, wav2vec 2.0 and dual / multibranch slices on
-one NVIDIA H100.
+research-stack, encoder-variant, generator, wav2vec 2.0, dual / multibranch, text MT,
+Berard, Emformer and wav2vec v1 slices on one NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -49,10 +49,10 @@ Phases (any failure ends the run with a non-zero exit):
   7. train   s2t_transformer_m at full width, fp32, dropout 0: 2 steps of the
              port's Trainer on the card (kernels) and on the CPU (plain),
              per-step loss / ctc_loss / gnorm and the parameters after 2 steps
-             (every earlier phase's fp32 training parity takes 2 steps, phases
-             32-34 take 3; the serving parity of phases 5, 16, 19, 21, 23, 25,
-             26, 28 decodes 20 tokens; phase 6's timing takes 2 batches and profiles
-             a 20-token decode, as phases 16, 19, 21, 25 and phase 30's modes);
+             (every phase's fp32 training parity takes 2 steps; the serving
+             parity of phases 5, 16, 19, 21, 23, 25, 26, 28 decodes 20 tokens;
+             phase 6's timing takes 2 batches and profiles a 20-token decode, as
+             phases 16, 19, 21, 25 and phase 30's modes);
   8. train   s2t_transformer_m in bf16 at the bench shape (B=40, T=1000, U=30,
      speed   V=10000, preset dropouts, ctc_weight 0.3): one warm-up step, 20
              timed steps, steps/s, frames/s, tokens/s, MFU, and one profiled
@@ -183,12 +183,12 @@ Phases (any failure ends the run with a non-zero exit):
  32. w2v2 st  w2v2.yaml (s2t_w2v2_transformer_base): cli.generate beam-5 decodes 16 x 10
              s waveforms from a use_audio_input directory (the repaired path: the
              waveforms reach the encoder as collated), fp32 tokens card vs CPU (20
-             tokens), hub.from_pretrained; 3 fp32 Trainer steps card vs CPU through
+             tokens), hub.from_pretrained; 2 fp32 Trainer steps card vs CPU through
              waveform_forward on handed-over span uniforms;
- 33. w2v ctc  wav2vec_ctc_finetune.yaml: 3 fp32 steps under tri_stage card vs CPU, then
+ 33. w2v ctc  wav2vec_ctc_finetune.yaml: 2 fp32 steps under tri_stage card vs CPU, then
              greedy CTC tokens of 4 x 10 s card vs CPU;
  34. league   dual.yaml / multibranch.yaml (s2t_dual_s, s2t_multibranch_s) under
-             join_speech_and_text_loss: 3 fp32 steps card vs CPU, 5 bf16 steps at 40 x
+             join_speech_and_text_loss: 2 fp32 steps card vs CPU, 3 bf16 steps at 40 x
              1000 frames, fp32 inference card vs CPU (the beam generator refuses both,
              as JAX's does; CTC and teacher-forced decoder argmax), the league
              attention's share of a bf16 64 x 1000-frame encode;
@@ -196,6 +196,25 @@ Phases (any failure ends the run with a non-zero exit):
              2 updates each;
  36. w2v attn K1f / K1b at wav2vec2_base's shape (B=4, T'=781, H=12, D=64, bf16, K1b at p =
              0.1) against their plain versions, timed beside SDPA (run after phase 4);
+ 37. mt       egs/mustc/mt/conf/base.yaml on basis.yaml (transformer: pre-norm 512 / 2048,
+             6 + 6 layers, 8 heads, dictionaries of 10,000): 2 fp32 steps card vs CPU,
+             bf16 steps at 128 x 64 source and 64 target tokens, cli.train (2 updates)
+             -> cli.generate on a seeded whitespace corpus, hub.from_pretrained answering
+             text requests on the card and the CPU, beam-5 tokens of 64 sentences card
+             vs CPU (20 tokens); K1f / K1b at the MT shape and K3 / K4 at
+             transformer_ctc's (T = 192 upsampled frames, S = 127) against their plain
+             versions, timed beside SDPA / ctc_loss (run after phase 4);
+ 38. mt ctc   egs/mustc/mt/conf/ctc.yaml (transformer_ctc, ratio 3): 2 fp32 steps card
+             vs CPU, bf16 steps at phase 37's shape, K3 / K4 on the upsampled encoder;
+ 39. berard   s2t_berard_512_5_3 (cuDNN LSTMs): 2 fp32 steps card vs CPU, bf16 steps at
+             40 x 1000 frames with 40-token targets, teacher-forced argmax card vs CPU;
+ 40. emformer emformer_s under the CTC loss, cut to 3 layers for card vs CPU (random
+             weights make the 12-layer model chaotic, in JAX too): 2 fp32 steps,
+             greedy tokens of 40 x 1000 frames, a 1000-frame stream through
+             streaming_step; at 12 layers its sensitivity and the stream on the card;
+ 41. w2v1     wav2vec (v1) under the CPC loss: fp32 scores, loss and gradients card vs
+             CPU on handed-over draws with no quantizer, k-means and Gumbel; a bf16
+             step on 10 x 150,000-sample crops;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
@@ -215,7 +234,11 @@ eval_wer), of phase 18 two (the loss, eval_wer).  Phases 31-35 count the same wa
 every self-attention of the wav2vec 2.0 stacks, the w2v2 model's post-w2v layers, the
 dual text encoder and the multibranch branches takes a padding-only mask and runs K1f /
 K1b (12 a wav2vec2_base encode, 18 for w2v2.yaml's model and the dual model, 24 for the
-multibranch one); the league (s2) attention is dense and launches none.
+multibranch one); the league (s2) attention is dense and launches none.  Phases
+37-38: the text encoder's self-attention runs K1f (6 an encode) and K1b (6 a step);
+transformer_ctc's CTC term K3 / K4 once a step; phases 39-41 launch none of the kernels
+but the Emformer's CTC term (K3 / K4 once a step): Berard's LSTMs, the Emformer's
+segment attention and wav2vec's convolutions are outside Pallas in JAX too.
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -392,15 +415,17 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
     ``names`` is None (a library call).  Each name counts its mean duration times
     its launches per call, so an event the trace drops or doubles moves no sum;
     device events that start before the trace's first host event are not this
-    trace's and are left out; a trace with no device event is taken again (at
-    most 3 times).  Returns (ms, {name: ms})."""
+    trace's and are left out; a trace with no device event, or one whose count of
+    a kernel's events is no multiple of ``iters`` (it lost or doubled some), is
+    taken again (at most 3 times; a last incomplete trace still counts, logged).
+    Returns (ms, {name: ms})."""
     from torch.profiler import ProfilerActivity, profile
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -416,7 +441,13 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
                 spans.setdefault(key, []).append((e.time_range.end - e.time_range.start) / 1e3)
         if spans:
             split = {k: float(np.mean(v)) * max(1, round(len(v) / iters)) for k, v in spans.items()}
-            return sum(split.values()), split
+            lost = {k: len(v) for k, v in spans.items() if len(v) % iters}
+            if not lost or attempt == 2:
+                if lost:
+                    log(f"[profiler] the last trace kept {lost} events of {iters} calls")
+                return sum(split.values()), split
+            log(f"[profiler] a trace kept {lost} events of {iters} calls: taken again")
+            continue
         log(f"[profiler] a trace recorded no device kernel matching {names}: taken again")
     raise AssertionError(f"three traces recorded no device kernel matching {names}")
 
@@ -811,12 +842,12 @@ def ctc_bounds(B, T, S, lengths, chain_ms):
     """Least time of K3 and K4: the larger of their bytes at the memory rate (K3 reads
     emit for the frames below each length and writes every alpha row; K4 reads emit and
     alphas for those frames and writes every gradient row) and their chain floor
-    (``chain_ms``, K3's and K4's: a row's dependent steps of the single-warp step, K3's
-    two shuffles, two logaddexp and an add, K4's its gradient entry's expf, an add, two
-    shuffles and two logaddexp, run by one warp on register values alone on the card,
-    measured in phase 4).  The floor is that design's own step, shuffle latency and
-    validity selects included, so it bounds the single-warp design rather than any
-    design (K4 itself is not that design yet).
+    (``chain_ms``, K3's and K4's: a row's dependent steps, K3's two shuffles, two
+    logaddexp and an add, K4's its gradient entry's expf, an add, two shuffles and two
+    logaddexp, run by one warp on register values alone on the card, measured in phase
+    4).  K3's floor is its own single-warp step at ceil(S / 32) states a lane; K4's is
+    its own design's dependent step, one state a lane (``K4_FLOOR_STATES``): each
+    floor bounds the design it measures, shuffle latency and validity selects included.
     Returns {kernel: (ms, "bytes" or "operations", {"bytes_ms", "chain_ms"})}; the
     operations that bound a chain are its dependent ones."""
     used = sum(min(int(n), T) for n in lengths)
@@ -828,7 +859,14 @@ def ctc_bounds(B, T, S, lengths, chain_ms):
                                      ("ctc_beta_grad", k4, chain_ms[1]))}
 
 
+# K4 runs one thread a state (one CTA a row): its dependent step is the beta step at
+# one state a lane, the single-warp floor kernel over 32 states
+K4_FLOOR_STATES = 32
+
+
 def ctc_case(B, T, U, V, seed, time_it=False):
+    """K3 and K4 against their plain versions on seeded ragged rows; ``time_it``
+    also times them beside ``ctc_loss`` and bounds them (``ctc_bounds``)."""
     rng = np.random.default_rng(seed)
     labels = rng.integers(3, V, size=(B, U))
     labels[0, 1::2] = labels[0, 0::2][: U // 2]  # repeated labels
@@ -903,9 +941,10 @@ def ctc_case(B, T, U, V, seed, time_it=False):
         # with its gradient entry: each floor is its own step's chain
         longest = int(min(input_lengths.max(), T))
         res["chain_steps"] = longest - 1
-        floors = [device_ms(lambda: ctc_chain_floor(n, S, "cuda", beta=beta),
+        floors = [device_ms(lambda: ctc_chain_floor(n, states, "cuda", beta=beta),
                             ("ctc_chain_floor_kernel",))[0]
-                  for n, beta in ((longest, False), (longest + 1, True))]
+                  for n, states, beta in ((longest, S, False),
+                                          (longest + 1, K4_FLOOR_STATES, True))]
         # K3's step run once more, a lower bound for K4 that predates K4's own step
         res["beta_bound_k3_step_ms"] = device_ms(lambda: ctc_chain_floor(longest + 1, S, "cuda"),
                                                  ("ctc_chain_floor_kernel",))[0]
@@ -1177,6 +1216,8 @@ def encoder_ranges(model):
         return stage_ranges(model.encoder)
     if isinstance(cfg, SATEConfig):
         return sate_ranges(model)
+    if not isinstance(cfg, S2TTransformerConfig):  # Berard, the Emformer: no split
+        return contextlib.nullcontext()
     parts = []
     if cfg.use_cnn_module and cfg.encoder_attention_type == "rel_pos":
         parts += conformer_parts(model.encoder)
@@ -1444,18 +1485,25 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
 
 def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed",
                       n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000,
-                      criterion=CRITERION, per_step=None):
+                      criterion=CRITERION, per_step=None, batch=None, forward_fn=None, opt=None):
     """bf16 at the bench.py section B shape and optimizer (``cfg``: s2t_transformer_m
-    by default); for a PDS model also K1f's and K1b's device ms by stage, for SATE, a
-    Conformer and the CTC research stack the device ms of each part of the forward
-    (``encoder_ranges``) and of each CTC term of the loss (``ctc_term_ranges``)."""
+    by default): 1 warm-up, ``n_timed`` timed and 1 profiled step on one device-resident
+    batch, the launches checked per step; for a PDS model also K1f's and K1b's device ms
+    by stage, for SATE, a Conformer and the CTC research stack the device ms of each part
+    of the forward (``encoder_ranges``) and of each CTC term of the loss
+    (``ctc_term_ranges``).  ``batch``, ``forward_fn`` and ``opt`` replace the seeded
+    (B, T, U, V) feature batch, ``stack_forward`` and the bench optimizer (the text and
+    waveform batches of phases 37, 38 and 41)."""
     cfg = cfg or s2t_transformer_m(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
     per_step = per_step or step_launches(cfg)
     model = model_cls(cfg, device="cuda", seed=0, for_training=True)
     trainer = Trainer(model, build_criterion(*criterion),
-                      OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
-                      device="cuda", seed=1, forward_fn=stack_forward)
-    batch = train_batch(np.random.default_rng(0), B, T, U, V, [T] * B)
+                      opt or OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
+                      device="cuda", seed=1, forward_fn=forward_fn or stack_forward)
+    shape = {}
+    if batch is None:
+        batch = train_batch(np.random.default_rng(0), B, T, U, V, [T] * B)
+        shape = {"batch": B, "frames": T, "target_tokens": U, "vocab": V}
     batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}  # device-resident, as bench
     reset_counts()  # the main path: 1 warm-up + n_timed timed + 1 profiled step
     losses = [trainer.train_step(batch)["loss"]]
@@ -1477,10 +1525,9 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
         raise AssertionError(f"bf16 training loss is not finite or does not move: {losses}")
     steps_per_s = n_timed / wall
     step_ms = wall / n_timed * 1e3
-    res = {"batch": B, "frames": T, "target_tokens": U, "vocab": V, "timed_steps": n_timed,
-           "wall_s": wall, "step_ms": step_ms, "steps_per_s": steps_per_s,
-           "frames_per_s": steps_per_s * B * T, "tokens_per_s": steps_per_s * B * U,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    res = {**shape, "parameters": sum(p.numel() for p in model.parameters()),
+           "timed_steps": n_timed, "wall_s": wall, "step_ms": step_ms,
+           "steps_per_s": steps_per_s, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "loss_first_last": [losses[0].item(), losses[-1].item()],
            "profiled_step_wall_ms": prof["wall_ms"], "profiled_device_busy_ms": prof["busy_ms"],
            "device_busy_share_of_profiled_step": prof["busy_ms"] / prof["wall_ms"],
@@ -1488,6 +1535,8 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
            "top_aten_ops_device_ms": prof["top_ops"],
            "kernel_device_ms": prof["kernel_ms"],
            "kernel_share_of_busy": {k: v / prof["busy_ms"] for k, v in prof["kernel_ms"].items()}}
+    if shape:
+        res.update(frames_per_s=steps_per_s * B * T, tokens_per_s=steps_per_s * B * U)
     if pds:
         res["forward_device_ms_by_stage"] = prof["range_ms"]
         res["forward_device_span_ms_by_stage"] = prof["range_span_ms"]
@@ -1499,7 +1548,7 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
     if "stack_viterbi" in prof["range_ms"]:  # the PAE oracle's alignment, a loop over T
         res["oracle_viterbi_device_ms"] = prof["range_ms"]["stack_viterbi"]
         res["oracle_viterbi_host_ms"] = prof["range_host_ms"]["stack_viterbi"]
-    if per_step["ctc_alpha"] > 1:  # each CTC term's forward, and K4 of each in launch order
+    if per_step.get("ctc_alpha", 0) > 1:  # each CTC term's forward, and K4 of each in launch order
         res["ctc_term_forward_device_ms"] = {k: v for k, v in prof["range_ms"].items()
                                              if k.startswith("stack_ctc_term")}
         res["k4_device_ms_in_launch_order"] = prof["sequence_ms"]["ctc_beta_grad"]
@@ -2471,7 +2520,7 @@ NAST_TERMS, BIL_CTC_TERMS, AIPA_TERMS = 5, 4, 10
 # BiL-CTC's fp32 parity targets: 160 tokens, so XCTC's lattice has S = 319 states and takes
 # K3's CTA-wide kernel (S > 256) on the main path; its bf16 bench targets: 64 (S = 127)
 BIL_CTC_PARITY_U, BIL_CTC_BENCH_U = 160, 64
-STACK_TIMED_STEPS = 10
+STACK_TIMED_STEPS = 5
 
 
 def alignment_card_vs_cpu(B=8, T=250, U=60, V=10000, seed=10):
@@ -3742,7 +3791,7 @@ def w2v_train_batches(rng, cfg, steps, B, N, lengths, U, V, pretraining=False, s
 
 
 def phase_w2v2_st(root: Path):
-    """Phase 32: w2v2.yaml serving through the repaired use_audio_input path, and 3 fp32
+    """Phase 32: w2v2.yaml serving through the repaired use_audio_input path, and 2 fp32
     Trainer steps card vs CPU through ``waveform_forward``."""
     from s2t_tpu_torch.models.s2t_w2v2_transformer import (
         S2TW2V2TransformerModel, s2t_w2v2_transformer_base)
@@ -3754,7 +3803,7 @@ def phase_w2v2_st(root: Path):
                                     w2v_attention_dropout=0.0, w2v_dropout_input=0.0,
                                     w2v_dropout_features=0.0)
     lengths, N = [48000, 40000], 48000
-    batches = w2v_train_batches(np.random.default_rng(32), cfg, 3, 2, N, lengths, 20, 10000)
+    batches = w2v_train_batches(np.random.default_rng(32), cfg, 2, 2, N, lengths, 20, 10000)
     train, c2 = phase_train_parity(
         cfg, S2TW2V2TransformerModel, "w2v2 train", batches=batches,
         forward_fn=waveform_forward, criterion=(MUSTC_ST_BASIS["criterion"],
@@ -3764,7 +3813,7 @@ def phase_w2v2_st(root: Path):
 
 
 def phase_w2v_ctc():
-    """Phase 33: wav2vec_ctc_finetune.yaml at full width: 3 fp32 Trainer steps under
+    """Phase 33: wav2vec_ctc_finetune.yaml at full width: 2 fp32 Trainer steps under
     tri_stage card vs CPU (span-masked on handed-over uniforms), then greedy CTC tokens of
     4 seeded 10 s waveforms card vs CPU (identical, or every differing frame a near-tie)."""
     from s2t_tpu_torch.models.wav2vec2 import Wav2VecCtc, waveform_forward, wav2vec_ctc_arch
@@ -3774,7 +3823,7 @@ def phase_w2v_ctc():
     cfg = wav2vec_ctc_arch(**model_section, dropout=0.0, attention_dropout=0.0,
                            dropout_input=0.0, dropout_features=0.0)
     lengths, N = [48000, 40000], 48000
-    batches = w2v_train_batches(np.random.default_rng(33), cfg, 3, 2, N, lengths, 20,
+    batches = w2v_train_batches(np.random.default_rng(33), cfg, 2, 2, N, lengths, 20,
                                 cfg.vocab_size)
     opt = OptimizationConfig(**{**W2V_CTC_RECIPE["optimization"], "adam_eps": 1e-6})
     train, c1 = phase_train_parity(
@@ -3895,7 +3944,7 @@ def league_inference_card_vs_cpu(model_cls, cfg32, tag):
 
 def phase_league():
     """Phase 34: dual.yaml and multibranch.yaml (s2t_dual_s, s2t_multibranch_s) under
-    join_speech_and_text_loss: 3 fp32 steps card vs CPU, bf16 steps at the bench shape,
+    join_speech_and_text_loss: 2 fp32 steps card vs CPU, bf16 steps at the bench shape,
     inference card vs CPU, the league's share of a bf16 encode."""
     from s2t_tpu_torch.models.s2t_dual import S2TDualModel, s2t_dual_s
     from s2t_tpu_torch.models.s2t_multibranch import S2TMultiBranchModel, s2t_multibranch_s
@@ -3910,12 +3959,11 @@ def phase_league():
         base = dict(vocab_size=10000, max_target_positions=1024)
         cfg32 = preset(**base, **zero)
         crit = (recipe["criterion"], recipe["criterion_cfg"])
-        parity, c1 = phase_train_parity(cfg32, model_cls, f"{name} train", steps=3,
-                                        criterion=crit)
+        parity, c1 = phase_train_parity(cfg32, model_cls, f"{name} train", criterion=crit)
         speed, c2 = phase_train_speed(preset(**base, **({"speech_dtype_str": "bfloat16"}
                                                         if name == "dual" else
                                                         {"dtype_str": "bfloat16"})),
-                                      model_cls, f"{name} train speed", n_timed=5,
+                                      model_cls, f"{name} train speed", n_timed=3,
                                       criterion=crit)
         inference = league_inference_card_vs_cpu(model_cls, cfg32, name)
         encode, c3 = league_encode(model_cls, preset(**base, **({"speech_dtype_str": "bfloat16"}
@@ -4027,6 +4075,482 @@ def phase_w2v2_attention():
     return {"k1f": fwd, "k1f_ragged_fp32": ragged, "k1b": bwd}
 
 
+# --------------------------------------------------------------------------- #
+# phases 37-41: the text Transformer MT path (item 11's first part) and item 9's tail
+# (Berard, the Emformer, wav2vec v1)
+MUSTC_MT_BASIS = {  # egs/mustc/mt/conf/basis.yaml
+    "task": "translation_with_tokenizer", "common": {"seed": 1, "log_interval": 100},
+    "dataset": {"max_tokens": 8192, "max_source_positions": 512, "max_target_positions": 512},
+    "optimization": {"max_epoch": 50, "max_update": 100000, "patience": 10},
+    "checkpoint": {"keep_best_checkpoints": 10, "keep_last_epochs": 1,
+                   "best_checkpoint_metric": "bleu", "maximize_best_checkpoint_metric": True},
+    "eval": {"eval_bleu": True, "eval_gen_beam": 5},
+    "generation": {"beam": 5, "lenpen": 1.0, "scoring": "sacrebleu",
+                   "post_process": "sentencepiece"}}
+MUSTC_MT_BASE = {  # egs/mustc/mt/conf/base.yaml
+    "arch": "transformer",
+    "model": {"encoder_embed_dim": 512, "encoder_ffn_embed_dim": 2048, "encoder_layers": 6,
+              "encoder_attention_heads": 8, "decoder_embed_dim": 512,
+              "decoder_ffn_embed_dim": 2048, "decoder_layers": 6, "decoder_attention_heads": 8,
+              "encoder_normalize_before": True, "decoder_normalize_before": True,
+              "share_decoder_input_output_embed": True, "dropout": 0.1,
+              "attention_dropout": 0.1, "activation_dropout": 0.1, "activation_fn": "relu"},
+    "criterion": "label_smoothed_cross_entropy", "criterion_cfg": {"label_smoothing": 0.1},
+    "optimization": {"optimizer": "adam", "adam_betas": [0.9, 0.997], "lr": 0.001,
+                     "lr_scheduler": "inverse_sqrt", "warmup_updates": 8000,
+                     "warmup_init_lr": 1e-07, "clip_norm": 10.0}}
+MUSTC_MT_CTC = {  # egs/mustc/mt/conf/ctc.yaml
+    "arch": "transformer_ctc",
+    "model": {"ctc_upsampling_ratio": 3, "ctc_out_downsampling": False,
+              "ctc_out_downsampling_method": "maxpooling"},
+    "criterion": "label_smoothed_cross_entropy_with_ctc",
+    "criterion_cfg": {"label_smoothing": 0.1, "ctc": {"ctc_weight": 0.3}}}
+MT_V = SYMBOLS + 4  # seeded source and target dictionaries of the ST phases' V
+MT_BENCH = dict(B=128, S=64, U=64)  # the recipe's max_tokens 8192: 128 x 64 source tokens
+MT_PARITY = dict(B=8, S=48, U=40)
+MT_TIMED = 5  # timed bf16 steps of phases 37-38
+MT_SENTENCES = 64  # beam-5 card-vs-CPU sentences (20-token outputs: GEN_SHORT)
+MT_CORPUS = {"train": 48, "dev": 8, "test": 16}  # phase 37's cli.train / cli.generate lines
+MT_LAYERS = 6  # encoder self-attentions a forward (K1f) and a step (K1b)
+
+
+def mt_cfg(recipe, dtype="float32", **kw):
+    """A recipe's model section on its arch's preset, with the task's context (source and
+    target dictionaries of MT_V, basis.yaml's position caps)."""
+    model = {**MUSTC_MT_BASE["model"], **recipe["model"], **kw}
+    preset = ARCHS.get(recipe["arch"])[1]
+    return preset(**model, vocab_size=MT_V, src_vocab_size=MT_V, dtype_str=dtype,
+                  max_source_positions=MUSTC_MT_BASIS["dataset"]["max_source_positions"],
+                  max_target_positions=MUSTC_MT_BASIS["dataset"]["max_target_positions"])
+
+
+def text_batch(rng, B, S, U, V=MT_V):
+    """Seeded source rows of ragged lengths (the longest S, EOS-terminated, padded with 1)
+    and EOS-terminated targets of U tokens with their teacher-forced inputs."""
+    lengths = np.concatenate([[S], rng.integers(S // 3, S + 1, size=B - 1)]).astype(np.int32)
+    src = rng.integers(4, V, size=(B, S)).astype(np.int64)
+    for b, n in enumerate(lengths):
+        src[b, n - 1], src[b, n:] = 2, 1
+    target = rng.integers(4, V, size=(B, U)).astype(np.int64)
+    target[:, -1] = 2
+    prev = np.concatenate([np.full((B, 1), 2), target[:, :-1]], axis=1)
+    return {"src_tokens": src, "src_lengths": lengths, "prev_tokens": prev, "target": target,
+            "target_lengths": np.full((B,), U, np.int32), "ntokens": np.float32(B * U)}
+
+
+def mt_opt():
+    o = MUSTC_MT_BASE["optimization"]
+    return OptimizationConfig(optimizer=o["optimizer"], adam_betas=tuple(o["adam_betas"]),
+                              lr=o["lr"], lr_scheduler=o["lr_scheduler"],
+                              warmup_updates=o["warmup_updates"],
+                              warmup_init_lr=o["warmup_init_lr"], clip_norm=o["clip_norm"])
+
+
+def mt_beam_card_vs_cpu(cfg32):
+    """fp32 seeded weights on both devices: beam-5 tokens of MT_SENTENCES sentences of 48
+    source tokens, 20-token outputs; rows that differ must be near-ties."""
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+    from s2t_tpu_torch.models.transformer import TransformerModel
+
+    batch = text_batch(np.random.default_rng(37), MT_SENTENCES, 48, 4)
+    keys = ("src_tokens", "src_lengths")
+    toks, models, secs = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        models[device] = TransformerModel(cfg32, device=device, seed=0)
+        gen = SequenceGenerator(models[device], input_keys=keys, **GEN_SHORT)
+        reset_counts()  # the main path: one encode
+        secs[device] = synced_s(lambda: toks.__setitem__(device, gen.generate(batch)[0]))
+        if device == "cuda":
+            check_counts(read_counts(), {**{k: 0 for k in counters()},
+                                         "attention_fwd": MT_LAYERS}, "MT beam-5 decode")
+    card, host = toks["cuda"][:, 0].cpu().numpy(), toks["cpu"][:, 0].cpu().numpy()
+    src = torch.as_tensor(batch["src_tokens"])
+    lens = torch.as_tensor(batch["src_lengths"])
+    same = tokens_near_tie(models["cuda"], models["cpu"], src, lens, card, host, 2, "mt beam")
+    res = {"sentences": MT_SENTENCES, "identical": same, "card_s": secs["cuda"],
+           "cpu_s": secs["cpu"], "rows_differing": int(sum(
+               not np.array_equal(a, b) for a, b in zip(card, host)))}
+    log(f"[mt beam] fp32 beam 5 card vs CPU: {json.dumps(res)}")
+    return res
+
+
+def write_text_corpus(root: Path, splits, seed=38):
+    """Whitespace-token lines over one dictionary of MT_V - 4 words (no config.yaml: the
+    card has no yaml package; source and target share dict.txt)."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(MT_V - 4)]
+    (root / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    for split, n in splits.items():
+        for lang, (lo, hi) in (("en", (10, 40)), ("de", (8, 30))):
+            lines = [" ".join(rng.choice(words[:2000], size=int(rng.integers(lo, hi))))
+                     for _ in range(n)]
+            (root / f"{split}.{lang}").write_text("\n".join(lines) + "\n")
+
+
+def mt_cfg_dict(data: Path, save_dir: Path, recipe):
+    """basis.yaml's sections under ``recipe``'s at full width and depth, cut for the card:
+    2 updates, validation on the losses (the card has no sacreBLEU), WER scoring of
+    cli.generate, 20-token outputs."""
+    d = {k: (dict(v) if isinstance(v, dict) else v) for k, v in MUSTC_MT_BASIS.items()}
+    for key, val in recipe.items():
+        d[key] = {**d.get(key, {}), **val} if isinstance(val, dict) else val
+    d["dataset"].update(data=str(data), gen_subset="test", valid_subset="dev")
+    d["optimization"]["max_update"] = 2
+    d["common"]["log_interval"] = 1
+    d["checkpoint"] = {"save_dir": str(save_dir), "no_save": True,
+                       "best_checkpoint_metric": "loss",
+                       "maximize_best_checkpoint_metric": False}
+    d["eval"] = {"eval_bleu": False}
+    d["generation"] = {**d["generation"], "scoring": "wer", "max_len_b": 20,
+                       "results_path": str(save_dir / "gen")}
+    return d
+
+
+def mt_cli(root: Path):
+    """cli.train 2 updates of base.yaml over basis.yaml on a seeded whitespace corpus,
+    then cli.generate (beam 5) of its test split, and hub.from_pretrained answering
+    text requests on the card and on the CPU."""
+    from s2t_tpu_torch.cli import generate as cli_generate
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+    from s2t_tpu_torch.hub import from_pretrained
+    from s2t_tpu_torch.utils.checkpoint import save_tree
+
+    data = root / "mt_data"
+    data.mkdir()
+    write_text_corpus(data, MT_CORPUS)
+    d = mt_cfg_dict(data, root / "mt_ckpt", MUSTC_MT_BASE)
+    cfg = from_dict(TrainConfig, d)
+    reset_counts()  # the main path: cli.train (2 steps, one validation) and cli.generate
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    task = out["task"]
+    n_valid = len(task.get_batch_iterator(task.datasets["dev"], max_tokens=cfg.dataset.max_tokens,
+                                          shuffle=False))
+    t0 = time.perf_counter()
+    gen = cli_generate.main(cfg, out["model"].state_dict(), device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    n_test = len(task.get_batch_iterator(task.load_dataset("test"),
+                                         max_tokens=cfg.dataset.max_tokens, shuffle=False))
+    steps = out["trainer"].step
+    want = {**{k: 0 for k in counters()},  # a validation after each of the 2 epochs
+            "attention_fwd": MT_LAYERS * (steps + n_valid * len(out["history"]) + n_test),
+            "attention_bwd": MT_LAYERS * steps}
+    check_counts(counts, want, "MT cli.train + cli.generate")
+    hyps = sum(line.startswith("H-") for line in
+               (gen["out_dir"] / "generate-test.txt").read_text().splitlines())
+    if steps != 2 or gen["n_utts"] != MT_CORPUS["test"] or hyps != MT_CORPUS["test"]:
+        raise AssertionError(f"MT CLIs: {steps} steps, {gen['n_utts']} decoded, {hyps} H- lines")
+    # hub: text requests answered on the card and on the CPU from the trained weights
+    ckpt = root / "mt_model.pt"
+    save_tree(ckpt, {"params": out["model"].state_dict()})
+    requests = (data / "test.en").read_text().splitlines()[:4]
+    answers = {dev: from_pretrained(ckpt, config=d, device=dev).generate(requests)
+               for dev in ("cuda", "cpu")}
+    if not all(isinstance(a, str) for a in answers["cuda"]):
+        raise AssertionError(f"hub answers: {answers['cuda']}")
+    res = {"train_s": train_s, "generate_s": gen_s, "train_log": out["train_log"],
+           "valid": out["history"][-1], "score": gen["score_str"],
+           "hub_card_equals_cpu": answers["cuda"] == answers["cpu"],
+           "hub_answers": answers["cuda"]}
+    log(f"[mt cli] {json.dumps(res)}")
+    return res, counts
+
+
+def mt_kernel_rows():
+    """K1f / K1b at the MT shape (128 x 64 source tokens, 8 heads of 64, bf16, K1b at the
+    recipe's attention dropout 0.1) and K3 / K4 at transformer_ctc's (T = 3 x 64 upsampled
+    frames, 63-label targets: S = 127), against their plain versions, timed beside SDPA /
+    ctc_loss and bounded."""
+    B, S = MT_BENCH["B"], MT_BENCH["S"]
+    lengths = text_batch(np.random.default_rng(3), B, S, 2)["src_lengths"]
+    with torch.inference_mode():
+        fwd = attention_case(B, S, 8, 64, torch.bfloat16, "native", lengths, seed=40,
+                             time_it=True)
+    bwd = grad_case(B, S, 8, 64, torch.bfloat16, "native", lengths, 0.1, seed=41, time_it=True)
+    ctc = ctc_case(B, 3 * S, MT_BENCH["U"] - 1, MT_V, seed=42, time_it=True)
+    log(f"[mt kernels] K1f {json.dumps(fwd)}; K1b {json.dumps(bwd)}; K3 / K4 {json.dumps(ctc)}")
+    if not fwd["max_abs_err"] <= fwd["atol"]:
+        raise AssertionError("K1f disagrees with its plain version at the MT shape")
+    check_grad_case(bwd)
+    if not (ctc["alpha_err"] <= CTC_ATOL["alpha"] and ctc["nll_err"] <= CTC_ATOL["alpha"]
+            and ctc["demit_err"] <= CTC_ATOL["demit"] and ctc["unreached_agree"]):
+        raise AssertionError(f"CTC kernels disagree with their plain versions: {ctc}")
+    return {"k1f": fwd, "k1b": bwd, "k3_k4": ctc}
+
+
+def phase_mt(root: Path):
+    """Phase 37: egs/mustc/mt/conf/base.yaml on basis.yaml (transformer: pre-norm 512 /
+    2048, 6 + 6 layers, 8 heads, shared decoder embeddings, dictionaries of 10,000): 2 fp32
+    steps card vs CPU, bf16 steps at 128 x 64 source and 64 target tokens, cli.train ->
+    cli.generate, hub text requests, beam-5 tokens card vs CPU."""
+    from s2t_tpu_torch.models.transformer import TransformerModel, text_forward
+
+    crit = (MUSTC_MT_BASE["criterion"], MUSTC_MT_BASE["criterion_cfg"])
+    per_step = {"attention_fwd": MT_LAYERS, "attention_bwd": MT_LAYERS}
+    rng = np.random.default_rng(37)
+    parity, parity_launches = phase_train_parity(
+        mt_cfg(MUSTC_MT_BASE, **NO_DROPOUT), TransformerModel, "mt train", criterion=crit,
+        per_step=per_step, batches=[text_batch(rng, **MT_PARITY) for _ in range(2)],
+        forward_fn=text_forward)
+    speed, speed_launches = phase_train_speed(
+        mt_cfg(MUSTC_MT_BASE, dtype="bfloat16"), TransformerModel, "mt train speed",
+        n_timed=MT_TIMED, criterion=crit, per_step=per_step,
+        batch=text_batch(np.random.default_rng(0), **MT_BENCH), forward_fn=text_forward,
+        opt=mt_opt())
+    speed["tokens_per_s"] = speed["steps_per_s"] * MT_BENCH["B"] * MT_BENCH["U"]
+    cli, cli_launches = mt_cli(root)
+    beam = mt_beam_card_vs_cpu(mt_cfg(MUSTC_MT_BASE))
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] + cli_launches[k]
+                for k in counters()}
+    launches["attention_fwd"] += MT_LAYERS  # the beam decode's one encode on the card
+    return {"parity": parity, "speed": speed, "cli": cli, "beam": beam}, launches
+
+
+def phase_mt_ctc():
+    """Phase 38: egs/mustc/mt/conf/ctc.yaml on basis.yaml (transformer_ctc, ratio 3, CE +
+    0.3 CTC on the encoder at 3 x the source length): 2 fp32 steps card vs CPU, bf16
+    steps at phase 37's shape (K3 / K4 at T = 192 upsampled frames)."""
+    from s2t_tpu_torch.models.transformer import TransformerModel, text_forward
+
+    crit = (MUSTC_MT_CTC["criterion"], MUSTC_MT_CTC["criterion_cfg"])
+    per_step = {"attention_fwd": MT_LAYERS, "attention_bwd": MT_LAYERS, "ctc_alpha": 1,
+                "ctc_beta_grad": 1}
+    rng = np.random.default_rng(38)
+    parity, parity_launches = phase_train_parity(
+        mt_cfg(MUSTC_MT_CTC, **NO_DROPOUT), TransformerModel, "mt ctc train", criterion=crit,
+        per_step=per_step, batches=[text_batch(rng, **MT_PARITY) for _ in range(2)],
+        forward_fn=text_forward)
+    speed, speed_launches = phase_train_speed(
+        mt_cfg(MUSTC_MT_CTC, dtype="bfloat16"), TransformerModel, "mt ctc train speed",
+        n_timed=MT_TIMED, criterion=crit, per_step=per_step,
+        batch=text_batch(np.random.default_rng(0), **MT_BENCH), forward_fn=text_forward,
+        opt=mt_opt())
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] for k in counters()}
+    return {"parity": parity, "speed": speed,
+            "ctc_frames": MT_BENCH["S"] * MUSTC_MT_CTC["model"]["ctc_upsampling_ratio"]}, launches
+
+
+# a step that launches none of the kernels
+NO_KERNEL = {"attention_fwd": 0, "attention_bwd": 0, "ctc_alpha": 0, "ctc_beta_grad": 0}
+BERARD_ARCH = "s2t_berard_512_5_3"
+BERARD_TIMED = 3
+
+
+def argmax_card_vs_cpu(card_logits, host_logits, tag):
+    """Argmax positions that differ between the card and the CPU must be near-ties: the
+    CPU's two logits within 2 x the largest card error."""
+    card, host = card_logits.float().cpu(), host_logits.float().cpu()
+    err = (card - host).abs().max().item()
+    a, b = card.argmax(-1), host.argmax(-1)
+    diff = a != b
+    gaps = (host.gather(-1, a[..., None]) - host.gather(-1, b[..., None])).abs()[..., 0][diff]
+    res = {"max_abs_err": err, "positions": int(a.numel()), "differing": int(diff.sum()),
+           "largest_gap": gaps.max().item() if gaps.numel() else 0.0}
+    log(f"[{tag}] teacher-forced argmax card vs CPU: {json.dumps(res)}")
+    if gaps.numel() and not res["largest_gap"] <= 2 * err:
+        raise AssertionError(f"{tag}: the argmax differs off a near-tie: {res}")
+    return res
+
+
+def phase_berard():
+    """Phase 39: s2t_berard_512_5_3 (5 bidirectional LSTM layers of 512 through cuDNN, a
+    3-cell decoder of 1024): 2 fp32 steps card vs CPU, bf16 steps at 40 x 1000 frames
+    with 40-token targets, teacher-forced argmax card vs CPU (JAX cannot beam-decode it)."""
+    from s2t_tpu_torch.models.berard import BerardModel
+
+    preset = ARCHS.get(BERARD_ARCH)[1]
+    crit = ("label_smoothed_cross_entropy", {"label_smoothing": 0.1})
+    parity, _ = phase_train_parity(preset(vocab_size=10000, dropout=0.0), BerardModel,
+                                   "berard train", criterion=crit, per_step=NO_KERNEL)
+    speed, _ = phase_train_speed(preset(vocab_size=10000, dtype_str="bfloat16"), BerardModel,
+                                 "berard train speed", n_timed=BERARD_TIMED, U=40,
+                                 criterion=crit, per_step=NO_KERNEL)
+    batch = train_batch(np.random.default_rng(39), 8, 1000, 40, 10000, [1000, 900, 700, 512,
+                                                                         1000, 640, 333, 800])
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = BerardModel(preset(vocab_size=10000), device=device, seed=0)
+        b = {k: torch.as_tensor(batch[k]).to(device) for k in ("features", "feat_lengths",
+                                                                "prev_tokens")}
+        with torch.inference_mode():
+            logits[device] = model(b["features"], b["feat_lengths"].long(),
+                                   b["prev_tokens"].long())["decoder_logits"]
+    argmax = argmax_card_vs_cpu(logits["cuda"], logits["cpu"], "berard")
+    return {"parameters": sum(p.numel() for p in model.parameters()), "parity": parity,
+            "speed": speed, "argmax": argmax}, {k: 0 for k in counters()}
+
+
+EMFORMER_B = 40  # greedy card-vs-CPU rows of 1000 frames
+# With seeded random weights the Emformer's keys include the un-normed memory and left
+# context, whose norms grow layer by layer, so its attention saturates and float32
+# differences grow with depth: at 12 layers a 1e-6 relative perturbation of the features
+# moves the valid CTC logits by units, in JAX as in the port, and the port and JAX differ
+# by as much (tests/test_torch_emformer_depth.py); ``emformer_sensitivity`` records it at
+# both depths each run.  Card-vs-CPU parity is held at this depth; the full-depth model
+# streams on the card.
+EMFORMER_PARITY_LAYERS = 3
+
+
+def emformer_sensitivity(model, feats, lengths):
+    """Max change of the valid CTC logits under a seeded 1e-6 relative perturbation of
+    the features, on the model's device."""
+    dev = model.device
+    x = torch.from_numpy(feats).to(dev)
+    noise = torch.from_numpy(np.random.default_rng(1).normal(size=feats.shape)).float().to(dev)
+    lens = torch.from_numpy(lengths).long().to(dev)
+    with torch.inference_mode():
+        a, b = model(x, lens), model(x * (1 + 1e-6 * noise), lens)
+    valid = lengths_to_mask(a["encoder_lengths"], a["ctc_logits"].shape[1])
+    return (a["ctc_logits"] - b["ctc_logits"]).abs()[valid].max().item()
+
+
+def emformer_stream(model, feats):
+    """``streaming_step`` over one row of raw features (1, N, 80): chunks of 4 (S + R)
+    frames (one segment of subsampled frames and its lookahead) a hop of 4 S apart, the
+    state carried from chunk to chunk; the CTC logits of every segment, concatenated."""
+    S, R = model.cfg.segment_size, model.cfg.right_context
+    x = torch.from_numpy(feats).to(model.device)
+    states, outs = model.init_stream_state(1), []
+    with torch.inference_mode():
+        for start in range(0, x.shape[1] - 4 * (S + R) + 1, 4 * S):
+            y, states = model.streaming_step(x[:, start:start + 4 * (S + R)], states)
+            outs.append(y)
+    return torch.cat(outs, dim=1)
+
+
+def phase_emformer():
+    """Phase 40: emformer_s (12 layers of 256, segments of 16 with 8 left and 4 lookahead
+    frames, 8 memory slots) under the CTC loss: 2 fp32 steps card vs CPU (K3 / K4), greedy
+    CTC tokens of 40 x 1000 frames card vs CPU and a 1000-frame stream through
+    streaming_step card vs CPU, at EMFORMER_PARITY_LAYERS; at 12 layers the sensitivity to
+    a 1e-6 input perturbation, and the stream on the card (finite logits, one segment a
+    step)."""
+    from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
+    from s2t_tpu_torch.models.streaming import EmformerModel, emformer_s
+
+    per_step = {"ctc_alpha": 1, "ctc_beta_grad": 1}
+    parity_cfg = emformer_s(vocab_size=10000, encoder_layers=EMFORMER_PARITY_LAYERS)
+    parity, parity_launches = phase_train_parity(
+        parity_cfg.replace(**NO_DROPOUT), EmformerModel, "emformer train",
+        criterion=("ctc", {}), per_step=per_step)
+    rng = np.random.default_rng(40)
+    lengths = np.concatenate([[1000], rng.integers(400, 1001, size=EMFORMER_B - 1)])
+    feats = rng.normal(size=(EMFORMER_B, 1000, 80)).astype(np.float32)
+    batch = {"features": feats, "feat_lengths": lengths.astype(np.int32)}
+    enc, tok, stream, models = {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        models[device] = EmformerModel(parity_cfg, device=device, seed=0)
+        tok[device], _, enc[device] = CTCGenerator(models[device], CTCDecoder()).generate(batch)
+        stream[device] = emformer_stream(models[device], feats[:1]).cpu()
+    card_tok, host_tok = tok["cuda"][:, 0].cpu(), tok["cpu"][:, 0].cpu()
+    near, report = ctc_near_tie(enc["cuda"], enc["cpu"], card_tok, host_tok, 1)
+    if not near:
+        raise AssertionError(f"emformer greedy tokens differ off a near-tie: {report}")
+    stream_err = (stream["cuda"] - stream["cpu"]).abs().max().item()
+    sensitivity = {EMFORMER_PARITY_LAYERS: emformer_sensitivity(models["cuda"], feats[:4],
+                                                                lengths[:4])}
+    model = EmformerModel(emformer_s(vocab_size=10000), device="cuda", seed=0)
+    sensitivity[model.cfg.encoder_layers] = emformer_sensitivity(model, feats[:4], lengths[:4])
+    full = emformer_stream(model, feats[:1])
+    S = model.cfg.segment_size
+    steps = (1000 - 4 * (S + model.cfg.right_context)) // (4 * S) + 1
+    res = {"parameters": sum(p.numel() for p in model.parameters()),
+           "parity_layers": EMFORMER_PARITY_LAYERS, "parity": parity,
+           "logit_change_under_1e-6_input_noise": sensitivity,
+           "greedy_rows": EMFORMER_B, "greedy_identical":
+           bool(torch.equal(card_tok, host_tok)), "near_tie_report": report,
+           "stream_steps": steps, "stream_card_vs_cpu_max_abs_err": stream_err,
+           "full_depth_stream_shape": list(full.shape),
+           "full_depth_stream_finite": bool(torch.isfinite(full).all())}
+    log(f"[emformer] {json.dumps(res)}")
+    if not stream_err <= ENC_ATOL or tuple(full.shape) != (1, steps * S, 10000) or \
+            not res["full_depth_stream_finite"]:
+        raise AssertionError(f"emformer streaming disagrees: {res}")
+    return res, {k: parity_launches.get(k, 0) for k in counters()}
+
+
+W2V1_PARITY = dict(lengths=[48000, 35000], N=48000)  # 3 s and 2.2 s crops
+W2V1_BENCH = dict(B=10, N=150000)  # fairseq's wav2vec example: --max-sample-size 150000
+
+
+def w2v1_forward(model, batch, train=False, generator=None):
+    """The audio_pretraining task's forward for wav2vec v1 (the Gumbel temperature at its
+    schedule's start; ``draws`` handed over where the batch has them)."""
+    return model(batch["source"], batch["lengths"], train=train, generator=generator,
+                 draws=batch.get("draws"))
+
+
+def w2v1_card_vs_cpu(cfg, tag):
+    """fp32, the same seeded weights and handed-over negatives (and Gumbel uniforms) on
+    both devices: one training forward, the CPC loss and backward; the scores, loss and
+    every gradient."""
+    from s2t_tpu_torch.models.wav2vec import Wav2VecModel
+    from s2t_tpu_torch.models.wav2vec2 import conv_out_lengths
+
+    lengths, N = W2V1_PARITY["lengths"], W2V1_PARITY["N"]
+    src = wave_batch(np.random.default_rng(41), lengths, N)
+    T = int(conv_out_lengths(torch.tensor([N]), cfg.conv_feature_layers)[0])
+    rng = np.random.default_rng(41)
+    draws = {"negatives": torch.from_numpy(rng.random((2, T, cfg.num_negatives),
+                                                      dtype=np.float32))}
+    if cfg.vq_type == "gumbel":
+        draws["gumbel_uniform"] = torch.from_numpy(
+            rng.random((2, T, cfg.vq_groups, cfg.vq_vars), dtype=np.float32) * (1 - 2e-6) + 1e-6)
+    crit = build_criterion("wav2vec", {})
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = Wav2VecModel(cfg, device=device, seed=0, for_training=True)
+        reset_counts()
+        out = model(torch.from_numpy(src).to(device), torch.tensor(lengths).to(device),
+                    train=True, generator=torch.Generator(device=device).manual_seed(0),
+                    draws={k: v.to(device) for k, v in draws.items()})
+        loss, size, _ = crit(out, {})
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check_counts(read_counts(), {k: 0 for k in counters()}, f"{tag} step")
+        runs[device] = {"loss": loss.item(), "size": size.item(),
+                        "scores": out["cpc_logits"].detach().cpu(),
+                        "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()}}
+    card, host = runs["cuda"], runs["cpu"]
+    score_err = ((card["scores"] - host["scores"]).abs().max()
+                 / host["scores"].abs().max()).item()
+    loss_err = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    grad_err, worst = grads_card_vs_cpu(card["grads"], host["grads"])
+    res = {"vq_type": cfg.vq_type, "frames": T, "loss": [card["loss"], host["loss"]],
+           "loss_rel_err": loss_err, "sample_size": card["size"],
+           "score_rel_err": score_err, "max_grad_rel_err": grad_err, "worst_grads": worst}
+    log(f"[{tag}] fp32 card vs CPU: {json.dumps(res)}")
+    if not (loss_err <= TRAIN_RTOL["loss"] and score_err <= TRAIN_RTOL["loss"]
+            and grad_err <= W2V_GRAD_RTOL):
+        raise AssertionError(f"{tag}: the card and the CPU disagree: {res}")
+    return res
+
+
+def phase_w2v1():
+    """Phase 41: wav2vec (v1, the base preset: 8 extractor and 12 aggregator convs of 512,
+    12 prediction steps, 10 negatives) under the CPC loss: fp32 scores, loss and gradients
+    card vs CPU on handed-over draws, with no quantizer and with the k-means and Gumbel
+    ones; a bf16 step on 10 x 150,000-sample crops."""
+    from s2t_tpu_torch.models.wav2vec import Wav2VecModel, wav2vec_base
+
+    parity = {vq: w2v1_card_vs_cpu(wav2vec_base(vq_type=vq), f"w2v1 {vq}")
+              for vq in ("none", "kmeans", "gumbel")}
+    lengths = [W2V1_BENCH["N"]] * W2V1_BENCH["B"]
+    src = wave_batch(np.random.default_rng(0), lengths, W2V1_BENCH["N"])
+    speed, _ = phase_train_speed(
+        wav2vec_base(dtype_str="bfloat16"), Wav2VecModel, "w2v1 train speed", n_timed=2,
+        criterion=("wav2vec", {}), per_step=NO_KERNEL,
+        batch={"source": src, "lengths": np.asarray(lengths)}, forward_fn=w2v1_forward,
+        opt=OptimizationConfig(lr=1e-4, warmup_updates=100))
+    speed["samples_per_s"] = speed["steps_per_s"] * W2V1_BENCH["B"] * W2V1_BENCH["N"]
+    return {"parity": parity, "speed": speed}, {k: 0 for k in counters()}
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4057,6 +4581,8 @@ def main(argv=None) -> int:
     mark("phase_ctc")
     w2v_attention = phase_w2v2_attention()  # phase 36: K1f / K1b at the wav2vec2 shape
     mark("phase_w2v2_attention")
+    mt_kernels = mt_kernel_rows()  # phases 37-38's K1f / K1b / K3 / K4 shapes
+    mark("mt_kernel_rows")
 
     reset_counts()
     encodes = phase_serve_parity()
@@ -4135,6 +4661,22 @@ def main(argv=None) -> int:
     mark("phase_w2v_ctc")
     league, league_launches = phase_league()
     mark("phase_league")
+    # phases 37-41: the text Transformer MT path, Berard, the Emformer, wav2vec v1
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_mt_") as tmp:
+        mt, mt_launches = phase_mt(Path(tmp))
+        mark("phase_mt")
+    mt_ctc, mt_ctc_launches = phase_mt_ctc()
+    mark("phase_mt_ctc")
+    berard, berard_launches = phase_berard()
+    mark("phase_berard")
+    emformer, emformer_launches = phase_emformer()
+    mark("phase_emformer")
+    w2v1, w2v1_launches = phase_w2v1()
+    mark("phase_w2v1")
+    log(f"[main path] MT (parity, speed, CLIs, beam) {json.dumps(mt_launches)}; transformer_ctc "
+        f"(parity, speed) {json.dumps(mt_ctc_launches)}; Berard {json.dumps(berard_launches)}; "
+        f"Emformer (parity) {json.dumps(emformer_launches)}; wav2vec v1 "
+        f"{json.dumps(w2v1_launches)}")
     log(f"[main path] wav2vec2_base pretraining (parity, speed, CLI) "
         f"{json.dumps(w2v_pretrain_launches)}; w2v2.yaml (decode, hub, parity) "
         f"{json.dumps(w2v_st_launches)}; wav2vec_ctc (parity, greedy) "
@@ -4179,7 +4721,8 @@ def main(argv=None) -> int:
         nast_stack_launches, bil_ctc_launches, aipa_launches, ctc_aug_launches,
         nast_pds_launches, pds_taps_launches, variant_launches, efficient_launches,
         generator_launches, w2v_pretrain_launches, w2v_st_launches, w2v_ctc_launches,
-        league_launches, item15_launches))
+        league_launches, item15_launches, mt_launches, mt_ctc_launches, berard_launches,
+        emformer_launches, w2v1_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -4274,6 +4817,8 @@ def main(argv=None) -> int:
             "variants": variants, "efficient_conformer": efficient, "generator": generator,
             "w2v2_pretrain": w2v_pretrain, "w2v2_st": w2v_st, "w2v_ctc": w2v_ctc,
             "league": league, "item15": item15, "w2v2_attention_shape": w2v_attention,
+            "mt_kernel_shapes": mt_kernels, "mt": mt, "mt_ctc": mt_ctc, "berard": berard,
+            "emformer": emformer, "w2v1": w2v1,
             "path_launches": path_launches, "phase_s": phase_s,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -7,9 +7,10 @@ Usage:
         generation.beam=5 dataset.gen_subset=test
 
 Decodes ``dataset.gen_subset`` with the task's generator (the beam of
-``SequenceGenerator``, or CTC greedy / prefix-beam decoding of
-``CTCGenerator`` for an encoder-only model; a ``use_audio_input`` split's
-waveforms go to the encoder as collated) and writes ``generate-<subset>.txt``
+``SequenceGenerator``, over a speech split's features or a translation split's
+source tokens, or CTC greedy / prefix-beam decoding of ``CTCGenerator`` for an
+encoder-only model; a ``use_audio_input`` split's waveforms go to the encoder as
+collated) and writes ``generate-<subset>.txt``
 (T-/H-/D- lines and the score line) and ``translation-<subset>.txt`` to
 ``generation.results_path`` (default ``checkpoint.save_dir``);
 ``generation.ctc_infer`` adds ``translation-<subset>.txt.ctc``, the greedy CTC
@@ -88,7 +89,8 @@ def main(cfg, params, task=None, device="cuda") -> Dict[str, Any]:
             ctc_hyps = ctc_greedy_decode(enc["ctc_logits"], enc["encoder_lengths"])[0].cpu().numpy()
         B_real = batch["nsentences"]
         n_utts += B_real
-        total_frames += int(np.asarray(batch["feat_lengths"])[:B_real].sum())
+        len_key = "feat_lengths" if "feat_lengths" in batch else "src_lengths"
+        total_frames += int(np.asarray(batch[len_key])[:B_real].sum())
         for b in range(B_real):
             sid = int(batch["ids"][b])
             hyp_tok = tokens[b, 0]

@@ -1,0 +1,93 @@
+"""Parallel text with on-the-fly subword tokenisation
+(counterpart of s2t_tpu/data/text_dataset.py:20-150).
+
+``TranslationDataset`` reads ``<split>.<src>`` / ``<split>.<tgt>`` line files,
+encodes each line with its tokenizer and dictionary (EOS appended) when an item
+is read, and batches as the JAX dataset does: the order sorts a seeded
+permutation by whitespace-token count, longest first, and the collater pads the
+sources to the bucketed longest and the targets through ``collate_targets``.
+Word alignments (``load_alignments``) are read only by ``transformer_align``;
+they raise here, naming ROADMAP.md item 11.  The JAX dataset's language tags
+serve the multilingual and mBART tasks, which are not ported, and
+``MonolingualDataset`` waits for ``language_modeling``.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict, List
+
+import numpy as np
+
+from s2t_tpu_torch.data.batching import bucketize, collate_targets, round_up
+from s2t_tpu_torch.data.dictionary import Dictionary
+
+
+class TranslationDataset:
+    def __init__(self, src_path, tgt_path, src_dict: Dictionary, tgt_dict: Dictionary,
+                 src_bpe=None, tgt_bpe=None, align_path=None):
+        if align_path is not None:
+            raise NotImplementedError(
+                "word alignments (load_alignments) feed transformer_align, which is not ported "
+                "to s2t_tpu_torch (ROADMAP.md section 1 item 11)")
+        self.src_dict, self.tgt_dict = src_dict, tgt_dict
+        self.src_bpe, self.tgt_bpe = src_bpe, tgt_bpe
+        with open(src_path, encoding="utf-8") as f:
+            self.src_lines = [line.rstrip("\n") for line in f]
+        self.tgt_lines = None
+        if tgt_path is not None and Path(tgt_path).exists():
+            with open(tgt_path, encoding="utf-8") as f:
+                self.tgt_lines = [line.rstrip("\n") for line in f]
+            if len(self.tgt_lines) != len(self.src_lines):
+                raise ValueError(f"{tgt_path} has {len(self.tgt_lines)} lines, {src_path} "
+                                 f"{len(self.src_lines)}")
+        # whitespace tokens + 2 size the batches; subword lengths come per item
+        self.n_frames = np.asarray([len(line.split()) + 2 for line in self.src_lines],
+                                   dtype=np.int64)
+
+    def __len__(self):
+        return len(self.src_lines)
+
+    @staticmethod
+    def _encode(line: str, bpe, dic: Dictionary) -> np.ndarray:
+        if bpe is not None:
+            line = bpe.encode_line(line)
+        return dic.encode_line(line, append_eos=True)
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        item = {"id": index,
+                "source": self._encode(self.src_lines[index], self.src_bpe, self.src_dict)}
+        if self.tgt_lines is not None:
+            item["target"] = self._encode(self.tgt_lines[index], self.tgt_bpe, self.tgt_dict)
+        return item
+
+    def ordered_indices(self, shuffle: bool = True, seed: int = 1, epoch: int = 1):
+        perm = (np.random.default_rng(seed + epoch).permutation(len(self)) if shuffle
+                else np.arange(len(self)))
+        return perm[np.argsort(self.n_frames[perm], kind="stable")[::-1]]
+
+    def collater(self, samples: List[Dict[str, Any]], frame_buckets=None, token_buckets=None,
+                 batch_multiple: int = 1, pad_id: int = 1, eos_id: int = 2) -> Dict[str, Any]:
+        B_real = len(samples)
+        B = round_up(B_real, batch_multiple)
+        max_S = max(len(s["source"]) for s in samples)
+        if frame_buckets is not None:
+            max_S = int(bucketize(np.asarray([max_S]), frame_buckets)[0])
+        src = np.full((B, max_S), pad_id, dtype=np.int32)
+        src_lengths = np.zeros((B,), dtype=np.int32)
+        for i, s in enumerate(samples):
+            t = s["source"][:max_S]
+            src[i, :len(t)] = t
+            src_lengths[i] = len(t)
+        batch = {"src_tokens": src, "src_lengths": src_lengths,
+                 "ids": np.asarray([s["id"] for s in samples] + [-1] * (B - B_real)),
+                 "nsentences": B_real}
+        if "target" in samples[0]:
+            max_U = max(len(s["target"]) for s in samples)
+            if token_buckets is not None:
+                max_U = int(bucketize(np.asarray([max_U]), token_buckets)[0])
+            target, prev, tgt_lengths = collate_targets([s["target"] for s in samples], B,
+                                                        max_U, pad_id, eos_id)
+            batch.update(target=target, prev_tokens=prev, target_lengths=tgt_lengths,
+                         ntokens=float(tgt_lengths.sum()))
+        return batch

@@ -6,6 +6,7 @@ Usage:
                         config={"arch": "s2t_ctc", "model": {...}})
     m.transcribe("audio.wav")                  # -> detokenised text
     m.generate(["utt0.wav", "utt1.npy"])       # -> [text, ...]
+    m.translate("ein satz .")                  # a translation task: raw text
 
 ``from_pretrained`` loads one of the port's checkpoints (``utils/checkpoint.py``)
 and builds the task, its model (on the card unless ``device="cpu"``) and its
@@ -17,8 +18,8 @@ A request is a wav path (features are computed on the host with
 ``fbank_numpy``), a ``.npy`` feature path, a 1-D waveform array or a 2-D
 (T, C) feature array; under a ``use_audio_input`` data config a wav path or
 a 1-D array is served as its waveform, with no fbank (a wav2vec 2.0 front
-end).  Text requests need the text tasks, which are not ported:
-``_text_batch`` raises.
+end).  Under a translation task a request is a line of raw text
+(``_text_batch``), answered with the detokenised top hypothesis.
 """
 
 from __future__ import annotations
@@ -78,8 +79,18 @@ class GeneratorHub:
         return {"features": arr, "feat_lengths": lens}
 
     def _text_batch(self, lines: List[str]):
-        raise NotImplementedError("text requests need the text tasks, which are not ported to "
-                                  "s2t_tpu_torch")
+        """Source tokens (B, S) of raw text requests, tokenised and EOS-terminated as
+        the task's dataset does (s2t_tpu/hub.py:55-71)."""
+        src_dict = getattr(self.task, "src_dict", self.task.tgt_dict)
+        bpe = getattr(self.task, "src_bpe", None) or getattr(self.task, "bpe", None)
+        enc = [src_dict.encode_line(bpe.encode_line(line) if bpe is not None else line,
+                                    append_eos=True) for line in lines]
+        arr = np.full((len(enc), max(len(e) for e in enc)), src_dict.pad(), np.int32)
+        lens = np.zeros((len(enc),), np.int32)
+        for i, e in enumerate(enc):
+            arr[i, :len(e)] = e
+            lens[i] = len(e)
+        return {"src_tokens": arr, "src_lengths": lens}
 
     def generate(self, requests: Sequence[Request]) -> List:
         """With a task, the detokenised top hypothesis of each request; without

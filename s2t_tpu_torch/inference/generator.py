@@ -152,17 +152,19 @@ class SequenceGenerator:
 
     @torch.inference_mode()
     def generate(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
-        """batch: the ``input_keys`` (features (B, T, C), lengths (B,)) as numpy
-        arrays or tensors; ``target`` (B, U) with ``prefix_size`` > 0;
-        ``constraints`` (B, C, Lc) with ``constraints_mode``.  Returns (tokens
-        (B, K, L), scores (B, K), the encoder dict)."""
+        """batch: the ``input_keys`` (features (B, T, C) or a text model's source
+        tokens (B, S), lengths (B,)) as numpy arrays or tensors; ``target`` (B, U)
+        with ``prefix_size`` > 0; ``constraints`` (B, C, Lc) with ``constraints_mode``.
+        Returns (tokens (B, K, L), scores (B, K), the encoder dict)."""
         model = self.model
         if not hasattr(model, "init_cache"):
             # the dual and multibranch models: JAX's generator fails on init_cache too
             raise AttributeError(f"{type(model).__name__} has no incremental decoder "
                                  "(init_cache / decode_step) for the beam generator")
         dev = model.device
-        features = torch.as_tensor(batch[self.input_keys[0]], dtype=torch.float32).to(dev)
+        features = torch.as_tensor(batch[self.input_keys[0]])
+        # features decode in float32; a text model's source tokens stay integers
+        features = (features.float() if features.is_floating_point() else features.long()).to(dev)
         feat_lengths = torch.as_tensor(batch[self.input_keys[1]]).to(device=dev, dtype=torch.long)
         K = self.beam_size
         max_len = self._max_len_for(self._enc_len_bound(features.shape[1]))

@@ -1,6 +1,7 @@
-"""Carry a JAX ``S2TTransformerModel``, ``PDSS2TTransformerModel``,
-``S2TSATEModel``, ``S2TCTCModel`` or ``TransformerLM`` ``.init(...)["params"]``
-tree into the port.
+"""Carry a JAX model's ``.init(...)["params"]`` tree (``S2TTransformerModel``,
+``PDSS2TTransformerModel``, ``S2TSATEModel``, ``S2TCTCModel``, ``TransformerLM``, the
+wav2vec models, ``BerardModel``, ``EmformerModel``, the text ``TransformerModel``, ...)
+into the port.
 
 The tree arrives as nested mappings of numpy arrays (``jax.tree.map(np.asarray,
 params)``); no jax is imported here.  Layouts:
@@ -33,9 +34,14 @@ decoder's ``embed_tokens``, as is an LM's adaptive input ``adaptive_embed`` (its
 ``norm_bias`` (a frozen per-channel affine), ``fusion_weight``, ``pos_bias_u``,
 ``pos_bias_v``, ``embed_adapter``, Shaw attention's ``relative_position_keys``, the
 Gaussian attention's ``gauss_sigma`` / ``gauss_mask_weight``, DLCL's ``weights`` and
-a lightweight conv's (H, k) ``weight`` keep their names; DLCL's and the Conv1d
-subsampler's ``norm{i}`` -> ``norms.{i}``.  Any leaf left unmapped on either side
-raises.
+a lightweight conv's (H, k) ``weight`` keep their names, as do wav2vec's
+``step_proj``, ``step_bias``, ``gn_scale`` and ``gn_bias``; DLCL's, the Conv1d
+subsampler's and wav2vec's ``norm{i}`` -> ``norms.{i}``.  Berard: ``input{i}`` ->
+``inputs.{i}``, ``blstm{i}_fwd`` / ``blstm{i}_bwd`` -> ``blstms.{i}.fwd`` / ``.bwd``,
+an LSTM's ``kernel_ih`` / ``kernel_hh`` -> ``weight_ih`` / ``weight_hh`` transposed
+(its ``bias`` kept), the decoder's ``cell{i}_<leaf>`` -> ``cells.{i}.<leaf>``;
+wav2vec: ``rproj{i}`` -> ``rprojs.{i}``, the k-means quantizer's (V, G, d)
+``embedding`` -> ``codebook``.  Any leaf left unmapped on either side raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
 say) as the nested flax tree, so it can be compared leaf by leaf with a JAX
@@ -64,7 +70,8 @@ _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
             (re.compile(r"^final_layer(\d+)$"), r"final_layers.\1"),
             (re.compile(r"^ctc(\d+)$"), r"ctc_heads.\1"),
             (re.compile(r"^(senior|textual)(\d+)$"), r"\1_stack.\2"),
-            (re.compile(r"^(layer|conv)(\d+)$"), r"\1s.\2"))
+            (re.compile(r"^blstm(\d+)_(fwd|bwd)$"), r"blstms.\1.\2"),
+            (re.compile(r"^(layer|conv|input|rproj)(\d+)$"), r"\1s.\2"))
 _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bnorms\.(\d+)\b"), r"norm\1"),
             (re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
@@ -73,11 +80,19 @@ _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bfinal_layers\.(\d+)\b"), r"final_layer\1"),
             (re.compile(r"\bctc_heads\.(\d+)\b"), r"ctc\1"),
             (re.compile(r"\b(senior|textual)_stack\.(\d+)\b"), r"\1\2"),
-            (re.compile(r"\b(layer|conv)s\.(\d+)\b"), r"\1\2"))
+            (re.compile(r"\bblstms\.(\d+)\.(fwd|bwd)\b"), r"blstm\1_\2"),
+            (re.compile(r"\b(layer|conv|input|rproj)s\.(\d+)\b"), r"\1\2"))
 # parameters that are leaves of their own, with the same name on both sides
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
                    "embed_adapter", "relative_position_keys", "gauss_sigma",
-                   "gauss_mask_weight", "weights", "mask_emb", "vars"})
+                   "gauss_mask_weight", "weights", "mask_emb", "vars", "step_proj",
+                   "step_bias", "gn_scale", "gn_bias"})
+# an LSTM's kernels (Berard's): flax ``kernel_ih`` (D, 4H) / ``kernel_hh`` (H, 4H) <->
+# ``weight_ih`` / ``weight_hh``, transposed; a decoder cell's leaves ``cell{i}_<leaf>``
+# <-> the module ``cells.{i}``
+_LSTM_KERNELS = {"kernel_ih": "weight_ih", "kernel_hh": "weight_hh"}
+_LSTM_WEIGHTS = {v: k for k, v in _LSTM_KERNELS.items()}
+_CELL_LEAF = re.compile(r"^cell(\d+)_(kernel_ih|kernel_hh|bias)$")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -106,6 +121,10 @@ def _leaf(name: str, arr: np.ndarray):
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {arr.ndim} has no port layout")
+    if name in _LSTM_KERNELS:
+        return _LSTM_KERNELS[name], arr.T
+    if name == "embedding" and arr.ndim == 3:  # the k-means quantizer's (V, G, d) codebook
+        return "codebook", arr
     if name in ("scale", "embedding"):
         return "weight", arr
     if name in ("bias", "weight", *_BARE):  # "weight": a lightweight conv's (H, k) kernel
@@ -117,6 +136,9 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Rename and re-layout every leaf; raises on a leaf it cannot map."""
     sd, unmapped = {}, []
     for path, arr in _flatten(params).items():
+        cell = _CELL_LEAF.match(path[-1])
+        if cell:
+            path = (*path[:-1], f"cells.{cell.group(1)}", cell.group(2))
         try:
             name, val = _leaf(path[-1], arr)
         except KeyError:
@@ -162,6 +184,10 @@ def _flax_module_path(name: str, shared_embed: bool) -> tuple:
 def _flax_leaf(module: str, name: str, arr: np.ndarray):
     if name in ("bias", *_BARE):
         return name, arr
+    if name in _LSTM_WEIGHTS:
+        return _LSTM_WEIGHTS[name], arr.T
+    if name == "codebook":
+        return "embedding", arr
     if name != "weight":
         raise KeyError(name)
     if re.search(r"(embed_tokens|embed_positions|embed\d+)$", module):
@@ -203,8 +229,11 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
         except KeyError:
             unmapped.append(key)
             continue
+        parts = _flax_module_path(module, shared_embed)
+        if len(parts) >= 2 and parts[-2] == "cells":  # a decoder cell's leaves
+            parts, leaf = parts[:-2], f"cell{parts[-1]}_{leaf}"
         node = tree
-        for part in _flax_module_path(module, shared_embed):
+        for part in parts:
             node = node.setdefault(part, {})
         node[leaf] = np.array(out)
     if unmapped:

@@ -11,7 +11,13 @@ language models ``transformer_lm``, ``transformer_lm_big``, ``transformer_lm_wik
 and ``transformer_lm_baevski_wiki103``, the dual / multibranch models ``s2t_dual``,
 ``s2t_dual_s``, ``s2t_multibranch``, ``s2t_multibranch_s``, and the wav2vec 2.0
 family ``wav2vec2_base``, ``wav2vec2_large``, ``wav2vec_ctc``, ``wav2vec_seq2seq``,
-``s2t_w2v2_transformer`` and ``s2t_w2v2_transformer_base``.
+``s2t_w2v2_transformer`` and ``s2t_w2v2_transformer_base``, the Berard presets
+(``berard``, ``s2t_berard``, ``s2t_berard_256_3_3``, ``berard_512_3_2``,
+``s2t_berard_512_3_2``, ``s2t_berard_512_5_3``), wav2vec v1 (``wav2vec``,
+``wav2vec_large``), the streaming ``emformer`` / ``emformer_s``, and the text
+Transformer (``transformer``, ``transformer_iwslt_de_en``,
+``transformer_wmt_en_de_big``, ``transformer_wmt_en_de_big_t2t``,
+``transformer_ctc``).
 Every other architecture of the JAX registry is registered here too, as a preset that
 raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
 ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
@@ -24,25 +30,16 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from s2t_tpu_torch.models import (  # noqa: F401  (the presets)
-    pds, s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer, s2t_w2v2_transformer, sate,
-    transformer_lm, wav2vec2)
+    berard, pds, s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer, s2t_w2v2_transformer, sate,
+    streaming, transformer, transformer_lm, wav2vec, wav2vec2)
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 _ITEMS = {
-    9: "ROADMAP.md section 1 item 9 (other speech families)",
     11: "ROADMAP.md section 1 item 11 (the text and MT zoo)",
 }
 
 # every arch of the JAX registry the port lacks -> (its model, what it needs, the item)
 UNPORTED_ARCHS = {
-    **{a: ("berard", "the Berard LSTM encoder-decoder", 9)
-       for a in ("berard", "berard_512_3_2", "s2t_berard", "s2t_berard_256_3_3",
-                 "s2t_berard_512_3_2", "s2t_berard_512_5_3")},
-    **{a: ("wav2vec", "the wav2vec model", 9) for a in ("wav2vec", "wav2vec_large")},
-    **{a: ("emformer", "the streaming Emformer", 9) for a in ("emformer", "emformer_s")},
-    **{a: ("transformer", "the text Transformer", 11)
-       for a in ("transformer", "transformer_ctc", "transformer_iwslt_de_en",
-                 "transformer_wmt_en_de_big", "transformer_wmt_en_de_big_t2t")},
     **{a: ("transformer_align", "the alignment Transformer", 11)
        for a in ("transformer_align", "transformer_wmt_en_de_big_align")},
     **{a: ("multilingual_transformer", "the multilingual Transformer", 11)

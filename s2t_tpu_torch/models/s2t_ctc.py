@@ -21,7 +21,7 @@ from s2t_tpu_torch.device import resolve_device
 from s2t_tpu_torch.models import pds, sate
 from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerConfig, S2TTransformerEncoder, _check_trainable, check_supported,
-    init_and_place, s2t_transformer_s)
+    init_and_place, s2t_transformer_s, seeded_init)
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 
 
@@ -46,6 +46,7 @@ class S2TCTCModel(nn.Module):
     cast as ``S2TTransformerModel`` is: weights from ``seed``, serving (frozen,
     stored in ``cfg.dtype``) or ``for_training`` (float32 masters)."""
 
+    @seeded_init
     def __init__(self, cfg, device="cuda", seed: int = 0, for_training: bool = False):
         super().__init__()
         _check_config(cfg, for_training)

@@ -17,8 +17,10 @@ explicit padding bias and attends densely; the speech attention is dense in
 both.  The model has no incremental decoder (``init_cache`` / ``decode_step``),
 as in JAX, so the beam generator refuses it.
 
-``TransformerMTConfig`` is the port's own copy of the JAX text Transformer's
-config (s2t_tpu/models/transformer.py:29-95), whose model is not ported.
+The text stream's config is the text Transformer's ``TransformerMTConfig``
+(``models/transformer.py``); the dual text encoder reads its encoder fields,
+``src_vocab``, ``no_scale_embedding``, ``layernorm_embedding``, the dropouts, the
+activation and ``pad_id``.
 """
 
 from __future__ import annotations
@@ -26,15 +28,16 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
-from s2t_tpu_torch.device import resolve_device, torch_dtype
+from s2t_tpu_torch.device import resolve_device
 from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerConfig, S2TTransformerEncoder, S2TTransformerModel, init_and_place,
-    s2t_transformer_s)
+    s2t_transformer_s, seeded_init)
+from s2t_tpu_torch.models.transformer import TransformerMTConfig
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.modules.attention import padding_bias
 from s2t_tpu_torch.modules.dropout import dropout
@@ -43,63 +46,6 @@ from s2t_tpu_torch.modules.positional import sinusoidal_table
 from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
-
-
-@dataclass(frozen=True)
-class TransformerMTConfig:
-    """Field for field the JAX ``TransformerMTConfig``; the dual text encoder
-    reads the encoder fields, ``src_vocab``, ``no_scale_embedding``,
-    ``layernorm_embedding``, the dropouts, the activation and ``pad_id``."""
-
-    encoder_embed_dim: int = 512
-    encoder_ffn_embed_dim: int = 2048
-    encoder_layers: int = 6
-    encoder_attention_heads: int = 8
-    encoder_attention_type: str = "abs"
-    encoder_normalize_before: bool = False
-    encoder_learned_pos: bool = False
-    decoder_embed_dim: int = 512
-    decoder_ffn_embed_dim: int = 2048
-    decoder_layers: int = 6
-    decoder_attention_heads: int = 8
-    decoder_normalize_before: bool = False
-    decoder_learned_pos: bool = False
-    share_decoder_input_output_embed: bool = True
-    share_all_embeddings: bool = False
-    no_scale_embedding: bool = False
-    layernorm_embedding: bool = False
-    squeeze_excitation: bool = False
-    use_enc_dlcl: bool = False
-    max_encoder_relative_length: int = 0
-    max_decoder_relative_length: int = 0
-    dropout: float = 0.1
-    attention_dropout: float = 0.0
-    activation_dropout: float = 0.0
-    activation_fn: str = "relu"
-    use_ctc: bool = False
-    inter_ctc_layers: Tuple[int, ...] = ()
-    ctc_upsampling_ratio: int = 3
-    ctc_out_downsampling: bool = False
-    ctc_out_downsampling_method: str = "maxpooling"
-    vocab_size: int = 1000
-    src_vocab_size: int = -1
-    max_source_positions: int = 1024
-    max_target_positions: int = 1024
-    pad_id: int = 1
-    dtype_str: str = "float32"
-    subsampling_layers: int = 0
-    subsampling_stride: int = 1
-
-    def replace(self, **kw):
-        return dataclasses.replace(self, **kw)
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return torch_dtype(self.dtype_str)
-
-    @property
-    def src_vocab(self):
-        return self.src_vocab_size if self.src_vocab_size > 0 else self.vocab_size
 
 
 @dataclass(frozen=True)
@@ -188,6 +134,7 @@ class DualTextEncoder(nn.Module):
 
 @register_model("s2t_dual")
 class S2TDualModel(nn.Module):
+    @seeded_init
     def __init__(self, cfg: S2TDualConfig, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()

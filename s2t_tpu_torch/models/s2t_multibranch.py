@@ -33,7 +33,7 @@ from torch import nn
 from s2t_tpu_torch.device import resolve_device
 from s2t_tpu_torch.models.s2t_transformer import (
     S2TTransformerConfig, S2TTransformerEncoder, S2TTransformerModel, init_and_place,
-    s2t_transformer_s)
+    s2t_transformer_s, seeded_init)
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.modules.adapter import Adapter
 from s2t_tpu_torch.modules.attention import padding_bias
@@ -199,6 +199,7 @@ class S2TMultiBranchEncoder(nn.Module):
 
 @register_model("s2t_multibranch")
 class S2TMultiBranchModel(nn.Module):
+    @seeded_init
     def __init__(self, cfg: S2TMultiBranchConfig, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()

@@ -31,6 +31,7 @@ item that ports it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -258,6 +259,36 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
                          "in inter_ctc_layers (the CTC logit source, as in the reference)")
 
 
+# the modules whose default init ``init_and_place`` overwrites, weights and biases alike
+DEFAULT_INIT_MODULES = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Embedding)
+
+
+def skip_default_init(module: nn.Module) -> None:
+    """The ``reset_parameters`` of DEFAULT_INIT_MODULES while a model is built."""
+
+
+def seeded_init(init):
+    """Decorate the ``__init__`` of a model that ends with ``init_and_place``: while it
+    builds its modules, torch's default init of DEFAULT_INIT_MODULES (drawn from the
+    global generator, then overwritten from the seed) is skipped.  On the CPU that init
+    took about half of a model's build."""
+    @functools.wraps(init)
+    def build(*args, **kw):
+        saved = [(cls, cls.__dict__.get("reset_parameters")) for cls in DEFAULT_INIT_MODULES]
+        for cls, _ in saved:
+            cls.reset_parameters = lambda module: skip_default_init(module)
+        try:
+            return init(*args, **kw)
+        finally:
+            for cls, reset in saved:
+                if reset is None:  # inherited (the convolutions' _ConvNd)
+                    del cls.reset_parameters
+                else:
+                    cls.reset_parameters = reset
+
+    return build
+
+
 @torch.no_grad()
 def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.device,
                    seed: int, for_training: bool) -> None:
@@ -267,7 +298,8 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
     ``fusion_weight`` 1/len, the relative attentions' ``pos_bias_u`` /
     ``pos_bias_v`` / ``relative_position_keys`` Xavier-uniform, the adapters'
     ``embed_adapter`` N(0, 1/D), a lightweight conv's kernel N(0, 0.01), wav2vec
-    2.0's ``mask_emb`` and codebook ``vars`` U[0, 1); the
+    2.0's ``mask_emb`` and codebook ``vars`` U[0, 1), Berard's LSTM weights and
+    wav2vec's ``step_proj`` N(0, 1/fan_in), the k-means ``codebook`` N(0, 0.01^2); the
     Gaussian attention's and DLCL's constants keep their values from
     construction), then onto ``device``: for serving stored in
     ``cfg.dtype``, frozen, in eval mode; ``for_training`` keeps float32 master
@@ -298,6 +330,11 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
                 nn.init.normal_(p, std=p.shape[1] ** -0.5, generator=g)
             elif name in ("mask_emb", "vars"):  # wav2vec 2.0: flax uniform(1.0)
                 nn.init.uniform_(p, 0.0, 1.0, generator=g)
+            elif name in ("weight_ih", "weight_hh", "step_proj"):  # Berard's LSTMs, wav2vec's
+                nn.init.normal_(p, std=p.shape[-1 if name != "step_proj" else 0] ** -0.5,
+                                generator=g)
+            elif name == "codebook":  # the k-means quantizer's: flax 0.01 N(0, 1)
+                nn.init.normal_(p, std=0.01, generator=g)
             elif name == "weight" and isinstance(mod, LightweightConv):
                 nn.init.normal_(p, std=0.1, generator=g)
     if for_training:
@@ -641,6 +678,7 @@ class S2TTransformerModel(nn.Module):
     cast their weights at use, ``modules/cast.py``), as the flax modules keep
     float32 params and compute in ``dtype``."""
 
+    @seeded_init
     def __init__(self, cfg: S2TTransformerConfig, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from s2t_tpu_torch.device import resolve_device, torch_dtype
-from s2t_tpu_torch.models.s2t_transformer import init_and_place
+from s2t_tpu_torch.models.s2t_transformer import init_and_place, seeded_init
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from s2t_tpu_torch.modules.ctc_head import CTCHead
@@ -127,6 +127,7 @@ class S2TW2V2TransformerModel(nn.Module):
     """The JAX model's ``init_cache`` takes no int8 mode and its ``decode_step`` no
     ancestry map, so the generator keeps its full-precision eager cache here."""
 
+    @seeded_init
     def __init__(self, cfg: S2TW2V2Config, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()

@@ -6,10 +6,12 @@ logits; with a ``generator`` it trains: embedding dropout after the
 positions, :102/:151, and the layers' dropouts) and ``step`` (one incremental
 decode step on a cache from ``init_cache``: full precision, or int8 with
 per-(position, head) scales; with an ``ancestry`` map for the lazy beam
-reorder).  Sinusoidal or learned positions, tied or separate output
-projection, an optional token-embedding module (the LM's adaptive input); the
-self-attention is "abs" or Shaw "relative" (``self_attn_type``, clipped at
-``max_relative_length``); ``no_cross_attention`` makes it a decoder-only LM;
+reorder).  Sinusoidal or learned positions, the embedding scaled by sqrt(D)
+unless ``no_scale_embedding``, a LayerNorm after the positions with
+``layernorm_embedding``, tied or separate output projection, an optional
+token-embedding module (the LM's adaptive input); the self-attention is "abs"
+or Shaw "relative" (``self_attn_type``, clipped at ``max_relative_length``);
+``no_cross_attention`` makes it a decoder-only LM;
 ``collaboration_mode`` gives every layer the dual / multibranch models'
 cross-attention over a second stream (training forward only: a decode step
 takes none, as in JAX).
@@ -40,8 +42,11 @@ class TransformerDecoder(nn.Module):
                  self_attn_type: str = "abs", max_relative_length: int = 0,
                  no_cross_attention: bool = False, learned_pos: bool = False,
                  embed_tokens: Optional[nn.Module] = None, collaboration_mode: str = "none",
-                 league_s1_ratio: float = 0.5, league_s2_ratio: float = 0.5):
+                 league_s1_ratio: float = 0.5, league_s2_ratio: float = 0.5,
+                 no_scale_embedding: bool = False, layernorm_embedding: bool = False,
+                 encoder_dim: int = 0):
         super().__init__()
+        self.no_scale_embedding = no_scale_embedding
         self.embed_dim = embed_dim
         self.dropout = dropout
         self.num_heads = num_heads
@@ -50,6 +55,7 @@ class TransformerDecoder(nn.Module):
         self.embed_tokens = (nn.Embedding(vocab_size, embed_dim) if embed_tokens is None
                              else embed_tokens)
         self.embed_positions = nn.Embedding(max_positions, embed_dim) if learned_pos else None
+        self.emb_norm = layer_norm(embed_dim) if layernorm_embedding else None
         self.no_cross_attention = no_cross_attention
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
@@ -58,7 +64,7 @@ class TransformerDecoder(nn.Module):
                                     has_cross_attention=not no_cross_attention,
                                     collaboration_mode=collaboration_mode,
                                     league_s1_ratio=league_s1_ratio,
-                                    league_s2_ratio=league_s2_ratio)
+                                    league_s2_ratio=league_s2_ratio, encoder_dim=encoder_dim)
             for _ in range(num_layers)
         ])
         self.final_norm = layer_norm(embed_dim) if normalize_before else None
@@ -77,8 +83,11 @@ class TransformerDecoder(nn.Module):
         if self.embed_positions is not None:
             idx = torch.arange(pos_offset, pos_offset + tokens.shape[1], device=tokens.device)
             pos = self.embed_positions(idx).to(pos.dtype)
-        x = self.embed_tokens(tokens).to(pos.dtype) * math.sqrt(self.embed_dim)
-        return x + pos[None]
+        x = self.embed_tokens(tokens).to(pos.dtype)
+        if not self.no_scale_embedding:
+            x = x * math.sqrt(self.embed_dim)
+        x = x + pos[None]
+        return x if self.emb_norm is None else self.emb_norm(x)
 
     def _output(self, x: torch.Tensor) -> torch.Tensor:
         if self.output_proj is None:

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from s2t_tpu_torch.device import resolve_device
-from s2t_tpu_torch.models.s2t_transformer import init_and_place
+from s2t_tpu_torch.models.s2t_transformer import init_and_place, seeded_init
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.modules.adaptive_softmax import AdaptiveInput, AdaptiveSoftmax
 from s2t_tpu_torch.registry import register_model, register_model_architecture
@@ -56,6 +56,7 @@ class TransformerLMConfig:
 
 @register_model("transformer_lm")
 class TransformerLM(nn.Module):
+    @seeded_init
     def __init__(self, cfg: TransformerLMConfig, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()

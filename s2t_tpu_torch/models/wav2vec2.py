@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from s2t_tpu_torch.device import resolve_device, torch_dtype
-from s2t_tpu_torch.models.s2t_transformer import init_and_place
+from s2t_tpu_torch.models.s2t_transformer import init_and_place, seeded_init
 from s2t_tpu_torch.models.transformer_decoder import TransformerDecoder
 from s2t_tpu_torch.modules.cast import Conv1d, Linear
 from s2t_tpu_torch.modules.dropout import dropout
@@ -276,6 +276,7 @@ class Wav2Vec2Model(nn.Module):
     ``pretraining=False`` builds only what ``extract_features`` calls (the
     fine-tuning models' ``w2v``)."""
 
+    @seeded_init
     def __init__(self, cfg: Wav2Vec2Config, device="cuda", seed: int = 0,
                  for_training: bool = False, pretraining: bool = True, place: bool = True):
         super().__init__()
@@ -426,6 +427,7 @@ class Wav2VecCtc(nn.Module):
     (wav2vec2.py:424-461).  No ``encode``: as in JAX, neither generator nor the
     validation-time CTC WER takes it."""
 
+    @seeded_init
     def __init__(self, cfg: Wav2VecCtcConfig, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()
@@ -471,6 +473,7 @@ class Wav2VecSeq2Seq(nn.Module):
 
     kv_int8_cache = True
 
+    @seeded_init
     def __init__(self, cfg: Wav2VecSeq2SeqConfig, device="cuda", seed: int = 0,
                  for_training: bool = False):
         super().__init__()

@@ -52,12 +52,28 @@ def causal_bias(T: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.where(mask, 0.0, NEG).to(dtype)[None, None]
 
 
-def dot_attention_weights(q, k, bias, dtype):
-    """q: (B, Tq, H, Dh), k: (B, Tk, H, Dh), bias: (B, 1|H, Tq, Tk) additive.
-    The softmax runs in f32."""
+def attention_suppression(scores: torch.Tensor, scale: float) -> torch.Tensor:
+    """Mask the keys whose probability falls ``scale`` standard deviations below
+    the per-query mean over the keys of nonzero probability (the streaming
+    robustness trick, s2t_tpu/modules/attention.py:46-57); ``scores`` (..., Tk)
+    pre-softmax."""
+    prob = torch.softmax(scores.float(), dim=-1)
+    nonzero = prob > 0
+    n = nonzero.float().sum(dim=-1, keepdim=True)
+    mean = prob.sum(dim=-1, keepdim=True) / (n + 1e-8)
+    dis = torch.where(nonzero, (prob - mean) ** 2, 0.0)
+    std = torch.sqrt(dis.sum(dim=-1, keepdim=True) / (n - 1.0 + 1e-8))
+    return torch.where(prob < mean - scale * std, NEG, scores.float()).to(scores.dtype)
+
+
+def dot_attention_weights(q, k, bias, dtype, std_scale: float = 0.0):
+    """q: (B, Tq, H, Dh), k: (B, Tk, H, Dh), bias: (B, 1|H, Tq, Tk) additive;
+    ``std_scale`` > 0 suppresses the weak keys first.  The softmax runs in f32."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias
+    if std_scale > 0:
+        scores = attention_suppression(scores, std_scale)
     return torch.softmax(scores.float(), dim=-1).to(dtype)
 
 
@@ -108,11 +124,15 @@ class MultiHeadAttention(nn.Module):
     Gaussian of the distance mixed into the probabilities, :619-640).  ``kv_stride``
     keeps every s-th key and value outside incremental decoding (:402-406).  Only
     abs and rope attention under a pure padding mask with Tq == Tk reach the fused
-    kernel, as in JAX (:443-472); the rest is dense."""
+    kernel, as in JAX (:443-472); the rest is dense.  ``attention_std_scale`` > 0
+    suppresses the weak keys of the dense path (the Emformer's, :423-439).
+    ``kv_dim`` (0: ``embed_dim``): the width of the keys and values it projects
+    (a cross-attention over a wider encoder; flax infers it)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  attention_type: str = "abs", kv_stride: int = 1, max_relative_length: int = 0,
-                 gauss_mask_sigma: float = 0.0, init_mask_weight: float = 0.5):
+                 gauss_mask_sigma: float = 0.0, init_mask_weight: float = 0.5,
+                 attention_std_scale: float = 0.0, kv_dim: int = 0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
@@ -127,9 +147,10 @@ class MultiHeadAttention(nn.Module):
         self.attention_type = attention_type
         self.kv_stride = kv_stride
         self.max_relative_length = max_relative_length
+        self.attention_std_scale = attention_std_scale
         self.q_proj = Linear(embed_dim, embed_dim)
-        self.k_proj = Linear(embed_dim, embed_dim)
-        self.v_proj = Linear(embed_dim, embed_dim)
+        self.k_proj = Linear(kv_dim or embed_dim, embed_dim)
+        self.v_proj = Linear(kv_dim or embed_dim, embed_dim)
         self.out_proj = Linear(embed_dim, embed_dim)
         if attention_type == "relative":
             self.relative_position_keys = nn.Parameter(
@@ -248,7 +269,8 @@ class MultiHeadAttention(nn.Module):
             q, k = self._rope(q, k, i)
 
         if bias is None and valid_mask is not None and cache is None and kv_override is None:
-            if self.attention_type in FUSED_ATTENTION_TYPES and q.shape[1] == k.shape[1]:
+            if self.attention_type in FUSED_ATTENTION_TYPES and q.shape[1] == k.shape[1] \
+                    and self.attention_std_scale == 0:
                 # encoder self-attention with a pure padding mask: the fused
                 # kernel (the (B, H, T, T) probabilities never reach memory)
                 rate = self.dropout if generator is not None else 0.0
@@ -284,7 +306,7 @@ class MultiHeadAttention(nn.Module):
 
         if int8:
             return self.out_proj(self._merge(self._int8_attend(q, k, v, cache, i, bias))), cache
-        w = dot_attention_weights(q, k, bias, q.dtype)
+        w = dot_attention_weights(q, k, bias, q.dtype, self.attention_std_scale)
         if self.gauss and cache is None:
             w = self._gauss_mix(w, valid_mask)
         w = drop(w, self.dropout, generator)

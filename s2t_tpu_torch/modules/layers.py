@@ -111,7 +111,9 @@ class S2TEncoderLayer(nn.Module):
     strides the stream, its residual goes through the strided ``conv_res`` projection
     (or is strided), and the FFN and norms after it run at the new width; the caller
     shrinks the lengths.  ``macaron_ffn_dim`` (0: ``ffn_dim``) is the macaron FFN's
-    hidden width."""
+    hidden width.  ``use_se``: the squeeze-excitation gate after the FFN, x *
+    sigmoid(fc2(relu(fc1(mean of the valid frames)))) with fc1 to max(dim // 16, 1)
+    (s2t_tpu/modules/layers.py:311-317)."""
 
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
                  activation: str = "relu", normalize_before: bool = True,
@@ -125,7 +127,7 @@ class S2TEncoderLayer(nn.Module):
                  lconv_kernel: int = 15, conv_expand_dim: int = 0, conv_stride: int = 1,
                  macaron_ffn_dim: int = 0, collaboration_mode: str = "none",
                  league_s1_ratio: float = 0.5, league_s2_ratio: float = 0.5,
-                 s2_apply_norm: bool = False):
+                 s2_apply_norm: bool = False, use_se: bool = False):
         super().__init__()
         if attention_type not in ENCODER_ATTENTION_TYPES:
             raise ValueError(f"encoder attention {attention_type!r} not in "
@@ -179,6 +181,11 @@ class S2TEncoderLayer(nn.Module):
             self.conv_norm = self.conv_module = self.final_norm = None
         self.ffn_norm = layer_norm(out_dim)
         self.ffn = FeedForward(out_dim, ffn_dim, activation, activation_dropout)
+        if use_se:
+            self.se_fc1 = Linear(dim, max(dim // 16, 1), bias=False)
+            self.se_fc2 = Linear(max(dim // 16, 1), dim, bias=False)
+        else:
+            self.se_fc1 = self.se_fc2 = None
 
     def _ffn(self, x, norm, ffn, generator):
         res = x
@@ -237,6 +244,11 @@ class S2TEncoderLayer(nn.Module):
             if not self.normalize_before:
                 x = self.conv_norm(x)
         x = self._ffn(x, self.ffn_norm, self.ffn, generator)
+        if self.se_fc1 is not None:
+            m = valid_mask[..., None].to(x.dtype)
+            pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+            g = self.se_fc2(torch.relu(self.se_fc1(pooled)))
+            x = x * torch.sigmoid(g)[:, None, :]
         if self.final_norm is not None:
             x = self.final_norm(x)
         return x
@@ -251,7 +263,8 @@ class S2TEncoderLayer(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     """Causal self-attention (cacheable; "abs" or Shaw "relative", whose query
     position in a decode step is the step's index) -> cross-attention (none in a
-    decoder-only LM, ``has_cross_attention=False``) -> FFN."""
+    decoder-only LM, ``has_cross_attention=False``; over an encoder of width
+    ``encoder_dim``, 0 for the decoder's own) -> FFN."""
 
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
                  activation: str = "relu", normalize_before: bool = True,
@@ -259,7 +272,7 @@ class TransformerDecoderLayer(nn.Module):
                  activation_dropout: float = 0.0, self_attn_type: str = "abs",
                  max_relative_length: int = 0, has_cross_attention: bool = True,
                  collaboration_mode: str = "none", league_s1_ratio: float = 0.5,
-                 league_s2_ratio: float = 0.5):
+                 league_s2_ratio: float = 0.5, encoder_dim: int = 0):
         super().__init__()
         if collaboration_mode not in LEAGUE_MODES:
             raise ValueError(f"collaboration_mode {collaboration_mode!r} not in {LEAGUE_MODES}")
@@ -271,7 +284,8 @@ class TransformerDecoderLayer(nn.Module):
         self.has_cross_attention = has_cross_attention
         if has_cross_attention:
             self.cross_attn_norm = layer_norm(dim)
-            self.cross_attn = MultiHeadAttention(dim, num_heads, attention_dropout)
+            self.cross_attn = MultiHeadAttention(dim, num_heads, attention_dropout,
+                                                 kv_dim=encoder_dim)
         # the second stream's cross-attention (s2t_tpu/models/transformer_decoder.py:343-380)
         self.collaboration_mode = collaboration_mode if has_cross_attention else "none"
         self.league_ratios = (league_s1_ratio, league_s2_ratio)

@@ -13,7 +13,13 @@ def fairseq_sinusoidal_encoding(max_len: int, dim: int, padding_idx: int = 1) ->
     """(max_len, dim) table matching fairseq's SinusoidalPositionalEmbedding:
     [sin | cos] halves with frequency base exp(-log(1e4)/(half-1)), and row i
     is the embedding of the i-th valid token/frame, i.e. absolute position
-    padding_idx+1+i.  Computed in float64, returned as float32."""
+    padding_idx+1+i.  Computed in float64 once per key, returned as a new float32
+    tensor."""
+    return torch.from_numpy(_sinusoidal_f32(max_len, dim, padding_idx).copy())
+
+
+@lru_cache(maxsize=32)
+def _sinusoidal_f32(max_len: int, dim: int, padding_idx: int) -> np.ndarray:
     half = dim // 2
     freq = np.exp(np.arange(half, dtype=np.float64) * -(np.log(10000.0) / (half - 1)))
     pos = np.arange(padding_idx + 1, max_len + padding_idx + 1, dtype=np.float64)
@@ -21,7 +27,9 @@ def fairseq_sinusoidal_encoding(max_len: int, dim: int, padding_idx: int = 1) ->
     pe = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
     if dim % 2 == 1:
         pe = np.pad(pe, ((0, 0), (0, 1)))
-    return torch.from_numpy(pe).to(torch.float32)
+    pe = pe.astype(np.float32)
+    pe.flags.writeable = False
+    return pe
 
 
 def relative_encoding(max_len: int, dim: int) -> torch.Tensor:

@@ -1,12 +1,12 @@
-"""wav2vec 2.0 pretraining task (counterpart of s2t_tpu/tasks/audio_pretraining.py).
+"""wav2vec pretraining task (counterpart of s2t_tpu/tasks/audio_pretraining.py).
 
 ``{split}.tsv`` manifests under the data directory (``data/raw_audio_dataset.py``),
 cropped to ``task_cfg.max_sample_size`` raw samples (250,000 by default) and
 normalised when the model section sets ``normalize``; the model of ``arch``
-(``wav2vec2_base`` by default) and the ``wav2vec`` criterion.  The forward
-adapter hands the waveforms to the model with the Gumbel temperature
-annealed by the update count, max(t0 * decay^step, t1) in float32
-(``latent_temp``); in eval the model masks and samples negatives from a
+(``wav2vec2_base`` by default, or wav2vec v1's ``wav2vec``) and the ``wav2vec``
+criterion.  The forward adapter hands the waveforms to the model with the Gumbel
+temperature annealed by the update count, max(t0 * decay^step, t1) in float32
+(wav2vec 2.0's ``latent_temp``, v1's ``vq_temp``); in eval the model masks and samples negatives from a
 generator of a fixed seed, where JAX fixes its key (a deliberate deviation of
 the bits, not of the semantics).  There is no generator.
 """
@@ -57,7 +57,9 @@ class AudioPretrainingTask(Task):
 
     def forward_fn(self):
         def fwd(model, batch, train: bool = False, generator: Optional[torch.Generator] = None):
-            temp = gumbel_temperature(model.cfg.latent_temp, int(batch.get("_step", 0)))
+            # wav2vec 2.0's latent_temp, wav2vec v1's vq_temp (audio_pretraining.py:45-58)
+            schedule = getattr(model.cfg, "latent_temp", None) or model.cfg.vq_temp
+            temp = gumbel_temperature(schedule, int(batch.get("_step", 0)))
             return model(batch["source"], batch["lengths"], train=train, generator=generator,
                          temp=temp, draws=batch.get("draws"))
 

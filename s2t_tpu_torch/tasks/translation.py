@@ -1,0 +1,150 @@
+"""Translation tasks: MT over raw text with on-the-fly subword tokenisation, or
+over fairseq-binarised pairs (counterpart of s2t_tpu/tasks/translation.py:45-167).
+
+Registered as ``translation``, ``translation_with_tokenizer`` and
+``translation_from_pretrained_xlm`` (the last is this task with a pretrained
+encoder transplanted by ``checkpoint.load_pretrained_encoder_from``).  The data
+directory holds the dictionaries and an optional ``config.yaml``
+(``TransDataConfig``); ``load_dataset`` prefers a binarised
+``<split>.<src>-<tgt>.<src>.bin`` pair and reads ``<split>.<src>`` /
+``<split>.<tgt>`` text otherwise.  The model is ``cfg.arch`` (``transformer``
+by default) with the dictionaries' sizes; the forward adapter hands
+``src_tokens``, ``src_lengths`` and ``prev_tokens`` to it; the generator is
+``SequenceGenerator`` over ``src_tokens`` / ``src_lengths`` with every
+generation option of the JAX task.
+
+What the port does not have raises naming ROADMAP.md item 11: word alignments
+(``task_cfg.load_alignments``), the latency-augmented criterion (it captures the
+decoder's cross-attention), ``semisupervised_translation`` and
+``translation_from_pretrained_bart``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+from s2t_tpu_torch.config import TrainConfig
+from s2t_tpu_torch.data.dictionary import Dictionary
+from s2t_tpu_torch.data.indexed_dataset import BinarizedTranslationDataset
+from s2t_tpu_torch.data.text_dataset import TranslationDataset
+from s2t_tpu_torch.data.tokenizer import build_tokenizer
+from s2t_tpu_torch.inference.generator import SequenceGenerator
+from s2t_tpu_torch.registry import register_task
+from s2t_tpu_torch.tasks.base import Task
+
+ITEM_11 = "ROADMAP.md section 1 item 11"
+
+
+@dataclass
+class TransDataConfig:
+    """The data directory's config.yaml for MT (s2t_tpu/tasks/translation.py:26-42)."""
+
+    vocab_filename: str = "dict.txt"
+    src_vocab_filename: Optional[str] = None
+    bpe_tokenizer: Optional[dict] = None
+    src_bpe_tokenizer: Optional[dict] = None
+    src_lang: str = "en"
+    tgt_lang: str = "de"
+
+    @classmethod
+    def from_yaml(cls, path) -> "TransDataConfig":
+        import yaml  # only where a data directory has a config.yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        return cls(**{k: v for k, v in raw.items() if k in cls.__dataclass_fields__})
+
+
+@register_task("translation")
+@register_task("translation_with_tokenizer")
+@register_task("translation_from_pretrained_xlm")
+class TranslationTask(Task):
+    def __init__(self, cfg: TrainConfig, data_cfg: TransDataConfig, tgt_dict: Dictionary,
+                 src_dict: Optional[Dictionary] = None):
+        super().__init__(cfg)
+        if cfg.criterion.startswith("latency_augmented"):
+            raise NotImplementedError(
+                f"criterion {cfg.criterion!r} captures the decoder's cross-attention, which is "
+                f"not ported to s2t_tpu_torch ({ITEM_11})")
+        self.data_cfg = data_cfg
+        self.tgt_dict = tgt_dict
+        self.src_dict = src_dict or tgt_dict
+        self.bpe = build_tokenizer(data_cfg.bpe_tokenizer)
+        self.src_bpe = build_tokenizer(data_cfg.src_bpe_tokenizer) or self.bpe
+
+    @classmethod
+    def setup(cls, cfg: TrainConfig) -> "TranslationTask":
+        root = Path(cfg.dataset.data)
+        dc_path = root / "config.yaml"
+        data_cfg = TransDataConfig.from_yaml(dc_path) if dc_path.exists() else TransDataConfig()
+        tgt_dict = Dictionary.load(root / data_cfg.vocab_filename)
+        src_dict = (Dictionary.load(root / data_cfg.src_vocab_filename)
+                    if data_cfg.src_vocab_filename else None)
+        return cls(cfg, data_cfg, tgt_dict, src_dict)
+
+    def load_dataset(self, split: str, is_train: bool = False):
+        root = Path(self.cfg.dataset.data)
+        sl, tl = self.data_cfg.src_lang, self.data_cfg.tgt_lang
+        bin_src = root / f"{split}.{sl}-{tl}.{sl}"
+        if Path(f"{bin_src}.bin").exists():
+            bin_tgt = root / f"{split}.{sl}-{tl}.{tl}"
+            ds = BinarizedTranslationDataset(
+                bin_src, bin_tgt if Path(f"{bin_tgt}.bin").exists() else None)
+        else:
+            align = root / f"{split}.align"
+            tgt = root / f"{split}.{tl}"
+            ds = TranslationDataset(
+                root / f"{split}.{sl}", tgt if tgt.exists() else None, self.src_dict,
+                self.tgt_dict, self.src_bpe, self.bpe,
+                align_path=align if ((self.cfg.task_cfg or {}).get("load_alignments")
+                                     and align.exists()) else None)
+        self.datasets[split] = ds
+        return ds
+
+    def build_model(self, device="cuda", seed: Optional[int] = None, for_training: bool = False):
+        from s2t_tpu_torch.models.build import build_model
+
+        return build_model(
+            self.cfg.arch or "transformer", self.cfg.model, device=device,
+            seed=self.cfg.common.seed if seed is None else seed, for_training=for_training,
+            vocab_size=len(self.tgt_dict), src_vocab_size=len(self.src_dict),
+            max_source_positions=self.cfg.dataset.max_source_positions,
+            max_target_positions=self.cfg.dataset.max_target_positions)
+
+    def forward_fn(self):
+        from s2t_tpu_torch.models.transformer import text_forward
+
+        return text_forward
+
+    def build_generator(self, model, gen_cfg=None):
+        g = gen_cfg or self.cfg.generation
+        return SequenceGenerator(
+            model, beam_size=g.beam, max_len_a=g.max_len_a, max_len_b=g.max_len_b,
+            min_len=g.min_len, lenpen=g.lenpen, temperature=g.temperature,
+            no_repeat_ngram_size=g.no_repeat_ngram_size, eos_id=self.tgt_dict.eos(),
+            pad_id=self.tgt_dict.pad(), max_target_positions=self.cfg.dataset.max_target_positions,
+            input_keys=("src_tokens", "src_lengths"), prefix_size=g.prefix_size,
+            diverse_beam_groups=g.diverse_beam_groups,
+            diverse_beam_strength=g.diverse_beam_strength, diversity_rate=g.diversity_rate,
+            constraints_mode=g.constraints)
+
+    def decode_tokens(self, tokens) -> str:
+        return self.tgt_dict.string(tokens, bpe_symbol=self.cfg.generation.post_process)
+
+
+def _unported(name: str, needs: str):
+    class Unported(TranslationTask):
+        @classmethod
+        def setup(cls, cfg: TrainConfig):
+            raise NotImplementedError(f"task {name!r} needs {needs}, which is not ported to "
+                                      f"s2t_tpu_torch ({ITEM_11})")
+
+    Unported.__name__ = Unported.__qualname__ = f"Unported_{name}"
+    return register_task(name)(Unported)
+
+
+_unported("semisupervised_translation", "online backtranslation")
+_unported("translation_from_pretrained_bart", "mBART")
+

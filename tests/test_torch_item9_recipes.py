@@ -5,7 +5,7 @@
   ``quant_noise.yaml`` and ``multilingual.yaml`` (item 15), each over its
   directory's ``basis.yaml``, resolve through ``build_config`` ->
   ``check_train_supported`` -> ``build_criterion`` -> ``build_model`` with one
-  layer a stack, and no port module names item 9 for what this slice ports;
+  layer a stack, and no port module names item 9 any more;
 * ``audio_pretraining``: its manifest batches equal JAX's, the Gumbel
   temperature is JAX's float32 schedule, and ``cli.train`` runs
   ``wav2vec2_base.yaml`` (``polynomial_decay`` held at lr) for 2 updates;
@@ -82,8 +82,8 @@ def test_recipe_resolves_and_builds_with_one_layer(recipe):
 def test_no_port_module_names_item_9_for_this_slice():
     from s2t_tpu_torch.models.build import UNPORTED_ARCHS
 
-    assert {m for m, _, item in UNPORTED_ARCHS.values() if item == 9} == {
-        "berard", "wav2vec", "emformer"}
+    # item 9's tail (berard, wav2vec v1, the Emformer) is ported: no arch names item 9
+    assert {m for m, _, item in UNPORTED_ARCHS.values() if item == 9} == set()
 
 
 def _manifest(root: Path, n=6) -> Path:

@@ -103,10 +103,10 @@ def test_loss_logs_and_grads_match_jax(transcript):
 def test_unported_criteria_and_branches_raise():
     with pytest.raises(NotImplementedError, match="cross_entropy_with_alignment"):
         build_criterion("label_smoothed_cross_entropy_with_alignment")
-    # join_speech_and_text_loss is ported (tests/test_torch_dual.py); wav2vec v1's CPC
-    # loss is not
-    with pytest.raises(NotImplementedError, match="CPC"):
-        build_criterion("wav2vec")({"cpc_logits": None}, {})
+    # join_speech_and_text_loss (tests/test_torch_dual.py) and wav2vec v1's CPC loss
+    # (tests/test_torch_wav2vec_v1.py) are ported; the latency-augmented CE is not
+    with pytest.raises(NotImplementedError, match="latency_augmented"):
+        build_criterion("latency_augmented_label_smoothed_cross_entropy")
     with pytest.raises(NotImplementedError, match="nat_loss"):
         build_criterion("nat_loss")
     with pytest.raises(KeyError, match="no_such_field"):
