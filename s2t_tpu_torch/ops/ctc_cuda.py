@@ -18,6 +18,14 @@ per batch row with the states in registers and no barrier
 (``ctc_alpha_warp_kernel``); a wider lattice runs one CTA per row with the
 states across its threads (``ctc_alpha_kernel``).  Both count as K3
 launches.
+
+K4 dispatches on the lattice width too (``beta_grad_kernel``): S <=
+``BETA_WARPS_MAX_S`` (1024) runs one CTA per batch row of ceil(S / 32) warps,
+one state a lane with beta in a register, shuffles inside a warp and one
+barrier a step for the two values that cross into the warp below (none at S
+<= 32), the emissions and alphas arriving through a cp.async ring
+(``ctc_beta_grad_warps_kernel``); a wider lattice runs the CTA-wide
+``ctc_beta_grad_kernel``.  Both count as K4 launches.
 """
 
 from __future__ import annotations
@@ -30,10 +38,15 @@ from s2t_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 WARP_MAX_S = 256  # the widest lattice one warp walks (8 states a lane)
+BETA_WARPS_MAX_S = 1024  # the widest lattice K4 walks one state a lane (32 warps)
+# K4's kernels and their C entry points
+BETA_ENTRIES = {"ctc_beta_grad_warps_kernel": "s2t_ctc_beta_grad_warps",
+                "ctc_beta_grad_kernel": "s2t_ctc_beta_grad"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "s2t_ctc_alpha": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "s2t_ctc_beta_grad_warps": (_I, [_P] * 7 + [_I, _I, _I, _P]),
     "s2t_ctc_beta_grad": (_I, [_P] * 7 + [_I, _I, _I, _P]),
     "s2t_ctc_chain_floor": (_I, [_P, _I, _I, _I, _P]),
     "s2t_cuda_error_string": (ctypes.c_char_p, [_I]),
@@ -124,19 +137,25 @@ def ctc_alpha(emit: torch.Tensor, skip: torch.Tensor, lengths: torch.Tensor) -> 
 
 def ctc_chain_floor(steps: int, S: int, device, beta: bool = False) -> None:
     """Launch the chain-floor measurement: one warp runs ``steps - 1``
-    dependent alpha steps (K3's), or with ``beta`` beta steps with their
-    gradient entries (K4's), of an S-state row (S <= ``WARP_MAX_S``) on
-    register values, with no loads.  Its device time is the least a chain of
-    that many steps can take; it is no kernel of the training path and counts
-    no launch."""
+    dependent alpha steps (K3's, ceil(S / 32) states a lane, S <=
+    ``WARP_MAX_S``), or with ``beta`` beta steps with their gradient entries
+    (K4's, one state a lane, S <= 32), of an S-state row on register values,
+    with no loads.  Its device time is the least a chain of that many steps
+    can take; it is no kernel of the training path and counts no launch."""
     lib = _build.load_library("ctc_lattice", _SIGNATURES)
     out = torch.empty((S,), dtype=torch.float32, device=device)
     with torch.cuda.device(out.device):
         _launch(lib, lib.s2t_ctc_chain_floor, out.data_ptr(), steps, S, int(beta), _stream(out))
 
 
+def beta_grad_kernel(S: int) -> str:
+    """The K4 kernel that an S-state lattice runs (the dispatch rule)."""
+    return "ctc_beta_grad_warps_kernel" if S <= BETA_WARPS_MAX_S else "ctc_beta_grad_kernel"
+
+
 def ctc_beta_grad(emit, alphas, skip, final, lengths, logz) -> torch.Tensor:
-    """K4.  Same contract as ``ctc_beta_grad_plain`` (lengths int32 on the card)."""
+    """K4.  Same contract as ``ctc_beta_grad_plain`` (lengths int32 on the card);
+    the kernel is ``beta_grad_kernel(S)``'s."""
     if emit.device.type == "cpu":
         return ctc_beta_grad_plain(emit, alphas, skip, final, lengths, logz)
     lib = _build.load_library("ctc_lattice", _SIGNATURES)
@@ -148,7 +167,8 @@ def ctc_beta_grad(emit, alphas, skip, final, lengths, logz) -> torch.Tensor:
                          f"{tuple(emit.shape)}")
     demit = torch.empty_like(emit)
     with torch.cuda.device(emit.device):
-        _launch(lib, lib.s2t_ctc_beta_grad, emit.data_ptr(), alphas.data_ptr(), skip.data_ptr(),
+        entry = getattr(lib, BETA_ENTRIES[beta_grad_kernel(S)])
+        _launch(lib, entry, emit.data_ptr(), alphas.data_ptr(), skip.data_ptr(),
                 final.data_ptr(), lengths.data_ptr(), logz.data_ptr(), demit.data_ptr(),
                 T, B, S, _stream(emit))
     ctc_beta_grad.launches += 1

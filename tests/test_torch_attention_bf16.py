@@ -31,6 +31,7 @@ from s2t_tpu.ops.attention_pallas import fused_attention as jax_fused_attention
 from s2t_tpu_torch.modules.dropout import threshold_u8
 from s2t_tpu_torch.ops import _build, attention_cuda
 from s2t_tpu_torch.ops.attention_cuda import fused_attention_plain, keep_mask
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 B, T, H, D = 2, 100, 2, 64
 LENGTHS = [100, 57]

@@ -32,6 +32,7 @@ from s2t_tpu_torch.interop.from_flax import (
 from s2t_tpu_torch.models import berard as tb
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_wav2vec2 import assert_close, perturb
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 TINY = dict(input_feat_per_channel=20, input_layers=(16, 12), conv_layers=((4, 3, 2), (4, 3, 2)),
             encoder_hidden=8, encoder_layers=2, decoder_hidden=16, decoder_layers=3,

@@ -36,6 +36,7 @@ from s2t_tpu_torch.data.dictionary import Dictionary
 from s2t_tpu_torch.interop.from_flax import flax_to_state_dict
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
 from s2t_tpu_torch.utils.checkpoint import load_checkpoint
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 WORDS = [f"w{i}" for i in range(20)]
 TRANSFORMS = {"_train": {"transforms": ["utterance_cmvn", "specaugment"],

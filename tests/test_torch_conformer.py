@@ -55,6 +55,7 @@ from s2t_tpu_torch.modules import attention as tattn
 from s2t_tpu_torch.modules import layers as tlayers
 from s2t_tpu_torch.modules import positional as tpos
 from s2t_tpu_torch.modules import subsampling as tsub
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 BF16_RTOL = 1.5e-2  # relative Frobenius error, about two bf16 epsilons

@@ -52,6 +52,7 @@ from s2t_tpu_torch.models import s2t_ctc as tctc
 from s2t_tpu_torch.models import sate as tsate
 from s2t_tpu_torch.models.s2t_transformer import DROPNET_STREAM
 from tests.test_torch_conformer import _paths, flax_init, perturb, rng_batch
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 D, V = 32, 40

@@ -36,6 +36,7 @@ from s2t_tpu_torch.tasks import setup_task
 from s2t_tpu_torch.tools.wer_sanity import wer_sanity
 from s2t_tpu_torch.trainer import Trainer
 from s2t_tpu_torch.utils.checkpoint import save_tree
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 WORDS = [f"w{i}" for i in range(20)]
 MODEL = {"encoder_embed_dim": 32, "encoder_ffn_embed_dim": 64, "encoder_layers": 2,

@@ -32,6 +32,7 @@ from s2t_tpu.models import s2t_transformer as jst
 from s2t_tpu_torch.criterions.build import build_criterion
 from s2t_tpu_torch.models import s2t_ctc as tctc
 from tests.test_torch_conformer import loss_and_grads_match
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 B, T, U, V, VT = 4, 14, 6, 11, 13
 LENGTHS = np.array([14, 11, 9, 6], np.int32)

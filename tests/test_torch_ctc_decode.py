@@ -17,6 +17,7 @@ from s2t_tpu.inference.ctc_decoder import ctc_prefix_beam_decode as jax_beam
 from s2t_tpu.ops.ctc import ctc_greedy_decode as jax_greedy
 from s2t_tpu_torch.inference.ctc_decoder import ctc_prefix_beam_decode
 from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 LENGTHS = np.array([30, 17, 9, 1, 0], np.int32)
 

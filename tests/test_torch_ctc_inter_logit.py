@@ -27,6 +27,7 @@ from s2t_tpu_torch.models import s2t_ctc as tctc
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
 from tests.test_torch_conformer import flax_init, perturb, rng_batch
 from tests.test_torch_pds_taps import PDS, TAPS
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 TRANSFORMER = dict(vocab_size=40, encoder_layers=4, encoder_embed_dim=32,
                    encoder_ffn_embed_dim=64, encoder_attention_heads=2, subsampling_filter=32,

@@ -23,6 +23,7 @@ from s2t_tpu_torch.inference.ctc_prefix import CTCPrefixScorer, log_matmul, pref
 from s2t_tpu_torch.inference.generator import SequenceGenerator
 from s2t_tpu_torch.interop.from_flax import load_flax_params
 from s2t_tpu_torch.models import s2t_transformer as tst
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 RTOL = ATOL = 1e-4
 SCORE_ATOL = 1e-5

@@ -36,6 +36,7 @@ from s2t_tpu_torch.models import s2t_transformer as tst
 from s2t_tpu_torch.modules import adapter as tadapter
 from s2t_tpu_torch.ops.ctc import ctc_best_alignment
 from tests.test_torch_conformer import _paths, load_module, perturb
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 D, V = 32, 24

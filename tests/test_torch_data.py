@@ -30,6 +30,7 @@ from s2t_tpu_torch.data.dictionary import Dictionary
 from s2t_tpu_torch.data.iterators import EpochBatchIterator
 from s2t_tpu_torch.data.tokenizer import CharTokenizer, SPMTokenizer, build_tokenizer
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 TEXTS = ["the cat sat on the mat", "a dog ran far away", "the dog sat", "cats and dogs",
          "on the far side of the moon", "ünïcödé wörds too"]

@@ -33,6 +33,7 @@ from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
 from s2t_tpu_torch.tasks.speech_to_text import encoder_inputs
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_wav2vec2 import assert_close, perturb
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 V = 24
 DUAL = {"speech_encoder_embed_dim": 32, "speech_encoder_ffn_embed_dim": 64,

@@ -36,6 +36,7 @@ from s2t_tpu_torch.models import streaming as ts
 from s2t_tpu_torch.modules.attention import attention_suppression
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_wav2vec2 import assert_close, perturb
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 TINY = dict(encoder_embed_dim=32, encoder_ffn_embed_dim=64, encoder_layers=2,
             encoder_attention_heads=2, subsampling_filter=32, segment_size=4, left_context=4,

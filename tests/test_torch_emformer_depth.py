@@ -25,6 +25,7 @@ import torch
 from s2t_tpu.models import streaming as js
 from s2t_tpu_torch.interop.from_flax import load_flax_params
 from s2t_tpu_torch.models import streaming as ts
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 B, T = 2, 600
 CHAOS_RATIO = 1e3  # JAX's sensitivity at 12 layers over its sensitivity at 3, at least

@@ -35,6 +35,7 @@ from s2t_tpu_torch.data.audio.fbank import fbank_numpy as port_fbank_numpy
 from s2t_tpu_torch.data.audio.fbank import povey_window
 from s2t_tpu_torch.data.dataset import load_waveform
 from s2t_tpu_torch.ops import fbank_cuda
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL, RTOL = 5e-4, 1e-4
 WAVS = [str(Path(__file__).parent / "fixtures" / "audio" / f"utt{i}.wav") for i in range(4)]

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from s2t_tpu_torch.ops import _build, attention_cuda
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 EGS = Path(__file__).resolve().parent.parent / "egs"
 

@@ -28,6 +28,7 @@ from s2t_tpu_torch.models.build import build_model
 from s2t_tpu_torch.ops import _build, attention_cuda, ctc_cuda, fbank_cuda
 from s2t_tpu_torch.ops.ctc import ctc_loss
 from s2t_tpu_torch.trainer import Trainer
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(s2t_tpu_torch.__file__).resolve().parent

@@ -32,6 +32,7 @@ from s2t_tpu_torch.tasks import setup_task
 from s2t_tpu_torch.tasks.audio_pretraining import gumbel_temperature
 from tests.test_torch_train_settings import LANGS, _multilingual_corpus
 from tests.test_torch_wav2vec2 import CONV
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
 W2V_TINY = {"conv_feature_layers": [list(c) for c in CONV], "encoder_embed_dim": 32,

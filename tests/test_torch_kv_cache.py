@@ -24,6 +24,7 @@ from s2t_tpu_torch.models import pds as tpds
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
 from tests.test_torch_search import MAX_LEN, VARIANTS, build_pair, make_batch
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 STEP_ATOL = 1e-5
 

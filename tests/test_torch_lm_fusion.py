@@ -34,6 +34,7 @@ from s2t_tpu_torch.models.build import build_model
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
 
 from tests.test_torch_search import TINY, build_pair, make_batch
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 LM = dict(vocab_size=32, decoder_embed_dim=32, decoder_ffn_embed_dim=64, decoder_layers=2,

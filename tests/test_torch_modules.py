@@ -22,6 +22,7 @@ from s2t_tpu_torch.modules import layers as tlayers
 from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding
 from s2t_tpu_torch.modules.subsampling import Conv1dSubsampling
 from s2t_tpu_torch.utils.masking import lengths_to_mask, mask_to_lengths
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 D, H, FFN = 64, 4, 128

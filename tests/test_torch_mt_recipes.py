@@ -21,6 +21,7 @@ from s2t_tpu_torch.config import build_config, check_train_supported
 from s2t_tpu_torch.criterions.build import build_criterion
 from s2t_tpu_torch.models.build import build_model
 from tests.test_torch_translation import write_corpus
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
 MUSTC_MT = sorted(f"egs/mustc/mt/conf/{p.name}" for p in (ROOT / "egs/mustc/mt/conf").glob(

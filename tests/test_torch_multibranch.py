@@ -9,6 +9,7 @@ magnitude; ``join_speech_and_text_loss`` and every gradient against
 import pytest
 
 from tests.test_torch_dual import check_forward, check_join_loss
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 
 @pytest.mark.parametrize("case", ["multibranch", "multibranch_acoustic", "multibranch_textual"])

@@ -56,6 +56,7 @@ from s2t_tpu_torch.trainer import Trainer
 from tests.test_torch_conformer import cli_round_trip, rng_batch
 from tests.test_torch_pds_cli import corpus  # noqa: F401  (the shared wav corpus fixture)
 from tests.test_torch_sate import _jax_archs
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
 V = 32

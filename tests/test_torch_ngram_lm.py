@@ -27,6 +27,7 @@ from s2t_tpu_torch.data.dictionary import Dictionary
 from s2t_tpu_torch.inference.ctc_decoder import CTCGenerator
 from s2t_tpu_torch.interop.from_flax import load_flax_params
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 WORDS = [f"w{i}" for i in range(20)]
 RNG = np.random.default_rng(0)

@@ -46,6 +46,7 @@ from s2t_tpu_torch.interop.from_flax import flax_to_state_dict, load_flax_params
 from s2t_tpu_torch.models import pds as tpds
 from s2t_tpu_torch.models import s2t_ctc as tctc
 from s2t_tpu_torch.models.build import build_model
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 ROOT = Path(__file__).resolve().parent.parent

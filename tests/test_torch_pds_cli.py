@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from s2t_tpu_torch.interop.from_flax import flax_to_state_dict
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 WORDS = [f"w{i}" for i in range(20)]
 CLI_MODEL = {"pds_stages": 2, "pds_ratios": [2, 2], "pds_layers": [1, 1],

@@ -59,6 +59,7 @@ from s2t_tpu_torch.ops import ctc as tops
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
 from tests.test_torch_conformer import _paths, flax_init, perturb, rng_batch
 from tests.test_torch_ctc_aug import assert_outputs_match, batch, loss_and_grads, tensors
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 V = 40
 PDS = dict(pds_stages=3, pds_ratios=(2, 2, 2), pds_layers=(1, 1, 1), pds_kernel_sizes=(5, 5, 5),

@@ -27,6 +27,7 @@ from s2t_tpu_torch.inference.ctc_decoder import CTCDecoder, CTCGenerator
 from s2t_tpu_torch.interop.from_flax import flax_to_state_dict, load_flax_params, state_dict_to_flax
 from s2t_tpu_torch.models import s2t_ctc as tctc
 from s2t_tpu_torch.models.build import build_model
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 TINY = dict(vocab_size=32, encoder_layers=2, encoder_embed_dim=64, encoder_ffn_embed_dim=128,

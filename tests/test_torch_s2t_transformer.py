@@ -25,6 +25,7 @@ from s2t_tpu_torch.hub import GeneratorHub
 from s2t_tpu_torch.inference.generator import SequenceGenerator
 from s2t_tpu_torch.interop.from_flax import flax_to_state_dict, load_flax_params
 from s2t_tpu_torch.models import s2t_transformer as tst
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-4
 WAVS = sorted(str(p) for p in (Path(__file__).parent / "fixtures" / "audio").glob("utt*.wav"))

@@ -65,6 +65,7 @@ from tests.test_torch_conformer import (
     ATOL, _paths, _train_batch, cli_round_trip, flax_init, load_module, loss_and_grads_match,
     perturb, rng_batch)
 from tests.test_torch_pds_cli import corpus  # noqa: F401  (the shared wav corpus fixture)
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
 D = 64

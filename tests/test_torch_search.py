@@ -24,6 +24,7 @@ from s2t_tpu_torch.inference.constrained import pack_constraints
 from s2t_tpu_torch.inference.generator import SequenceGenerator
 from s2t_tpu_torch.interop.from_flax import load_flax_params
 from s2t_tpu_torch.models import s2t_transformer as tst
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 SCORE_ATOL = 1e-5
 TINY = dict(

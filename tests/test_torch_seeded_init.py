@@ -13,6 +13,7 @@ import torch
 
 from s2t_tpu_torch.models import s2t_transformer
 from s2t_tpu_torch.models.build import build_model
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 V = {"vocab_size": 100}
 ARCHS = {  # one arch of each model class, with the task's context where it takes one

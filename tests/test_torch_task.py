@@ -34,6 +34,7 @@ from s2t_tpu_torch.models.build import build_model
 from s2t_tpu_torch.ops import fbank_cuda
 from s2t_tpu_torch.tasks import setup_task
 from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 WORDS = [f"w{i}" for i in range(24)]
 TRANSFORMS = {"_train": {"transforms": ["utterance_cmvn", "specaugment"]},

@@ -5,6 +5,7 @@ import json
 import pytest
 
 from s2t_tpu_torch.tools import train_step_ab
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 STAND_IN = """
 class _build:

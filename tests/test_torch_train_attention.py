@@ -20,6 +20,7 @@ import torch
 from s2t_tpu.modules.attention import dot_attention_weights, padding_bias
 from s2t_tpu.ops.attention_pallas import fused_attention as jax_fused_attention
 from s2t_tpu_torch.ops.attention_cuda import fused_attention, fused_attention_plain, keep_mask
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 

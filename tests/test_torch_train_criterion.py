@@ -20,6 +20,7 @@ from s2t_tpu.models import s2t_transformer as jst
 from s2t_tpu_torch.criterions.build import build_criterion
 from s2t_tpu_torch.interop.from_flax import load_flax_params, state_dict_to_flax
 from s2t_tpu_torch.models import s2t_transformer as tst
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 TINY = dict(
     vocab_size=32, encoder_layers=2, decoder_layers=2, encoder_embed_dim=64,

@@ -23,6 +23,7 @@ import torch
 from s2t_tpu.ops.ctc import ctc_loss as jax_ctc_loss
 from s2t_tpu_torch.ops.ctc import _extend_labels, _transition_mask, ctc_loss
 from s2t_tpu_torch.ops.ctc_cuda import NEG_INF, ctc_alpha_plain, ctc_beta_grad_plain, ctc_nll
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 V = 12
 LABELS = np.array([

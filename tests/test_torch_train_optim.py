@@ -17,6 +17,7 @@ from s2t_tpu.optim import build_lr_schedule as jax_build_lr_schedule
 from s2t_tpu.optim.builders import fused_adamw_skip_nonfinite, lr_scale_transform
 from s2t_tpu_torch.config import OptimizationConfig
 from s2t_tpu_torch.optim.builders import FusedAdamWSkipNonFinite, build_lr_schedule
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 SETTINGS = dict(lr=1e-2, warmup_updates=3, warmup_init_lr=1e-4, clip_norm=0.5,
                 weight_decay=0.01, adam_betas=(0.9, 0.98), adam_eps=1e-8)

@@ -45,6 +45,7 @@ from s2t_tpu_torch.tasks.speech_to_text import SpeechToTextTask
 from s2t_tpu_torch.trainer import Trainer
 from s2t_tpu_torch.utils.checkpoint import save_tree, transplant_component
 from tests.test_torch_train_trainer import CRITERION, OPT, TINY, batches, flat
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 # one layer a stack keeps JAX's Trainer compile short; widths stay multiples of the block
 TINY = {**TINY, "encoder_layers": 1, "decoder_layers": 1, "encoder_embed_dim": 32,

@@ -32,6 +32,7 @@ from s2t_tpu_torch.interop.from_flax import load_flax_params, state_dict_to_flax
 from s2t_tpu_torch.models import transformer as tt
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_wav2vec2 import assert_close, perturb
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 TINY = dict(encoder_embed_dim=16, encoder_ffn_embed_dim=32, encoder_layers=2,
             encoder_attention_heads=2, decoder_embed_dim=16, decoder_ffn_embed_dim=32,

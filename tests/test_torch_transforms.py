@@ -20,6 +20,7 @@ import torch
 
 from s2t_tpu.data.audio import transforms as jt
 from s2t_tpu_torch.data.audio import transforms as pt
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 LENGTHS = np.array([50, 37, 12, 0], np.int32)

@@ -37,6 +37,7 @@ from s2t_tpu_torch.interop.from_flax import flax_to_state_dict, state_dict_to_fl
 from s2t_tpu_torch.tasks import setup_task
 from s2t_tpu_torch.utils.checkpoint import save_tree, transplant_component
 from tests.test_torch_train_trainer import flat
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 SRC_WORDS = [f"s{i}" for i in range(20)]
 TGT_WORDS = [f"t{i}" for i in range(20)]

@@ -41,6 +41,7 @@ from s2t_tpu_torch.modules import lightconv as tlc
 from s2t_tpu_torch.modules import positional as tpos
 from s2t_tpu_torch.modules import subsampling as tsub
 from tests.test_torch_conformer import flax_init, load_module, perturb, rng_batch
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 D, H = 32, 4

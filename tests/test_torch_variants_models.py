@@ -32,6 +32,7 @@ from s2t_tpu_torch.interop.from_flax import load_flax_params, state_dict_to_flax
 from s2t_tpu_torch.models import s2t_transformer as tst
 from tests.test_torch_conformer import _paths, loss_and_grads_match, perturb
 from tests.test_torch_ctc_stack import LOGIT_KEYS, TAP_KEYS, TINY, model_batch
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ATOL = 1e-5
 BASE = {**TINY, "encoder_layers": 2}

@@ -27,6 +27,7 @@ from s2t_tpu_torch.models import s2t_ctc as tctc
 from s2t_tpu_torch.models.build import build_model
 from tests.test_torch_conformer import _paths, flax_init, loss_and_grads_match, perturb, rng_batch
 from tests.test_torch_variants_models import assert_close
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 # EffecientConformerCTCSmall.yaml's model section at 3 stages of 1 layer and small widths
 EFFICIENT = dict(pds_stages=3, pds_ratios=(-1, 0, 0), pds_layers=(1, 1, 1),

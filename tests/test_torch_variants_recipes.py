@@ -26,6 +26,7 @@ from tests.test_torch_conformer import flax_init, perturb, rng_batch
 from tests.test_torch_sate import SATE
 from tests.test_torch_variants_models import assert_close
 from tests.test_torch_variants_pds import PDS
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
 

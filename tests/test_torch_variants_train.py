@@ -7,6 +7,7 @@ of tests/test_torch_variants_models.py."""
 import pytest
 
 from tests.test_torch_variants_models import variant_loss_and_grads_match
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 
 @pytest.mark.parametrize("name", ["dlcl", "relative", "rope"])

@@ -36,6 +36,7 @@ from s2t_tpu_torch.tasks import setup_task
 from s2t_tpu_torch.utils.checkpoint import save_tree
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_wav2vec2 import CONV, assert_close, perturb
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 WORDS = [f"w{i}" for i in range(12)]
 MODEL = {"w2v_conv_feature_layers": [list(c) for c in CONV], "w2v_encoder_embed_dim": 32,

@@ -27,6 +27,7 @@ from s2t_tpu_torch.trainer import Trainer
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_w2v2_s2t import CRIT, setup  # noqa: F401  (the fixture)
 from tests.test_torch_wav2vec2 import assert_close, recorded_draws
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 
 def test_training_goes_through_waveform_forward(setup):

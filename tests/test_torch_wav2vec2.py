@@ -28,6 +28,7 @@ from s2t_tpu_torch.interop.from_flax import (
 from s2t_tpu_torch.models import wav2vec2 as tw
 from s2t_tpu_torch.utils.checkpoint import transplant_component
 from tests.test_torch_train_trainer import flat
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 CONV = ((16, 10, 5), (16, 3, 2), (16, 3, 2), (16, 3, 2), (16, 3, 2), (16, 2, 2), (16, 2, 2))
 W2V = dict(conv_feature_layers=CONV, encoder_embed_dim=32, encoder_ffn_embed_dim=64,

@@ -23,6 +23,7 @@ from s2t_tpu_torch.ops.ctc import ctc_greedy_decode
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_wav2vec2 import (
     CRIT, LENGTHS, assert_close, jax_pair, port_model, recorded_draws, waves)
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 
 def _loss_and_grads(jm, params, tm, fwd_kw, draws, train):

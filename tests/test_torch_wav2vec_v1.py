@@ -37,6 +37,7 @@ from s2t_tpu_torch.models import wav2vec as tv
 from s2t_tpu_torch.modules.vq import KmeansVectorQuantizer
 from tests.test_torch_train_trainer import flat
 from tests.test_torch_wav2vec2 import assert_close, perturb
+import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 TINY = dict(conv_feature_layers=((16, 10, 5), (16, 8, 4), (16, 4, 2)),
             conv_aggregator_layers=((16, 2, 1), (12, 3, 1)), prediction_steps=3,
