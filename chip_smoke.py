@@ -1,6 +1,7 @@
 """Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer, CTC
 research-stack, encoder-variant, generator, wav2vec 2.0, dual / multibranch, text MT,
-Berard, Emformer and wav2vec v1 slices on one NVIDIA H100.
+Berard, Emformer, wav2vec v1, ConvS2S, adaptive-LM, alignment and NAT slices on one
+NVIDIA H100.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -217,6 +218,20 @@ Phases (any failure ends the run with a non-zero exit):
  41. w2v1     wav2vec (v1) under the CPC loss: fp32 scores, loss and gradients card vs
              CPU on handed-over draws with no quantizer, k-means and Gumbel; a bf16
              step on 10 x 150,000-sample crops;
+ 42. fconv    egs/wmt16/mt/conf/fconv.yaml (fconv_wmt_en_de: 768 embed, 15 GLU convs a
+             side up to 2048 channels, dictionaries of 10,000): 2 fp32 steps card vs CPU
+             under ``fixed``, bf16 steps at phase 37's shape, cli.train -> cli.generate,
+             beam-5 tokens card vs CPU through the rolling conv windows;
+ 43. lm       egs/wikitext103/lm/adaptive_lm.yaml (transformer_lm_wiki103, 16 x 1024,
+             adaptive input / softmax over 267,744 words): fp32 card vs CPU at full width
+             and 2 layers, bf16 steps at 8 blocks of 512 under ``cosine``, cli.train;
+ 44. align    egs/wmt16/align/transformer_align.yaml: 2 fp32 steps card vs CPU with
+             seeded alignments and alignment_loss, bf16 steps at phase 37's shape,
+             cli.train with load_alignments -> cli.generate;
+ 45. nat      egs/wmt16/nat/{cmlm,levenshtein,insertion,nacrf}.yaml at 512, 6 + 6: fp32
+             steps card vs CPU on handed-over noise, each refinement decode card vs CPU
+             (every decoder pass replayed on the CPU, its argmaxes near-ties at worst),
+             bf16 CMLM steps at phase 37's shape;
   9. summary the kernels line, the card's name and power limit, and the
              final {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
@@ -240,7 +255,11 @@ multibranch one); the league (s2) attention is dense and launches none.  Phases
 37-38: the text encoder's self-attention runs K1f (6 an encode) and K1b (6 a step);
 transformer_ctc's CTC term K3 / K4 once a step; phases 39-41 launch none of the kernels
 but the Emformer's CTC term (K3 / K4 once a step): Berard's LSTMs, the Emformer's
-segment attention and wav2vec's convolutions are outside Pallas in JAX too.
+segment attention and wav2vec's convolutions are outside Pallas in JAX too.  Phases
+42-43 launch none either (fconv's convolutions and the causal LM's attention are dense
+in JAX too); phase 44's text encoder runs K1f / K1b 6 a pass; phase 45's encoder and
+its non-causal decoder run them 6 a pass each: 12 / 12 a CMLM, NACRF or insertion step,
+24 / 24 a Levenshtein step, and a refinement decode 6 + 6 a decoder pass.
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -1447,7 +1466,7 @@ def check_step_launches(counts, steps=1, per_step=None):
 
 def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 2,
                        criterion=CRITERION, per_step=None, U: int = 30, log_keys=(),
-                       batches=None, forward_fn=None, opt=None):
+                       batches=None, forward_fn=None, opt=None, prepare=None):
     """fp32, dropout 0: the port's Trainer on the card and on the CPU from the same
     seeded weights and batches (``cfg``: s2t_transformer_m by default; 12 encoder
     layers, so TRAIN_LAUNCHES a step; another model, ``step_launches`` or
@@ -1457,7 +1476,8 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
     steps start from parameters Adam has moved apart by up to 2 lr).  ``batches``,
     ``forward_fn`` and ``opt`` replace the seeded feature batches, ``stack_forward`` and
     the inverse_sqrt optimizer (the wav2vec 2.0 family's waveform batches); a model
-    without a CTC loss is held on the rest."""
+    without a CTC loss is held on the rest.  ``prepare(model)`` edits both devices'
+    seeded weights alike before the first step."""
     cfg = cfg or s2t_transformer_m(vocab_size=10000, max_target_positions=1024, dropout=0.0,
                                    attention_dropout=0.0, activation_dropout=0.0)
     per_step = per_step or step_launches(cfg)
@@ -1471,6 +1491,8 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
     runs, launches = {}, {k: 0 for k in per_step}
     for device in ("cuda", "cpu"):
         model = model_cls(cfg, device=device, seed=0, for_training=True)
+        if prepare is not None:
+            prepare(model)
         trainer = Trainer(model, build_criterion(*criterion), opt, device=device, seed=1,
                           forward_fn=forward_fn or stack_forward)
         metrics, t0 = [], time.perf_counter()
@@ -4180,31 +4202,33 @@ def mt_opt():
                               warmup_init_lr=o["warmup_init_lr"], clip_norm=o["clip_norm"])
 
 
-def mt_beam_card_vs_cpu(cfg32):
+def mt_beam_card_vs_cpu(cfg32, model_cls=None, layers=MT_LAYERS, tag="mt beam"):
     """fp32 seeded weights on both devices: beam-5 tokens of MT_SENTENCES sentences of 48
-    source tokens, 20-token outputs; rows that differ must be near-ties."""
+    source tokens, 20-token outputs; rows that differ must be near-ties.  ``model_cls``
+    (the text Transformer by default) launches K1f ``layers`` times an encode."""
     from s2t_tpu_torch.inference.generator import SequenceGenerator
     from s2t_tpu_torch.models.transformer import TransformerModel
 
+    model_cls = model_cls or TransformerModel
     batch = text_batch(np.random.default_rng(37), MT_SENTENCES, 48, 4)
     keys = ("src_tokens", "src_lengths")
     toks, models, secs = {}, {}, {}
     for device in ("cuda", "cpu"):
-        models[device] = TransformerModel(cfg32, device=device, seed=0)
+        models[device] = model_cls(cfg32, device=device, seed=0)
         gen = SequenceGenerator(models[device], input_keys=keys, **GEN_SHORT)
         reset_counts()  # the main path: one encode
         secs[device] = synced_s(lambda: toks.__setitem__(device, gen.generate(batch)[0]))
         if device == "cuda":
             check_counts(read_counts(), {**{k: 0 for k in counters()},
-                                         "attention_fwd": MT_LAYERS}, "MT beam-5 decode")
+                                         "attention_fwd": layers}, f"{tag} beam-5 decode")
     card, host = toks["cuda"][:, 0].cpu().numpy(), toks["cpu"][:, 0].cpu().numpy()
     src = torch.as_tensor(batch["src_tokens"])
     lens = torch.as_tensor(batch["src_lengths"])
-    same = tokens_near_tie(models["cuda"], models["cpu"], src, lens, card, host, 2, "mt beam")
+    same = tokens_near_tie(models["cuda"], models["cpu"], src, lens, card, host, 2, tag)
     res = {"sentences": MT_SENTENCES, "identical": same, "card_s": secs["cuda"],
            "cpu_s": secs["cpu"], "rows_differing": int(sum(
                not np.array_equal(a, b) for a, b in zip(card, host)))}
-    log(f"[mt beam] fp32 beam 5 card vs CPU: {json.dumps(res)}")
+    log(f"[{tag}] fp32 beam 5 card vs CPU: {json.dumps(res)}")
     return res
 
 
@@ -4240,22 +4264,17 @@ def mt_cfg_dict(data: Path, save_dir: Path, recipe):
     return d
 
 
-def mt_cli(root: Path):
-    """cli.train 2 updates of base.yaml over basis.yaml on a seeded whitespace corpus,
-    then cli.generate (beam 5) of its test split, and hub.from_pretrained answering
-    text requests on the card and on the CPU."""
+def text_cli(d, tag, layers, n_test):
+    """cli.train, then cli.generate of the test split, of the config dict ``d`` on the
+    card; K1f ``layers`` an encode and K1b ``layers`` a step; 2 updates and ``n_test``
+    hypotheses.  Returns (cli.train's output, cli.generate's, the launches, train s,
+    generate s)."""
     from s2t_tpu_torch.cli import generate as cli_generate
     from s2t_tpu_torch.cli import train as cli_train
     from s2t_tpu_torch.config import TrainConfig, from_dict
-    from s2t_tpu_torch.hub import from_pretrained
-    from s2t_tpu_torch.utils.checkpoint import save_tree
 
-    data = root / "mt_data"
-    data.mkdir()
-    write_text_corpus(data, MT_CORPUS)
-    d = mt_cfg_dict(data, root / "mt_ckpt", MUSTC_MT_BASE)
     cfg = from_dict(TrainConfig, d)
-    reset_counts()  # the main path: cli.train (2 steps, one validation) and cli.generate
+    reset_counts()  # the main path: cli.train (2 steps, validations) and cli.generate
     t0 = time.perf_counter()
     out = cli_train.main(cfg, device="cuda")
     torch.cuda.synchronize()
@@ -4268,17 +4287,32 @@ def mt_cli(root: Path):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = read_counts()
-    n_test = len(task.get_batch_iterator(task.load_dataset("test"),
-                                         max_tokens=cfg.dataset.max_tokens, shuffle=False))
+    n_test_batches = len(task.get_batch_iterator(task.load_dataset("test"),
+                                                 max_tokens=cfg.dataset.max_tokens, shuffle=False))
     steps = out["trainer"].step
-    want = {**{k: 0 for k in counters()},  # a validation after each of the 2 epochs
-            "attention_fwd": MT_LAYERS * (steps + n_valid * len(out["history"]) + n_test),
-            "attention_bwd": MT_LAYERS * steps}
-    check_counts(counts, want, "MT cli.train + cli.generate")
+    want = {**{k: 0 for k in counters()},  # a validation after each epoch
+            "attention_fwd": layers * (steps + n_valid * len(out["history"]) + n_test_batches),
+            "attention_bwd": layers * steps}
+    check_counts(counts, want, f"{tag} cli.train + cli.generate")
     hyps = sum(line.startswith("H-") for line in
                (gen["out_dir"] / "generate-test.txt").read_text().splitlines())
-    if steps != 2 or gen["n_utts"] != MT_CORPUS["test"] or hyps != MT_CORPUS["test"]:
-        raise AssertionError(f"MT CLIs: {steps} steps, {gen['n_utts']} decoded, {hyps} H- lines")
+    if steps != 2 or gen["n_utts"] != n_test or hyps != n_test:
+        raise AssertionError(f"{tag} CLIs: {steps} steps, {gen['n_utts']} decoded, {hyps} H-")
+    return out, gen, counts, train_s, gen_s
+
+
+def mt_cli(root: Path):
+    """cli.train 2 updates of base.yaml over basis.yaml on a seeded whitespace corpus,
+    then cli.generate (beam 5) of its test split, and hub.from_pretrained answering
+    text requests on the card and on the CPU."""
+    from s2t_tpu_torch.hub import from_pretrained
+    from s2t_tpu_torch.utils.checkpoint import save_tree
+
+    data = root / "mt_data"
+    data.mkdir()
+    write_text_corpus(data, MT_CORPUS)
+    d = mt_cfg_dict(data, root / "mt_ckpt", MUSTC_MT_BASE)
+    out, gen, counts, train_s, gen_s = text_cli(d, "MT", MT_LAYERS, MT_CORPUS["test"])
     # hub: text requests answered on the card and on the CPU from the trained weights
     ckpt = root / "mt_model.pt"
     save_tree(ckpt, {"params": out["model"].state_dict()})
@@ -4585,6 +4619,501 @@ def phase_w2v1():
     speed["samples_per_s"] = speed["steps_per_s"] * W2V1_BENCH["B"] * W2V1_BENCH["N"]
     return {"parity": parity, "speed": speed}, {k: 0 for k in counters()}
 
+# --------------------------------------------------------------------------- #
+# phases 42-45: the text zoo's recipes (ConvS2S, the wikitext-103 adaptive LM, the
+# alignment Transformer, the NAT family); copies of the recipes' YAML (tests hold them
+# to the files)
+FCONV_RECIPE = {  # egs/wmt16/mt/conf/fconv.yaml
+    "task": "translation", "arch": "fconv_wmt_en_de", "criterion": "label_smoothed_cross_entropy",
+    "criterion_cfg": {"label_smoothing": 0.1},
+    "optimization": {"lr": 0.5, "lr_scheduler": "fixed", "clip_norm": 0.1, "max_epoch": 80}}
+ADAPTIVE_LM_RECIPE = {  # egs/wikitext103/lm/adaptive_lm.yaml
+    "task": "language_modeling", "arch": "transformer_lm_wiki103", "criterion": "adaptive_loss",
+    "task_cfg": {"tokens_per_sample": 512},
+    "optimization": {"lr": 1.0, "lr_scheduler": "cosine", "warmup_updates": 16000,
+                     "max_update": 286000, "clip_norm": 0.1}}
+ALIGN_RECIPE = {  # egs/wmt16/align/transformer_align.yaml
+    "task": "translation", "arch": "transformer_align",
+    "criterion": "label_smoothed_cross_entropy_with_alignment",
+    "criterion_cfg": {"label_smoothing": 0.1, "alignment_lambda": 0.05},
+    "task_cfg": {"load_alignments": True},
+    "model": {"alignment_layer": 4, "alignment_heads": 1},
+    "optimization": {"lr": 0.0007, "warmup_updates": 4000, "max_update": 200000}}
+NAT_RECIPES = {  # egs/wmt16/nat/{cmlm,levenshtein,insertion,nacrf}.yaml
+    "cmlm": {"task": "translation_lev", "arch": "cmlm_transformer", "criterion": "nat_loss",
+             "criterion_cfg": {"label_smoothing": 0.1, "length_loss_factor": 0.1},
+             "task_cfg": {"noise": "random_mask"},
+             "optimization": {"lr": 0.0005, "warmup_updates": 10000, "max_update": 300000},
+             "generation": {"iter_decode_max_iter": 10}},
+    "levenshtein": {"task": "translation_lev", "arch": "levenshtein_transformer",
+                    "criterion": "nat_loss",
+                    "optimization": {"lr": 0.0005, "warmup_updates": 10000},
+                    "generation": {"iter_decode_max_iter": 10}},
+    "insertion": {"task": "translation_lev", "arch": "insertion_transformer",
+                  "criterion": "nat_loss", "task_cfg": {"insertion_tau": 1.0},
+                  "optimization": {"lr": 0.0005, "warmup_updates": 10000, "max_update": 300000},
+                  "generation": {"iter_decode_max_iter": 10, "iter_decode_eos_penalty": 1.0}},
+    "nacrf": {"task": "translation_lev", "arch": "nacrf_transformer", "criterion": "nat_loss",
+              "criterion_cfg": {"label_smoothing": 0.1}, "task_cfg": {"noise": "full_mask"},
+              "model": {"crf_rank": 32, "crf_beam": 64, "word_ins_factor": 0.5},
+              "optimization": {"lr": 0.0005, "warmup_updates": 10000, "max_update": 300000},
+              "generation": {"iter_decode_max_iter": 1}}}
+WIKI103_V = 267744  # wikitext-103's vocabulary: the adaptive clusters 20000 / 40000 / 207744
+LM_BENCH = dict(B=8, L=512)  # 8 blocks of tokens_per_sample
+LM_PARITY = dict(B=2, L=256)
+LM_PARITY_LAYERS = 2  # the fp32 CPU reference's depth (16 on the card in bf16)
+LM_CORPUS = {"train": 9 * 512, "dev": 2 * 512}  # tokens of phase 43's seeded text
+ZOO_TIMED = 3  # timed bf16 steps of phases 42-45
+ZOO_CORPUS = {"train": 32, "dev": 8, "test": 16}  # phases 42 and 44's cli.train lines
+NAT_SENTENCES = 8  # the refinement decodes' card-vs-CPU sentences
+NAT_LAYERS = 6  # the NAT presets' encoder and decoder layers: K1f each a pass
+PAD_PLANT = 1.02  # plant_pad's scale: pad wins where the planted token would, and a little more
+FCONV_PARITY_LR = 1e-3  # fixed; see phase_fconv
+# the fp32 parity steps' warm-up: the recipes' (4000, 10000 updates) start near lr 0, where
+# the bound 2 sum(lr) on the weights' card-vs-CPU difference falls below their float32
+# rounding (measured: 1.04e-7 against 1e-7 after a Levenshtein step at lr 5e-8)
+PARITY_WARMUP = 4
+
+
+def recipe_opt(recipe, **kw):
+    """The recipe's optimization section as the Trainer's config (epochs are the CLI's)."""
+    o = {k: v for k, v in recipe["optimization"].items() if k != "max_epoch"}
+    return OptimizationConfig(**{**o, **kw})
+
+
+def zoo_model_cfg(recipe, dtype="float32", vocab=MT_V, **kw):
+    from s2t_tpu_torch.models import build  # noqa: F401  (registers every preset)
+
+    preset = ARCHS.get(recipe["arch"])[1]
+    ctx = {"vocab_size": vocab} if recipe["task"] == "language_modeling" else {
+        "vocab_size": vocab, "src_vocab_size": vocab, "max_source_positions": 1024,
+        "max_target_positions": 1024}
+    return preset(**{**recipe.get("model", {}), **kw}, **ctx, dtype_str=dtype)
+
+
+def align_pairs(batch, rng, P=12):
+    """Seeded word alignments of a text batch: (B, P, 2) (source, target) index pairs
+    inside each row, -1 padded."""
+    B = len(batch["src_lengths"])
+    U = batch["target"].shape[1]
+    pairs = np.full((B, P, 2), -1, np.int32)
+    for b, n in enumerate(batch["src_lengths"]):
+        k = int(rng.integers(1, P + 1))
+        pairs[b, :k, 0] = rng.integers(0, n - 1, size=k)
+        pairs[b, :k, 1] = rng.integers(0, U - 1, size=k)
+    return {**batch, "alignments": pairs}
+
+
+def lm_batch(rng, B, L, V=WIKI103_V):
+    """Seeded blocks over the whole vocabulary (so every adaptive cluster is hit), the
+    targets shifted right with EOS in front."""
+    target = rng.integers(4, V, size=(B, L)).astype(np.int64)
+    prev = np.concatenate([np.full((B, 1), 2), target[:, :-1]], axis=1)
+    return {"prev_tokens": prev, "target": target, "target_lengths": np.full((B,), L, np.int32),
+            "ntokens": np.float32(B * L)}
+
+
+def nat_draws(rng, name, batch):
+    """Handed-over uniforms of a translation_lev step (the same on both devices)."""
+    B, U = batch["target"].shape
+
+    def u(*shape):
+        return rng.random(shape, dtype=np.float32)
+
+    if name == "insertion":
+        return {"keep_rates": u(B, 1), "keep_uniforms": u(B, U)}
+    if name == "levenshtein":
+        return {"delete_scores": u(B, U + 1), "delete_fractions": u(B)}
+    return {"noise_scores": u(B, U), "noise_fractions": u(B)}
+
+
+def recipe_task(root: Path, recipe):
+    """The recipe's task over a dictionary of MT_V - 4 words in ``root`` (no config.yaml:
+    the card has no yaml package)."""
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+    from s2t_tpu_torch.tasks import setup_task
+
+    if not (root / "dict.txt").exists():
+        root.mkdir(parents=True, exist_ok=True)
+        (root / "dict.txt").write_text("".join(f"w{i} 1\n" for i in range(MT_V - 4)))
+    d = {k: v for k, v in recipe.items() if k in ("task", "arch", "task_cfg", "model",
+                                                   "generation")}
+    return setup_task(from_dict(TrainConfig, {**d, "dataset": {"data": str(root)}}))
+
+
+def zoo_cli(root: Path, tag, recipe, layers=0, align=False, lr=None):
+    """cli.train 2 updates of ``recipe`` (at ``lr`` in place of its own, if given) at full
+    width and depth on a seeded whitespace corpus (``align``: with seeded Pharaoh
+    alignments), then cli.generate (beam 5, 20 tokens) of its test split (``text_cli``);
+    every training loss and gradient norm and the validation loss must be finite."""
+    data = root / f"{tag}_data"
+    data.mkdir()
+    write_text_corpus(data, ZOO_CORPUS)
+    if align:
+        rng = np.random.default_rng(44)
+        for split in ZOO_CORPUS:
+            src = (data / f"{split}.en").read_text().splitlines()
+            tgt = (data / f"{split}.de").read_text().splitlines()
+            (data / f"{split}.align").write_text("".join(" ".join(
+                f"{rng.integers(0, len(a.split()))}-{rng.integers(0, len(b.split()))}"
+                for _ in range(int(rng.integers(0, 6)))) + "\n" for a, b in zip(src, tgt)))
+    save = root / f"{tag}_ckpt"
+    d = {k: (dict(v) if isinstance(v, dict) else v) for k, v in recipe.items()}
+    d["optimization"] = {**d["optimization"], "max_update": 2, **({"lr": lr} if lr else {})}
+    d.update(dataset={"data": str(data), "max_tokens": 4096},
+             common={"log_interval": 1},
+             checkpoint={"save_dir": str(save), "no_save": True,
+                         "best_checkpoint_metric": "loss"},
+             eval={"eval_bleu": False},
+             generation={"beam": 5, "max_len_b": 20, "scoring": "wer",
+                         "results_path": str(save / "gen")})
+    out, gen, counts, train_s, gen_s = text_cli(d, tag, layers, ZOO_CORPUS["test"])
+    res = {"train_s": train_s, "generate_s": gen_s, "train_log": out["train_log"],
+           "valid": out["history"][-1], "score": gen["score_str"],
+           "lr": d["optimization"]["lr"]}
+    log(f"[{tag} cli] {json.dumps(res)}")
+    if not all(math.isfinite(r[k]) for r in out["train_log"] for k in ("loss", "gnorm")) \
+            or not math.isfinite(res["valid"]["loss"]):
+        raise AssertionError(f"{tag} cli.train: a loss or gradient norm is not finite")
+    return res, counts
+
+
+def phase_fconv(root: Path):
+    """Phase 42: egs/wmt16/mt/conf/fconv.yaml (fconv_wmt_en_de: 768 embed; 9 x 512, 4 x
+    1024, 2 x 2048 (k = 1) GLU convs a side; dictionaries of 10,000), everything under
+    ``fixed`` at lr FCONV_PARITY_LR (the recipe's 0.5 moves every weight by about 0.5 in
+    Adam's first step, where a float32 sign flip of a near-zero gradient moves it by
+    1.0, and its second update's loss is NaN on the card): 2 fp32 steps card vs CPU,
+    bf16 steps at 128 x 64 / 64 tokens, cli.train -> cli.generate with finite losses,
+    beam-5 tokens card vs CPU through the rolling windows (the k = 1 layers' are
+    empty).  No kernel runs: fconv is outside Pallas in JAX too."""
+    from s2t_tpu_torch.models.fconv import FConvModel
+    from s2t_tpu_torch.models.transformer import text_forward
+
+    crit = (FCONV_RECIPE["criterion"], FCONV_RECIPE["criterion_cfg"])
+    opt = recipe_opt(FCONV_RECIPE, lr=FCONV_PARITY_LR)
+    rng = np.random.default_rng(42)
+    parity, _ = phase_train_parity(
+        zoo_model_cfg(FCONV_RECIPE, dropout=0.0), FConvModel, "fconv train", criterion=crit,
+        per_step=NO_KERNEL, batches=[text_batch(rng, **MT_PARITY) for _ in range(2)],
+        forward_fn=text_forward, opt=opt)
+    speed, _ = phase_train_speed(
+        zoo_model_cfg(FCONV_RECIPE, dtype="bfloat16"), FConvModel, "fconv train speed",
+        n_timed=ZOO_TIMED, criterion=crit, per_step=NO_KERNEL,
+        batch=text_batch(np.random.default_rng(0), **MT_BENCH), forward_fn=text_forward, opt=opt)
+    speed["tokens_per_s"] = speed["steps_per_s"] * MT_BENCH["B"] * MT_BENCH["U"]
+    cli, cli_launches = zoo_cli(root, "fconv", FCONV_RECIPE, lr=FCONV_PARITY_LR)
+    beam = mt_beam_card_vs_cpu(zoo_model_cfg(FCONV_RECIPE), FConvModel, 0, "fconv beam")
+    return {"parity": parity, "speed": speed, "cli": cli, "beam": beam}, cli_launches
+
+
+def lm_cli(root: Path):
+    """cli.train 2 updates of adaptive_lm.yaml at full width and depth under ``cosine``
+    on a seeded text file over wikitext-103's vocabulary size."""
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    data = root / "lm_data"
+    data.mkdir()
+    rng = np.random.default_rng(43)
+    (data / "dict.txt").write_text("".join(f"w{i} 1\n" for i in range(WIKI103_V - 4)))
+    for split, n in LM_CORPUS.items():
+        ids = rng.integers(0, WIKI103_V - 4, size=n)
+        lines = [" ".join(f"w{i}" for i in ids[j:j + 64]) for j in range(0, n, 64)]
+        (data / f"{split}.txt").write_text("\n".join(lines) + "\n")
+    d = {k: (dict(v) if isinstance(v, dict) else v) for k, v in ADAPTIVE_LM_RECIPE.items()}
+    d["optimization"] = {**d["optimization"], "max_update": 2}
+    d.update(dataset={"data": str(data), "max_tokens": LM_BENCH["B"] * LM_BENCH["L"]},
+             common={"log_interval": 1},
+             checkpoint={"save_dir": str(root / "lm_ckpt"), "no_save": True,
+                         "best_checkpoint_metric": "loss"})
+    cfg = from_dict(TrainConfig, d)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {k: 0 for k in counters()}, "adaptive LM cli.train")
+    if out["trainer"].step != 2 or not all(math.isfinite(r["loss"]) for r in out["train_log"]):
+        raise AssertionError(f"adaptive LM cli.train: {out['trainer'].step} steps, "
+                             f"{out['train_log']}")
+    res = {"train_s": time.perf_counter() - t0, "train_log": out["train_log"],
+           "valid": out["history"][-1],
+           "lr": [float(out["trainer"].schedule(s)) for s in (0, 1, 2)]}
+    log(f"[adaptive lm cli] {json.dumps(res)}")
+    return res
+
+
+def phase_adaptive_lm(root: Path):
+    """Phase 43: egs/wikitext103/lm/adaptive_lm.yaml (transformer_lm_wiki103: 16 x 1024,
+    adaptive input and softmax at 20000 / 60000 over 267,744 words): fp32 card vs CPU at
+    full width cut to LM_PARITY_LAYERS layers (the CPU reference), bf16 steps at 8 blocks
+    of 512 at full depth under the recipe's ``cosine``, cli.train.  The causal LM runs no
+    kernel, in JAX neither."""
+    from s2t_tpu_torch.models.transformer_lm import TransformerLM
+    from s2t_tpu_torch.tasks.language_modeling import lm_forward
+
+    crit = (ADAPTIVE_LM_RECIPE["criterion"], {})
+    opt = recipe_opt(ADAPTIVE_LM_RECIPE)
+    rng = np.random.default_rng(43)
+    parity, _ = phase_train_parity(
+        zoo_model_cfg(ADAPTIVE_LM_RECIPE, vocab=WIKI103_V, decoder_layers=LM_PARITY_LAYERS,
+                      **NO_DROPOUT),
+        TransformerLM, "adaptive lm train", criterion=crit, per_step=NO_KERNEL,
+        batches=[lm_batch(rng, **LM_PARITY) for _ in range(2)], forward_fn=lm_forward, opt=opt)
+    speed, _ = phase_train_speed(
+        zoo_model_cfg(ADAPTIVE_LM_RECIPE, dtype="bfloat16", vocab=WIKI103_V), TransformerLM,
+        "adaptive lm train speed", n_timed=ZOO_TIMED, criterion=crit, per_step=NO_KERNEL,
+        batch=lm_batch(np.random.default_rng(0), **LM_BENCH), forward_fn=lm_forward, opt=opt)
+    speed["tokens_per_s"] = speed["steps_per_s"] * LM_BENCH["B"] * LM_BENCH["L"]
+    cli = lm_cli(root)
+    return {"parity": parity, "speed": speed, "cli": cli}, {k: 0 for k in counters()}
+
+
+def phase_align(root: Path):
+    """Phase 44: egs/wmt16/align/transformer_align.yaml (transformer_align: post-norm 512
+    / 2048, 6 + 6 layers, the alignment on layer 4's first head): 2 fp32 steps card vs
+    CPU with seeded alignments (alignment_loss held beside the loss), bf16 steps at phase
+    37's shape, cli.train with load_alignments -> cli.generate; the text encoder runs K1f
+    / K1b (6 a pass), the decoder's attentions are dense."""
+    from s2t_tpu_torch.models.transformer import text_forward
+    from s2t_tpu_torch.models.transformer_align import TransformerAlignModel
+
+    crit = (ALIGN_RECIPE["criterion"], ALIGN_RECIPE["criterion_cfg"])
+    per_step = {"attention_fwd": MT_LAYERS, "attention_bwd": MT_LAYERS}
+    opt = recipe_opt(ALIGN_RECIPE)
+    rng = np.random.default_rng(44)
+    parity, parity_launches = phase_train_parity(
+        zoo_model_cfg(ALIGN_RECIPE, **NO_DROPOUT), TransformerAlignModel, "align train",
+        criterion=crit, per_step=per_step, log_keys=("alignment_loss",),
+        batches=[align_pairs(text_batch(rng, **MT_PARITY), rng) for _ in range(2)],
+        forward_fn=text_forward, opt=recipe_opt(ALIGN_RECIPE, warmup_updates=PARITY_WARMUP))
+    speed, speed_launches = phase_train_speed(
+        zoo_model_cfg(ALIGN_RECIPE, dtype="bfloat16"), TransformerAlignModel, "align train speed",
+        n_timed=ZOO_TIMED, criterion=crit, per_step=per_step,
+        batch=align_pairs(text_batch(np.random.default_rng(0), **MT_BENCH),
+                          np.random.default_rng(1)), forward_fn=text_forward, opt=opt)
+    speed["tokens_per_s"] = speed["steps_per_s"] * MT_BENCH["B"] * MT_BENCH["U"]
+    cli, cli_launches = zoo_cli(root, "align", ALIGN_RECIPE, MT_LAYERS, align=True)
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] + cli_launches[k]
+                for k in counters()}
+    return {"parity": parity, "speed": speed, "cli": cli}, launches
+
+
+def nat_heads(model, feats):
+    """The logits every argmax of a refinement round reads from decoder features."""
+    from s2t_tpu_torch.models.insertion_transformer import InsertionTransformerModel
+    from s2t_tpu_torch.models.levenshtein_transformer import LevenshteinTransformerModel
+
+    if isinstance(model, InsertionTransformerModel):
+        return {"slot": model.slot_head(feats)}
+    heads = {"word": model.decoder._output(feats)}
+    if isinstance(model, LevenshteinTransformerModel):
+        heads.update(delete=model.del_head(feats), insert=model._ins_logits(feats))
+    return heads
+
+
+def argmax_gaps(card, host):
+    """(largest |card - CPU|, argmax positions that differ, the CPU's largest logit gap
+    between the two picks)."""
+    card, host = card.float().cpu(), host.float().cpu()
+    a, b = card.argmax(-1), host.argmax(-1)
+    diff = a != b
+    gaps = (host.gather(-1, a[..., None]) - host.gather(-1, b[..., None])).abs()[..., 0][diff]
+    return (card - host).abs().max().item(), int(diff.sum()), \
+        gaps.max().item() if gaps.numel() else 0.0
+
+
+def is_prefix(valid: torch.Tensor) -> torch.Tensor:
+    """(B,) whether each row of a (B, T) mask is a True prefix."""
+    pos = torch.arange(valid.shape[1], device=valid.device)[None, :]
+    return (valid == (pos < valid.sum(dim=1, keepdim=True))).all(dim=1)
+
+
+def most_filled(tokens) -> int:
+    """The token other than pad that a decode's fills pick most often."""
+    t = np.asarray(tokens).ravel()
+    return int(np.bincount(t[t != 1]).argmax())
+
+
+def plant_pad(model, tok: int):
+    """Set the pad row of the decoder's (tied) embedding to PAD_PLANT x token ``tok``'s:
+    an argmax fill then picks pad where it would pick ``tok``, leaving pad inside a
+    canvas, which the kernel reads as lengths (the decoder puts the keys valid-first)."""
+    w = model.decoder.embed_tokens.weight
+    with torch.no_grad():
+        w[1] = PAD_PLANT * w[tok]
+
+
+def nat_decode_card_vs_cpu(name, task, cfg32, model_cls, plant=None):
+    """fp32 seeded weights on both devices (``plant``: with ``plant_pad`` of that token):
+    the task's refinement decode of NAT_SENTENCES sentences on each; the card's K1f
+    launches counted per decoder pass, and the passes whose canvas holds pad between
+    tokens (at least one when planted); then every decoder pass of the card's decode is
+    replayed on the CPU from the card's canvas and each argmax it decides (words,
+    deletions, insertions, slots; the predicted length) must agree or be a near-tie
+    (the CPU's two logits within 2 x the largest card error)."""
+    batch = text_batch(np.random.default_rng(45), NAT_SENTENCES, 48, 4)
+    src = {"src_tokens": batch["src_tokens"], "src_lengths": batch["src_lengths"]}
+    models = {d: model_cls(cfg32, device=d, seed=0) for d in ("cuda", "cpu")}
+    if plant is not None:
+        for m in models.values():
+            plant_pad(m, plant)
+    card_dec = models["cuda"].decoder
+    passes = []
+
+    def recorded(prev_tokens, encoder_out, encoder_valid_mask, *a, **kw):
+        feats = type(card_dec).forward_features(card_dec, prev_tokens, encoder_out,
+                                                encoder_valid_mask, *a, **kw)
+        passes.append((prev_tokens.clone(), encoder_valid_mask.clone(), feats))
+        return feats
+
+    out, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        gen = task.build_generator(models[device])
+        if device == "cuda":
+            card_dec.forward_features = recorded
+        reset_counts()  # the main path: one encode and the rounds' decoder passes
+        secs[device] = synced_s(lambda: out.__setitem__(device, gen.generate(src)))
+        if device == "cuda":
+            del card_dec.forward_features
+            check_counts(read_counts(), {**{k: 0 for k in counters()},
+                                         "attention_fwd": NAT_LAYERS * (1 + len(passes))},
+                         f"{name} refinement decode")
+    host = models["cpu"]
+    with torch.inference_mode():
+        enc = {d: models[d].encode(torch.as_tensor(src["src_tokens"]).to(d),
+                                   torch.as_tensor(src["src_lengths"]).to(d))
+               for d in ("cuda", "cpu")}
+        checks = []
+        if hasattr(host, "predict_length"):
+            checks.append(("length", *(models[d]._length_logits(
+                enc[d]["encoder_out"], host.encoder_valid(enc[d])) for d in ("cuda", "cpu"))))
+        host_valid = host.encoder_valid(enc["cpu"])
+        for tokens, _, feats in passes:
+            host_feats = host.decoder.forward_features(tokens.cpu(), enc["cpu"]["encoder_out"],
+                                                       host_valid)
+            card_heads, host_heads = nat_heads(models["cuda"], feats), nat_heads(host, host_feats)
+            checks += [(k, card_heads[k], host_heads[k]) for k in card_heads]
+        worst = {"max_abs_err": 0.0, "differing": 0, "largest_gap": 0.0, "decisions": 0}
+        for head, card, cpu in checks:
+            err, differing, gap = argmax_gaps(card, cpu)
+            worst["decisions"] += card.shape[:-1].numel()
+            worst["differing"] += differing
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            worst["largest_gap"] = max(worst["largest_gap"], gap)
+            if differing and not gap <= 2 * err:
+                raise AssertionError(f"{name}: a {head} argmax differs off a near-tie "
+                                     f"(gap {gap:.3e}, card error {err:.3e})")
+    inner = sum(int((~is_prefix(tokens != 1)).any()) for tokens, _, _ in passes)
+    if plant is not None and not inner:
+        raise AssertionError(f"{name}: planting pad ({plant}) left no pad inside a canvas")
+    tok = {d: out[d][0][:, 0].cpu().numpy() for d in ("cuda", "cpu")}
+    res = {"sentences": NAT_SENTENCES, "decoder_passes": len(passes),
+           "planted": plant, "passes_with_inner_pads": inner,
+           "identical": bool(np.array_equal(tok["cuda"], tok["cpu"])),
+           "rows_differing": int(sum(not np.array_equal(a, b)
+                                     for a, b in zip(tok["cuda"], tok["cpu"]))),
+           "card_s": secs["cuda"], "cpu_s": secs["cpu"], "argmax_replay": worst,
+           "hyp_tokens_mean": float((tok["cuda"] != 1).sum(axis=1).mean())}
+    tag = name if plant is None else f"{name} pad-fill"
+    log(f"[{tag} decode] fp32 card vs CPU: {json.dumps(res)}")
+    return res, NAT_LAYERS * (1 + len(passes)), tok["cuda"]
+
+
+def nat_roll_in_pad_fill(task, recipe, model_cls, crit, step, batch):
+    """One fp32 Levenshtein step card vs CPU whose roll-in fill picks pad: the token its
+    fill picks most often on the card (an evaluation forward on the step's draws) is
+    planted (``plant_pad``) on both devices; the deletion pass of the card's step must
+    read pad between tokens."""
+    cfg = zoo_model_cfg(recipe, **NO_DROPOUT)
+    forward = task.forward_fn()
+    probe = model_cls(cfg, device="cuda", seed=0)
+
+    def on_card(b):
+        return {k: on_card(v) if isinstance(v, dict) else torch.as_tensor(np.asarray(v)).cuda()
+                for k, v in b.items()}
+
+    with torch.no_grad():
+        out = forward(probe, on_card(batch), train=True,
+                      generator=torch.Generator("cuda").manual_seed(0))
+    tok = most_filled(out["word_ins_logits"].argmax(-1)[out["word_ins_mask"]].cpu())
+    del probe, out
+    inner = []
+
+    def counted(model, b, *a, **kw):
+        o = forward(model, b, *a, **kw)
+        if o["del_mask"].is_cuda:
+            inner.append(int((~is_prefix(o["del_mask"])).sum()))
+        return o
+
+    parity, launches = phase_train_parity(
+        cfg, model_cls, "levenshtein pad-fill train", criterion=crit, per_step=step,
+        batches=[batch], forward_fn=counted,
+        opt=recipe_opt(recipe, warmup_updates=PARITY_WARMUP),
+        prepare=lambda m: plant_pad(m, tok))
+    if not sum(inner):
+        raise AssertionError(f"levenshtein roll-in: planting pad ({tok}) left no pad inside "
+                             f"the deletion pass's canvas")
+    return {**parity, "planted": tok, "rows_with_inner_pads": inner}, launches
+
+
+def phase_nat(root: Path):
+    """Phase 45: egs/wmt16/nat/{cmlm,levenshtein,insertion,nacrf}.yaml at preset width
+    (post-norm 512 / 2048, 6 + 6 layers, 8 heads, dictionaries of 10,000) through the
+    translation_lev task's forward adapter: fp32 steps card vs CPU on handed-over noise
+    (2 for CMLM, 1 for the others), each recipe's refinement decode card vs CPU
+    (``nat_decode_card_vs_cpu``), and bf16 CMLM steps at phase 37's shape.  The encoder
+    and the non-causal decoder run K1f / K1b: 12 / 12 a CMLM, NACRF or insertion step,
+    24 / 24 a Levenshtein step (its three decoder passes)."""
+    from s2t_tpu_torch.models import build  # noqa: F401  (registers every preset)
+    from s2t_tpu_torch.registry import MODELS
+
+    per_step = {"cmlm": 2 * NAT_LAYERS, "levenshtein": 4 * NAT_LAYERS,
+                "insertion": 2 * NAT_LAYERS, "nacrf": 2 * NAT_LAYERS}
+    res, launches = {}, {k: 0 for k in counters()}
+    for name, recipe in NAT_RECIPES.items():
+        task = recipe_task(root / "nat", recipe)
+        model_cls = MODELS.get(ARCHS.get(recipe["arch"])[0])
+        crit = (recipe["criterion"], recipe.get("criterion_cfg", {}))
+        step = {"attention_fwd": per_step[name], "attention_bwd": per_step[name]}
+        rng = np.random.default_rng(45)
+        batches = []
+        for _ in range(2):
+            b = text_batch(rng, **MT_PARITY)
+            batches.append({**b, "draws": nat_draws(rng, name, b)})
+        parity, parity_launches = phase_train_parity(
+            zoo_model_cfg(recipe, **NO_DROPOUT), model_cls, f"{name} train", criterion=crit,
+            per_step=step, batches=batches, forward_fn=task.forward_fn(),
+            opt=recipe_opt(recipe, warmup_updates=PARITY_WARMUP))
+        decode, decode_launches, card_tokens = nat_decode_card_vs_cpu(
+            name, task, zoo_model_cfg(recipe), model_cls)
+        res[name] = {"parity": parity, "decode": decode}
+        for k in counters():
+            launches[k] += parity_launches.get(k, 0)
+        launches["attention_fwd"] += decode_launches
+        if name in ("cmlm", "levenshtein"):  # a fill that picks pad, on the card
+            res[name]["pad_fill_decode"], decode_launches, _ = nat_decode_card_vs_cpu(
+                name, task, zoo_model_cfg(recipe), model_cls, plant=most_filled(card_tokens))
+            launches["attention_fwd"] += decode_launches
+        if name == "levenshtein":
+            res[name]["pad_fill_roll_in"], roll_in_launches = nat_roll_in_pad_fill(
+                task, recipe, model_cls, crit, step, batches[0])
+            for k in counters():
+                launches[k] += roll_in_launches.get(k, 0)
+        if name == "cmlm":
+            speed, speed_launches = phase_train_speed(
+                zoo_model_cfg(recipe, dtype="bfloat16"), model_cls, "cmlm train speed",
+                n_timed=ZOO_TIMED, criterion=crit, per_step=step,
+                batch=text_batch(np.random.default_rng(0), **MT_BENCH),
+                forward_fn=task.forward_fn(), opt=recipe_opt(recipe))
+            speed["tokens_per_s"] = speed["steps_per_s"] * MT_BENCH["B"] * MT_BENCH["U"]
+            res[name]["speed"] = speed
+            for k in counters():
+                launches[k] += speed_launches[k]
+    return res, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4707,6 +5236,20 @@ def main(argv=None) -> int:
     mark("phase_emformer")
     w2v1, w2v1_launches = phase_w2v1()
     mark("phase_w2v1")
+    # phases 42-45: the text zoo's recipes
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_zoo_") as tmp:
+        fconv, fconv_launches = phase_fconv(Path(tmp))
+        mark("phase_fconv")
+        adaptive_lm, adaptive_lm_launches = phase_adaptive_lm(Path(tmp))
+        mark("phase_adaptive_lm")
+        align, align_launches = phase_align(Path(tmp))
+        mark("phase_align")
+        nat, nat_launches = phase_nat(Path(tmp))
+        mark("phase_nat")
+    log(f"[main path] fconv (CLIs) {json.dumps(fconv_launches)}; adaptive LM "
+        f"{json.dumps(adaptive_lm_launches)}; transformer_align (parity, speed, CLIs) "
+        f"{json.dumps(align_launches)}; NAT (parity, decodes, CMLM speed) "
+        f"{json.dumps(nat_launches)}")
     log(f"[main path] MT (parity, speed, CLIs, beam) {json.dumps(mt_launches)}; transformer_ctc "
         f"(parity, speed) {json.dumps(mt_ctc_launches)}; Berard {json.dumps(berard_launches)}; "
         f"Emformer (parity) {json.dumps(emformer_launches)}; wav2vec v1 "
@@ -4756,7 +5299,8 @@ def main(argv=None) -> int:
         nast_pds_launches, pds_taps_launches, variant_launches, efficient_launches,
         generator_launches, w2v_pretrain_launches, w2v_st_launches, w2v_ctc_launches,
         league_launches, item15_launches, mt_launches, mt_ctc_launches, berard_launches,
-        emformer_launches, w2v1_launches))
+        emformer_launches, w2v1_launches, fconv_launches, adaptive_lm_launches, align_launches,
+        nat_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -4852,7 +5396,8 @@ def main(argv=None) -> int:
             "w2v2_pretrain": w2v_pretrain, "w2v2_st": w2v_st, "w2v_ctc": w2v_ctc,
             "league": league, "item15": item15, "w2v2_attention_shape": w2v_attention,
             "mt_kernel_shapes": mt_kernels, "mt": mt, "mt_ctc": mt_ctc, "berard": berard,
-            "emformer": emformer, "w2v1": w2v1,
+            "emformer": emformer, "w2v1": w2v1, "fconv": fconv, "adaptive_lm": adaptive_lm,
+            "align": align, "nat": nat,
             "path_launches": path_launches, "phase_s": phase_s,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start}, indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 PORTED_OPTIMIZERS = ("adam", "adamw")
-PORTED_SCHEDULERS = ("inverse_sqrt", "tri_stage", "polynomial_decay")
+PORTED_SCHEDULERS = ("inverse_sqrt", "tri_stage", "polynomial_decay", "cosine", "fixed")
 # the JAX rng_impl knob picks a PRNG implementation; the port's bits come from
 # torch.Generators seeded per step, whichever of the two is named
 RNG_IMPLS = ("rbg", "threefry")

@@ -12,9 +12,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
+from s2t_tpu_torch.criterions.adaptive_loss import AdaptiveLoss
 from s2t_tpu_torch.criterions.ctc import (
     CTCCriterion, JoinSpeechAndTextLoss, LabelSmoothedCEWithCTC)
-from s2t_tpu_torch.criterions.label_smoothed_ce import LabelSmoothedCE
+from s2t_tpu_torch.criterions.label_smoothed_ce import (
+    LabelSmoothedCE, LabelSmoothedCEWithAlignment)
+from s2t_tpu_torch.criterions.nat_loss import NATLoss
 from s2t_tpu_torch.criterions.wav2vec import Wav2VecCriterion
 
 CRITERIONS = {
@@ -23,6 +26,9 @@ CRITERIONS = {
     "label_smoothed_cross_entropy": LabelSmoothedCE,
     "join_speech_and_text_loss": JoinSpeechAndTextLoss,
     "wav2vec": Wav2VecCriterion,
+    "adaptive_loss": AdaptiveLoss,
+    "label_smoothed_cross_entropy_with_alignment": LabelSmoothedCEWithAlignment,
+    "nat_loss": NATLoss,
 }
 
 

@@ -6,7 +6,8 @@ target positions, with the log-softmax in float32.  Under encoder mixup a
 decoder row r is scored against both source utterances' targets,
 coef_r loss(target[index1_r]) + (1 - coef_r) loss(target[index2_r]), and
 ``decoder_mixup_consistent_loss`` pulls the mixed rows towards their
-originals (AIPA).
+originals (AIPA).  ``LabelSmoothedCEWithAlignment`` adds the supervised
+alignment term (label_smoothed_ce.py:148-187).
 """
 
 from __future__ import annotations
@@ -106,4 +107,39 @@ class LabelSmoothedCE:
         logs = {"loss": loss, "nll_loss": nll, "ntokens": ntokens, "nsentences": nsent}
         if self.cfg.report_accuracy:
             logs["n_correct"], logs["total"] = ce_accuracy(logits, targets, self.cfg.pad_id)
+        return loss, sample_size, logs
+
+
+class LabelSmoothedCEWithAlignment:
+    """The label-smoothed CE plus ``alignment_lambda`` x the alignment NLL: -log of
+    the model's ``align_attn`` (B, U, S) at each word-aligned pair of
+    ``batch["alignments"]`` (B, P, 2) = (source index, target index), -1 padded,
+    clipped at 1e-9 and summed (logged as ``alignment_loss``; ``loss`` is the sum)."""
+
+    @dataclass
+    class Config:
+        label_smoothing: float = 0.1
+        sentence_avg: bool = False
+        report_accuracy: bool = True
+        pad_id: int = 1
+        alignment_lambda: float = 0.05
+
+    def __init__(self, cfg: "LabelSmoothedCEWithAlignment.Config"):
+        self.cfg = cfg
+        self.ce = LabelSmoothedCE(LabelSmoothedCE.Config(
+            label_smoothing=cfg.label_smoothing, sentence_avg=cfg.sentence_avg,
+            report_accuracy=cfg.report_accuracy, pad_id=cfg.pad_id))
+
+    def __call__(self, model_out: Dict[str, Any], batch: Dict[str, Any]):
+        loss, sample_size, logs = self.ce(model_out, batch)
+        attn, pairs = model_out.get("align_attn"), batch.get("alignments")
+        if attn is not None and pairs is not None:
+            src_i, tgt_j = pairs[..., 0].long(), pairs[..., 1].long()
+            valid = (src_i >= 0) & (tgt_j >= 0)
+            b = torch.arange(attn.shape[0], device=attn.device)[:, None]
+            p = attn[b, tgt_j.clamp(min=0), src_i.clamp(min=0)].float()
+            align_loss = torch.where(valid, -torch.log(p.clamp(min=1e-9)), 0.0).sum()
+            loss = loss + self.cfg.alignment_lambda * align_loss
+            logs["alignment_loss"] = align_loss
+            logs["loss"] = loss
         return loss, sample_size, logs

@@ -15,12 +15,13 @@ siblings (a rank penalty within each beam).
 Top-k selections use a stable sort, so ties resolve to the lower index as
 ``jax.lax.top_k`` does.  The KV cache is reordered in place by name (the
 ``KV_LEAVES`` of every nested dict: each layer's "k" and "v" and, in the int8
-cache, their scales), over the positions written so far; a ``reorder_fn``
-(the lazy reorder) replaces that.
+cache, their scales), over the positions written so far, and fconv's rolling
+windows (``conv{i}``) whole; a ``reorder_fn`` (the lazy reorder) replaces that.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -28,6 +29,7 @@ import torch
 NEG_INF = -1e9
 CHUNK = 16  # steps between early-stop checks (beam_search.py:362)
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+WINDOW_LEAF = re.compile(r"^conv\d+$")  # a conv decoder's window of its last inputs
 
 
 def length_penalty(lengths: torch.Tensor, lenpen: float) -> torch.Tensor:
@@ -60,15 +62,19 @@ def _ngram_block(logprobs, tokens, i: int, n: int):
 
 def reorder_cache(cache: Any, rows: torch.Tensor, upto: int) -> None:
     """Gather beam rows of every KV leaf (picked by name, in nested dicts)
-    over positions [0, upto), in place.  A leaf of another name raises: it
-    would not follow the beam."""
+    over positions [0, upto), and of every rolling conv window (``conv{i}``, fconv's
+    (N, k - 1, C) inputs, which have no length axis) whole, in place.  A leaf of
+    another name raises: it would not follow the beam."""
     for name, leaf in cache.items():
         if isinstance(leaf, dict):
             reorder_cache(leaf, rows, upto)
         elif name in KV_LEAVES:
             leaf[:, :upto] = leaf[rows, :upto]
+        elif WINDOW_LEAF.match(name):
+            leaf.copy_(leaf[rows])
         else:
-            raise KeyError(f"cache leaf {name!r} has no beam reorder (KV_LEAVES: {KV_LEAVES})")
+            raise KeyError(f"cache leaf {name!r} has no beam reorder (KV_LEAVES: {KV_LEAVES}, "
+                           f"windows {WINDOW_LEAF.pattern})")
 
 
 def finalize(finished_scores, finished_tokens, alive_scores, alive_tokens, L: int, lenpen: float,

@@ -177,7 +177,8 @@ class SequenceGenerator:
             return e["encoder_out"].repeat_interleave(K, dim=0), mask.repeat_interleave(K, dim=0)
 
         enc_out_b, enc_mask_b = context(enc)
-        cross_kv = model.precompute_cross(enc["encoder_out"]) if self.static_cross_kv else None
+        cross_kv = (model.precompute_cross(enc["encoder_out"])
+                    if self.static_cross_kv and hasattr(model, "precompute_cross") else None)
         kv_int8 = self.kv_int8 and getattr(model, "kv_int8_cache", False)
         if self.kv_int8 and not kv_int8:
             logger.warning("%s has no int8 cache mode; decoding at full precision",

@@ -1,6 +1,7 @@
 """Carry a JAX model's ``.init(...)["params"]`` tree (``S2TTransformerModel``,
 ``PDSS2TTransformerModel``, ``S2TSATEModel``, ``S2TCTCModel``, ``TransformerLM``, the
-wav2vec models, ``BerardModel``, ``EmformerModel``, the text ``TransformerModel``, ...)
+wav2vec models, ``BerardModel``, ``EmformerModel``, the text ``TransformerModel``,
+``FConvModel``, the NAT models, ...)
 into the port.
 
 The tree arrives as nested mappings of numpy arrays (``jax.tree.map(np.asarray,
@@ -41,7 +42,11 @@ subsampler's and wav2vec's ``norm{i}`` -> ``norms.{i}``.  Berard: ``input{i}`` -
 an LSTM's ``kernel_ih`` / ``kernel_hh`` -> ``weight_ih`` / ``weight_hh`` transposed
 (its ``bias`` kept), the decoder's ``cell{i}_<leaf>`` -> ``cells.{i}.<leaf>``;
 wav2vec: ``rproj{i}`` -> ``rprojs.{i}``, the k-means quantizer's (V, G, d)
-``embedding`` -> ``codebook``.  Any leaf left unmapped on either side raises.
+``embedding`` -> ``codebook``.  fconv: ``conv{i}`` (the unfolded-window kernel),
+``res{i}``, ``attn_q{i}``, ``attn_o{i}`` -> ``convs.{i}``, ``ress.{i}``,
+``attn_qs.{i}``, ``attn_os.{i}``; the NAT models' ``length_head``, ``del_head``,
+``ins_head``, ``slot_proj`` and the CRF's ``crf/e1`` / ``crf/e2`` tables keep their
+names.  Any leaf left unmapped on either side raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
 say) as the nested flax tree, so it can be compared leaf by leaf with a JAX
@@ -71,7 +76,7 @@ _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
             (re.compile(r"^ctc(\d+)$"), r"ctc_heads.\1"),
             (re.compile(r"^(senior|textual)(\d+)$"), r"\1_stack.\2"),
             (re.compile(r"^blstm(\d+)_(fwd|bwd)$"), r"blstms.\1.\2"),
-            (re.compile(r"^(layer|conv|input|rproj)(\d+)$"), r"\1s.\2"))
+            (re.compile(r"^(layer|conv|input|rproj|res|attn_q|attn_o)(\d+)$"), r"\1s.\2"))
 _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bnorms\.(\d+)\b"), r"norm\1"),
             (re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
@@ -81,7 +86,7 @@ _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bctc_heads\.(\d+)\b"), r"ctc\1"),
             (re.compile(r"\b(senior|textual)_stack\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bblstms\.(\d+)\.(fwd|bwd)\b"), r"blstm\1_\2"),
-            (re.compile(r"\b(layer|conv|input|rproj)s\.(\d+)\b"), r"\1\2"))
+            (re.compile(r"\b(layer|conv|input|rproj|res|attn_q|attn_o)s\.(\d+)\b"), r"\1\2"))
 # parameters that are leaves of their own, with the same name on both sides
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
                    "embed_adapter", "relative_position_keys", "gauss_sigma",
@@ -190,7 +195,7 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
         return "embedding", arr
     if name != "weight":
         raise KeyError(name)
-    if re.search(r"(embed_tokens|embed_positions|embed\d+)$", module):
+    if re.search(r"(embed_tokens|embed_positions|embed\d+|crf\.e[12])$", module):
         return "embedding", arr
     if module.endswith(".conv") and arr.ndim == 2:  # a lightweight conv's (H, k) kernel
         return "weight", arr

@@ -17,7 +17,11 @@ family ``wav2vec2_base``, ``wav2vec2_large``, ``wav2vec_ctc``, ``wav2vec_seq2seq
 ``wav2vec_large``), the streaming ``emformer`` / ``emformer_s``, and the text
 Transformer (``transformer``, ``transformer_iwslt_de_en``,
 ``transformer_wmt_en_de_big``, ``transformer_wmt_en_de_big_t2t``,
-``transformer_ctc``).
+``transformer_ctc``), ConvS2S (``fconv``, ``fconv_iwslt_de_en``, ``fconv_wmt_en_de``),
+the alignment Transformer (``transformer_align``, ``transformer_wmt_en_de_big_align``)
+and the NAT family (``cmlm_transformer``, ``cmlm_transformer_small``,
+``nonautoregressive_transformer``, ``nacrf_transformer``, ``levenshtein_transformer``,
+``levenshtein_transformer_small``, ``insertion_transformer``).
 Every other architecture of the JAX registry is registered here too, as a preset that
 raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
 ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
@@ -30,8 +34,9 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from s2t_tpu_torch.models import (  # noqa: F401  (the presets)
-    berard, pds, s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer, s2t_w2v2_transformer, sate,
-    streaming, transformer, transformer_lm, wav2vec, wav2vec2)
+    berard, cmlm_transformer, fconv, insertion_transformer, levenshtein_transformer, pds,
+    s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer, s2t_w2v2_transformer, sate, streaming,
+    transformer, transformer_align, transformer_lm, wav2vec, wav2vec2)
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 _ITEMS = {
@@ -40,14 +45,10 @@ _ITEMS = {
 
 # every arch of the JAX registry the port lacks -> (its model, what it needs, the item)
 UNPORTED_ARCHS = {
-    **{a: ("transformer_align", "the alignment Transformer", 11)
-       for a in ("transformer_align", "transformer_wmt_en_de_big_align")},
     **{a: ("multilingual_transformer", "the multilingual Transformer", 11)
        for a in ("multilingual_transformer", "multilingual_transformer_iwslt_de_en")},
     **{a: ("lstm", "the LSTM encoder-decoder", 11) for a in ("lstm", "lstm_wiseman_iwslt_de_en")},
     "lstm_lm": ("lstm_lm", "the LSTM language model", 11),
-    **{a: ("fconv", "the convolutional seq2seq model", 11)
-       for a in ("fconv", "fconv_iwslt_de_en", "fconv_wmt_en_de")},
     **{a: ("lightconv", "lightweight and dynamic convolutions", 11)
        for a in ("lightconv", "lightconv_iwslt_de_en", "dynamicconv", "dynamicconv_iwslt_de_en")},
     **{a: ("bart", "BART", 11) for a in ("bart_base", "bart_large", "mbart_large")},
@@ -55,12 +56,6 @@ UNPORTED_ARCHS = {
        for a in ("roberta_base", "roberta_large", "bert_base", "camembert", "gottbert",
                  "xlmr_base", "xlmr_large")},
     **{a: ("hf_gpt2", "GPT-2", 11) for a in ("hf_gpt2", "hf_gpt2_medium", "hf_gpt2_large")},
-    **{a: ("cmlm_transformer", "the NAT family", 11)
-       for a in ("cmlm_transformer", "cmlm_transformer_small", "nonautoregressive_transformer")},
-    **{a: ("levenshtein_transformer", "the NAT family", 11)
-       for a in ("levenshtein_transformer", "levenshtein_transformer_small")},
-    "insertion_transformer": ("insertion_transformer", "the NAT family", 11),
-    "nacrf_transformer": ("nacrf_transformer", "the NAT family", 11),
 }
 
 

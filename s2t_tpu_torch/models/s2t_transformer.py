@@ -294,7 +294,8 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
                    seed: int, for_training: bool) -> None:
     """Flax-like init on the CPU from ``seed`` (dense and conv kernels
     N(0, 1/fan_in), biases 0, LayerNorm 1/0, token embeddings N(0, 1/D); the
-    frozen affines' ``norm_scale`` 1 / ``norm_bias`` 0, the PDS fusion's
+    frozen affines' ``norm_scale`` 1 / ``norm_bias`` 0, an embedding with an
+    ``init_std`` attribute N(0, init_std^2), the PDS fusion's
     ``fusion_weight`` 1/len, the relative attentions' ``pos_bias_u`` /
     ``pos_bias_v`` / ``relative_position_keys`` Xavier-uniform, the adapters'
     ``embed_adapter`` N(0, 1/D), a lightweight conv's kernel N(0, 0.01), wav2vec
@@ -315,7 +316,8 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.Embedding):
-            nn.init.normal_(mod.weight, std=mod.embedding_dim ** -0.5, generator=g)
+            nn.init.normal_(mod.weight, std=getattr(mod, "init_std", mod.embedding_dim ** -0.5),
+                            generator=g)
         for name, p in mod.named_parameters(recurse=False):
             if name == "norm_scale":
                 nn.init.ones_(p)

@@ -15,6 +15,15 @@ or Shaw "relative" (``self_attn_type``, clipped at ``max_relative_length``);
 ``collaboration_mode`` gives every layer the dual / multibranch models'
 cross-attention over a second stream (training forward only: a decode step
 takes none, as in JAX).
+``causal=False`` is the NAT models' bidirectional decoder: its self-attention
+carries only the targets' padding (transformer_decoder.py:152-153), so it runs
+the fused kernel (K1f, and K1b in training) where JAX attends densely under a
+padding bias.  The kernel reads lengths, and a canvas may hold pad anywhere (an
+argmax fill can pick it), so the keys go valid-first (``valid_first``) under the
+prefix mask of each row's count, the queries in place: attention does not depend
+on the order of its keys.  ``forward_features_with_attn(..., layer=i)`` also returns
+layer i's cross-attention probabilities (B, H, U, S), before dropout (the
+alignment Transformer's).
 The sinusoidal table sets the compute dtype.
 """
 
@@ -31,6 +40,7 @@ from s2t_tpu_torch.modules.cast import Linear
 from s2t_tpu_torch.modules.dropout import dropout as drop
 from s2t_tpu_torch.modules.layers import TransformerDecoderLayer, layer_norm
 from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding
+from s2t_tpu_torch.utils.masking import valid_first
 
 
 class TransformerDecoder(nn.Module):
@@ -44,8 +54,9 @@ class TransformerDecoder(nn.Module):
                  embed_tokens: Optional[nn.Module] = None, collaboration_mode: str = "none",
                  league_s1_ratio: float = 0.5, league_s2_ratio: float = 0.5,
                  no_scale_embedding: bool = False, layernorm_embedding: bool = False,
-                 encoder_dim: int = 0):
+                 encoder_dim: int = 0, causal: bool = True):
         super().__init__()
+        self.causal = causal
         self.no_scale_embedding = no_scale_embedding
         self.embed_dim = embed_dim
         self.dropout = dropout
@@ -104,6 +115,21 @@ class TransformerDecoder(nn.Module):
         sequence into the flagged rows (encoder mixup,
         s2t_tpu/models/transformer_decoder.py:131-150); ``s2_out`` and its
         ``s2_valid_mask``: the second stream of a league decoder."""
+        return self._features(prev_tokens, encoder_out, encoder_valid_mask, generator, mix,
+                              s2_out, s2_valid_mask)[0]
+
+    def forward_features_with_attn(self, prev_tokens: torch.Tensor, encoder_out: torch.Tensor,
+                                   encoder_valid_mask: torch.Tensor, layer: int,
+                                   generator: Optional[torch.Generator] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(``forward_features``, layer ``layer``'s (B, H, U, S) cross-attention
+        probabilities before dropout)."""
+        return self._features(prev_tokens, encoder_out, encoder_valid_mask, generator,
+                              attn_layer=layer)
+
+    def _features(self, prev_tokens, encoder_out, encoder_valid_mask, generator=None, mix=None,
+                  s2_out=None, s2_valid_mask=None, attn_layer: Optional[int] = None):
+        """(hidden states, layer ``attn_layer``'s cross-attention probabilities or None)."""
         U = prev_tokens.shape[1]
         x = self._embed(prev_tokens, 0)
         tgt_valid = prev_tokens != self.pad_id
@@ -113,15 +139,25 @@ class TransformerDecoder(nn.Module):
             x = torch.where(mix["flag"][:, None, None], c * x + (1.0 - c) * x2, x)
             tgt_valid = tgt_valid | (mix["tokens2"] != self.pad_id)
         x = drop(x, self.dropout, generator)
-        self_bias = causal_bias(U, x.dtype, x.device) + padding_bias(tgt_valid, x.dtype)
+        self_bias, self_valid, key_order = None, None, None
+        if self.causal:
+            self_bias = causal_bias(U, x.dtype, x.device) + padding_bias(tgt_valid, x.dtype)
+        else:
+            self_valid, key_order = tgt_valid, valid_first(tgt_valid)
         cross_bias = None if self.no_cross_attention else padding_bias(encoder_valid_mask, x.dtype)
         s2_bias = None if s2_valid_mask is None else padding_bias(s2_valid_mask, x.dtype)
-        for layer in self.layers:
-            x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator,
-                         s2_out=s2_out, s2_bias=s2_bias)
+        attn = None
+        for i, layer in enumerate(self.layers):
+            if i == attn_layer:
+                x, attn = layer.forward_with_attn(x, encoder_out, self_bias, cross_bias,
+                                                  generator, self_valid, key_order)
+            else:
+                x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator,
+                             s2_out=s2_out, s2_bias=s2_bias, self_valid=self_valid,
+                             self_key_order=key_order)
         if self.final_norm is not None:
             x = self.final_norm(x)
-        return x
+        return x, attn
 
     def forward(self, prev_tokens, encoder_out, encoder_valid_mask,
                 generator: Optional[torch.Generator] = None, mix: Optional[dict] = None,

@@ -242,6 +242,7 @@ class MultiHeadAttention(nn.Module):
         kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
         cache_ancestry: Optional[torch.Tensor] = None,
+        key_order: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Returns (output (B, Tq, D), cache).
 
@@ -249,7 +250,28 @@ class MultiHeadAttention(nn.Module):
         query then has Tq == 1 and key/value are the new step only.
         ``generator``: the training step's; None means no dropout.
         ``cache_ancestry``: the lazy reorder's (B, K, L) slot map, this step's
-        column already each beam's own slot."""
+        column already each beam's own slot.  ``key_order`` (B, Tk): a
+        permutation that puts each row's valid keys first (``valid_first``), for a
+        ``valid_mask`` that need not be a prefix; the fused kernel then takes the
+        keys in that order under the prefix mask, the dense path ignores it."""
+        out, cache, _ = self._attend(query, key, value, bias, cache, cache_index, valid_mask,
+                                     kv_override, generator, cache_ancestry, key_order)
+        return out, cache
+
+    def forward_with_weights(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                             bias: Optional[torch.Tensor],
+                             generator: Optional[torch.Generator] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dense attention under ``bias``, outside incremental decoding: (output, the
+        (B, H, Tq, Tk) probabilities before dropout), what the JAX module sows
+        (attention.py:464-467)."""
+        out, _, probs = self._attend(query, key, value, bias, generator=generator)
+        return out, probs
+
+    def _attend(self, query, key, value, bias=None, cache=None, cache_index=None,
+                valid_mask=None, kv_override=None, generator=None, cache_ancestry=None,
+                key_order=None):
+        """``forward``'s body: (output, cache, the dense path's probabilities or None)."""
         s = self.kv_stride
         if s > 1 and cache is None:
             key, value = key[:, ::s], value[:, ::s]
@@ -260,7 +282,7 @@ class MultiHeadAttention(nn.Module):
             k, v = kv_override
             if k.shape[0] != q.shape[0] and cache is None:
                 # beam-shared cross K/V: one row per sentence, G beams per sentence
-                return self._grouped_cross(q, k, v, bias)
+                return (*self._grouped_cross(q, k, v, bias), None)
         else:
             k = self._split(self.k_proj(key))
             v = self._split(self.v_proj(value))
@@ -273,10 +295,16 @@ class MultiHeadAttention(nn.Module):
                     and self.attention_std_scale == 0:
                 # encoder self-attention with a pure padding mask: the fused
                 # kernel (the (B, H, T, T) probabilities never reach memory)
+                if key_order is not None:
+                    # attention does not depend on the order of its keys: valid first,
+                    # the mask becomes the prefix of each row's count that the kernel reads
+                    rows = torch.arange(k.shape[0], device=k.device)[:, None]
+                    k, v, valid_mask = k[rows, key_order], v[rows, key_order], \
+                        valid_mask[rows, key_order]
                 rate = self.dropout if generator is not None else 0.0
                 seed = kernel_seed(generator) if rate > 0 else None
                 out = fused_attention(q, k, v, valid_mask, rate, seed)
-                return self.out_proj(self._merge(out)), None
+                return self.out_proj(self._merge(out)), None, None
             # the dense path rebuilds the padding bias, strided as the keys are
             bias = padding_bias(valid_mask[:, ::s] if s > 1 else valid_mask, q.dtype)
 
@@ -305,13 +333,15 @@ class MultiHeadAttention(nn.Module):
             bias = rel if bias is None else bias + rel
 
         if int8:
-            return self.out_proj(self._merge(self._int8_attend(q, k, v, cache, i, bias))), cache
+            return self.out_proj(self._merge(self._int8_attend(q, k, v, cache, i, bias))), \
+                cache, None
         w = dot_attention_weights(q, k, bias, q.dtype, self.attention_std_scale)
         if self.gauss and cache is None:
             w = self._gauss_mix(w, valid_mask)
+        probs = w
         w = drop(w, self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-        return self.out_proj(self._merge(out)), cache
+        return self.out_proj(self._merge(out)), cache, probs
 
     @staticmethod
     def _int8_attend(q, k8, v8, cache, i: int, bias):

@@ -312,14 +312,44 @@ class TransformerDecoderLayer(nn.Module):
         cache_ancestry: Optional[torch.Tensor] = None,
         s2_out: Optional[torch.Tensor] = None,
         s2_bias: Optional[torch.Tensor] = None,
+        self_valid: Optional[torch.Tensor] = None,
+        self_key_order: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """``s2_out`` / ``s2_bias``: a second encoder stream and its padding bias,
         cross-attended beside the first ("parallel", no post-norm after the
-        combined residual) or after it in a pre-norm block ("serial")."""
+        combined residual) or after it in a pre-norm block ("serial").
+        ``self_valid`` in place of ``self_bias``: a non-causal self-attention under
+        a pure padding mask (the fused kernel's case), its keys taken in
+        ``self_key_order`` (``valid_first``) where the mask need not be a prefix."""
+        x, cache, _ = self._forward(x, encoder_out, self_bias, cross_bias, cache, cache_index,
+                                    enc_kv, generator, cache_ancestry, s2_out, s2_bias,
+                                    self_valid, self_key_order)
+        return x, cache
+
+    def forward_with_attn(self, x, encoder_out, self_bias=None, cross_bias=None,
+                          generator: Optional[torch.Generator] = None,
+                          self_valid: Optional[torch.Tensor] = None,
+                          self_key_order: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A teacher-forced ``forward``: (output, the cross-attention's (B, H, U, S)
+        probabilities before dropout)."""
+        x, _, attn = self._forward(x, encoder_out, self_bias, cross_bias, generator=generator,
+                                   self_valid=self_valid, self_key_order=self_key_order,
+                                   need_attn=True)
+        return x, attn
+
+    def _forward(self, x, encoder_out, self_bias=None, cross_bias=None, cache=None,
+                 cache_index=None, enc_kv=None, generator=None, cache_ancestry=None,
+                 s2_out=None, s2_bias=None, self_valid=None, self_key_order=None,
+                 need_attn: bool = False):
+        """``forward``'s body: (output, cache, the cross-attention's probabilities when
+        ``need_attn``, else None)."""
+        attn = None
         res = x
         h = self.self_attn_norm(x) if self.normalize_before else x
         h, cache = self.self_attn(h, h, h, self_bias, cache=cache, cache_index=cache_index,
-                                  generator=generator, cache_ancestry=cache_ancestry)
+                                  generator=generator, cache_ancestry=cache_ancestry,
+                                  valid_mask=self_valid, key_order=self_key_order)
         x = res + dropout(h, self.dropout, generator)
         if not self.normalize_before:
             x = self.self_attn_norm(x)
@@ -328,8 +358,12 @@ class TransformerDecoderLayer(nn.Module):
             res = x
             h = self.cross_attn_norm(x) if self.normalize_before else x
             cross_in = h
-            h, _ = self.cross_attn(h, encoder_out, encoder_out, cross_bias, kv_override=enc_kv,
-                                   generator=generator)
+            if need_attn:
+                h, attn = self.cross_attn.forward_with_weights(h, encoder_out, encoder_out,
+                                                               cross_bias, generator)
+            else:
+                h, _ = self.cross_attn(h, encoder_out, encoder_out, cross_bias,
+                                       kv_override=enc_kv, generator=generator)
             h = dropout(h, self.dropout, generator)
             mode = self.collaboration_mode if s2_out is not None else "none"
             if mode == "parallel":
@@ -350,4 +384,4 @@ class TransformerDecoderLayer(nn.Module):
         x = res + dropout(self.ffn(h, generator), self.dropout, generator)
         if not self.normalize_before:
             x = self.ffn_norm(x)
-        return x, cache
+        return x, cache, attn

@@ -1,6 +1,6 @@
 """LR schedules and optimizer of the training step (counterpart of
-s2t_tpu/optim/builders.py:30-45, :60-87 and :180-269): ``inverse_sqrt``,
-``tri_stage`` and ``polynomial_decay``.
+s2t_tpu/optim/builders.py:30-91 and :180-269): ``inverse_sqrt``, ``cosine``,
+``tri_stage``, ``polynomial_decay`` and ``fixed``.
 
 Plain PyTorch, as the JAX package leaves this to XLA.  Everything stays on
 the device: the schedule is evaluated on the optimizer's count tensor and the
@@ -73,8 +73,41 @@ def polynomial_decay(cfg: OptimizationConfig) -> Callable:
     return schedule
 
 
+def cosine(cfg: OptimizationConfig) -> Callable:
+    """``optax.warmup_cosine_decay_schedule`` as JAX builds it (builders.py:48-57):
+    a linear warm-up from max(warmup_init_lr, 0) to lr over ``warmup_updates``,
+    then a cosine from lr to min_lr over the rest of decay_steps =
+    max(max_update, warmup_updates + 1), which counts the warm-up; min_lr after."""
+    warm = cfg.warmup_updates
+    decay = max(cfg.max_update, warm + 1) - warm
+    init, peak, end = max(cfg.warmup_init_lr, 0.0), cfg.lr, cfg.min_lr
+    alpha = 0.0 if peak == 0.0 else end / peak
+
+    def schedule(step) -> torch.Tensor:
+        s = torch.as_tensor(step).float()
+        if warm > 0:
+            warm_lr = (init - peak) * (1.0 - torch.clamp(s, 0.0, float(warm)) / warm) + peak
+        else:  # optax holds a schedule of no transition steps at its init value
+            warm_lr = torch.full_like(s, init)
+        c = torch.clamp(s - warm, max=float(decay))
+        cos_lr = peak * ((1.0 - alpha) * (0.5 * (1.0 + torch.cos(math.pi * c / decay))) + alpha)
+        return torch.where(s < warm, warm_lr, cos_lr)
+
+    return schedule
+
+
+def fixed(cfg: OptimizationConfig) -> Callable:
+    """``optax.constant_schedule(lr)`` (builders.py:89-91)."""
+    lr = cfg.lr
+
+    def schedule(step) -> torch.Tensor:
+        return torch.full_like(torch.as_tensor(step).float(), lr)
+
+    return schedule
+
+
 SCHEDULES = {"inverse_sqrt": inverse_sqrt, "tri_stage": tri_stage,
-             "polynomial_decay": polynomial_decay}
+             "polynomial_decay": polynomial_decay, "cosine": cosine, "fixed": fixed}
 
 
 def build_lr_schedule(cfg: OptimizationConfig) -> Callable:

@@ -13,10 +13,11 @@ by default) with the dictionaries' sizes; the forward adapter hands
 ``SequenceGenerator`` over ``src_tokens`` / ``src_lengths`` with every
 generation option of the JAX task.
 
-What the port does not have raises naming ROADMAP.md item 11: word alignments
-(``task_cfg.load_alignments``), the latency-augmented criterion (it captures the
-decoder's cross-attention), ``semisupervised_translation`` and
-``translation_from_pretrained_bart``.
+With ``task_cfg.load_alignments`` a raw-text split reads ``<split>.align`` too
+(Pharaoh word alignments, for ``transformer_align``); the binarised path does not,
+as in JAX.  What the port does not have raises naming ROADMAP.md item 11: the
+latency-augmented criterion (it captures every decoder layer's cross-attention),
+``semisupervised_translation`` and ``translation_from_pretrained_bart``.
 """
 
 from __future__ import annotations
@@ -103,11 +104,13 @@ class TranslationTask(Task):
         self.datasets[split] = ds
         return ds
 
+    default_arch = "transformer"
+
     def build_model(self, device="cuda", seed: Optional[int] = None, for_training: bool = False):
         from s2t_tpu_torch.models.build import build_model
 
         return build_model(
-            self.cfg.arch or "transformer", self.cfg.model, device=device,
+            self.cfg.arch or self.default_arch, self.cfg.model, device=device,
             seed=self.cfg.common.seed if seed is None else seed, for_training=for_training,
             vocab_size=len(self.tgt_dict), src_vocab_size=len(self.src_dict),
             max_source_positions=self.cfg.dataset.max_source_positions,

@@ -17,3 +17,11 @@ def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 def mask_to_lengths(mask: torch.Tensor) -> torch.Tensor:
     """(B, T) valid-mask -> (B,) int32 lengths."""
     return mask.sum(dim=-1, dtype=torch.int32)
+
+
+def valid_first(mask: torch.Tensor) -> torch.Tensor:
+    """(B, T) valid-mask -> (B, T) permutation: each row's valid positions first, then
+    the rest, each in order (as ``ops/levenshtein.compact_tokens`` packs tokens)."""
+    T = mask.shape[1]
+    pos = torch.arange(T, device=mask.device)[None, :]
+    return torch.argsort(torch.where(mask, pos, T + pos), dim=1)

@@ -248,11 +248,11 @@ def test_training_cli_refuses_unported_settings():
                                  ("common", "profile", True),
                                  ("common", "tensorboard_logdir", "tb"),
                                  ("common", "user_dir", "plugins"),
-                                 ("optimization", "lr_scheduler", "cosine")):
+                                 ("optimization", "lr_scheduler", "triangular")):
         cfg = TrainConfig()
         setattr(getattr(cfg, section), name, value)
         with pytest.raises(NotImplementedError, match=name if section != "optimization"
-                           else "cosine"):
+                           else "triangular"):
             check_train_supported(cfg)
     # validation-time decoding, the pretrained-component transplant and quant noise are ported
     cfg = TrainConfig()

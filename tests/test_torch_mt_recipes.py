@@ -1,10 +1,11 @@
-"""The 15 MT recipes in the port.
+"""The 16 MT recipes in the port.
 
 * the census: ``egs/mustc/mt/conf/*`` (6, over that directory's ``basis.yaml``)
-  and ``egs/wmt16/mt/conf/*`` but ``fconv.yaml`` (9, each alone, as
+  and ``egs/wmt16/mt/conf/*`` (10 with ``fconv.yaml``, each alone, as
   tests/test_egs_confs.py loads them) resolve through ``build_config`` ->
   ``check_train_supported`` -> ``build_criterion`` -> a one-layer ``build_model``
-  of the recipe's arch (``transformer`` where it names none) at its widths;
+  of the recipe's arch (``transformer`` where it names none) at its widths
+  (fconv's one layer: its first convolution on each side);
 * ``cli.train`` runs ``egs/mustc/mt/conf/base.yaml`` and ``ctc.yaml`` over
   ``basis.yaml`` at one layer for 2 updates on a tiny whitespace corpus, with
   the recipes' ``eval_bleu`` validation and ``best_checkpoint_metric: bleu``;
@@ -27,8 +28,9 @@ ROOT = Path(__file__).resolve().parent.parent
 MUSTC_MT = sorted(f"egs/mustc/mt/conf/{p.name}" for p in (ROOT / "egs/mustc/mt/conf").glob(
     "*.yaml"))
 WMT16_MT = sorted(f"egs/wmt16/mt/conf/{p.name}" for p in (ROOT / "egs/wmt16/mt/conf").glob(
-    "*.yaml") if p.name != "fconv.yaml")
+    "*.yaml"))
 ONE_LAYER = {"encoder_layers": 1, "decoder_layers": 1}
+FCONV_ONE_LAYER = {"encoder_convs": ((512, 3),), "decoder_convs": ((512, 3),)}
 
 
 def recipe_config(recipe, overrides=()):
@@ -39,7 +41,9 @@ def recipe_config(recipe, overrides=()):
 
 
 def test_the_census_counts_15_recipes():
-    assert len(MUSTC_MT) == 6 and len(WMT16_MT) == 9
+    # 15 Transformer recipes and, since fconv is ported, fconv.yaml
+    assert len(MUSTC_MT) == 6 and len(WMT16_MT) == 10
+    assert "egs/wmt16/mt/conf/fconv.yaml" in WMT16_MT
 
 
 @pytest.mark.parametrize("recipe", MUSTC_MT + WMT16_MT)
@@ -48,9 +52,14 @@ def test_recipe_resolves_and_builds_with_one_layer(recipe):
     cfg = recipe_config(recipe)
     check_train_supported(cfg)
     build_criterion(cfg.criterion, cfg.criterion_cfg)
-    m = build_model(cfg.arch or "transformer", {**cfg.model, **ONE_LAYER}, device="cpu",
+    fconv = (cfg.arch or "").startswith("fconv")
+    m = build_model(cfg.arch or "transformer",
+                    {**cfg.model, **(FCONV_ONE_LAYER if fconv else ONE_LAYER)}, device="cpu",
                     for_training=True, vocab_size=32, src_vocab_size=28)
-    assert m.cfg.encoder_layers == 1 and sum(p.numel() for p in m.parameters()) > 0
+    assert (len(m.cfg.encoder_convs) if fconv else m.cfg.encoder_layers) == 1
+    assert sum(p.numel() for p in m.parameters()) > 0
+    if fconv:
+        assert cfg.optimization.lr_scheduler == "fixed" and m.cfg.encoder_embed_dim == 768
     if recipe.endswith("ctc.yaml"):
         assert m.cfg.use_ctc and m.cfg.ctc_upsampling_ratio == 3
 

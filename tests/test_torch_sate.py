@@ -360,7 +360,7 @@ def test_every_jax_arch_is_registered_and_each_unported_one_raises_by_item():
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md section 1 item (7|8|9|10|11)"):
             build_model(arch, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
-        build_model("levenshtein_transformer", device="cpu")
+        build_model("bart_base", device="cpu")
 
 
 # --------------------------------------------------------------------------- #

@@ -21,7 +21,9 @@ ARCHS = {  # one arch of each model class, with the task's context where it take
     "s2t_sate_s": V, "s2t_ctc": V, "s2t_dual_s": V, "s2t_multibranch_s": V,
     "s2t_w2v2_transformer": V, "s2t_berard": V, "emformer_s": V, "transformer": V,
     "transformer_ctc": {**V, "use_ctc": True}, "transformer_lm": V, "wav2vec": {},
-    "wav2vec2_base": {}, "wav2vec_ctc": V, "wav2vec_seq2seq": V,
+    "wav2vec2_base": {}, "wav2vec_ctc": V, "wav2vec_seq2seq": V, "fconv_iwslt_de_en": V,
+    "transformer_align": V, "cmlm_transformer_small": V, "nacrf_transformer": V,
+    "levenshtein_transformer_small": V, "insertion_transformer": V,
 }
 
 

@@ -148,4 +148,4 @@ def test_unported_branches_raise_by_name(tasks):
     with pytest.raises(NotImplementedError, match="lstm_wiseman_iwslt_de_en"):
         build_model("lstm_wiseman_iwslt_de_en", device="cpu")
     with pytest.raises(KeyError, match="unknown task"):
-        setup_task(from_dict(TrainConfig, {"task": "language_modeling"}))
+        setup_task(from_dict(TrainConfig, {"task": "masked_lm"}))

@@ -5,7 +5,7 @@ A whitespace-token corpus (source and target dictionaries of 20 words each,
 
 * raw and binarised batches equal JAX's, key for key (bucketing, order,
   collation); the ``.idx`` / ``.bin`` files each package writes read back in the
-  other; word alignments raise naming item 11;
+  other; Pharaoh word alignments collate as JAX's;
 * both CLIs train ``transformer`` 2 updates from one flax init with ``eval_bleu``
   validation (``best_checkpoint_metric: bleu``): validation losses at rtol 1e-4
   and BLEU equal; then ``cli.generate`` decodes the test split beam 2 and writes
@@ -124,11 +124,17 @@ def test_raw_and_binarized_batches_match_jax(tmp_path):
         jax_from_dict(JaxTrainConfig, d))
     assert type(task.load_dataset("train")).__name__ == "BinarizedTranslationDataset"
     assert_batches_equal(task, jtask, "train")
-    # alignments feed transformer_align only
-    (root / "train.align").write_text("0-0\n" * 40)
+    # Pharaoh alignments (transformer_align's), an empty line among them, collate as JAX's
+    rng = np.random.default_rng(5)
+    (root / "train.align").write_text("".join(
+        " ".join(f"{rng.integers(0, 6)}-{rng.integers(0, 5)}"
+                 for _ in range(int(rng.integers(0, 4)))) + "\n" for _ in range(40)))
     d = cfg_dict(root, task_cfg={"load_alignments": True})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        setup_task(from_dict(TrainConfig, d)).load_dataset("train")
+    task, jtask = setup_task(from_dict(TrainConfig, d)), jax_setup_task(
+        jax_from_dict(JaxTrainConfig, d))
+    assert_batches_equal(task, jtask, "train")
+    assert "alignments" in next(iter(task.get_batch_iterator(
+        task.load_dataset("train"), seed=3).next_epoch_itr()))
 
 
 @pytest.fixture(scope="module")
