@@ -24,6 +24,8 @@ CRITERIONS = {
     "label_smoothed_cross_entropy_with_ctc": LabelSmoothedCEWithCTC,
     "ctc": CTCCriterion,
     "label_smoothed_cross_entropy": LabelSmoothedCE,
+    # JAX registers the plain name on the same class, smoothing 0.1 by default
+    "cross_entropy": LabelSmoothedCE,
     "join_speech_and_text_loss": JoinSpeechAndTextLoss,
     "wav2vec": Wav2VecCriterion,
     "adaptive_loss": AdaptiveLoss,

@@ -8,9 +8,9 @@ permutation by whitespace-token count, longest first, and the collater pads the
 sources to the bucketed longest and the targets through ``collate_targets``.
 Word alignments (``load_alignments``, read by ``transformer_align``) are Pharaoh
 ``i-j`` lines, one per sentence pair (an empty line is the one pair (-1, -1));
-the collater pads them into ``alignments`` (B, P, 2) with -1.  The JAX
-dataset's language tags serve the multilingual and mBART tasks, which are not
-ported.
+the collater pads them into ``alignments`` (B, P, 2) with -1.  Language tags
+(mBART's ``translation_from_pretrained_bart``): ``src_lang_tag`` is appended to each
+source after its EOS, ``tgt_lang_tag`` prepended to each target.
 
 ``MonolingualDataset`` is the language model's: every line (EOS appended) joins
 one token stream, cut into ``block_size`` blocks; the tail is dropped, and the
@@ -22,7 +22,7 @@ are all pad.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -32,9 +32,11 @@ from s2t_tpu_torch.data.dictionary import Dictionary
 
 class TranslationDataset:
     def __init__(self, src_path, tgt_path, src_dict: Dictionary, tgt_dict: Dictionary,
-                 src_bpe=None, tgt_bpe=None, align_path=None):
+                 src_bpe=None, tgt_bpe=None, align_path=None, tgt_lang_tag: Optional[int] = None,
+                 src_lang_tag: Optional[int] = None):
         self.src_dict, self.tgt_dict = src_dict, tgt_dict
         self.src_bpe, self.tgt_bpe = src_bpe, tgt_bpe
+        self.tgt_lang_tag, self.src_lang_tag = tgt_lang_tag, src_lang_tag
         with open(src_path, encoding="utf-8") as f:
             self.src_lines = [line.rstrip("\n") for line in f]
         self.tgt_lines = None
@@ -68,10 +70,15 @@ class TranslationDataset:
         return dic.encode_line(line, append_eos=True)
 
     def __getitem__(self, index: int) -> Dict[str, Any]:
-        item = {"id": index,
-                "source": self._encode(self.src_lines[index], self.src_bpe, self.src_dict)}
+        src = self._encode(self.src_lines[index], self.src_bpe, self.src_dict)
+        if self.src_lang_tag is not None:
+            src = np.concatenate([src, [self.src_lang_tag]]).astype(src.dtype)
+        item = {"id": index, "source": src}
         if self.tgt_lines is not None:
-            item["target"] = self._encode(self.tgt_lines[index], self.tgt_bpe, self.tgt_dict)
+            tgt = self._encode(self.tgt_lines[index], self.tgt_bpe, self.tgt_dict)
+            if self.tgt_lang_tag is not None:
+                tgt = np.concatenate([[self.tgt_lang_tag], tgt]).astype(tgt.dtype)
+            item["target"] = tgt
         if self.alignments is not None:
             item["alignment"] = self.alignments[index]
         return item

@@ -15,8 +15,9 @@ siblings (a rank penalty within each beam).
 Top-k selections use a stable sort, so ties resolve to the lower index as
 ``jax.lax.top_k`` does.  The KV cache is reordered in place by name (the
 ``KV_LEAVES`` of every nested dict: each layer's "k" and "v" and, in the int8
-cache, their scales), over the positions written so far, and fconv's rolling
-windows (``conv{i}``) whole; a ``reorder_fn`` (the lazy reorder) replaces that.
+cache, their scales), over the positions written so far, and the conv decoders'
+rolling windows (``conv{i}``) and the LSTM decoders' states (``h{i}``, ``c{i}``,
+``feed``) whole; a ``reorder_fn`` (the lazy reorder) replaces that.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ import torch
 NEG_INF = -1e9
 CHUNK = 16  # steps between early-stop checks (beam_search.py:362)
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
-WINDOW_LEAF = re.compile(r"^conv\d+$")  # a conv decoder's window of its last inputs
+# leaves gathered whole: a conv decoder's window of its last inputs, an LSTM decoder's
+# layer states and input feed
+WHOLE_LEAF = re.compile(r"^(conv\d+|[hc]\d+|feed)$")
 
 
 def length_penalty(lengths: torch.Tensor, lenpen: float) -> torch.Tensor:
@@ -63,18 +66,19 @@ def _ngram_block(logprobs, tokens, i: int, n: int):
 def reorder_cache(cache: Any, rows: torch.Tensor, upto: int) -> None:
     """Gather beam rows of every KV leaf (picked by name, in nested dicts)
     over positions [0, upto), and of every rolling conv window (``conv{i}``, fconv's
-    (N, k - 1, C) inputs, which have no length axis) whole, in place.  A leaf of
+    and lightconv's (N, k - 1, C) inputs, which have no length axis) and LSTM state
+    (``h{i}``, ``c{i}``, ``feed``) whole, in place.  A leaf of
     another name raises: it would not follow the beam."""
     for name, leaf in cache.items():
         if isinstance(leaf, dict):
             reorder_cache(leaf, rows, upto)
         elif name in KV_LEAVES:
             leaf[:, :upto] = leaf[rows, :upto]
-        elif WINDOW_LEAF.match(name):
+        elif WHOLE_LEAF.match(name):
             leaf.copy_(leaf[rows])
         else:
             raise KeyError(f"cache leaf {name!r} has no beam reorder (KV_LEAVES: {KV_LEAVES}, "
-                           f"windows {WINDOW_LEAF.pattern})")
+                           f"whole: {WHOLE_LEAF.pattern})")
 
 
 def finalize(finished_scores, finished_tokens, alive_scores, alive_tokens, L: int, lenpen: float,

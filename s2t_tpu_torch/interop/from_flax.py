@@ -1,7 +1,7 @@
 """Carry a JAX model's ``.init(...)["params"]`` tree (``S2TTransformerModel``,
 ``PDSS2TTransformerModel``, ``S2TSATEModel``, ``S2TCTCModel``, ``TransformerLM``, the
 wav2vec models, ``BerardModel``, ``EmformerModel``, the text ``TransformerModel``,
-``FConvModel``, the NAT models, ...)
+``FConvModel``, the NAT models, ``BARTModel``, the LSTM models, ``LightConvModel``, ...)
 into the port.
 
 The tree arrives as nested mappings of numpy arrays (``jax.tree.map(np.asarray,
@@ -46,7 +46,14 @@ wav2vec: ``rproj{i}`` -> ``rprojs.{i}``, the k-means quantizer's (V, G, d)
 ``res{i}``, ``attn_q{i}``, ``attn_o{i}`` -> ``convs.{i}``, ``ress.{i}``,
 ``attn_qs.{i}``, ``attn_os.{i}``; the NAT models' ``length_head``, ``del_head``,
 ``ins_head``, ``slot_proj`` and the CRF's ``crf/e1`` / ``crf/e2`` tables keep their
-names.  Any leaf left unmapped on either side raises.
+names.  BART: the top-level ``shared`` table -> the decoder's ``embed_tokens`` (the
+encoder borrows it).  The LSTM models: ``enc_fw{i}``, ``enc_bw{i}``, ``dec{i}``,
+``lstm{i}`` -> ``enc_fws.{i}``, ``enc_bws.{i}``, ``decs.{i}``, ``lstms.{i}``, each flax
+``OptimizedLSTMCell``'s gate Denses (``ii`` ... ``io`` kernels, ``hi`` ... ``ho``
+kernels and biases) fused into Berard's ``weight_ih`` / ``weight_hh`` / ``bias`` in the
+gate order i, f, g, o and split back; ``src_embed`` / ``tgt_embed`` are tables.  The
+conv models: ``enc{i}`` / ``dec{i}`` -> ``encs.{i}`` / ``decs.{i}``.  Any leaf left
+unmapped on either side raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
 say) as the nested flax tree, so it can be compared leaf by leaf with a JAX
@@ -76,7 +83,7 @@ _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
             (re.compile(r"^ctc(\d+)$"), r"ctc_heads.\1"),
             (re.compile(r"^(senior|textual)(\d+)$"), r"\1_stack.\2"),
             (re.compile(r"^blstm(\d+)_(fwd|bwd)$"), r"blstms.\1.\2"),
-            (re.compile(r"^(layer|conv|input|rproj|res|attn_q|attn_o)(\d+)$"), r"\1s.\2"))
+            (re.compile(r"^(layer|conv|input|rproj|res|attn_q|attn_o|enc|dec|enc_fw|enc_bw|lstm)(\d+)$"), r"\1s.\2"))
 _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bnorms\.(\d+)\b"), r"norm\1"),
             (re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
@@ -86,7 +93,7 @@ _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bctc_heads\.(\d+)\b"), r"ctc\1"),
             (re.compile(r"\b(senior|textual)_stack\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bblstms\.(\d+)\.(fwd|bwd)\b"), r"blstm\1_\2"),
-            (re.compile(r"\b(layer|conv|input|rproj|res|attn_q|attn_o)s\.(\d+)\b"), r"\1\2"))
+            (re.compile(r"\b(layer|conv|input|rproj|res|attn_q|attn_o|enc|dec|enc_fw|enc_bw|lstm)s\.(\d+)\b"), r"\1\2"))
 # parameters that are leaves of their own, with the same name on both sides
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
                    "embed_adapter", "relative_position_keys", "gauss_sigma",
@@ -98,6 +105,11 @@ _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "po
 _LSTM_KERNELS = {"kernel_ih": "weight_ih", "kernel_hh": "weight_hh"}
 _LSTM_WEIGHTS = {v: k for k, v in _LSTM_KERNELS.items()}
 _CELL_LEAF = re.compile(r"^cell(\d+)_(kernel_ih|kernel_hh|bias)$")
+# the LSTM models' flax OptimizedLSTMCells: one Dense a gate, ``ii`` ... ``io`` over the
+# input and ``hi`` ... ``ho`` (with the bias) over the state <-> Berard's fused layout
+_GATED_CELL = re.compile(r"^(enc_fw|enc_bw|dec|lstm)\d+$")
+_GATE = re.compile(r"^[ih][ifgo]$")
+_FUSED = {"kernel_ih": ("i", "kernel"), "kernel_hh": ("h", "kernel"), "bias": ("h", "bias")}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -110,8 +122,24 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
+def _fuse_gates(flat: Dict[tuple, np.ndarray]) -> Dict[tuple, np.ndarray]:
+    """An OptimizedLSTMCell's eight gate Denses -> ``kernel_ih`` (D, 4H), ``kernel_hh``
+    (H, 4H) and ``bias`` (4H), gates in the order i, f, g, o."""
+    out, cells = {}, {}
+    for path, arr in flat.items():
+        if len(path) >= 3 and _GATED_CELL.match(path[-3]) and _GATE.match(path[-2]):
+            cells.setdefault(path[:-2], {})[path[-2:]] = arr
+        else:
+            out[path] = arr
+    for cell, leaves in cells.items():
+        for fused, (side, leaf) in _FUSED.items():
+            out[(*cell, fused)] = np.concatenate([leaves[(side + g, leaf)] for g in "ifgo"],
+                                                 axis=-1)
+    return out
+
+
 def _module_path(parts) -> str:
-    if parts[:1] in (("shared_embed",), ("adaptive_embed",)):
+    if parts[:1] in (("shared_embed",), ("shared",), ("adaptive_embed",)):
         parts = ("decoder", "embed_tokens", *parts[1:])
     return ".".join(next((pat.sub(repl, p) for pat, repl in _TO_PORT if pat.match(p)), p)
                     for p in parts)
@@ -140,7 +168,7 @@ def _leaf(name: str, arr: np.ndarray):
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Rename and re-layout every leaf; raises on a leaf it cannot map."""
     sd, unmapped = {}, []
-    for path, arr in _flatten(params).items():
+    for path, arr in _fuse_gates(_flatten(params)).items():
         cell = _CELL_LEAF.match(path[-1])
         if cell:
             path = (*path[:-1], f"cells.{cell.group(1)}", cell.group(2))
@@ -174,11 +202,11 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     return model
 
 
-def _flax_module_path(name: str, shared_embed: bool) -> tuple:
+def _flax_module_path(name: str, shared_embed) -> tuple:
     if not name:  # a parameter of the model itself (wav2vec 2.0's mask_emb)
         return ()
     if name == "decoder.embed_tokens" and shared_embed:
-        return ("shared_embed",)
+        return ("shared_embed" if shared_embed is True else shared_embed,)
     if name.startswith("decoder.embed_tokens."):  # an LM's adaptive input
         return ("adaptive_embed", *name.split(".")[2:])
     for pattern, repl in _TO_FLAX:
@@ -195,7 +223,7 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
         return "embedding", arr
     if name != "weight":
         raise KeyError(name)
-    if re.search(r"(embed_tokens|embed_positions|embed\d+|crf\.e[12])$", module):
+    if re.search(r"(embed_tokens|embed_positions|embed\d+|crf\.e[12]|^(src|tgt)_embed)$", module):
         return "embedding", arr
     if module.endswith(".conv") and arr.ndim == 2:  # a lightweight conv's (H, k) kernel
         return "weight", arr
@@ -210,7 +238,7 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
     raise KeyError(name)
 
 
-def flax_path(key: str, ndim: int, shared_embed: bool = False) -> tuple:
+def flax_path(key: str, ndim: int, shared_embed=False) -> tuple:
     """The flax path (module parts, then the leaf name) of the port parameter
     ``key`` of rank ``ndim``, without its values."""
     module, _, name = key.rpartition(".")
@@ -218,12 +246,11 @@ def flax_path(key: str, ndim: int, shared_embed: bool = False) -> tuple:
     return (*_flax_module_path(module, shared_embed), leaf)
 
 
-def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
-                       shared_embed: bool = False) -> Dict:
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor], shared_embed=False) -> Dict:
     """Port state dict -> nested flax params of float32 numpy arrays.
-    ``shared_embed``: the model ties its CTC head to the decoder embedding
-    (``share_ctc_and_embed``), which flax keeps as a top-level
-    ``shared_embed`` table.  Raises on a leaf it cannot map."""
+    ``shared_embed``: the decoder's table is a top-level one in flax, named
+    ``shared_embed`` (True: a CTC head tied to it, ``share_ctc_and_embed``) or the
+    name given (BART's ``"shared"``).  Raises on a leaf it cannot map."""
     tree: Dict = {}
     unmapped = []
     for key, val in state_dict.items():
@@ -240,6 +267,11 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
         node = tree
         for part in parts:
             node = node.setdefault(part, {})
+        if parts and _GATED_CELL.match(parts[-1]) and leaf in _FUSED:  # split by gate
+            side, name = _FUSED[leaf]
+            for g, part in zip("ifgo", np.split(out, 4, axis=-1)):
+                node.setdefault(side + g, {})[name] = np.array(part)
+            continue
         node[leaf] = np.array(out)
     if unmapped:
         raise KeyError(f"port parameters with no flax counterpart: {unmapped}")

@@ -18,10 +18,13 @@ family ``wav2vec2_base``, ``wav2vec2_large``, ``wav2vec_ctc``, ``wav2vec_seq2seq
 Transformer (``transformer``, ``transformer_iwslt_de_en``,
 ``transformer_wmt_en_de_big``, ``transformer_wmt_en_de_big_t2t``,
 ``transformer_ctc``), ConvS2S (``fconv``, ``fconv_iwslt_de_en``, ``fconv_wmt_en_de``),
-the alignment Transformer (``transformer_align``, ``transformer_wmt_en_de_big_align``)
-and the NAT family (``cmlm_transformer``, ``cmlm_transformer_small``,
+the alignment Transformer (``transformer_align``, ``transformer_wmt_en_de_big_align``),
+the NAT family (``cmlm_transformer``, ``cmlm_transformer_small``,
 ``nonautoregressive_transformer``, ``nacrf_transformer``, ``levenshtein_transformer``,
-``levenshtein_transformer_small``, ``insertion_transformer``).
+``levenshtein_transformer_small``, ``insertion_transformer``), BART (``bart_base``,
+``bart_large``, ``mbart_large``), the LSTMs (``lstm``, ``lstm_wiseman_iwslt_de_en``,
+``lstm_lm``) and the convolution models (``lightconv``, ``lightconv_iwslt_de_en``,
+``dynamicconv``, ``dynamicconv_iwslt_de_en``).
 Every other architecture of the JAX registry is registered here too, as a preset that
 raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
 ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
@@ -34,9 +37,10 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from s2t_tpu_torch.models import (  # noqa: F401  (the presets)
-    berard, cmlm_transformer, fconv, insertion_transformer, levenshtein_transformer, pds,
-    s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer, s2t_w2v2_transformer, sate, streaming,
-    transformer, transformer_align, transformer_lm, wav2vec, wav2vec2)
+    bart, berard, cmlm_transformer, fconv, insertion_transformer, levenshtein_transformer,
+    lightconv, lstm, pds, s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer,
+    s2t_w2v2_transformer, sate, streaming, transformer, transformer_align, transformer_lm,
+    wav2vec, wav2vec2)
 from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
 
 _ITEMS = {
@@ -47,11 +51,6 @@ _ITEMS = {
 UNPORTED_ARCHS = {
     **{a: ("multilingual_transformer", "the multilingual Transformer", 11)
        for a in ("multilingual_transformer", "multilingual_transformer_iwslt_de_en")},
-    **{a: ("lstm", "the LSTM encoder-decoder", 11) for a in ("lstm", "lstm_wiseman_iwslt_de_en")},
-    "lstm_lm": ("lstm_lm", "the LSTM language model", 11),
-    **{a: ("lightconv", "lightweight and dynamic convolutions", 11)
-       for a in ("lightconv", "lightconv_iwslt_de_en", "dynamicconv", "dynamicconv_iwslt_de_en")},
-    **{a: ("bart", "BART", 11) for a in ("bart_base", "bart_large", "mbart_large")},
     **{a: ("roberta", "the RoBERTa encoder", 11)
        for a in ("roberta_base", "roberta_large", "bert_base", "camembert", "gottbert",
                  "xlmr_base", "xlmr_large")},

@@ -122,11 +122,14 @@ class TransformerTextEncoder(nn.Module):
     """(src_tokens (B, S), src_lengths) -> {"encoder_out", "encoder_lengths",
     "ctc_lengths", "ctc_logits", "inter_ctc_logits", ...} (transformer.py:98-219)."""
 
-    def __init__(self, cfg: TransformerMTConfig):
+    def __init__(self, cfg: TransformerMTConfig, embed_tokens: Optional[nn.Module] = None):
         super().__init__()
         self.cfg = cfg
         D = cfg.encoder_embed_dim
-        self.embed_tokens = nn.Embedding(cfg.src_vocab, D)
+        if embed_tokens is None:
+            self.embed_tokens = nn.Embedding(cfg.src_vocab, D)
+        else:  # a table its parent owns (BART's shared one), kept out of this module's params
+            object.__setattr__(self, "embed_tokens", embed_tokens)
         self.embed_positions = (nn.Embedding(cfg.max_source_positions + 2, D)
                                 if cfg.encoder_learned_pos else None)
         self.emb_norm = layer_norm(D) if cfg.layernorm_embedding else None

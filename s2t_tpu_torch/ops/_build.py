@@ -6,6 +6,8 @@ covers the source, the shared ``*.cuh`` headers and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  The sources have a plain C
 interface (no PyTorch headers), which keeps a build to seconds.  Pointers and
 the stream are passed as ``ctypes.c_void_p``.  A failed build raises with the compiler's output.
+``start`` launches the compilers and returns at once, so that a caller can do other
+work while they run; ``build`` (and a library's first load) waits for them.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
@@ -29,6 +32,9 @@ NVCC_FLAGS = (
 
 # loaded libraries, one per source, for the life of the process
 _loaded: Dict[str, ctypes.CDLL] = {}
+# compilers started and not yet waited for: name -> (process, its output file, the
+# library's temporary and final paths, start time, {"end": time the process exited})
+_pending: Dict[str, tuple] = {}
 
 
 def nvcc_path() -> str:
@@ -53,33 +59,48 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:
-    """Compile the named sources (default: all) that are out of date, one
-    ``nvcc`` per source, all started together.  Returns {name: (seconds,
-    compiler output)} for the sources it compiled."""
+def start(names: Optional[Iterable[str]] = None) -> None:
+    """Start one ``nvcc`` for each named source (default: all) that is out of date and
+    not compiling already, all together, and return without waiting."""
     names = tuple(names) if names is not None else sources()
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in names if n not in _pending and not library_path(n).exists()]
     if not todo:
-        return {}
+        return
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out, time.perf_counter(),
-        )
+        with open(log, "w") as f:  # a file, not a pipe: nothing need read it while it runs
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        exited: Dict[str, float] = {}
+        threading.Thread(target=lambda p=proc, e=exited: (p.wait(), e.update(
+            end=time.perf_counter())), daemon=True).start()
+        _pending[name] = (proc, log, tmp, out, time.perf_counter(), exited)
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Tuple[float, str]]:
+    """Compile the named sources (default: all) that are out of date, one
+    ``nvcc`` per source, all started together (or by ``start`` earlier), and wait
+    for them.  Returns {name: (seconds from start to exit, compiler output)} for
+    the sources it compiled."""
+    names = tuple(names) if names is not None else sources()
+    start(names)
     done, failed = {}, []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
+    for name in names:
+        if name not in _pending:
+            continue
+        proc, log_path, tmp, out, t0, exited = _pending.pop(name)
+        proc.wait()
+        log = log_path.read_text()
+        log_path.unlink()
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)
-        done[name] = (time.perf_counter() - t0, log)
+        done[name] = (exited.get("end", time.perf_counter()) - t0, log)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return done

@@ -15,9 +15,17 @@ generation option of the JAX task.
 
 With ``task_cfg.load_alignments`` a raw-text split reads ``<split>.align`` too
 (Pharaoh word alignments, for ``transformer_align``); the binarised path does not,
-as in JAX.  What the port does not have raises naming ROADMAP.md item 11: the
-latency-augmented criterion (it captures every decoder layer's cross-attention),
-``semisupervised_translation`` and ``translation_from_pretrained_bart``.
+as in JAX.
+
+``translation_from_pretrained_bart`` fine-tunes mBART (s2t_tpu/tasks/translation.py:241-285):
+``<mask>`` and then ``<lang:xx>`` for each of ``task_cfg.langs`` join each dictionary
+once (a shared dictionary once in all), every source gets its language's tag
+appended after EOS and every target its language's tag prepended; the pretrained
+weights come in through ``checkpoint.finetune_from_model``.
+
+What the port does not have raises naming ROADMAP.md item 11: the latency-augmented
+criterion (it captures every decoder layer's cross-attention) and
+``semisupervised_translation``.
 """
 
 from __future__ import annotations
@@ -149,5 +157,30 @@ def _unported(name: str, needs: str):
 
 
 _unported("semisupervised_translation", "online backtranslation")
-_unported("translation_from_pretrained_bart", "mBART")
+
+
+@register_task("translation_from_pretrained_bart")
+class TranslationFromPretrainedBARTTask(TranslationTask):
+    default_arch = "mbart_large"
+
+    def __init__(self, cfg: TrainConfig, data_cfg: TransDataConfig, tgt_dict: Dictionary,
+                 src_dict: Optional[Dictionary] = None):
+        super().__init__(cfg, data_cfg, tgt_dict, src_dict)
+        self.langs = [lang for lang in str((cfg.task_cfg or {}).get("langs", "")).split(",")
+                      if lang]
+        for d in {id(self.src_dict): self.src_dict, id(self.tgt_dict): self.tgt_dict}.values():
+            d.add_symbol("<mask>")
+            for lang in self.langs:
+                d.add_symbol(f"<lang:{lang}>")
+
+    def load_dataset(self, split: str, is_train: bool = False):
+        root = Path(self.cfg.dataset.data)
+        sl, tl = self.data_cfg.src_lang, self.data_cfg.tgt_lang
+        tgt = root / f"{split}.{tl}"
+        ds = TranslationDataset(
+            root / f"{split}.{sl}", tgt if tgt.exists() else None, self.src_dict, self.tgt_dict,
+            self.src_bpe, self.bpe, tgt_lang_tag=self.tgt_dict.index(f"<lang:{tl}>"),
+            src_lang_tag=self.src_dict.index(f"<lang:{sl}>"))
+        self.datasets[split] = ds
+        return ds
 

@@ -20,12 +20,15 @@ its largest entry) to ``jax.value_and_grad`` of the JAX criterion:
   in the port alike (through the model, loss and every parameter gradient).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import s2t_tpu.criterions.ctc as jax_ctc_criterion
 from s2t_tpu.criterions.build import build_criterion as jax_build_criterion
 from s2t_tpu.models import s2t_ctc as jctc
 from s2t_tpu.models import s2t_transformer as jst
@@ -37,6 +40,24 @@ import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 B, T, U, V, VT = 4, 14, 6, 11, 13
 LENGTHS = np.array([14, 11, 9, 6], np.int32)
 INTER, INTER_X, INTER_AX = (2, 3), (2,), (1, 3)
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_jax_ctc_loss():
+    """JAX's CTC loss under one ``jax.jit`` for the whole test process."""
+    return jax.jit(jax_ctc_criterion.ctc_loss, static_argnames=(
+        "blank_id", "reduction", "zero_infinity", "normalized"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_ctc_loss():
+    """The JAX CTC criterion calls ``jitted_jax_ctc_loss`` in this module (and in each
+    module that imports this fixture): a lattice of one shape is traced and compiled
+    once, and every later call of that shape, in any case, reuses it (an eager call
+    traces and compiles its own scan).  The function and its numbers are JAX's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_ctc_criterion, "ctc_loss", jitted_jax_ctc_loss())
+        yield
 
 
 @pytest.fixture(scope="module")

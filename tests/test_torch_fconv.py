@@ -44,7 +44,7 @@ from s2t_tpu_torch.models.build import build_model
 from s2t_tpu_torch.models.transformer import text_forward
 from s2t_tpu_torch.optim.builders import build_lr_schedule
 from s2t_tpu_torch.trainer import Trainer
-from tests.test_torch_train_trainer import flat
+from tests.test_torch_train_trainer import flat, on_mesh
 from tests.test_torch_wav2vec2 import assert_close, perturb
 import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
@@ -253,10 +253,10 @@ def test_the_recipes_lr_explodes_after_one_update_in_jax_and_the_port():
             return model.init(rngs["params"], *args)
         return model.apply({"params": params}, *args, deterministic=deterministic, rngs=rngs)
 
+    mesh = make_mesh(devices=jax.devices()[:1])
     jt = JaxTrainer(jf.FConvModel(jf.FConvConfig(**kw)), jax_build_criterion(*crit),
-                    JaxOptimizationConfig(**opt), mesh=make_mesh(devices=jax.devices()[:1]),
-                    forward_fn=jax_forward)
-    state = jt.init_state(steps[0])
+                    JaxOptimizationConfig(**opt), mesh=mesh, forward_fn=jax_forward)
+    state = on_mesh(jt.init_state(steps[0]), mesh)
     tm = load_flax_params(tf.FConvModel(tf.FConvConfig(**kw), device="cpu", for_training=True),
                           jax.tree.map(np.asarray, state.params))
     tt = Trainer(tm, build_criterion(*crit), OptimizationConfig(**opt), device="cpu",

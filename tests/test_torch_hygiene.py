@@ -1,6 +1,6 @@
 """Boundaries of the s2t_tpu_torch port.
 
-* The port and chip_smoke.py import neither jax, flax nor s2t_tpu (checked
+* The port, chip_smoke.py and phase_profile.py import neither jax, flax nor s2t_tpu (checked
   in the source and in a fresh interpreter), and none of PyYAML,
   ``tokenizers`` or sacreBLEU at module level (the card's machine may lack
   them; the modules that need them import them inside the call).
@@ -32,7 +32,7 @@ import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(s2t_tpu_torch.__file__).resolve().parent
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "phase_profile.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "s2t_tpu")
 OPTIONAL = ("yaml", "tokenizers", "sacrebleu")  # imported inside the calls that need them
 

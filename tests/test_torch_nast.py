@@ -56,6 +56,7 @@ from s2t_tpu_torch.trainer import Trainer
 from tests.test_torch_conformer import cli_round_trip, rng_batch
 from tests.test_torch_pds_cli import corpus  # noqa: F401  (the shared wav corpus fixture)
 from tests.test_torch_sate import _jax_archs
+from tests.test_torch_train_trainer import on_mesh
 import tests.test_torch_env  # noqa: F401  (the port tests' CPU settings)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -142,10 +143,10 @@ def test_three_trainer_steps_match_jax(name, tmp_path):
                                           for k, v in model.items()}, criterion)
     rng = np.random.default_rng(1)
     steps = [_batch(rng) for _ in range(3)]
+    mesh = make_mesh(devices=jax.devices()[:1])
     jtrainer = JaxTrainer(jtask.build_model(), jax_build_criterion(*criterion),
-                          JaxOptimizationConfig(**OPT), mesh=make_mesh(devices=jax.devices()[:1]),
-                          forward_fn=jtask.forward_fn())
-    state = jtrainer.init_state(steps[0])
+                          JaxOptimizationConfig(**OPT), mesh=mesh, forward_fn=jtask.forward_fn())
+    state = on_mesh(jtrainer.init_state(steps[0]), mesh)
     model_t = task.build_model(device="cpu", for_training=True)
     load_flax_params(model_t, jax.tree.map(np.asarray, state.params))
     trainer = Trainer(model_t, build_criterion(*criterion), OptimizationConfig(**OPT),

@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from s2t_tpu.config import OptimizationConfig as JaxOptimizationConfig
 from s2t_tpu.criterions.build import build_criterion as jax_build_criterion
@@ -71,6 +72,12 @@ def batches(update_freq, n=3, seed=0):
     return out
 
 
+def on_mesh(state, mesh):
+    """The JAX Trainer's initial state placed as its train step returns states (replicated
+    on the mesh), so the step compiles once and not again for the second placement."""
+    return jax.device_put(state, NamedSharding(mesh, PartitionSpec()))
+
+
 def flat(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -82,12 +89,12 @@ def flat(tree, prefix=()):
 @pytest.mark.parametrize("update_freq", [1, 2])
 def test_three_steps_match_jax_trainer(update_freq):
     steps = batches(update_freq)
+    mesh = make_mesh(devices=jax.devices()[:1])
     jtrainer = JaxTrainer(jst.S2TTransformerModel(jst.s2t_transformer_s(**TINY)),
                           jax_build_criterion(*CRITERION),
-                          JaxOptimizationConfig(update_freq=update_freq, **OPT),
-                          mesh=make_mesh(devices=jax.devices()[:1]))
+                          JaxOptimizationConfig(update_freq=update_freq, **OPT), mesh=mesh)
     first = steps[0] if update_freq == 1 else {k: v[0] for k, v in steps[0].items()}
-    state = jtrainer.init_state(first)
+    state = on_mesh(jtrainer.init_state(first), mesh)
     model = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY), device="cpu",
                                     for_training=True)
     load_flax_params(model, jax.tree.map(np.asarray, state.params))
