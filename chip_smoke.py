@@ -1,7 +1,8 @@
 """Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer, CTC
 research-stack, encoder-variant, generator, wav2vec 2.0, dual / multibranch, text MT,
-Berard, Emformer, wav2vec v1, ConvS2S, adaptive-LM, alignment, NAT, BART / mBART and
-LSTM / LightConv / DynamicConv slices on one NVIDIA H100.
+Berard, Emformer, wav2vec v1, ConvS2S, adaptive-LM, alignment, NAT, BART / mBART,
+LSTM / LightConv / DynamicConv, multilingual Transformer, RoBERTa / BERT and GPT-2 slices
+on one NVIDIA H100.
 
 The earlier paths' fp32 CPU references run at a smaller depth than their presets
 (``shallow``: REF_LAYERS layers a stack, each inter tap kept), while every path's bf16
@@ -20,7 +21,7 @@ Phases (any failure ends the run with a non-zero exit):
              tensor-core instructions (HMMA, HGMMA) of every attention kernel
              and fails if a bf16 kernel (forward, dK/dV, dQ) has none at any
              padded head dim, WIDE (16-byte copies) or not.  While nvcc runs,
-             phases 39, 41, 42, 43 and 48, which launch no kernel of the port,
+             phases 39, 41, 42, 43, 48 and 51, which launch no kernel of the port,
              run first;
   2. kernel  the attention forward (K1f) against its plain PyTorch version on
              the card at the s/m/l head plans, T' = 250 and 1000, ragged
@@ -63,8 +64,10 @@ Phases (any failure ends the run with a non-zero exit):
              per-step loss / ctc_loss / gnorm and the parameters after 2 steps
              (every phase's fp32 training parity takes 2 steps; the serving
              parity of phases 5, 16, 19, 21, 23, 25, 26, 28 decodes 20 tokens;
-             phase 6's timing takes 2 batches and profiles a 20-token decode, as
-             phases 16, 19, 21, 25 and phase 30's modes);
+             phase 6's timing takes a warm-up and one timed batch, as phases 16,
+             19, 21 and 25, and phase 30 a warm-up and one timed decode a mode; the
+             fp32 card and CPU models of a check are one seeded build, copied to
+             the card, ``seeded_pair``);
   8. train   s2t_transformer_m in bf16 at the bench shape (B=40, T=1000, U=30,
      speed   V=10000, preset dropouts, ctc_weight 0.3): one warm-up step, 20
              timed steps, steps/s, frames/s, tokens/s, MFU, and one profiled
@@ -258,7 +261,25 @@ Phases (any failure ends the run with a non-zero exit):
              lightconv_iwslt_de_en and dynamicconv_iwslt_de_en on phase 37's dictionaries
              and shapes: 2 fp32 steps card vs CPU, 2 timed bf16 steps, beam-5 tokens card
              vs CPU for the three encoder-decoders (no kernel: outside Pallas in JAX too);
-  9. summary the ten slowest phases and the seconds of phases 1-45 and 46-48, the
+ 49. multi    fairseq's IWSLT'17 multilingual recipe (multilingual_transformer_iwslt_de_en:
+     lingual  512 / 1024, 6 + 6, a de and an fr encoder, one shared decoder, dictionaries
+             of 16,000): 2 fp32 round-robin steps card vs CPU at 2 layers a side, 2
+             timed bf16 steps on the first batch of the task's batcher at max_tokens
+             4000 (K1f / K1b 12 / 12 a step), cli.train (2 updates) -> cli.generate on
+             de-en, translation_multi_simple_epoch (<lang:en> tags, 1 update), beam-5
+             tokens of 8 sentences through pair_view card vs CPU;
+ 50. roberta  fairseq's RoBERTa pretraining recipe (roberta_base, 768 / 3072, 12 post-norm
+             layers, 50,265 entries; masked_lm at 512 tokens, 16 samples): 2 fp32 steps
+             card vs CPU on handed-over masks at 2 layers, 2 timed bf16 steps at 16 x 512
+             (K1f / K1b 12 / 12 a step, one profiled), the 2-class head's logits card vs
+             CPU, cli.train one update each of sentence_prediction, sentence_ranking,
+             legacy_masked_lm (bert_base, NSP) and cross_lingual_lm (2 languages);
+ 51. gpt2     hf_gpt2 (GPT-2 small: 768, 12 layers, 50,257 entries, 1024 positions)
+             through language_modeling: 2 fp32 steps card vs CPU at 2 layers, 2 timed
+             bf16 steps at 8 x 1024, incremental logits against the full forward and
+             greedy tokens card vs CPU at full depth (no kernel; it runs while nvcc
+             compiles);
+  9. summary the ten slowest phases and the seconds of phases 1-48 and 49-51, the
              kernels line, the card's name and power limit, and the final
              {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
@@ -290,6 +311,9 @@ its non-causal decoder run them 6 a pass each: 12 / 12 a CMLM, NACRF or insertio
 references' depth 2 a pass).  Phases 46-47: the BART / mBART encoder runs K1f / K1b once a
 layer (6 / 6 a bart_base step, 12 / 12 an mbart_large one; 2 / 2 at the cut depth), and
 K1f once a layer an encode; their causal decoders attend densely; phase 48 launches none.
+Phase 49: each language's encoder runs K1f / K1b once a layer (a round-robin step runs
+both pairs: 12 / 12, 4 / 4 at the cut depth), the shared causal decoder none; phase 50's
+RoBERTa / BERT layers once a layer (12 / 12 a roberta_base step); phase 51 none.
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -301,6 +325,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -514,7 +539,8 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
     device events that start before the trace's first host event are not this
     trace's and are left out; a trace with no device event, or one whose count of
     a kernel's events is no multiple of ``iters`` (it lost or doubled some), is
-    taken again (at most 3 times; a last incomplete trace still counts, logged).
+    taken again (at most 3 times; a last incomplete trace still counts, logged, and
+    so does an earlier incomplete one when the last recorded none).
     Returns (ms, {name: ms})."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -522,6 +548,7 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    partial = None  # the last trace that kept some of the kernel's events
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -544,8 +571,13 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3):
                     log(f"[profiler] the last trace kept {lost} events of {iters} calls")
                 return sum(split.values()), split
             log(f"[profiler] a trace kept {lost} events of {iters} calls: taken again")
+            partial = (lost, split)
             continue
         log(f"[profiler] a trace recorded no device kernel matching {names}: taken again")
+    if partial is not None:  # a trace can lose events: the mean of those it kept still reads
+        log(f"[profiler] the last trace recorded none; an earlier one kept {partial[0]} "
+            f"events of {iters} calls")
+        return sum(partial[1].values()), partial[1]
     raise AssertionError(f"three traces recorded no device kernel matching {names}")
 
 
@@ -1389,7 +1421,11 @@ def stage_ranges(encoder):
             h.remove()
 
 
-def phase_speed(cfg=None, tag="speed", n_timed: int = 2, B: int = 64, seconds: float = 10.0):
+SERVE_TIMED = 1  # timed bf16 serving batches of phases 6, 16, 19, 21, 25 (after a warm-up)
+
+
+def phase_speed(cfg=None, tag="speed", n_timed: int = SERVE_TIMED, B: int = 64,
+                seconds: float = 10.0):
     """bf16 serving of B synthetic waveforms of ``seconds`` each, beam 5 (``cfg``:
     s2t_transformer_s by default); for a PDS, SATE or Conformer model also the device ms
     of each stage or part of one encode (``encoder_ranges``).  Returns (encodes, results)."""
@@ -1537,6 +1573,26 @@ def check_step_launches(counts, steps=1, per_step=None):
         raise AssertionError(f"{steps} training step(s) launched {counts}, expected {want}")
 
 
+def seeded_pair(build):
+    """{"cuda": ..., "cpu": build("cpu")}: one seeded build for both sides of a card-vs-CPU
+    check, the card's a copy moved there.  A build samples its weights on the CPU whatever
+    its device, so the copy holds what build("cuda") would, without sampling them again."""
+    host = build("cpu")
+    return {"cuda": copy.deepcopy(host).to("cuda"), "cpu": host}
+
+
+def make_criterion(criterion):
+    """A criterion from (name, cfg), or a built one (a callable)."""
+    return criterion if callable(criterion) else build_criterion(*criterion)
+
+
+def nested_to(batch, device):
+    """Every array of a batch, nested dicts too (a zip batch's pairs, handed-over draws),
+    as a tensor on ``device``."""
+    return {k: nested_to(v, device) if isinstance(v, dict) else torch.as_tensor(v).to(device)
+            for k, v in batch.items()}
+
+
 def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", steps: int = 2,
                        criterion=CRITERION, per_step=None, U: int = 30, log_keys=(),
                        batches=None, forward_fn=None, opt=None, prepare=None):
@@ -1562,11 +1618,12 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
                    for _ in range(steps)]
     steps = len(batches)
     runs, launches = {}, {k: 0 for k in per_step}
+    models = seeded_pair(lambda d: model_cls(cfg, device=d, seed=0, for_training=True))
     for device in ("cuda", "cpu"):
-        model = model_cls(cfg, device=device, seed=0, for_training=True)
+        model = models[device]
         if prepare is not None:
             prepare(model)
-        trainer = Trainer(model, build_criterion(*criterion), opt, device=device, seed=1,
+        trainer = Trainer(model, make_criterion(criterion), opt, device=device, seed=1,
                           forward_fn=forward_fn or stack_forward)
         metrics, t0 = [], time.perf_counter()
         for batch in batches:
@@ -1614,7 +1671,8 @@ def phase_train_parity(cfg=None, model_cls=S2TTransformerModel, tag="train", ste
 
 def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed",
                       n_timed: int = 20, B: int = 40, T: int = 1000, U: int = 30, V: int = 10000,
-                      criterion=CRITERION, per_step=None, batch=None, forward_fn=None, opt=None):
+                      criterion=CRITERION, per_step=None, batch=None, forward_fn=None, opt=None,
+                      profile=None):
     """bf16 at the bench.py section B shape and optimizer (``cfg``: s2t_transformer_m
     by default): 1 warm-up, ``n_timed`` timed and 1 last step on one device-resident
     batch, the launches checked per step.  For the default model only (phase 8 and
@@ -1624,19 +1682,19 @@ def phase_train_speed(cfg=None, model_cls=S2TTransformerModel, tag="train speed"
     forward (``encoder_ranges``) and of each CTC term of the loss (``ctc_term_ranges``).
     ``batch``, ``forward_fn`` and ``opt`` replace the seeded (B, T, U, V) feature batch,
     ``stack_forward`` and the bench optimizer (the text and waveform batches of phases 37,
-    38 and 41)."""
-    profile = cfg is None
+    38 and 41).  ``profile``: profile the last step of another model too (its busy share)."""
+    profile = cfg is None if profile is None else profile
     cfg = cfg or s2t_transformer_m(vocab_size=V, dtype_str="bfloat16", max_target_positions=1024)
     per_step = per_step or step_launches(cfg)
     model = model_cls(cfg, device="cuda", seed=0, for_training=True)
-    trainer = Trainer(model, build_criterion(*criterion),
+    trainer = Trainer(model, make_criterion(criterion),
                       opt or OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
                       device="cuda", seed=1, forward_fn=forward_fn or stack_forward)
     shape = {}
     if batch is None:
         batch = train_batch(np.random.default_rng(0), B, T, U, V, [T] * B)
         shape = {"batch": B, "frames": T, "target_tokens": U, "vocab": V}
-    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}  # device-resident, as bench
+    batch = nested_to(batch, "cuda")  # device-resident, as bench
     reset_counts()  # the main path: 1 warm-up + n_timed timed + 1 profiled step
     losses = [trainer.train_step(batch)["loss"]]
     torch.cuda.synchronize()
@@ -2186,7 +2244,7 @@ def phase_nast(preset=None, model_section=None, tag="nast", use_xctc=False, ense
     cfg32 = preset(**(model_section or {}), vocab_size=V, max_target_positions=1024)
     cfg32 = shallow(cfg32)  # the reference's depth
     layers = encoder_layers(cfg32)
-    card, host = (S2TCTCModel(cfg32, device=d, seed=0) for d in ("cuda", "cpu"))
+    card, host = seeded_pair(lambda d: S2TCTCModel(cfg32, device=d, seed=0)).values()
     batch = GeneratorHub(card, None)._speech_batch(WAVS)
     parity = {}
     for beam, se in [(1, False), (5, False)] + ([(1, True), (5, True)] if ensemble else []):
@@ -3272,7 +3330,7 @@ def int8_card_vs_cpu(card, host, batch, seed=0):
     return res
 
 
-SPEED_TIMED = 2  # timed decodes of each mode in phase 30
+SPEED_TIMED = 1  # timed decodes of each mode in phase 30 (after its warm-up decode)
 
 
 def decode_speed(model, batch, B, seconds, n_timed=SPEED_TIMED):
@@ -3320,7 +3378,7 @@ def ctc_ngram_card_vs_cpu():
         train_ngram_lm(lines, order=3).save(Path(tmp) / "lm.arpa")
         lm = ArpaLM.load(Path(tmp) / "lm.arpa")
     cfg = s2t_ctc_base(vocab_size=len(d), max_target_positions=1024, **REF_DEPTH)
-    card, host = (S2TCTCModel(cfg, device=dev, seed=0) for dev in ("cuda", "cpu"))
+    card, host = seeded_pair(lambda dev: S2TCTCModel(cfg, device=dev, seed=0)).values()
     batch = GeneratorHub(card, None)._speech_batch(WAVS)
     dec = CTCDecoder(beam_size=5)
     reset_counts()  # the main path: the card's plain and n-gram decodes
@@ -3411,10 +3469,10 @@ def phase_generator():
     part_s = {}
     cfg = s2t_transformer_s(vocab_size=10000, max_target_positions=1024)
     ref = cfg.replace(**REF_DEPTH)  # (a)'s depth; (b) serves the preset's 12 + 6
-    card, host = (S2TTransformerModel(ref, device=d, seed=0) for d in ("cuda", "cpu"))
-    card2, host2 = (S2TTransformerModel(ref, device=d, seed=1) for d in ("cuda", "cpu"))
+    card, host = seeded_pair(lambda d: S2TTransformerModel(ref, device=d, seed=0)).values()
+    card2, host2 = seeded_pair(lambda d: S2TTransformerModel(ref, device=d, seed=1)).values()
     lm_cfg = transformer_lm_base(vocab_size=10000, dropout=0.0)
-    card_lm, host_lm = (TransformerLM(lm_cfg, device=d, seed=2) for d in ("cuda", "cpu"))
+    card_lm, host_lm = seeded_pair(lambda d: TransformerLM(lm_cfg, device=d, seed=2)).values()
     batch = GeneratorHub(card, None)._speech_batch(WAVS)
     B = len(WAVS)
     rng = np.random.default_rng(6)
@@ -3609,8 +3667,9 @@ def w2v2_pretrain_parity():
     draws = w2v_draws(cfg, lengths, N, seed=31)
     crit = build_criterion(W2V2_BASE_RECIPE["criterion"], W2V2_BASE_RECIPE["criterion_cfg"])
     runs, counts = {}, None
+    models = seeded_pair(lambda d: Wav2Vec2Model(cfg, device=d, seed=0, for_training=True))
     for device in ("cuda", "cpu"):
-        model = Wav2Vec2Model(cfg, device=device, seed=0, for_training=True)
+        model = models[device]
         codes = []
         hook = model.quantizer.register_forward_hook(lambda m, i, o: codes.append(o[3].cpu()))
         reset_counts()  # the main path: one training forward and backward
@@ -3953,8 +4012,9 @@ def phase_w2v_ctc():
     src = torch.from_numpy(wave_batch(np.random.default_rng(34), [160000] * 4, 160000))
     lens = torch.full((4,), 160000)
     encs, toks = {}, {}
+    models = seeded_pair(lambda d: Wav2VecCtc(cfg, device=d, seed=0))
     for device in ("cuda", "cpu"):
-        model = Wav2VecCtc(cfg, device=device, seed=0)
+        model = models[device]
         if device == "cuda":
             reset_counts()  # the main path: one encode
         with torch.inference_mode():
@@ -4031,8 +4091,9 @@ def league_inference_card_vs_cpu(model_cls, cfg32, tag):
     prev = torch.from_numpy(train_batch(np.random.default_rng(35), len(feats), 1, 12, 10000,
                                         [1] * len(feats))["prev_tokens"]).long()
     outs, raised = {}, []
+    models = seeded_pair(lambda d: model_cls(cfg32, device=d, seed=0))
     for device in ("cuda", "cpu"):
-        model = model_cls(cfg32, device=device, seed=0)
+        model = models[device]
         try:
             SequenceGenerator(model, **GEN).generate({"features": x, "feat_lengths": lens})
         except AttributeError as e:
@@ -4269,11 +4330,12 @@ def mt_opt():
                               warmup_init_lr=o["warmup_init_lr"], clip_norm=o["clip_norm"])
 
 
-def mt_beam_card_vs_cpu(cfg32, model_cls=None, layers=MT_LAYERS, tag="mt beam", batch=None):
+def mt_beam_card_vs_cpu(cfg32, model_cls=None, layers=MT_LAYERS, tag="mt beam", batch=None,
+                        view=None):
     """fp32 seeded weights on both devices: beam-5 tokens of ``batch`` (MT_SENTENCES
     sentences of 48 source tokens by default), 20-token outputs; rows that differ must be
     near-ties.  ``model_cls`` (the text Transformer by default) launches K1f ``layers``
-    times an encode."""
+    times an encode; ``view(model)`` is what decodes (a multilingual model's pair)."""
     from s2t_tpu_torch.inference.generator import SequenceGenerator
     from s2t_tpu_torch.models.transformer import TransformerModel
 
@@ -4281,9 +4343,11 @@ def mt_beam_card_vs_cpu(cfg32, model_cls=None, layers=MT_LAYERS, tag="mt beam", 
     if batch is None:
         batch = text_batch(np.random.default_rng(37), MT_SENTENCES, 48, 4)
     keys = ("src_tokens", "src_lengths")
-    toks, models, secs = {}, {}, {}
+    toks, secs = {}, {}
+    models = seeded_pair(lambda d: model_cls(cfg32, device=d, seed=0))
     for device in ("cuda", "cpu"):
-        models[device] = model_cls(cfg32, device=device, seed=0)
+        if view is not None:
+            models[device] = view(models[device])
         gen = SequenceGenerator(models[device], input_keys=keys, **GEN_SHORT)
         reset_counts()  # the main path: one encode
         secs[device] = synced_s(lambda: toks.__setitem__(device, gen.generate(batch)[0]))
@@ -4513,8 +4577,9 @@ def phase_berard():
     batch = train_batch(np.random.default_rng(39), 8, 1000, 40, 10000, [1000, 900, 700, 512,
                                                                          1000, 640, 333, 800])
     logits = {}
+    models = seeded_pair(lambda d: BerardModel(preset(vocab_size=10000, **ref), device=d, seed=0))
     for device in ("cuda", "cpu"):
-        model = BerardModel(preset(vocab_size=10000, **ref), device=device, seed=0)
+        model = models[device]
         b = {k: torch.as_tensor(batch[k]).to(device) for k in ("features", "feat_lengths",
                                                                 "prev_tokens")}
         with torch.inference_mode():
@@ -4582,9 +4647,9 @@ def phase_emformer():
     lengths = np.concatenate([[1000], rng.integers(400, 1001, size=EMFORMER_B - 1)])
     feats = rng.normal(size=(EMFORMER_B, 1000, 80)).astype(np.float32)
     batch = {"features": feats, "feat_lengths": lengths.astype(np.int32)}
-    enc, tok, stream, models = {}, {}, {}, {}
+    enc, tok, stream = {}, {}, {}
+    models = seeded_pair(lambda d: EmformerModel(parity_cfg, device=d, seed=0))
     for device in ("cuda", "cpu"):
-        models[device] = EmformerModel(parity_cfg, device=device, seed=0)
         tok[device], _, enc[device] = CTCGenerator(models[device], CTCDecoder()).generate(batch)
         stream[device] = emformer_stream(models[device], feats[:1]).cpu()
     card_tok, host_tok = tok["cuda"][:, 0].cpu(), tok["cpu"][:, 0].cpu()
@@ -4643,8 +4708,9 @@ def w2v1_card_vs_cpu(cfg, tag):
             rng.random((2, T, cfg.vq_groups, cfg.vq_vars), dtype=np.float32) * (1 - 2e-6) + 1e-6)
     crit = build_criterion("wav2vec", {})
     runs = {}
+    models = seeded_pair(lambda d: Wav2VecModel(cfg, device=d, seed=0, for_training=True))
     for device in ("cuda", "cpu"):
-        model = Wav2VecModel(cfg, device=device, seed=0, for_training=True)
+        model = models[device]
         reset_counts()
         out = model(torch.from_numpy(src).to(device), torch.tensor(lengths).to(device),
                     train=True, generator=torch.Generator(device=device).manual_seed(0),
@@ -5035,7 +5101,7 @@ def nat_decode_card_vs_cpu(name, task, cfg32, model_cls, plant=None, layers=NAT_
     decision of the decode, so the CPU does not decode on its own."""
     batch = text_batch(np.random.default_rng(45), NAT_SENTENCES, 48, 4)
     src = {"src_tokens": batch["src_tokens"], "src_lengths": batch["src_lengths"]}
-    models = {d: model_cls(cfg32, device=d, seed=0) for d in ("cuda", "cpu")}
+    models = seeded_pair(lambda d: model_cls(cfg32, device=d, seed=0))
     if plant is not None:
         for m in models.values():
             plant_pad(m, plant)
@@ -5215,7 +5281,7 @@ BART_LAYERS, MBART_LAYERS = 6, 12  # each side's; K1f / K1b each an encoder laye
 BART_SENTENCES = 16  # beam-5 card-vs-CPU lines (20 tokens: GEN_SHORT)
 RNN_CONV_ARCHS = ("lstm_wiseman_iwslt_de_en", "lightconv_iwslt_de_en", "dynamicconv_iwslt_de_en")
 RNN_CONV_TIMED = 2
-NEW_PHASES = ("phase_bart", "phase_mbart", "phase_rnn_conv")  # this slice's, timed apart
+NEW_PHASES = ("phase_multilingual", "phase_roberta", "phase_gpt2")  # the last slice's, timed apart
 BART_CORPUS = {"train": 32, "dev": 8, "test": 8}  # lines of the denoising CLIs' splits
 
 
@@ -5262,8 +5328,9 @@ def bart_head_card_vs_cpu(vocab):
     batch = bart_batch(np.random.default_rng(461), BART_SENTENCES, 48, vocab)
     cfg = bart_cfg("bart_base", vocab, layers=REF_LAYERS, num_classes=3, dropout=0.0)
     out = {}
+    models = seeded_pair(lambda d: BARTModel(cfg, device=d, seed=0))
     for device in ("cuda", "cpu"):
-        model = BARTModel(cfg, device=device, seed=0)
+        model = models[device]
         reset_counts()  # the main path: one encode and the decoder over the sources
         with torch.inference_mode():
             out[device] = model.classify(torch.as_tensor(batch["src_tokens"]).to(device),
@@ -5511,6 +5578,478 @@ def phase_rnn_conv():
     return out, {k: 0 for k in counters()}
 
 
+# --------------------------------------------------------------------------- #
+# phases 49-51: the multilingual Transformer, RoBERTa / BERT and their tasks, GPT-2
+ML_RECIPE = {  # fairseq examples/translation/README.md, "Multilingual Translation" (IWSLT'17)
+    "task": "multilingual_translation", "arch": "multilingual_transformer_iwslt_de_en",
+    "task_cfg": {"lang_pairs": ["de-en", "fr-en"]},
+    "model": {"share_decoders": True, "share_decoder_input_output_embed": True, "dropout": 0.3},
+    "criterion": "label_smoothed_cross_entropy", "criterion_cfg": {"label_smoothing": 0.1},
+    "optimization": {"optimizer": "adam", "adam_betas": [0.9, 0.98], "lr": 0.0005,
+                     "lr_scheduler": "inverse_sqrt", "warmup_updates": 4000},
+    "dataset": {"max_tokens": 4000}}
+ML_PAIRS = ("de-en", "fr-en")
+ML_EVAL_PAIR = "de-en"
+ML_V = 16000  # the seeded joint dictionary's entries, specials and <lang:en> included
+ML_LAYERS = 6  # each encoder's: K1f / K1b once a layer a pair, 12 / 12 a step
+ML_CORPUS = {"train": 160, "dev": 8, "test": 8}  # lines a pair
+ML_SENTENCES = 8  # beam-5 card-vs-CPU sentences through pair_view (20 tokens: GEN_SHORT)
+ROBERTA_RECIPE = {  # fairseq examples/roberta/README.pretraining.md
+    "task": "masked_lm", "arch": "roberta_base", "criterion": "masked_lm",
+    "optimization": {"optimizer": "adam", "adam_betas": [0.9, 0.98], "adam_eps": 1e-6,
+                     "clip_norm": 0.0, "lr_scheduler": "polynomial_decay", "lr": 0.0005,
+                     "warmup_updates": 10000, "max_update": 125000, "weight_decay": 0.01},
+    "dataset": {"max_target_positions": 512, "batch_size": 16}}  # tokens per sample, sentences
+ROBERTA_BENCH = dict(B=16, L=512)
+ROBERTA_PARITY = dict(B=4, L=64)
+ROBERTA_LAYERS = 12
+HEAD_WORDS = 996  # the sentence-task CLIs' small dictionaries: 1000 entries with the specials
+HEAD_CORPUS = {"train": 24, "dev": 8}
+GPT2_V = 50257
+GPT2_BENCH = dict(B=8, L=1024)
+GPT2_PROMPTS = dict(B=4, L=8)  # greedy card-vs-CPU prompts, GPT2_NEW tokens each
+GPT2_NEW = 24
+GPT2_CRIT = ("cross_entropy", {"label_smoothing": 0.0})  # fairseq's LM criterion
+GPT2_NO_DROPOUT = {"dropout": 0.0, "attention_dropout": 0.0}
+MODEL_TIMED = 2  # timed bf16 steps of phases 49-51
+
+
+def ml_cfg(dtype="float32", layers=0, **kw):
+    from s2t_tpu_torch.models.multilingual_transformer import multilingual_transformer_iwslt
+
+    depth = {"encoder_layers": layers, "decoder_layers": layers} if layers else {}
+    return multilingual_transformer_iwslt(
+        **{**ML_RECIPE["model"], **depth, **kw}, lang_pairs=ML_PAIRS, vocab_size=ML_V,
+        src_vocab_size=ML_V, dtype_str=dtype, max_source_positions=1024,
+        max_target_positions=1024)
+
+
+def ml_criterion():
+    from s2t_tpu_torch.criterions.multilingual import MultilingualCriterion
+
+    return MultilingualCriterion(build_criterion(ML_RECIPE["criterion"],
+                                                 ML_RECIPE["criterion_cfg"]))
+
+
+def zip_batch(rng, B, S, U):
+    """A round-robin batch: ``text_batch`` a pair over ML_V."""
+    pairs = {p: text_batch(rng, B, S, U, ML_V) for p in ML_PAIRS}
+    return {"pairs": pairs, "ntokens": np.float32(sum(b["ntokens"] for b in pairs.values()))}
+
+
+def write_ml_corpus(root: Path, seed=49):
+    """Each pair's splits over one seeded dictionary of ML_V entries (its last word the
+    shared regime's <lang:en>), sources of 5-40 words, IWSLT's spread."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(ML_V - 5)]
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "dict.txt").write_text("".join(f"{w} 1\n" for w in words + ["<lang:en>"]))
+    for split, n in ML_CORPUS.items():
+        for pair in ML_PAIRS:
+            for lang in pair.split("-"):
+                lines = [" ".join(rng.choice(words[:4000], size=int(rng.integers(5, 41))))
+                         for _ in range(n)]
+                (root / f"{split}.{pair}.{lang}").write_text("\n".join(lines) + "\n")
+
+
+def ml_cfg_dict(data: Path, save: Path, task, arch, layers, updates):
+    d = {k: (dict(v) if isinstance(v, dict) else v) for k, v in ML_RECIPE.items()}
+    d.update(task=task, arch=arch, model={**d["model"], "encoder_layers": layers,
+                                          "decoder_layers": layers},
+             task_cfg={**d["task_cfg"], "eval_lang_pair": ML_EVAL_PAIR},
+             optimization={**d["optimization"], "max_update": updates},
+             dataset={**d["dataset"], "data": str(data), "max_source_positions": 1024,
+                      "max_target_positions": 1024, "valid_subset": "dev", "gen_subset": "test"},
+             common={"log_interval": 1},
+             checkpoint={"save_dir": str(save), "no_save": True, "best_checkpoint_metric": "loss"},
+             eval={"eval_bleu": False},
+             generation={"beam": 5, "max_len_b": 20, "scoring": "wer",
+                         "results_path": str(save / "gen")})
+    if arch != ML_RECIPE["arch"]:  # one shared model: no per-language modules to share
+        d["model"] = {k: v for k, v in d["model"].items() if k != "share_decoders"}
+    return d
+
+
+def ml_cli(data: Path, root: Path):
+    """cli.train 2 updates of the recipe at REF_LAYERS a side (each update both pairs:
+    K1f / K1b 2 REF_LAYERS), validation on the zipped dev split, cli.generate (beam 5,
+    20 tokens) of ML_EVAL_PAIR's test split through pair_view; then
+    translation_multi_simple_epoch over transformer_iwslt_de_en (one shared model, every
+    target tagged <lang:en>) 1 update with validation."""
+    from s2t_tpu_torch.cli import generate as cli_generate
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    cfg = from_dict(TrainConfig, ml_cfg_dict(data, root / "ml_ckpt", ML_RECIPE["task"],
+                                             ML_RECIPE["arch"], REF_LAYERS, 2))
+    reset_counts()  # the main path: cli.train (2 round-robin steps, validation), cli.generate
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = cli_generate.main(cfg, out["model"].state_dict(), device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    task, steps = out["task"], out["trainer"].step
+    batches = lambda ds: len(task.get_batch_iterator(  # noqa: E731
+        ds, max_tokens=cfg.dataset.max_tokens, shuffle=False))
+    n_valid, n_test = batches(task.datasets["dev"]), batches(
+        task.load_pair_dataset("test", ML_EVAL_PAIR))
+    pairs = len(ML_PAIRS)
+    check_counts(counts, {**{k: 0 for k in counters()},
+                          "attention_fwd": REF_LAYERS * (pairs * steps + pairs * n_valid * len(
+                              out["history"]) + n_test),
+                          "attention_bwd": REF_LAYERS * pairs * steps},
+                 "multilingual cli.train + cli.generate")
+    if steps != 2 or gen["n_utts"] != ML_CORPUS["test"] or not all(
+            math.isfinite(r[k]) for r in out["train_log"] for k in ("loss", "gnorm")):
+        raise AssertionError(f"multilingual CLIs: {steps} steps, {gen['n_utts']} decoded, "
+                             f"{out['train_log']}")
+    valid = out["history"][-1]
+    res = {"train_s": train_s, "generate_s": gen_s, "train_log": out["train_log"],
+           "valid": valid, "score": gen["score_str"],
+           "pair_logs": sorted(k for k in valid if ":" in k)}
+    if not {f"{p}:nll_loss" for p in ML_PAIRS} <= set(valid):
+        raise AssertionError(f"multilingual validation logs no pair: {sorted(valid)}")
+
+    cfg = from_dict(TrainConfig, ml_cfg_dict(data, root / "ms_ckpt",
+                                             "translation_multi_simple_epoch",
+                                             "transformer_iwslt_de_en", REF_LAYERS, 1))
+    reset_counts()  # the main path: the shared model's cli.train
+    t0 = time.perf_counter()
+    shared = cli_train.main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    res["simple_epoch_train_s"] = time.perf_counter() - t0
+    shared_counts = read_counts()
+    stask, ssteps = shared["task"], shared["trainer"].step
+    n_valid = len(stask.get_batch_iterator(stask.datasets["dev"],
+                                           max_tokens=cfg.dataset.max_tokens, shuffle=False))
+    check_counts(shared_counts, {**{k: 0 for k in counters()},
+                                 "attention_fwd": REF_LAYERS * (ssteps + n_valid * len(
+                                     shared["history"])),
+                                 "attention_bwd": REF_LAYERS * ssteps},
+                 "translation_multi_simple_epoch cli.train")
+    tag = stask.tgt_dict.index("<lang:en>")
+    train_ds = stask.datasets["train"]
+    if ssteps != 1 or not all(train_ds[i]["target"][0] == tag for i in range(len(train_ds))):
+        raise AssertionError(f"translation_multi_simple_epoch: {ssteps} steps, or a target "
+                             "without its <lang:en> tag")
+    res.update(simple_epoch_train_log=shared["train_log"],
+               simple_epoch_valid=shared["history"][-1])
+    log(f"[multilingual cli] {json.dumps(res)}")
+    return res, add_counts(counts, shared_counts)
+
+
+def phase_multilingual(root: Path):
+    """Phase 49: fairseq's IWSLT'17 multilingual recipe (multilingual_transformer_iwslt_de_en:
+    512 / 1024, 4 heads, 6 + 6 layers, a de and an fr encoder, one shared decoder with its
+    input and output tied; label-smoothed CE 0.1, Adam (0.9, 0.98), lr 5e-4 inverse_sqrt
+    over 4000 warm-up updates, dropout 0.3, max_tokens 4000) over a seeded joint dictionary
+    of ML_V entries: 2 fp32 round-robin steps card vs CPU at REF_LAYERS a side, 2 timed
+    bf16 steps on the first batch the task's batcher builds at max_tokens 4000 (both
+    pairs: K1f / K1b 12 / 12 a step), the CLIs (``ml_cli``), beam-5 tokens of ML_SENTENCES
+    sentences through pair_view card vs CPU at full depth."""
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+    from s2t_tpu_torch.models.multilingual_transformer import MultilingualTransformerModel
+    from s2t_tpu_torch.tasks import setup_task
+    from s2t_tpu_torch.tasks.multilingual_translation import zip_forward
+
+    opt = recipe_opt(ML_RECIPE)
+    two = len(ML_PAIRS)
+    rng = np.random.default_rng(49)
+    parity, parity_launches = phase_train_parity(
+        ml_cfg(layers=REF_LAYERS, **NO_DROPOUT), MultilingualTransformerModel,
+        "multilingual train", criterion=ml_criterion(),
+        per_step={"attention_fwd": two * REF_LAYERS, "attention_bwd": two * REF_LAYERS},
+        batches=[zip_batch(rng, **MT_PARITY) for _ in range(2)], forward_fn=zip_forward,
+        opt=recipe_opt(ML_RECIPE, warmup_updates=PARITY_WARMUP))
+    data = root / "ml_data"
+    write_ml_corpus(data)
+    task = setup_task(from_dict(TrainConfig, {
+        **{k: ML_RECIPE[k] for k in ("task", "arch", "task_cfg", "model")},
+        "dataset": {"data": str(data), "max_tokens": ML_RECIPE["dataset"]["max_tokens"],
+                    "max_source_positions": 1024, "max_target_positions": 1024}}))
+    train_ds = task.load_dataset("train", is_train=True)
+    batch = step_batch(next(iter(task.get_batch_iterator(
+        train_ds, max_tokens=ML_RECIPE["dataset"]["max_tokens"], seed=1).next_epoch_itr())))
+    shape = {p: list(b["src_tokens"].shape) for p, b in batch["pairs"].items()}
+    src_tokens = {p: int(b["src_lengths"].sum()) for p, b in batch["pairs"].items()}
+    speed, speed_launches = phase_train_speed(
+        ml_cfg("bfloat16"), MultilingualTransformerModel, "multilingual train speed",
+        n_timed=MODEL_TIMED, criterion=ml_criterion(),
+        per_step={"attention_fwd": two * ML_LAYERS, "attention_bwd": two * ML_LAYERS},
+        batch=batch, forward_fn=zip_forward, opt=opt)
+    speed.update(batch_shapes=shape, source_tokens=src_tokens, target_tokens=float(
+        batch["ntokens"]), tokens_per_s=speed["steps_per_s"] * float(batch["ntokens"]))
+    cli, cli_launches = ml_cli(data, root)
+    beam = mt_beam_card_vs_cpu(
+        ml_cfg(), MultilingualTransformerModel, ML_LAYERS, "multilingual beam",
+        text_batch(np.random.default_rng(491), ML_SENTENCES, 48, 4, V=ML_V),
+        view=lambda m: m.pair_view(ML_EVAL_PAIR))
+    launches = add_counts(parity_launches, speed_launches, cli_launches)
+    launches["attention_fwd"] += ML_LAYERS  # the beam's one encode
+    return {"parity": parity, "speed": speed, "cli": cli, "beam": beam, "vocab": ML_V}, launches
+
+
+def write_head_corpora(root: Path, seed=50):
+    """The sentence tasks' small corpora over one dictionary of HEAD_WORDS words: labelled
+    sentences (3 labels), 4-candidate rankings, sentence pairs, two languages' text."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(HEAD_WORDS)]
+
+    def sent():
+        return " ".join(rng.choice(words, size=int(rng.integers(4, 30))))
+
+    for name in ("cls", "rank", "pairs", "xlm"):
+        (root / name).mkdir(parents=True)
+        (root / name / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    (root / "cls" / "labels.txt").write_text("pos neg neutral\n")
+    for split, n in HEAD_CORPUS.items():
+        (root / "cls" / f"{split}.tsv").write_text("".join(
+            f"{sent()}\t{rng.choice(['pos', 'neg', 'neutral'])}\n" for _ in range(n)))
+        (root / "rank" / f"{split}.tsv").write_text("".join(
+            "\t".join([sent() for _ in range(4)] + [str(rng.integers(0, 4))]) + "\n"
+            for _ in range(n)))
+        (root / "pairs" / f"{split}.txt").write_text("".join(f"{sent()}\n" for _ in range(n)))
+        for lang in ("de", "fr"):
+            (root / "xlm" / lang).mkdir(exist_ok=True)
+            (root / "xlm" / lang / f"{split}.txt").write_text(
+                "".join(f"{sent()}\n" for _ in range(3 * n)))
+
+
+HEAD_CLIS = {  # task -> (data directory, arch, criterion, task_cfg)
+    "sentence_prediction": ("cls", "roberta_base", "sentence_prediction", {}),
+    "sentence_ranking": ("rank", "roberta_base", "sentence_ranking", {}),
+    "legacy_masked_lm": ("pairs", "bert_base", "legacy_masked_lm", {}),
+    "cross_lingual_lm": ("xlm", "roberta_base", "masked_lm", {"langs": "de,fr"}),
+}
+
+
+def head_clis(root: Path):
+    """cli.train one update (with validation) of each of HEAD_CLIS at full width and
+    REF_LAYERS layers: K1f REF_LAYERS a forward, K1b REF_LAYERS a step."""
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    write_head_corpora(root / "heads")
+    out, counts = {}, {k: 0 for k in counters()}
+    for task, (data, arch, crit, task_cfg) in HEAD_CLIS.items():
+        cfg = from_dict(TrainConfig, {
+            "task": task, "arch": arch, "criterion": crit, "task_cfg": task_cfg,
+            "model": {"encoder_layers": REF_LAYERS},
+            "optimization": {**ROBERTA_RECIPE["optimization"], "max_update": 1},
+            "dataset": {"data": str(root / "heads" / data), "max_tokens": 4096,
+                        "batch_size": 16, "max_target_positions": 128, "valid_subset": "dev"},
+            "common": {"log_interval": 1},
+            "checkpoint": {"save_dir": str(root / f"{task}_ckpt"), "no_save": True,
+                           "best_checkpoint_metric": "loss"}})
+        reset_counts()  # the main path: one update and the validation
+        t0 = time.perf_counter()
+        run = cli_train.main(cfg, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_counts()
+        t = run["task"]
+        n_valid = len(t.get_batch_iterator(t.datasets["dev"], max_tokens=cfg.dataset.max_tokens,
+                                           shuffle=False))
+        steps = run["trainer"].step
+        check_counts(got, {**{k: 0 for k in counters()},
+                           "attention_fwd": REF_LAYERS * (steps + n_valid * len(run["history"])),
+                           "attention_bwd": REF_LAYERS * steps}, f"{task} cli.train")
+        valid = run["history"][-1]
+        if steps != 1 or not all(math.isfinite(r[k]) for r in run["train_log"]
+                                 for k in ("loss", "gnorm")) or not math.isfinite(valid["loss"]):
+            raise AssertionError(f"{task} cli.train: {steps} steps, {run['train_log']}, {valid}")
+        out[task] = {"train_s": secs, "train_log": run["train_log"], "valid": valid,
+                     "dictionary": len(t.dictionary)}
+        counts = add_counts(counts, got)
+    if "nsp_loss" not in out["legacy_masked_lm"]["valid"]:
+        raise AssertionError("legacy_masked_lm validated without its NSP term")
+    log(f"[roberta heads cli] {json.dumps(out)}")
+    return out, counts
+
+
+def roberta_head_card_vs_cpu():
+    """roberta_base's 2-class head at REF_LAYERS, fp32, seeded: the logits of 16 ragged
+    rows card vs CPU (one encode: K1f REF_LAYERS)."""
+    from s2t_tpu_torch.models.roberta import RobertaModel, roberta_base
+
+    toks = text_batch(np.random.default_rng(501), 16, 64, 2, V=V_BART)["src_tokens"]
+    cfg = roberta_base(vocab_size=V_BART, encoder_layers=REF_LAYERS, num_classes=2,
+                       **NO_DROPOUT)
+    out = {}
+    models = seeded_pair(lambda d: RobertaModel(cfg, device=d, seed=0))
+    for device in ("cuda", "cpu"):
+        model = models[device]
+        reset_counts()  # the main path: one encode
+        with torch.inference_mode():
+            out[device] = model(torch.as_tensor(toks).to(device),
+                                classification=True)["cls_logits"].cpu()
+        if device == "cuda":
+            check_counts(read_counts(), {**{k: 0 for k in counters()},
+                                         "attention_fwd": REF_LAYERS}, "roberta head")
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    tol = FORWARD_RTOL * max(1.0, out["cpu"].abs().max().item())
+    res = {"logits_shape": list(out["cpu"].shape), "max_abs_err": err, "tol": tol,
+           "argmax_equal": bool(torch.equal(out["cuda"].argmax(-1), out["cpu"].argmax(-1)))}
+    log(f"[roberta head] fp32 card vs CPU: {json.dumps(res)}")
+    if not err <= tol:
+        raise AssertionError(f"roberta head logits differ by {err:.3e} > {tol:.3e}")
+    return res
+
+
+def mlm_batch(rng, B, L, draws=True):
+    """Seeded blocks of L tokens over V_BART (no pad: MonolingualDataset's), their masking
+    draws handed over where ``draws`` (the same on both devices)."""
+    V = V_BART
+    target = rng.integers(4, V - 1, size=(B, L)).astype(np.int64)
+    batch = {"target": target, "ntokens": np.float32(B * L)}
+    if draws:
+        batch["draws"] = {"mask_uniforms": rng.random((B, L), dtype=np.float32),
+                          "kind_uniforms": rng.random((B, L), dtype=np.float32),
+                          "random_tokens": rng.integers(4, V, size=(B, L))}
+    return batch
+
+
+def phase_roberta(root: Path):
+    """Phase 50: fairseq's RoBERTa pretraining recipe (README.pretraining.md: roberta_base,
+    768 / 3072, 12 post-norm layers, 12 heads, GELU, over a table of 50,265 entries (the
+    denoising corpus's dictionary and <mask>); masked_lm at 512 tokens a sample, 16
+    samples; Adam (0.9, 0.98), eps 1e-6, lr 5e-4 polynomial_decay, weight decay 0.01;
+    its update_freq 16 cut to one batch a step): 2 fp32 steps card vs CPU at REF_LAYERS on
+    handed-over masks, 2 timed bf16 steps at 16 x 512 (K1f / K1b 12 / 12 a step, the last
+    step profiled), the 2-class head's logits card vs CPU, one cli.train update each of
+    sentence_prediction, sentence_ranking, legacy_masked_lm (bert_base: segments and the
+    NSP head) and cross_lingual_lm over 2 languages (``head_clis``)."""
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+    from s2t_tpu_torch.models.roberta import RobertaModel, roberta_base
+    from s2t_tpu_torch.tasks import setup_task
+
+    log("[roberta] cut: the recipe's update_freq 16 runs as one batch a step")
+    data = root / "roberta_data"
+    write_denoising_corpus(data)
+    task = setup_task(from_dict(TrainConfig, {
+        "task": ROBERTA_RECIPE["task"], "arch": ROBERTA_RECIPE["arch"],
+        "dataset": {"data": str(data), **ROBERTA_RECIPE["dataset"]}}))
+    if len(task.dictionary) != V_BART or task.block_size != ROBERTA_BENCH["L"]:
+        raise AssertionError(f"masked_lm: {len(task.dictionary)} entries, blocks of "
+                             f"{task.block_size}")
+    crit = (ROBERTA_RECIPE["criterion"], {})
+    rng = np.random.default_rng(50)
+    parity, parity_launches = phase_train_parity(
+        roberta_base(vocab_size=V_BART, encoder_layers=REF_LAYERS, **NO_DROPOUT), RobertaModel,
+        "roberta train", criterion=crit,
+        per_step={"attention_fwd": REF_LAYERS, "attention_bwd": REF_LAYERS},
+        batches=[mlm_batch(rng, **ROBERTA_PARITY) for _ in range(2)],
+        forward_fn=task.forward_fn(), opt=recipe_opt(ROBERTA_RECIPE,
+                                                     warmup_updates=PARITY_WARMUP))
+    speed, speed_launches = phase_train_speed(
+        roberta_base(vocab_size=V_BART, dtype_str="bfloat16"), RobertaModel,
+        "roberta train speed", n_timed=MODEL_TIMED, criterion=crit,
+        per_step={"attention_fwd": ROBERTA_LAYERS, "attention_bwd": ROBERTA_LAYERS},
+        batch=mlm_batch(np.random.default_rng(0), **ROBERTA_BENCH, draws=False),
+        forward_fn=task.forward_fn(), opt=recipe_opt(ROBERTA_RECIPE), profile=True)
+    speed["tokens_per_s"] = speed["steps_per_s"] * ROBERTA_BENCH["B"] * ROBERTA_BENCH["L"]
+    head = roberta_head_card_vs_cpu()
+    clis, cli_launches = head_clis(root)
+    launches = add_counts(parity_launches, speed_launches, cli_launches)
+    launches["attention_fwd"] += REF_LAYERS  # the head's encode
+    return {"parity": parity, "speed": speed, "head": head, "clis": clis,
+            "vocab": V_BART, "cut": "update_freq 16 -> 1"}, launches
+
+
+def greedy_lm(model, prompts, n_new):
+    """Greedy continuation of (B, P) prompts by ``decode_step``: the prompt fed a token a
+    step, then n_new argmax tokens.  Returns (tokens (B, n_new), the step log-probs)."""
+    B, P = prompts.shape
+    dev = model.device
+    cache = model.init_cache(B, P + n_new)
+    tok = torch.as_tensor(prompts).to(dev)
+    out, lps = [], []
+    with torch.inference_mode():
+        for i in range(P + n_new - 1):
+            step = tok[:, i:i + 1] if i < P else out[-1][:, None]
+            logits, cache = model.decode_step(step, cache, i)
+            if i >= P - 1:
+                lp = torch.log_softmax(logits.float(), dim=-1)
+                lps.append(lp.cpu())
+                out.append(lp.argmax(-1))
+    return torch.stack(out, 1).cpu().numpy(), lps
+
+
+def gpt2_decode_checks():
+    """hf_gpt2 at full width and depth, fp32, seeded: incremental decoding's logits equal
+    the full forward's at every position of 2 x 64 tokens on the card (within FORWARD_RTOL
+    of their largest magnitude), and greedy continuations of GPT2_PROMPTS card vs CPU:
+    identical, or a printed near-tie."""
+    from s2t_tpu_torch.models.hf_gpt2 import HFGPT2Model, hf_gpt2
+
+    cfg = hf_gpt2(vocab_size=GPT2_V, **GPT2_NO_DROPOUT)
+    card, host = seeded_pair(lambda d: HFGPT2Model(cfg, device=d, seed=0)).values()
+    prev = torch.as_tensor(lm_batch(np.random.default_rng(511), 2, 64, GPT2_V)["prev_tokens"])
+    reset_counts()  # the main path: the full forward and the steps
+    with torch.inference_mode():
+        full = card(prev.cuda())["decoder_logits"].float()
+        cache = card.init_cache(2, 64)
+        steps = []
+        for i in range(64):
+            logits, cache = card.decode_step(prev[:, i:i + 1].cuda(), cache, i)
+            steps.append(logits.float())
+    step_err = (torch.stack(steps, 1) - full).abs().max().item()
+    step_tol = FORWARD_RTOL * max(1.0, full.abs().max().item())
+    prompts = lm_batch(np.random.default_rng(512), **GPT2_PROMPTS, V=GPT2_V)["target"]
+    t0 = time.perf_counter()
+    card_tok, card_lp = greedy_lm(card, prompts, GPT2_NEW)
+    card_s = time.perf_counter() - t0
+    check_counts(read_counts(), {k: 0 for k in counters()}, "gpt2 decoding")
+    t0 = time.perf_counter()
+    host_tok, host_lp = greedy_lm(host, prompts, GPT2_NEW)
+    host_s = time.perf_counter() - t0
+    for b in range(len(prompts)):  # a differing row must diverge at a near-tie
+        diff = np.flatnonzero(card_tok[b] != host_tok[b])
+        if len(diff):
+            i = int(diff[0])
+            gaps = [abs(lp[i][b, card_tok[b, i]] - lp[i][b, host_tok[b, i]]).item()
+                    for lp in (card_lp, host_lp)]
+            log(f"[gpt2 greedy] row {b} diverges at token {i}: gaps {gaps}")
+            if not max(gaps) <= ENC_ATOL:
+                raise AssertionError(f"gpt2 greedy row {b} differs with a gap {max(gaps):.3e}")
+    res = {"incremental_max_abs_err": step_err, "incremental_tol": step_tol,
+           "greedy_identical": bool(np.array_equal(card_tok, host_tok)), "greedy_card_s": card_s,
+           "greedy_cpu_s": host_s, "prompts": list(prompts.shape), "new_tokens": GPT2_NEW}
+    log(f"[gpt2 decode] {json.dumps(res)}")
+    if not step_err <= step_tol:
+        raise AssertionError(f"gpt2 incremental logits differ from the forward by {step_err:.3e}")
+    return res
+
+
+def phase_gpt2():
+    """Phase 51: hf_gpt2 at GPT-2 small's published widths (768, 12 layers, 12 heads, 50,257
+    entries, 1024 positions) through language_modeling (plain cross-entropy): 2 fp32 steps
+    card vs CPU at REF_LAYERS, 2 timed bf16 steps at 8 blocks of 1024, the decode checks
+    (``gpt2_decode_checks``).  No kernel of the port runs: the causal self-attention is
+    dense, in JAX too."""
+    from s2t_tpu_torch.models.hf_gpt2 import HFGPT2Model, hf_gpt2
+    from s2t_tpu_torch.tasks.language_modeling import lm_forward
+
+    rng = np.random.default_rng(51)
+    parity, _ = phase_train_parity(
+        hf_gpt2(vocab_size=GPT2_V, decoder_layers=REF_LAYERS, **GPT2_NO_DROPOUT), HFGPT2Model,
+        "gpt2 train", criterion=GPT2_CRIT, per_step=NO_KERNEL,
+        batches=[lm_batch(rng, **LM_PARITY, V=GPT2_V) for _ in range(2)], forward_fn=lm_forward)
+    speed, _ = phase_train_speed(
+        hf_gpt2(vocab_size=GPT2_V, dtype_str="bfloat16"), HFGPT2Model, "gpt2 train speed",
+        n_timed=MODEL_TIMED, criterion=GPT2_CRIT, per_step=NO_KERNEL,
+        batch=lm_batch(np.random.default_rng(0), **GPT2_BENCH, V=GPT2_V), forward_fn=lm_forward,
+        opt=mt_opt())
+    speed["tokens_per_s"] = speed["steps_per_s"] * GPT2_BENCH["B"] * GPT2_BENCH["L"]
+    decode = gpt2_decode_checks()
+    return {"parity": parity, "speed": speed, "decode": decode,
+            "vocab": GPT2_V}, {k: 0 for k in counters()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -5546,6 +6085,8 @@ def main(argv=None) -> int:
         mark("phase_adaptive_lm")
     rnn_conv, rnn_conv_launches = phase_rnn_conv()
     mark("phase_rnn_conv")
+    gpt2, gpt2_launches = phase_gpt2()
+    mark("phase_gpt2")
     sass = phase_build()  # waits for the compilers
     mark("phase_build")
     cases, main_shape, fwd_by_dim, fwd_pds0 = phase_kernel()
@@ -5656,6 +6197,15 @@ def main(argv=None) -> int:
         mark("phase_bart")
         mbart, mbart_launches = phase_mbart(Path(tmp))
         mark("phase_mbart")
+    # phases 49-50 (51, GPT-2, ran during the build)
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_ml_") as tmp:
+        multilingual, multilingual_launches = phase_multilingual(Path(tmp))
+        mark("phase_multilingual")
+        roberta, roberta_launches = phase_roberta(Path(tmp))
+        mark("phase_roberta")
+    log(f"[main path] multilingual Transformer (parity, speed, CLIs, beam) "
+        f"{json.dumps(multilingual_launches)}; RoBERTa (parity, speed, head, sentence-task CLIs) "
+        f"{json.dumps(roberta_launches)}; GPT-2 {json.dumps(gpt2_launches)}")
     log(f"[main path] BART (parity, speed, CLIs, beam, head) {json.dumps(bart_launches)}; "
         f"mBART (speed, parity, CLI, beam) {json.dumps(mbart_launches)}; LSTM / conv models "
         f"{json.dumps(rnn_conv_launches)}")
@@ -5713,7 +6263,8 @@ def main(argv=None) -> int:
         generator_launches, w2v_pretrain_launches, w2v_st_launches, w2v_ctc_launches,
         league_launches, item15_launches, mt_launches, mt_ctc_launches, berard_launches,
         emformer_launches, w2v1_launches, fconv_launches, adaptive_lm_launches, align_launches,
-        nat_launches, bart_launches, mbart_launches, rnn_conv_launches))
+        nat_launches, bart_launches, mbart_launches, rnn_conv_launches, multilingual_launches,
+        roberta_launches, gpt2_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -5811,13 +6362,14 @@ def main(argv=None) -> int:
             "mt_kernel_shapes": mt_kernels, "mt": mt, "mt_ctc": mt_ctc, "berard": berard,
             "emformer": emformer, "w2v1": w2v1, "fconv": fconv, "adaptive_lm": adaptive_lm,
             "align": align, "nat": nat, "bart": bart, "mbart": mbart, "rnn_conv": rnn_conv,
+            "multilingual": multilingual, "roberta": roberta, "gpt2": gpt2,
             "path_launches": path_launches, "phase_s": phase_s,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start},
             indent=1))
     wall = time.perf_counter() - t_start
     slowest = sorted(phase_s.items(), key=lambda kv: -kv[1])[:10]
-    print(f"[slowest phases] {json.dumps({k: round(v, 1) for k, v in slowest})}; phases 1-45 "
-          f"{sum(v for k, v in phase_s.items() if k not in NEW_PHASES):.1f} s, 46-48 "
+    print(f"[slowest phases] {json.dumps({k: round(v, 1) for k, v in slowest})}; phases 1-48 "
+          f"{sum(v for k, v in phase_s.items() if k not in NEW_PHASES):.1f} s, 49-51 "
           f"{sum(phase_s.get(k, 0.0) for k in NEW_PHASES):.1f} s, total {wall:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0])

@@ -14,7 +14,8 @@ collated) and writes ``generate-<subset>.txt``
 (T-/H-/D- lines and the score line) and ``translation-<subset>.txt`` to
 ``generation.results_path`` (default ``checkpoint.save_dir``);
 ``generation.ctc_infer`` adds ``translation-<subset>.txt.ctc``, the greedy CTC
-transcript of each utterance from the encoder output the generator returns.
+transcript of each utterance from the encoder output the generator returns.  A task
+with an ``eval_lang_pair`` (the multilingual Transformer's) decodes that pair's split.
 Decoding runs on the card unless ``--device cpu`` is given.
 """
 
@@ -70,7 +71,9 @@ def main(cfg, params, task=None, device="cuda") -> Dict[str, Any]:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s")
     task = task or setup_task(cfg)
     subset = cfg.dataset.gen_subset
-    ds = task.load_dataset(subset)
+    eval_pair = getattr(task, "eval_lang_pair", None)
+    # a multilingual Transformer decodes one pair; training and validation zip them all
+    ds = task.load_pair_dataset(subset, eval_pair) if eval_pair else task.load_dataset(subset)
     model = task.build_model(device=device)
     model.load_state_dict(params, strict=True)
     generator = task.build_generator(model)

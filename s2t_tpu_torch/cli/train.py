@@ -65,7 +65,10 @@ def build_cfg(args):
 
 
 def step_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: v for k, v in batch.items() if k not in _HOST_KEYS}
+    """The batch without its host keys, nested ones too (a round-robin zip batch's
+    ``{"pairs": {pair: sub-batch}}``)."""
+    return {k: step_batch(v) if isinstance(v, dict) else v for k, v in batch.items()
+            if k not in _HOST_KEYS}
 
 
 def _accumulate_ctc_wer(task, model, batch, counts) -> None:

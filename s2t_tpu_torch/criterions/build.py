@@ -17,8 +17,11 @@ from s2t_tpu_torch.criterions.ctc import (
     CTCCriterion, JoinSpeechAndTextLoss, LabelSmoothedCEWithCTC)
 from s2t_tpu_torch.criterions.label_smoothed_ce import (
     LabelSmoothedCE, LabelSmoothedCEWithAlignment)
+from s2t_tpu_torch.criterions.masked_lm import LegacyMaskedLMCriterion, MaskedLMCriterion
 from s2t_tpu_torch.criterions.nat_loss import NATLoss
 from s2t_tpu_torch.criterions.wav2vec import Wav2VecCriterion
+from s2t_tpu_torch.tasks.sentence_prediction import (
+    SentencePredictionCriterion, SentenceRankingCriterion)
 
 CRITERIONS = {
     "label_smoothed_cross_entropy_with_ctc": LabelSmoothedCEWithCTC,
@@ -31,6 +34,10 @@ CRITERIONS = {
     "adaptive_loss": AdaptiveLoss,
     "label_smoothed_cross_entropy_with_alignment": LabelSmoothedCEWithAlignment,
     "nat_loss": NATLoss,
+    "masked_lm": MaskedLMCriterion,
+    "legacy_masked_lm": LegacyMaskedLMCriterion,
+    "sentence_prediction": SentencePredictionCriterion,
+    "sentence_ranking": SentenceRankingCriterion,
 }
 
 

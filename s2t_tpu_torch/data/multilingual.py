@@ -1,11 +1,17 @@
-"""Multilingual speech datasets with temperature resampling (counterpart of
-s2t_tpu/data/multilingual.py:84-156).
+"""Multilingual datasets (counterpart of s2t_tpu/data/multilingual.py).
 
-Comma-separated per-language splits are concatenated and, in training,
-upsampled per epoch by the reference's size ratios: with temperature alpha,
-ratio_l = (p_l^alpha / sum p^alpha) / p_l where p_l = n_l / N, so the
-low-resource languages are seen more often as alpha -> 0.  The draws are
-numpy's, seeded as in JAX, so the batches equal JAX's index for index.
+``MultilingualS2TDataset``: comma-separated per-language splits are concatenated
+and, in training, upsampled per epoch by the reference's size ratios: with
+temperature alpha, ratio_l = (p_l^alpha / sum p^alpha) / p_l where p_l = n_l / N,
+so the low-resource languages are seen more often as alpha -> 0.
+
+``RoundRobinZipDataset`` (:17-85): the per-pair datasets of the multilingual
+Transformer zipped, one row carrying one item of every pair (the shorter pairs
+wrap), so one batch is ``{"pairs": {pair: sub-batch}}`` and one update trains every
+pair.  A row's cost is the sum of its items' costs (all pairs ride in the same
+step), recomputed whenever ``ordered_indices`` deals the pairs a new order.
+
+The draws are numpy's, seeded as in JAX, so the batches equal JAX's index for index.
 """
 
 from __future__ import annotations
@@ -13,6 +19,56 @@ from __future__ import annotations
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
+
+
+class RoundRobinZipDataset:
+    def __init__(self, datasets: Dict[str, Any]):
+        if not datasets:
+            raise ValueError("RoundRobinZipDataset needs at least one dataset")
+        self.datasets = dict(datasets)
+        self.longest_key = max(self.datasets, key=lambda k: len(self.datasets[k]))
+        self._orders = {k: np.arange(len(d)) for k, d in self.datasets.items()}
+        self._recompute_frames()
+
+    def _recompute_frames(self) -> None:
+        rows = np.arange(len(self))
+        total = np.zeros(len(self), dtype=np.int64)
+        for k, d in self.datasets.items():
+            order = self._orders[k]
+            total += d.n_frames[order[rows % len(order)]]
+        self.n_frames = total
+
+    def __len__(self):
+        return len(self.datasets[self.longest_key])
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        return {k: d[int(self._orders[k][index % len(self._orders[k])])]
+                for k, d in self.datasets.items()}
+
+    def collater(self, samples, **kw):
+        if not samples:
+            return None
+        pairs = {k: d.collater([s[k] for s in samples], **kw) for k, d in self.datasets.items()}
+        return {"pairs": pairs,
+                "ntokens": sum(b["ntokens"] for b in pairs.values() if "ntokens" in b)}
+
+    def set_epoch(self, epoch: int) -> None:
+        for d in self.datasets.values():
+            if hasattr(d, "set_epoch"):
+                d.set_epoch(epoch)
+
+    def ordered_indices(self, shuffle: bool = True, seed: int = 1, epoch: int = 1) -> np.ndarray:
+        """Deal each pair a fresh order (one generator, pair after pair, as JAX draws),
+        then sort the rows by their total cost, longest first by a stable sort."""
+        rng = np.random.default_rng(seed + epoch)
+        for k, d in self.datasets.items():
+            base = np.arange(len(d))
+            self._orders[k] = rng.permutation(base) if shuffle else base
+        self._recompute_frames()
+        order = np.arange(len(self))
+        if shuffle:
+            order = rng.permutation(order)
+        return order[np.argsort(self.n_frames[order], kind="stable")[::-1]]
 
 
 def get_size_ratios(sizes: Sequence[int], alpha: float = 1.0) -> np.ndarray:
@@ -55,6 +111,11 @@ class MultilingualS2TDataset:
 
     def collater(self, samples, **kw):
         return self.datasets[0].collater(samples, **kw)
+
+    def set_epoch(self, epoch: int) -> None:
+        for ds in self.datasets:
+            if hasattr(ds, "set_epoch"):
+                ds.set_epoch(epoch)
 
     def ordered_indices(self, shuffle: bool = True, seed: int = 1, epoch: int = 1) -> np.ndarray:
         """Global indices, dataset d contributing int(ratio_d * len(d)) of them this

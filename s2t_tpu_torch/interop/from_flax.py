@@ -52,8 +52,14 @@ encoder borrows it).  The LSTM models: ``enc_fw{i}``, ``enc_bw{i}``, ``dec{i}``,
 ``OptimizedLSTMCell``'s gate Denses (``ii`` ... ``io`` kernels, ``hi`` ... ``ho``
 kernels and biases) fused into Berard's ``weight_ih`` / ``weight_hh`` / ``bias`` in the
 gate order i, f, g, o and split back; ``src_embed`` / ``tgt_embed`` are tables.  The
-conv models: ``enc{i}`` / ``dec{i}`` -> ``encs.{i}`` / ``decs.{i}``.  Any leaf left
-unmapped on either side raises.
+conv models: ``enc{i}`` / ``dec{i}`` -> ``encs.{i}`` / ``decs.{i}``.  The multilingual
+Transformer has no module ``decoder``: its ``encoder_{lang}``, ``encoder_shared``,
+``decoder_{lang}``, ``decoder_shared`` and top-level tables ``shared_embed``,
+``shared_encoder_embed`` and ``shared_decoder_embed`` keep their names (a top-level
+table goes to the decoder's ``embed_tokens`` only in a tree with a ``decoder``).
+RoBERTa's ``embed_tokens``, ``embed_positions``, ``embed_segments``, ``emb_norm``,
+``lm_dense``, ``lm_norm``, ``cls_dense``, ``cls_out`` and its bare ``lm_bias`` keep
+theirs; GPT-2 is one ``decoder``.  Any leaf left unmapped on either side raises.
 
 ``state_dict_to_flax`` is the inverse: a port state dict (after training,
 say) as the nested flax tree, so it can be compared leaf by leaf with a JAX
@@ -98,7 +104,7 @@ _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
                    "embed_adapter", "relative_position_keys", "gauss_sigma",
                    "gauss_mask_weight", "weights", "mask_emb", "vars", "step_proj",
-                   "step_bias", "gn_scale", "gn_bias"})
+                   "step_bias", "gn_scale", "gn_bias", "lm_bias"})
 # an LSTM's kernels (Berard's): flax ``kernel_ih`` (D, 4H) / ``kernel_hh`` (H, 4H) <->
 # ``weight_ih`` / ``weight_hh``, transposed; a decoder cell's leaves ``cell{i}_<leaf>``
 # <-> the module ``cells.{i}``
@@ -138,8 +144,8 @@ def _fuse_gates(flat: Dict[tuple, np.ndarray]) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def _module_path(parts) -> str:
-    if parts[:1] in (("shared_embed",), ("shared",), ("adaptive_embed",)):
+def _module_path(parts, has_decoder: bool = True) -> str:
+    if has_decoder and parts[:1] in (("shared_embed",), ("shared",), ("adaptive_embed",)):
         parts = ("decoder", "embed_tokens", *parts[1:])
     return ".".join(next((pat.sub(repl, p) for pat, repl in _TO_PORT if pat.match(p)), p)
                     for p in parts)
@@ -168,6 +174,7 @@ def _leaf(name: str, arr: np.ndarray):
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Rename and re-layout every leaf; raises on a leaf it cannot map."""
     sd, unmapped = {}, []
+    has_decoder = "decoder" in params
     for path, arr in _fuse_gates(_flatten(params)).items():
         cell = _CELL_LEAF.match(path[-1])
         if cell:
@@ -177,7 +184,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         except KeyError:
             unmapped.append("/".join(path))
             continue
-        module = _module_path(path[:-1])
+        module = _module_path(path[:-1], has_decoder)
         sd[f"{module}.{name}" if module else name] = torch.from_numpy(np.array(val))
     if unmapped:
         raise KeyError(f"flax leaves with no port counterpart: {unmapped}")
@@ -223,7 +230,8 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
         return "embedding", arr
     if name != "weight":
         raise KeyError(name)
-    if re.search(r"(embed_tokens|embed_positions|embed\d+|crf\.e[12]|^(src|tgt)_embed)$", module):
+    if re.search(r"(embed_tokens|embed_positions|embed_segments|embed\d+|crf\.e[12]|"
+                 r"^(src|tgt)_embed|^shared(_encoder|_decoder)?_embed)$", module):
         return "embedding", arr
     if module.endswith(".conv") and arr.ndim == 2:  # a lightweight conv's (H, k) kernel
         return "weight", arr

@@ -24,12 +24,12 @@ the NAT family (``cmlm_transformer``, ``cmlm_transformer_small``,
 ``levenshtein_transformer_small``, ``insertion_transformer``), BART (``bart_base``,
 ``bart_large``, ``mbart_large``), the LSTMs (``lstm``, ``lstm_wiseman_iwslt_de_en``,
 ``lstm_lm``) and the convolution models (``lightconv``, ``lightconv_iwslt_de_en``,
-``dynamicconv``, ``dynamicconv_iwslt_de_en``).
-Every other architecture of the JAX registry is registered here too, as a preset that
-raises ``NotImplementedError`` naming the arch and the ROADMAP.md item that
-ports it (``UNPORTED_ARCHS``, which tests/test_torch_sate.py holds to the JAX
-registry); a ported preset whose config selects an unported branch raises
-naming the field.
+``dynamicconv``, ``dynamicconv_iwslt_de_en``), the multilingual Transformer
+(``multilingual_transformer``, ``multilingual_transformer_iwslt_de_en``), RoBERTa / BERT
+(``roberta_base``, ``roberta_large``, ``bert_base``, ``camembert``, ``gottbert``,
+``xlmr_base``, ``xlmr_large``) and GPT-2 (``hf_gpt2``, ``hf_gpt2_medium``,
+``hf_gpt2_large``): every architecture of the JAX registry.  A ported preset whose
+config selects an unported branch raises naming the field.
 """
 
 from __future__ import annotations
@@ -37,37 +37,11 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from s2t_tpu_torch.models import (  # noqa: F401  (the presets)
-    bart, berard, cmlm_transformer, fconv, insertion_transformer, levenshtein_transformer,
-    lightconv, lstm, pds, s2t_ctc, s2t_dual, s2t_multibranch, s2t_transformer,
-    s2t_w2v2_transformer, sate, streaming, transformer, transformer_align, transformer_lm,
-    wav2vec, wav2vec2)
-from s2t_tpu_torch.registry import ARCHS, MODELS, register_model_architecture
-
-_ITEMS = {
-    11: "ROADMAP.md section 1 item 11 (the text and MT zoo)",
-}
-
-# every arch of the JAX registry the port lacks -> (its model, what it needs, the item)
-UNPORTED_ARCHS = {
-    **{a: ("multilingual_transformer", "the multilingual Transformer", 11)
-       for a in ("multilingual_transformer", "multilingual_transformer_iwslt_de_en")},
-    **{a: ("roberta", "the RoBERTa encoder", 11)
-       for a in ("roberta_base", "roberta_large", "bert_base", "camembert", "gottbert",
-                 "xlmr_base", "xlmr_large")},
-    **{a: ("hf_gpt2", "GPT-2", 11) for a in ("hf_gpt2", "hf_gpt2_medium", "hf_gpt2_large")},
-}
-
-
-def _unported(arch: str, needs: str, item: int):
-    def preset(**kw):
-        raise NotImplementedError(f"arch {arch!r} needs {needs}, which is not ported to "
-                                  f"s2t_tpu_torch ({_ITEMS[item]})")
-
-    return preset
-
-
-for _arch, (_model, _needs, _item) in UNPORTED_ARCHS.items():
-    register_model_architecture(_model, _arch)(_unported(_arch, _needs, _item))
+    bart, berard, cmlm_transformer, fconv, hf_gpt2, insertion_transformer,
+    levenshtein_transformer, lightconv, lstm, multilingual_transformer, pds, roberta, s2t_ctc,
+    s2t_dual, s2t_multibranch, s2t_transformer, s2t_w2v2_transformer, sate, streaming,
+    transformer, transformer_align, transformer_lm, wav2vec, wav2vec2)
+from s2t_tpu_torch.registry import ARCHS, MODELS
 
 
 def build_model(arch: str, overrides: Dict[str, Any] | None = None, *, device="cuda",

@@ -130,8 +130,12 @@ class FusedAdamWSkipNonFinite:
       at the count before this update.
 
     The moments are two flat float32 buffers over all parameters; the
-    gradients are gathered into one flat buffer per step and the update is
-    added back with ``torch._foreach_add_``.
+    gradients are gathered into one flat buffer per step, the moments move in place
+    (``lerp_``) and the update is built in place in that buffer and added back with
+    ``torch._foreach_add_``, so a step allocates one flat buffer besides ``m_hat``:
+    on the CPU the float32 references of ``chip_smoke.py`` spend their optimizer time
+    in memory passes.  A skipped step zeroes the buffer and the rates first, so a NaN
+    gradient cannot reach the moments.
     """
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: OptimizationConfig,
@@ -164,14 +168,18 @@ class FusedAdamWSkipNonFinite:
         ``grad_divisor`` first).  Returns the global norm of those gradients."""
         g = self._flat_grads()
         if grad_divisor is not None:
-            g = g / grad_divisor
+            g.div_(grad_divisor)
         # accumulated in float64: a float32 reduction over the m model's 79M entries
         # is off by 0.2-1 % on the CPU (measured), which moves the clip scale
         gnorm = torch.linalg.vector_norm(g, dtype=torch.float64).float()
         ok = torch.isfinite(gnorm)
         apply_it = ok | (self.notfinite_count >= self.max_consecutive_errors)
+        scale = apply_it.float()
         if self.clip > 0:
-            g = g * torch.clamp(self.clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+            scale = scale * torch.clamp(self.clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+        # a skipped step moves nothing: g is 0 there (a fill, not a multiply by 0, so a
+        # NaN cannot pass) and so are the moments' rates
+        g.mul_(scale).masked_fill_(~apply_it, 0.0)
         count_new = self.count + apply_it.to(torch.int32)
         # when every step so far was skipped count_new is 0; the lr factor zeroes
         # the update then, and the clamp keeps the bias correction finite
@@ -179,12 +187,14 @@ class FusedAdamWSkipNonFinite:
         bc1 = 1.0 - torch.pow(self.b1, cf)
         bc2 = 1.0 - torch.pow(self.b2, cf)
         lr = self.schedule(self.count) * apply_it.float()
-        self.mu.add_((1.0 - self.b1) * torch.where(apply_it, g - self.mu, 0.0))
-        self.nu.add_((1.0 - self.b2) * torch.where(apply_it, g * g - self.nu, 0.0))
-        adam = (self.mu / bc1) / (torch.sqrt(self.nu / bc2) + self.eps)
+        self.mu.lerp_(g, (1.0 - self.b1) * apply_it.float())
+        self.nu.lerp_(g.mul_(g), (1.0 - self.b2) * apply_it.float())
+        # g's buffer becomes the update: -lr (m_hat / (sqrt(v_hat) + eps) + wd p)
+        update = torch.div(self.nu, bc2, out=g).sqrt_().add_(self.eps)
+        update = torch.div(self.mu, bc1).div_(update)
         if self.wd:
-            adam = adam + self.wd * torch.cat([p.reshape(-1) for p in self.params])
-        update = -lr * adam
+            update.add_(torch.cat([p.reshape(-1) for p in self.params]), alpha=self.wd)
+        update.mul_(-lr)
         sizes = [p.numel() for p in self.params]
         torch._foreach_add_(self.params, [u.view_as(p) for u, p in
                                           zip(update.split(sizes), self.params)])

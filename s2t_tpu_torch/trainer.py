@@ -112,7 +112,7 @@ class Trainer:
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         out = {}
         for key, val in batch.items():
-            if isinstance(val, dict):  # nested inputs (handed-over draws)
+            if isinstance(val, dict):  # nested inputs (a zip batch's pairs, handed-over draws)
                 out[key] = self._to_device(val)
                 continue
             t = val if isinstance(val, torch.Tensor) else torch.as_tensor(np.asarray(val))
@@ -200,8 +200,10 @@ class Trainer:
         opt = self.optimizer
         return {
             "step": self.step,
-            "params": {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()},
-            "opt_state": {"mu": opt.mu.cpu().clone(), "nu": opt.nu.cpu().clone(),
+            # one host copy each (.cpu() of a card tensor already copies)
+            "params": {k: v.detach().to("cpu", copy=True)
+                       for k, v in self.model.state_dict().items()},
+            "opt_state": {"mu": opt.mu.to("cpu", copy=True), "nu": opt.nu.to("cpu", copy=True),
                           "count": int(opt.count), "notfinite_count": int(opt.notfinite_count)},
         }
 

@@ -5,7 +5,9 @@ rotation, best-k tracking, averaging and pretrained-component transplant
 The file format is the port's own: ``torch.save`` of a tree of tensors and
 plain Python values (``Trainer.state_dict()``), with the metadata (step,
 epoch, validation metric, the epoch iterator's state) in a ``.json``
-sidecar, as in the JAX package.  ``async_save`` writes on a thread.  Loading
+sidecar, as in the JAX package.  A save serialises the tree once; its other names
+(``checkpoint_last.pt``, ``checkpoint_best.pt``, ...) are hard links to that file.
+``async_save`` writes on a thread.  Loading
 the JAX package's msgpack checkpoints waits for the interop slice.
 ``transplant_component`` copies one component of a state dict into another
 (``--load-pretrained-{encoder,decoder}-from``), components named as in JAX.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional
@@ -64,13 +67,25 @@ class CheckpointManager:
         self._best: Optional[float] = None
         self._threads: List[threading.Thread] = []
 
-    def _write(self, name: str, tree: Any, meta: Dict[str, Any]):
-        path = self.save_dir / name
+    def _write(self, names: List[str], tree: Any, meta: Dict[str, Any]):
+        """Serialise ``tree`` once to the first of ``names``; the others are hard links to
+        that file (a copy where the file system has none).  A later save replaces a name
+        through its own temporary file, which leaves the other names' data as it was."""
+        paths = [self.save_dir / name for name in names]
 
         def do():
-            save_tree(path, tree)
-            with open(str(path) + ".json", "w") as f:
-                json.dump(meta, f)
+            save_tree(paths[0], tree)
+            for path in paths[1:]:
+                tmp = Path(str(path) + ".tmp")
+                tmp.unlink(missing_ok=True)
+                try:
+                    os.link(paths[0], tmp)
+                except OSError:
+                    shutil.copyfile(paths[0], tmp)
+                os.replace(tmp, path)
+            for path in paths:
+                with open(str(path) + ".json", "w") as f:
+                    json.dump(meta, f)
 
         if self.async_save:
             t = threading.Thread(target=do, daemon=True)
@@ -99,16 +114,15 @@ class CheckpointManager:
                 "best_metric_name": self.best_metric}
         if extra_meta:
             meta.update(extra_meta)
-        self._write(f"checkpoint{epoch}.pt" if end_of_epoch else f"checkpoint_{epoch}_{step}.pt",
-                    tree, meta)
-        self._write("checkpoint_last.pt", tree, meta)
+        names = [f"checkpoint{epoch}.pt" if end_of_epoch else f"checkpoint_{epoch}_{step}.pt",
+                 "checkpoint_last.pt"]
         if val_metric is not None:
             if self._is_better(val_metric):
                 self._best = val_metric
-                self._write("checkpoint_best.pt", tree, meta)
+                names.append("checkpoint_best.pt")
             if self.keep_best_checkpoints > 0:
-                self._write(f"checkpoint.best_{self.best_metric}_{val_metric:.4f}_{step}.pt",
-                            tree, meta)
+                names.append(f"checkpoint.best_{self.best_metric}_{val_metric:.4f}_{step}.pt")
+        self._write(names, tree, meta)
         self.wait()
         self._rotate()
 

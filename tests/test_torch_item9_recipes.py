@@ -81,10 +81,15 @@ def test_recipe_resolves_and_builds_with_one_layer(recipe):
 
 
 def test_no_port_module_names_item_9_for_this_slice():
-    from s2t_tpu_torch.models.build import UNPORTED_ARCHS
+    from s2t_tpu_torch.models import build
+    from s2t_tpu_torch.registry import ARCHS, MODELS
 
-    # item 9's tail (berard, wav2vec v1, the Emformer) is ported: no arch names item 9
-    assert {m for m, _, item in UNPORTED_ARCHS.values() if item == 9} == set()
+    # item 9's tail (berard, wav2vec v1, the Emformer) is ported, as is every arch since:
+    # the registry keeps no unported preset
+    assert not hasattr(build, "UNPORTED_ARCHS")
+    for model in ("berard", "wav2vec", "emformer"):
+        assert MODELS.get(model) is not None
+        assert any(ARCHS.get(a)[0] == model for a in ARCHS.keys())
 
 
 def _manifest(root: Path, n=6) -> Path:

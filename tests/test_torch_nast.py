@@ -10,7 +10,7 @@ the CPU, and the census of the recipes that use the CTC research stack.
   the PAE oracle at ratio 1 on both taps, through each task's ``forward_fn``;
   per step loss, the CTC logs, gnorm and lr within rtol 1e-5, the parameters
   within atol 5e-6 after 3 steps (the bound of tests/test_torch_train_trainer.py);
-* ``cli.train`` (2 epochs from raw audio, one flax init) and ``cli.generate``
+* ``cli.train`` (one epoch from raw audio, one flax init) and ``cli.generate``
   (``use_xctc`` from the config) of a NAST model section give the JAX CLIs'
   validation losses (rtol 1e-4) and T-/H-/D- lines;
 * the recipe census: each of the 50 ``egs/**/*.yaml`` that sets a field or a
@@ -218,7 +218,7 @@ def _cli_cfg(root, save_dir, results):
         "dataset": {"data": str(root), "max_tokens": 80000, "max_source_positions": 9000,
                     "max_target_positions": 16, "num_buckets": 2,
                     "required_batch_size_multiple": 2, "gen_subset": "test"},
-        "optimization": {"lr": 1e-3, "warmup_updates": 2, "max_epoch": 2},
+        "optimization": {"lr": 1e-3, "warmup_updates": 2, "max_epoch": 1},
         "checkpoint": {"save_dir": str(save_dir), "async_save": False, "reset_optimizer": True,
                        "no_save": True},
         "common": {"log_interval": 1},

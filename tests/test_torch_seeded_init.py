@@ -24,6 +24,10 @@ ARCHS = {  # one arch of each model class, with the task's context where it take
     "wav2vec2_base": {}, "wav2vec_ctc": V, "wav2vec_seq2seq": V, "fconv_iwslt_de_en": V,
     "transformer_align": V, "cmlm_transformer_small": V, "nacrf_transformer": V,
     "levenshtein_transformer_small": V, "insertion_transformer": V,
+    # one layer a stack: the tables and heads are what these classes add
+    "multilingual_transformer": {**V, "lang_pairs": ("de-en", "fr-en"), "share_decoders": True,
+                                 "encoder_layers": 1, "decoder_layers": 1},
+    "bert_base": {**V, "encoder_layers": 1}, "hf_gpt2": {**V, "decoder_layers": 1},
 }
 
 

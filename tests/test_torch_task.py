@@ -145,7 +145,7 @@ def test_unported_branches_raise_by_name(tasks):
     for arch in ("s2t_dynamic_transformer_s", "convtransformer", "s2t_transformer_s_relative"):
         assert build_model(arch, {"encoder_layers": 1, "decoder_layers": 1},
                            device="cpu").cfg.encoder_layers == 1
-    with pytest.raises(NotImplementedError, match="multilingual_transformer_iwslt_de_en"):
-        build_model("multilingual_transformer_iwslt_de_en", device="cpu")
+    with pytest.raises(NotImplementedError, match="semisupervised_translation"):
+        setup_task(from_dict(TrainConfig, {"task": "semisupervised_translation"}))
     with pytest.raises(KeyError, match="unknown task"):
-        setup_task(from_dict(TrainConfig, {"task": "masked_lm"}))
+        setup_task(from_dict(TrainConfig, {"task": "no_such_task"}))

@@ -6,7 +6,7 @@ A whitespace-token corpus (source and target dictionaries of 20 words each,
 * raw and binarised batches equal JAX's, key for key (bucketing, order,
   collation); the ``.idx`` / ``.bin`` files each package writes read back in the
   other; Pharaoh word alignments collate as JAX's;
-* both CLIs train ``transformer`` 2 updates from one flax init with ``eval_bleu``
+* both CLIs train ``transformer`` one update from one flax init with ``eval_bleu``
   validation (``best_checkpoint_metric: bleu``): validation losses at rtol 1e-4
   and BLEU equal; then ``cli.generate`` decodes the test split beam 2 and writes
   ``generate-test.txt`` (its T-/H-/D- lines) and ``translation-test.txt`` as
@@ -71,7 +71,7 @@ def cfg_dict(root, save_dir=None, results=None, **sections):
          "dataset": {"data": str(root), "max_tokens": 40, "num_buckets": 2,
                      "max_source_positions": 64, "max_target_positions": 64,
                      "gen_subset": "test"},
-         "optimization": {"lr": 1e-3, "warmup_updates": 2, "max_update": 2},
+         "optimization": {"lr": 1e-3, "warmup_updates": 2, "max_update": 1},
          "checkpoint": {"save_dir": str(save_dir or root), "async_save": False,
                         "reset_optimizer": True, "no_save": True,
                         "best_checkpoint_metric": "bleu",
@@ -139,7 +139,8 @@ def test_raw_and_binarized_batches_match_jax(tmp_path):
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """Both CLIs train 2 updates from one flax init; the port's checkpoint is saved."""
+    """Both CLIs train one update from one flax init (JAX's CLI compiles its step again for
+    a second, the state's placement having changed); the port's checkpoint is saved."""
     pytest.importorskip("yaml")
     from s2t_tpu.cli import train as jax_train
     from s2t_tpu.utils.checkpoint import save_pytree
@@ -165,7 +166,7 @@ def test_cli_train_with_bleu_validation_and_generate_match_jax(trained):
     from s2t_tpu_torch.cli import generate as cli_generate
 
     tmp, root, want, got = trained
-    assert got["trainer"].step == int(want["state"].step) == 2
+    assert got["trainer"].step == int(want["state"].step) == 1
     for mine, theirs in zip(got["history"], want["history"], strict=True):
         for key in ("loss", "nll_loss"):
             np.testing.assert_allclose(mine[key], theirs[key], rtol=1e-4,
