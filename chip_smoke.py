@@ -1,8 +1,9 @@
 """Smoke run of the s2t_tpu_torch serving, training, raw-audio, PDS, SATE, Conformer, CTC
 research-stack, encoder-variant, generator, wav2vec 2.0, dual / multibranch, text MT,
 Berard, Emformer, wav2vec v1, ConvS2S, adaptive-LM, alignment, NAT, BART / mBART,
-LSTM / LightConv / DynamicConv, multilingual Transformer, RoBERTa / BERT and GPT-2 slices
-on one NVIDIA H100.
+LSTM / LightConv / DynamicConv, multilingual Transformer, RoBERTa / BERT, GPT-2, online
+backtranslation, latency-augmented training and training-loop breadth slices on one
+NVIDIA H100.
 
 The earlier paths' fp32 CPU references run at a smaller depth than their presets
 (``shallow``: REF_LAYERS layers a stack, each inter tap kept), while every path's bf16
@@ -279,7 +280,29 @@ Phases (any failure ends the run with a non-zero exit):
              bf16 steps at 8 x 1024, incremental logits against the full forward and
              greedy tokens card vs CPU at full depth (no kernel; it runs while nvcc
              compiles);
-  9. summary the ten slowest phases and the seconds of phases 1-48 and 49-51, the
+ 52. bt       semisupervised_translation over egs/mustc/mt/conf/base.yaml (both
+             directions 512 / 2048, 6 + 6 pre-norm, bf16): cli.train of one epoch of
+             BT_LINES bitext, backtranslation and denoising sentences (one batch each,
+             3 updates, the origins logged) with the reverse model from a seeded port
+             checkpoint generating in the BT batch's collate (K1f 6 there); one BT step
+             timed with its generation (ms, the generation's share, peak memory); the
+             reverse model's synthetic sources card vs CPU at 2 layers a side, identical;
+ 53. latency  s2t_transformer_s (egs/mustc/st/conf/base.yaml's widths) under
+             latency_augmented_label_smoothed_cross_entropy (weighted_average, DAL, both
+             weights 0.1): 2 fp32 steps card vs CPU at 2 layers (loss, latency_loss,
+             gnorm), 2 timed bf16 steps at full depth beside the plain label-smoothed CE
+             (the capture's cost), one bf16 step of the MT base under it; composite_loss /
+             model and the legacy modules card vs CPU on small inputs;
+ 54. optim    the seven new optimizers (3 updates of s2t_transformer_s's parameters,
+             one non-finite step, clipping, lr_groups with the encoder frozen) card vs
+             CPU; bf16 steps of s2t_transformer_s at phase 8's shape plain, with
+             encoder_layerdrop 0.2 and with remat full / dots (ms, peak memory, each
+             step's K1f / K1b: a dropped layer runs none, a checkpointed one K1f twice);
+             fp32 gradients with every remat policy against those without at dropout
+             0.1 under torch's deterministic algorithms, bit for bit; cli.train under
+             reduce_lr_on_plateau over 2 epochs at lr 0 (the lr scale shrinks at the
+             second validation);
+  9. summary the ten slowest phases and the seconds of phases 1-51 and 52-54, the
              kernels line, the card's name and power limit, and the final
              {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
@@ -314,6 +337,11 @@ K1f once a layer an encode; their causal decoders attend densely; phase 48 launc
 Phase 49: each language's encoder runs K1f / K1b once a layer (a round-robin step runs
 both pairs: 12 / 12, 4 / 4 at the cut depth), the shared causal decoder none; phase 50's
 RoBERTa / BERT layers once a layer (12 / 12 a roberta_base step); phase 51 none.
+Phase 52's text encoders run K1f / K1b once a layer (6 / 6 a step) and the reverse
+model's encoder K1f 6 in a BT batch's collate; phase 53's once a layer of the encoder
+(12 / 12 an s2t_transformer_s step, no CTC term under the latency CE); phase 54 counts
+each step's kept layers under LayerDrop and K1f twice a checkpointed layer (the
+recompute), and so does the remat-vs-plain gradient check.
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -5281,7 +5309,7 @@ BART_LAYERS, MBART_LAYERS = 6, 12  # each side's; K1f / K1b each an encoder laye
 BART_SENTENCES = 16  # beam-5 card-vs-CPU lines (20 tokens: GEN_SHORT)
 RNN_CONV_ARCHS = ("lstm_wiseman_iwslt_de_en", "lightconv_iwslt_de_en", "dynamicconv_iwslt_de_en")
 RNN_CONV_TIMED = 2
-NEW_PHASES = ("phase_multilingual", "phase_roberta", "phase_gpt2")  # the last slice's, timed apart
+NEW_PHASES = ("phase_bt", "phase_latency", "phase_optim")  # the last slice's, timed apart
 BART_CORPUS = {"train": 32, "dev": 8, "test": 8}  # lines of the denoising CLIs' splits
 
 
@@ -6050,6 +6078,434 @@ def phase_gpt2():
             "vocab": GPT2_V}, {k: 0 for k in counters()}
 
 
+# --------------------------------------------------------------------------- #
+# phases 52-54: item 11's tail (online backtranslation, the latency-augmented CE, the
+# composite criteria, the legacy modules) and item 12's single-device training breadth
+BT_LINES = 32  # bitext, monolingual and denoising lines: one batch of each origin
+BT_TASK = {"bt_arch": "transformer", "lambda_denoising": 1.0, "word_shuffle": 3,
+           "word_dropout_prob": 0.1, "word_blanking_prob": 0.1}
+BT_PARITY_LINES = 8  # the cut-depth reverse model's card-vs-CPU beam
+# the source positions (basis.yaml: 512), so the BT beam's cap: seeded weights emit no
+# EOS and generate to the cap, 4x the longest monolingual line here
+BT_MAX_SOURCE = 128
+LATENCY = ("latency_augmented_label_smoothed_cross_entropy", {
+    "label_smoothing": 0.1, "latency_weight_avg": 0.1, "latency_weight_var": 0.1,
+    "average_method": "weighted_average",
+    "latency_weight_avg_type": "differentiable_average_lagging"})
+ST_CE = ("label_smoothed_cross_entropy", {"label_smoothing": 0.1})
+NEW_OPTIMIZERS = ("adafactor", "adagrad", "sgd", "nag", "adadelta", "adamax", "lamb")
+OPTIM_GROUPS = {"encoder": 0.0, "decoder": 0.5}
+OPTIM_STEPS, OPTIM_BAD_STEP = 3, 1
+OPTIM_ATOL = 1e-6  # parameters card vs CPU after 3 updates (updates ~ lr = 1e-3)
+SMALL_ATOL = 1e-4  # the criteria and legacy modules card vs CPU, of each output's scale
+REMAT_VARIANTS = {"plain": {}, "layerdrop": {"encoder_layerdrop": 0.2},
+                  "remat_full": {"checkpoint_activations": True, "remat_policy": "full"},
+                  "remat_dots": {"checkpoint_activations": True, "remat_policy": "dots"}}
+REMAT_GRAD_B = 8  # the fp32 remat-vs-plain gradients' batch (T' = 250)
+PLATEAU_CORPUS = {"train": 16, "dev": 8}
+
+
+def st_s_cfg(dtype="float32", **kw):
+    """egs/mustc/st/conf/base.yaml's model: s2t_transformer_s with the ST phases' V."""
+    return s2t_transformer_s(**{"vocab_size": 10000, "max_target_positions": 1024, **kw,
+                                "dtype_str": dtype})
+
+
+def phase_bt(root: Path):
+    """Phase 52: semisupervised_translation over egs/mustc/mt/conf/base.yaml at full width
+    and depth for both directions, bf16: cli.train on a seeded corpus of BT_LINES bitext
+    and BT_LINES monolingual lines (batches of BT_LINES sentences: one bitext, one
+    backtranslation, one denoising batch, 3 updates) with the reverse model from a seeded
+    port checkpoint, every origin trained once, the source positions (so the BT beam's
+    cap) BT_MAX_SOURCE; then one BT step timed with its generation; the reverse model's
+    synthetic sources card vs CPU at REF_LAYERS, fp32."""
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+    from s2t_tpu_torch.data.backtranslation_dataset import (
+        BacktranslationDataset, make_backtranslator)
+    from s2t_tpu_torch.data.dictionary import Dictionary
+    from s2t_tpu_torch.inference.generator import SequenceGenerator
+    from s2t_tpu_torch.models.transformer import TransformerModel
+    from s2t_tpu_torch.utils.checkpoint import save_tree
+
+    data = root / "bt_data"
+    data.mkdir()
+    write_text_corpus(data, {"train": BT_LINES, "dev": 8})
+    rng = np.random.default_rng(52)
+    words = [f"w{i}" for i in range(2000)]
+    mono = [" ".join(rng.choice(words, size=int(rng.integers(8, 30)))) for _ in range(BT_LINES)]
+    (data / "mono.de").write_text("\n".join(mono) + "\n")
+    model = {**MUSTC_MT_BASE["model"], "dtype_str": "bfloat16"}
+    ckpt = root / "bt_reverse.pt"  # the reverse (de -> en) model, seeded
+    save_tree(ckpt, {"params": TransformerModel(mt_cfg(MUSTC_MT_BASE, dtype="bfloat16"),
+                                                device="cpu", seed=52).state_dict()})
+    d = mt_cfg_dict(data, root / "bt_ckpt", MUSTC_MT_BASE)
+    d["task"] = "semisupervised_translation"
+    d["model"] = model
+    d["task_cfg"] = {**BT_TASK, "bt_checkpoint": str(ckpt), "bt_model": model}
+    d["dataset"].update(batch_size=BT_LINES, max_tokens=1_000_000,
+                        max_source_positions=BT_MAX_SOURCE)
+    d["optimization"].update(max_update=3, max_epoch=1)
+    cfg = from_dict(TrainConfig, d)
+    reset_counts()  # the main path: cli.train, the BT batch's generation in its collate
+    t0 = time.perf_counter()
+    out = cli_train.main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    task, trainer = out["task"], out["trainer"]
+    origins = [row["origin"] for row in out["train_log"]]
+    n_valid = len(task.get_batch_iterator(task.datasets["dev"], max_tokens=1_000_000,
+                                          shuffle=False))
+    steps = trainer.step
+    cli_counts = read_counts()  # the reverse model encodes once, in the BT batch's collate
+    check_counts(cli_counts, {**{k: 0 for k in counters()},
+                              "attention_fwd": MT_LAYERS * (steps + n_valid + 1),
+                              "attention_bwd": MT_LAYERS * steps}, "bt cli.train")
+    if sorted(origins) != [0, 1, 2]:
+        raise AssertionError(f"bt cli.train trained origins {origins}, expected each once")
+    # one BT step timed with its generation (the collate's beam on the card)
+    bt = task.datasets["train"].datasets[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = bt.collater([bt[i] for i in range(len(bt))], batch_multiple=8)
+    t1 = time.perf_counter()
+    m = trainer.train_step(step_batch(batch))
+    loss = float(m["loss"])
+    t2 = time.perf_counter()
+    step_counts = read_counts()
+    check_counts(step_counts, {**{k: 0 for k in counters()}, "attention_fwd": 2 * MT_LAYERS,
+                               "attention_bwd": MT_LAYERS}, "bt timed step")
+    timed = {"sentences": len(bt), "source_tokens": list(batch["src_tokens"].shape),
+             "step_ms": (t2 - t0) * 1e3, "generation_ms": (t1 - t0) * 1e3,
+             "generation_share": (t1 - t0) / (t2 - t0),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "loss": loss}
+    # the synthetic sources card vs CPU at the cut depth, fp32
+    models = seeded_pair(lambda dev: TransformerModel(mt_cfg(MUSTC_MT_BASE, **REF_DEPTH),
+                                                      device=dev, seed=52))
+    dictionary = Dictionary.load(data / "dict.txt")
+    src = {}
+    for dev in ("cuda", "cpu"):
+        gen = SequenceGenerator(models[dev], beam_size=1, max_len_b=20, max_target_positions=512,
+                                input_keys=("src_tokens", "src_lengths"))
+        ds = BacktranslationDataset(mono[:BT_PARITY_LINES], dictionary,
+                                    make_backtranslator(models[dev], gen))
+        reset_counts()
+        src[dev] = ds.collater([ds[i] for i in range(len(ds))])["src_tokens"]
+        if dev == "cuda":
+            check_counts(read_counts(), {**{k: 0 for k in counters()},
+                                         "attention_fwd": REF_LAYERS}, "bt beam")
+    parity = {"sentences": BT_PARITY_LINES, "identical": bool(np.array_equal(src["cuda"],
+                                                                          src["cpu"])),
+              "source_tokens": list(src["cuda"].shape)}
+    res = {"train_s": train_s, "train_log": out["train_log"], "origins": origins,
+           "valid": out["history"][-1], "timed_bt_step": timed, "bt_card_vs_cpu": parity}
+    log(f"[bt] semisupervised_translation: {json.dumps(res)}")
+    if not parity["identical"]:
+        raise AssertionError(f"the BT sources differ between the card and the CPU: {src}")
+    launches = {k: cli_counts[k] + step_counts[k] for k in counters()}
+    launches["attention_fwd"] += REF_LAYERS
+    return res, launches
+
+
+def small_card_vs_cpu():
+    """composite_loss / model and the legacy modules on the card and on the CPU from the
+    same seeded inputs and weights: outputs within SMALL_ATOL of each one's scale."""
+    from s2t_tpu_torch.modules.legacy import (
+        CharacterTokenEmbedder, Highway, LocationAttention, VGGBlock)
+
+    g = torch.Generator().manual_seed(53)
+    logits = [torch.randn(4, 16, 1000, generator=g) for _ in range(2)]
+    targets = torch.randint(4, 1000, (2, 4, 16), generator=g)
+    targets[:, 1, 12:] = 1
+    enc, dec_h = torch.randn(4, 250, 256, generator=g), torch.randn(4, 256, generator=g)
+    valid = torch.arange(250)[None] < torch.tensor([250, 200, 120, 31])[:, None]
+    state = torch.softmax(torch.randn(4, 1, 250, generator=g), -1)
+    chars = torch.randint(3, 257, (4, 16, 12), generator=g)
+    chars[0, 3] = 0
+    chars[0, 3, 0] = 1
+    torch.manual_seed(53)
+    cases = {
+        "composite_loss": (build_criterion("composite_loss", {
+            "underlying_criterion": "label_smoothed_cross_entropy"}),
+            lambda f, dev: f({"outputs": tuple({"decoder_logits": x.to(dev)} for x in logits)},
+                             {"targets": targets.to(dev)})[0]),
+        "model": (build_criterion("model", {"loss_weights": {"a": 2.0, "b": 0.5}}),
+                  lambda f, dev: f({"losses": {"a": logits[0].to(dev).square().mean(),
+                                               "b": logits[1].to(dev).abs().mean()}},
+                                   {"ntokens": 64.0})[0]),
+        "vgg_block": (VGGBlock(1, 64, input_dim=80, layer_norm=True),
+                      lambda f, dev: f(enc[..., :80, None].to(dev))),
+        "location_attention": (LocationAttention(256, 256, 256),
+                               lambda f, dev: f(enc.to(dev), valid.to(dev), dec_h.to(dev),
+                                                state.to(dev))[0]),
+        "highway": (Highway(256), lambda f, dev: f(enc.to(dev))),
+        "char_embedder": (CharacterTokenEmbedder(256), lambda f, dev: f(chars.to(dev))),
+    }
+    res = {}
+    for name, (mod, run) in cases.items():
+        card_mod = copy.deepcopy(mod).to("cuda") if isinstance(mod, torch.nn.Module) else mod
+        with torch.no_grad():
+            host, card = run(mod, "cpu"), run(card_mod, "cuda").cpu()
+        res[name] = (card - host).abs().max().item() / max(host.abs().max().item(), 1.0)
+    log(f"[latency] composite / model criteria and legacy modules card vs CPU: "
+        f"{json.dumps(res)} (limit {SMALL_ATOL} of each output's scale)")
+    if not all(e <= SMALL_ATOL for e in res.values()):
+        raise AssertionError(f"criteria or legacy modules disagree card vs CPU: {res}")
+    return res
+
+
+def phase_latency():
+    """Phase 53: s2t_transformer_s (egs/mustc/st/conf/base.yaml's widths) under
+    latency_augmented_label_smoothed_cross_entropy (weighted_average / DAL, both weights
+    0.1): 2 fp32 steps card vs CPU at REF_LAYERS (loss, latency_loss, gnorm); 2 timed bf16
+    steps at full depth beside the same model under the plain label-smoothed CE (the
+    cross-attention capture's cost); one bf16 step of the MT base under the criterion;
+    composite_loss / model and the legacy modules card vs CPU."""
+    from s2t_tpu_torch.criterions.latency import with_cross_attn
+    from s2t_tpu_torch.models.transformer import TransformerModel, text_forward
+
+    fwd = with_cross_attn(stack_forward)
+    ref = shallow(st_s_cfg(**NO_DROPOUT))
+    layers = {"attention_fwd": 12, "attention_bwd": 12}
+    parity, parity_launches = phase_train_parity(
+        ref, tag="latency train", criterion=LATENCY, log_keys=("latency_loss",),
+        per_step={k: encoder_layers(ref) for k in layers}, forward_fn=fwd)
+    if not all(m["latency_loss"] > 0 for m in parity["card"]):
+        raise AssertionError(f"no latency penalty: {parity['card']}")
+    speed, speed_launches = phase_train_speed(
+        st_s_cfg("bfloat16"), tag="latency train speed", n_timed=MODEL_TIMED, criterion=LATENCY,
+        per_step=layers, forward_fn=fwd)
+    plain, plain_launches = phase_train_speed(
+        st_s_cfg("bfloat16"), tag="plain CE train speed", n_timed=MODEL_TIMED, criterion=ST_CE,
+        per_step=layers)
+    mt_layers = {k: MT_LAYERS for k in layers}
+    mt, mt_launches = phase_train_speed(
+        mt_cfg(MUSTC_MT_BASE, dtype="bfloat16"), TransformerModel, "latency mt step",
+        n_timed=1, criterion=LATENCY, per_step=mt_layers,
+        batch=text_batch(np.random.default_rng(53), **MT_BENCH),
+        forward_fn=with_cross_attn(text_forward), opt=mt_opt())
+    small = small_card_vs_cpu()
+    capture = {"extra_step_ms": speed["step_ms"] - plain["step_ms"],
+               "extra_peak_gb": speed["peak_memory_gb"] - plain["peak_memory_gb"]}
+    log(f"[latency] capture cost at B=40 x T=1000 (bf16): {json.dumps(capture)}")
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] + plain_launches[k]
+                + mt_launches[k] for k in counters()}
+    return {"parity": parity, "speed": speed, "plain_ce_speed": plain, "capture": capture,
+            "mt_step": mt, "small_card_vs_cpu": small}, launches
+
+
+def optimizers_card_vs_cpu():
+    """Each new optimizer: OPTIM_STEPS updates of s2t_transformer_s's whole parameter set
+    (seeded, float32) from seeded gradients (step OPTIM_BAD_STEP's non-finite, so skipped)
+    through SkipNonFiniteChain with clipping and lr_groups (encoder frozen, decoder
+    halved), on the card and on the CPU: every parameter within OPTIM_ATOL."""
+    from s2t_tpu_torch.optim.builders import SkipNonFiniteChain, build_lr_schedule, group_scales
+    from s2t_tpu_torch.trainer import flax_top_key
+
+    host = S2TTransformerModel(st_s_cfg(), device="cpu", seed=0, for_training=True)
+    names = [n for n, _ in host.named_parameters()]
+    base = [p.detach().clone() for _, p in host.named_parameters()]
+    scales = group_scales(names, OPTIM_GROUPS, flax_top_key(host))
+    g = torch.Generator().manual_seed(54)
+    grads = {"cpu": [[torch.randn(p.shape, generator=g) for p in base]
+                     for _ in range(OPTIM_STEPS)]}
+    grads["cpu"][OPTIM_BAD_STEP][0].view(-1)[0] = float("nan")
+    grads["cuda"] = [[x.to("cuda") for x in step] for step in grads["cpu"]]
+    frozen = [i for i, s in enumerate(scales) if s == 0.0]
+    res = {}
+    for name in NEW_OPTIMIZERS:
+        cfg = OptimizationConfig(optimizer=name, lr=1e-3, lr_scheduler="fixed", clip_norm=10.0,
+                                 weight_decay=0.01,
+                                 lr_groups=dict(OPTIM_GROUPS))
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            params = [torch.nn.Parameter(p.to(dev, copy=True)) for p in base]
+            opt = SkipNonFiniteChain(params, cfg, build_lr_schedule(cfg), scales)
+
+            def run():
+                for step in grads[dev]:
+                    for p, gr in zip(params, step):
+                        p.grad = gr
+                    opt.step()
+            secs[dev] = synced_s(run)
+            if int(opt.count) != OPTIM_STEPS - 1:
+                raise AssertionError(f"{name} on {dev}: {int(opt.count)} applied updates")
+            out[dev] = [p.detach().cpu() for p in params]
+        err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
+        moved = max((a - b).abs().max().item() for a, b in zip(out["cuda"], base))
+        still = all(torch.equal(out["cuda"][i], base[i]) for i in frozen)
+        res[name] = {"max_abs_err": err, "largest_move": moved, "frozen_unchanged": still,
+                     "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+        if not (err <= OPTIM_ATOL and moved > 0 and still):
+            raise AssertionError(f"{name} card vs CPU: {res[name]}")
+    log(f"[optim] {len(names)} parameters ({sum(p.numel() for p in base):,} entries), "
+        f"{OPTIM_STEPS} updates card vs CPU: {json.dumps(res)} (limit {OPTIM_ATOL})")
+    return res
+
+
+def remat_speed(tag, kw, n_timed=MODEL_TIMED):
+    """bf16 steps of s2t_transformer_s at phase 8's shape with ``kw`` set: 1 warm-up and
+    ``n_timed`` timed steps, each step's K1f / K1b launches checked against what it ran
+    (LayerDrop's keep bits from the step generator's seed; a checkpointed layer runs K1f
+    twice)."""
+    from s2t_tpu_torch.models.s2t_transformer import draw_layer_keep
+    from s2t_tpu_torch.trainer import fold_in
+
+    cfg = st_s_cfg("bfloat16", **kw)
+    model = S2TTransformerModel(cfg, device="cuda", seed=0, for_training=True)
+    trainer = Trainer(model, make_criterion(CRITERION),
+                      OptimizationConfig(lr=2e-3, warmup_updates=10000, clip_norm=10.0),
+                      device="cuda", seed=1, forward_fn=stack_forward)
+    batch = nested_to(train_batch(np.random.default_rng(0), 40, 1000, 30, 10000, [1000] * 40),
+                      "cuda")
+
+    def want(step):
+        kept = cfg.encoder_layers
+        if cfg.encoder_layerdrop > 0:
+            kept = sum(draw_layer_keep(cfg.encoder_layers, cfg.encoder_layerdrop,
+                                       fold_in(trainer.seed, step)))
+        return {**{k: 0 for k in counters()}, "ctc_alpha": 1, "ctc_beta_grad": 1,
+                "attention_fwd": kept * (2 if cfg.checkpoint_activations else 1),
+                "attention_bwd": kept}
+
+    launches, total = [], {k: 0 for k in counters()}
+    losses = []
+
+    def step():
+        w = want(trainer.step)
+        reset_counts()
+        losses.append(trainer.train_step(batch)["loss"])
+        counts = read_counts()
+        check_counts(counts, w, f"{tag} step {trainer.step - 1}")
+        launches.append({"attention_fwd": counts["attention_fwd"],
+                         "attention_bwd": counts["attention_bwd"]})
+        for k in total:
+            total[k] += counts[k]
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = synced_s(lambda: [step() for _ in range(n_timed)])
+    losses = torch.stack(losses).float().cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{tag}: bf16 loss not finite: {losses}")
+    res = {"step_ms": secs / n_timed * 1e3, "peak_memory_gb": torch.cuda.max_memory_allocated()
+           / 1e9, "launches_per_step": launches, "loss_first_last": [losses[0].item(),
+                                                                      losses[-1].item()]}
+    del trainer, model
+    return res, total
+
+
+def remat_grads_card():
+    """fp32 on the card, dropout 0.1, torch's deterministic algorithms on (the CTC
+    gradient's and the embeddings' scatter-adds accumulate in any order otherwise): one
+    seeded s2t_transformer_s's gradients of one batch under the same step generator,
+    plain twice (the run-to-run spread) and under each remat policy: equal bit for bit,
+    or within the plain repeat's spread."""
+    from s2t_tpu_torch.models.s2t_transformer import REMAT_POLICIES
+
+    model = S2TTransformerModel(st_s_cfg(), device="cuda", seed=0, for_training=True)
+    batch = nested_to(train_batch(np.random.default_rng(1), REMAT_GRAD_B, 1000, 30, 10000,
+                                  [1000, 950, 900, 700, 640, 512, 400, 260]), "cuda")
+    crit = make_criterion(CRITERION)
+    base_cfg = model.cfg
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads(**kw):
+        model.cfg = model.encoder.cfg = base_cfg.replace(**kw)
+        model.zero_grad(set_to_none=True)
+        out = stack_forward(model, batch, train=True,
+                            generator=torch.Generator(device="cuda").manual_seed(5))
+        crit(out, batch)[0].backward()
+        return [p.grad.detach().clone() for p in model.parameters()]
+
+    def diff(a, b):
+        d = [(x - y).abs().max().item() for x, y in zip(a, b)]
+        worst = sorted(range(len(d)), key=lambda i: -d[i])[:3]
+        return max(d), {names[i]: d[i] for i in worst if d[i] > 0}
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_counts()  # the main path: 5 training forwards / backwards, 3 checkpointed
+        plain = grads()
+        spread, spread_at = diff(plain, grads())
+        res = {"plain_repeat_max_abs_diff": spread, "plain_repeat_worst": spread_at}
+        for policy in REMAT_POLICIES:
+            d, at = diff(plain, grads(checkpoint_activations=True, remat_policy=policy))
+            res[policy] = {"max_abs_diff": d, "bitwise": d == 0.0, "worst": at}
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        model.cfg = model.encoder.cfg = base_cfg
+    counts = read_counts()
+    n = 2 + len(REMAT_POLICIES)
+    check_counts(counts, {**{k: 0 for k in counters()}, "ctc_alpha": n, "ctc_beta_grad": n,
+                          "attention_fwd": 12 * (n + len(REMAT_POLICIES)),
+                          "attention_bwd": 12 * n}, "remat gradients")
+    log(f"[optim] fp32 gradients with remat vs without at dropout 0.1: {json.dumps(res)}")
+    if not all(res[p]["max_abs_diff"] <= spread for p in REMAT_POLICIES):
+        raise AssertionError(f"remat gradients differ from the plain ones beyond the plain "
+                             f"repeat's spread: {res}")
+    return res, counts
+
+
+def plateau_cli(root: Path):
+    """cli.train of the MT base at REF_LAYERS a side, 2 epochs under reduce_lr_on_plateau
+    at a base lr of 0 (the validation loss cannot improve; at 1e-7 Adam's sign-like
+    updates of every entry still moved it by 2e-3): the second validation shrinks the lr
+    scale to lr_shrink and logs it."""
+    from s2t_tpu_torch.cli import train as cli_train
+    from s2t_tpu_torch.config import TrainConfig, from_dict
+
+    data = root / "plateau_data"
+    data.mkdir()
+    write_text_corpus(data, PLATEAU_CORPUS, seed=54)
+    d = mt_cfg_dict(data, root / "plateau_ckpt", MUSTC_MT_BASE)
+    d["model"] = {**d["model"], **REF_DEPTH, **NO_DROPOUT}
+    d["optimization"] = {**d["optimization"], "lr_scheduler": "reduce_lr_on_plateau",
+                         "lr": 0.0, "lr_shrink": 0.5, "lr_patience": 0, "max_epoch": 2,
+                         "max_update": 1000}
+    reset_counts()
+    out = cli_train.main(from_dict(TrainConfig, d), device="cuda")
+    counts = read_counts()
+    scales = [h["lr_scale"] for h in out["history"]]
+    steps, task = out["trainer"].step, out["task"]
+    n_valid = len(task.get_batch_iterator(task.datasets["dev"], max_tokens=8192, shuffle=False))
+    check_counts(counts, {**{k: 0 for k in counters()},
+                          "attention_fwd": REF_LAYERS * (steps + 2 * n_valid),
+                          "attention_bwd": REF_LAYERS * steps}, "plateau cli.train")
+    res = {"lr_scale_by_epoch": scales, "steps": steps,
+           "valid_loss": [h["loss"] for h in out["history"]]}
+    log(f"[optim] reduce_lr_on_plateau cli.train: {json.dumps(res)}")
+    if scales != [1.0, 0.5]:
+        raise AssertionError(f"the plateau scale did not change: {res}")
+    return res, counts
+
+
+def phase_optim(root: Path):
+    """Phase 54: item 12 on one card.  The seven new optimizers card vs CPU on
+    s2t_transformer_s's parameters; bf16 steps of s2t_transformer_s at phase 8's shape
+    plain, with encoder_layerdrop 0.2, and with remat full and dots (ms, peak GB, each
+    step's K1f / K1b); fp32 gradients with remat equal those without; cli.train under
+    reduce_lr_on_plateau."""
+    optim = optimizers_card_vs_cpu()
+    speed, launches = {}, {k: 0 for k in counters()}
+    for tag, kw in REMAT_VARIANTS.items():
+        speed[tag], counts = remat_speed(f"optim {tag}", kw)
+        launches = {k: launches[k] + counts[k] for k in launches}
+    remat = {tag: {"extra_step_ms": speed[tag]["step_ms"] - speed["plain"]["step_ms"],
+                   "peak_gb_saved": speed["plain"]["peak_memory_gb"]
+                   - speed[tag]["peak_memory_gb"]} for tag in REMAT_VARIANTS if tag != "plain"}
+    log(f"[optim] bf16 s2t_transformer_s at B=40 x T=1000: {json.dumps(speed)}; against "
+        f"plain: {json.dumps(remat)}")
+    grads, grad_launches = remat_grads_card()
+    plateau, plateau_launches = plateau_cli(root)
+    launches = {k: launches[k] + grad_launches[k] + plateau_launches[k] for k in launches}
+    return {"optimizers": optim, "speed": speed, "against_plain": remat, "remat_grads": grads,
+            "plateau": plateau}, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -6203,6 +6659,18 @@ def main(argv=None) -> int:
         mark("phase_multilingual")
         roberta, roberta_launches = phase_roberta(Path(tmp))
         mark("phase_roberta")
+    # phases 52-54: online backtranslation, the latency-augmented CE, item 12 on one card
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_bt_") as tmp:
+        bt, bt_launches = phase_bt(Path(tmp))
+        mark("phase_bt")
+        latency, latency_launches = phase_latency()
+        mark("phase_latency")
+        optim, optim_launches = phase_optim(Path(tmp))
+        mark("phase_optim")
+    log(f"[main path] semisupervised MT (CLI with BT in the collate, timed BT step, BT beam) "
+        f"{json.dumps(bt_launches)}; latency CE (parity, speed, plain CE, MT step) "
+        f"{json.dumps(latency_launches)}; optimizers, layerdrop / remat (speed, gradients), "
+        f"plateau CLI {json.dumps(optim_launches)}")
     log(f"[main path] multilingual Transformer (parity, speed, CLIs, beam) "
         f"{json.dumps(multilingual_launches)}; RoBERTa (parity, speed, head, sentence-task CLIs) "
         f"{json.dumps(roberta_launches)}; GPT-2 {json.dumps(gpt2_launches)}")
@@ -6264,7 +6732,7 @@ def main(argv=None) -> int:
         league_launches, item15_launches, mt_launches, mt_ctc_launches, berard_launches,
         emformer_launches, w2v1_launches, fconv_launches, adaptive_lm_launches, align_launches,
         nat_launches, bart_launches, mbart_launches, rnn_conv_launches, multilingual_launches,
-        roberta_launches, gpt2_launches))
+        roberta_launches, gpt2_launches, bt_launches, latency_launches, optim_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -6362,14 +6830,15 @@ def main(argv=None) -> int:
             "mt_kernel_shapes": mt_kernels, "mt": mt, "mt_ctc": mt_ctc, "berard": berard,
             "emformer": emformer, "w2v1": w2v1, "fconv": fconv, "adaptive_lm": adaptive_lm,
             "align": align, "nat": nat, "bart": bart, "mbart": mbart, "rnn_conv": rnn_conv,
-            "multilingual": multilingual, "roberta": roberta, "gpt2": gpt2,
+            "multilingual": multilingual, "roberta": roberta, "gpt2": gpt2, "bt": bt,
+            "latency": latency, "optim": optim,
             "path_launches": path_launches, "phase_s": phase_s,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start},
             indent=1))
     wall = time.perf_counter() - t_start
     slowest = sorted(phase_s.items(), key=lambda kv: -kv[1])[:10]
-    print(f"[slowest phases] {json.dumps({k: round(v, 1) for k, v in slowest})}; phases 1-48 "
-          f"{sum(v for k, v in phase_s.items() if k not in NEW_PHASES):.1f} s, 49-51 "
+    print(f"[slowest phases] {json.dumps({k: round(v, 1) for k, v in slowest})}; phases 1-51 "
+          f"{sum(v for k, v in phase_s.items() if k not in NEW_PHASES):.1f} s, 52-54 "
           f"{sum(phase_s.get(k, 0.0) for k in NEW_PHASES):.1f} s, total {wall:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0])

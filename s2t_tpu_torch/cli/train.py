@@ -20,7 +20,10 @@ greedy CTC transcript of every utterance (``ctc_wer``, ``ctc_cer``; the
 batch's features go to ``encode`` as collated, the waveforms of a
 ``use_audio_input`` split included), and
 ``eval.eval_wer`` / ``eval_bleu`` score the task's generator (``wer`` or
-``bleu``); ``checkpoint.best_checkpoint_metric`` may name any of them.
+``bleu``); ``checkpoint.best_checkpoint_metric`` may name any of them.  Under
+``reduce_lr_on_plateau`` / ``reduce_on_plateau`` each validation's loss drives
+``ReduceOnPlateau`` (``lr_shrink``, ``lr_patience``), whose scale multiplies every
+later update and is logged as ``lr_scale`` (s2t_tpu/cli/train.py:293-297, 358-361).
 Settings the port does not have raise ``NotImplementedError`` before
 anything is built (``config.check_train_supported``).
 """
@@ -40,7 +43,7 @@ import torch
 logger = logging.getLogger("s2t_tpu_torch.train")
 
 # batch keys the step does not read
-_HOST_KEYS = ("ids", "nsentences")
+_HOST_KEYS = ("ids", "nsentences", "origin")
 # validation logs summed raw and reported as they are, not per sample
 _COUNTERS = {"n_correct", "total", "ntokens", "nsentences"}
 
@@ -174,6 +177,7 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s")
     check_train_supported(cfg)
     task = task or setup_task(cfg)
+    task.device = device
     train_ds = task.load_dataset(cfg.dataset.train_subset, is_train=True)
     valid_ds = task.load_dataset(cfg.dataset.valid_subset)
     model = task.build_model(device=device, for_training=True)
@@ -214,6 +218,12 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
     patience_left = cfg.optimization.patience
     best_val = None
     history, train_log = [], []
+    plateau = None
+    if cfg.optimization.lr_scheduler in ("reduce_on_plateau", "reduce_lr_on_plateau"):
+        from s2t_tpu_torch.optim.builders import ReduceOnPlateau
+
+        plateau = ReduceOnPlateau(shrink=cfg.optimization.lr_shrink,
+                                  patience=cfg.optimization.lr_patience)
     timing = {"data_s": 0.0, "step_s": 0.0, "valid_s": 0.0, "save_s": 0.0}
 
     def save(**kw):
@@ -237,6 +247,8 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
             metrics = trainer.train_step(step_batch(batch))
             row = {k: float(metrics[k]) for k in ("loss", "gnorm", "lr")}
             timing["step_s"] += time.perf_counter() - t1
+            if "origin" in batch:  # a ConcatHomogeneous batch's dataset (semisupervised MT)
+                row["origin"] = int(batch["origin"])
             train_log.append({"step": trainer.step, "epoch": epoch_itr.epoch, **row})
             interval_n += 1
             for k in ("loss", "gnorm"):
@@ -256,6 +268,10 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
         val = validate(cfg, task, trainer, valid_ds, generator)
         timing["valid_s"] += time.perf_counter() - t0
         val_metric = val.get(ck.best_checkpoint_metric, val.get("loss"))
+        if plateau is not None:
+            scale = plateau.step(float(val.get("loss", val_metric)))
+            trainer.set_lr_scale(scale)
+            val["lr_scale"] = scale
         progress.log(val, trainer.step, "valid", epoch_itr.epoch)
         history.append({"epoch": epoch_itr.epoch, "step": trainer.step, **val})
         if not ck.no_save:

@@ -10,10 +10,9 @@ the tree can be built from Python (``from_dict``) where PyYAML is absent.
 The port trains on one device through the plain data-parallel-free step, so
 a non-default value of a setting it does not have raises
 ``NotImplementedError`` naming it (``check_supported`` for the optimisation
-section, ``check_train_supported`` for the rest).  Settings read only by
-branches that raise anyway (``stop_min_lr``, ``lr_shrink``, ``lr_patience``,
-``lr_milestones`` of the other schedulers, ``fp16_init_scale``) are kept for
-config compatibility.
+section, ``check_train_supported`` for the rest: BMUF and the ``distributed``
+section name ROADMAP.md item 12).  Settings no branch reads (``stop_min_lr``,
+``fp16_init_scale``) are kept for config compatibility.
 """
 
 from __future__ import annotations
@@ -24,8 +23,12 @@ from dataclasses import dataclass, field, fields, is_dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
-PORTED_OPTIMIZERS = ("adam", "adamw")
-PORTED_SCHEDULERS = ("inverse_sqrt", "tri_stage", "polynomial_decay", "cosine", "fixed")
+PORTED_OPTIMIZERS = ("adam", "adamw", "adafactor", "adagrad", "sgd", "nag", "adadelta",
+                     "adamax", "lamb")
+PORTED_SCHEDULERS = ("inverse_sqrt", "tri_stage", "polynomial_decay", "cosine", "fixed",
+                     "reduce_lr_on_plateau", "reduce_on_plateau", "pass_through", "manual",
+                     "triangular")
+ITEM_12 = "ROADMAP.md section 1 item 12"
 # the JAX rng_impl knob picks a PRNG implementation; the port's bits come from
 # torch.Generators seeded per step, whichever of the two is named
 RNG_IMPLS = ("rbg", "threefry")
@@ -364,8 +367,6 @@ def check_supported(cfg: OptimizationConfig) -> None:
         raise NotImplementedError(
             f"OptimizationConfig.lr_scheduler={cfg.lr_scheduler!r} is not ported to "
             f"s2t_tpu_torch (only {PORTED_SCHEDULERS})")
-    if cfg.lr_groups:
-        raise NotImplementedError("OptimizationConfig.lr_groups is not ported to s2t_tpu_torch")
     if cfg.rng_impl not in RNG_IMPLS:
         raise NotImplementedError(
             f"OptimizationConfig.rng_impl={cfg.rng_impl!r} is not ported to s2t_tpu_torch")
@@ -387,15 +388,16 @@ def check_train_supported(cfg: TrainConfig) -> None:
     that the port does not have."""
     check_supported(cfg.optimization)
     if cfg.bmuf.active:
-        raise NotImplementedError("bmuf.active (BMUF / SlowMo) is not ported to s2t_tpu_torch")
+        raise NotImplementedError(
+            f"bmuf.active (BMUF / SlowMo) is not ported to s2t_tpu_torch ({ITEM_12})")
     dist = cfg.distributed
     if dist.data_parallel not in (-1, 1):
         raise NotImplementedError(
             f"distributed.data_parallel={dist.data_parallel} is not ported to s2t_tpu_torch "
-            "(one device)")
+            f"(one device; {ITEM_12})")
     for name in ("model_parallel", "seq_parallel", "pipeline_parallel", "fsdp",
                  "coordinator_address", "num_processes", "process_id"):
-        _raise_if_set("distributed", name, dist, " (one device)")
+        _raise_if_set("distributed", name, dist, f" (one device; {ITEM_12})")
     for name in ("profile", "tensorboard_logdir", "wandb_project", "azureml_logging", "user_dir"):
         _raise_if_set("common", name, cfg.common)
 

@@ -13,10 +13,12 @@ import dataclasses
 from typing import Any, Dict
 
 from s2t_tpu_torch.criterions.adaptive_loss import AdaptiveLoss
+from s2t_tpu_torch.criterions.composite import CompositeLoss, ModelCriterion
 from s2t_tpu_torch.criterions.ctc import (
     CTCCriterion, JoinSpeechAndTextLoss, LabelSmoothedCEWithCTC)
 from s2t_tpu_torch.criterions.label_smoothed_ce import (
     LabelSmoothedCE, LabelSmoothedCEWithAlignment)
+from s2t_tpu_torch.criterions.latency import LatencyAugmentedLabelSmoothedCE
 from s2t_tpu_torch.criterions.masked_lm import LegacyMaskedLMCriterion, MaskedLMCriterion
 from s2t_tpu_torch.criterions.nat_loss import NATLoss
 from s2t_tpu_torch.criterions.wav2vec import Wav2VecCriterion
@@ -38,6 +40,9 @@ CRITERIONS = {
     "legacy_masked_lm": LegacyMaskedLMCriterion,
     "sentence_prediction": SentencePredictionCriterion,
     "sentence_ranking": SentenceRankingCriterion,
+    "latency_augmented_label_smoothed_cross_entropy": LatencyAugmentedLabelSmoothedCE,
+    "composite_loss": CompositeLoss,
+    "model": ModelCriterion,
 }
 
 

@@ -104,7 +104,7 @@ _TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
 _BARE = frozenset({"norm_scale", "norm_bias", "fusion_weight", "pos_bias_u", "pos_bias_v",
                    "embed_adapter", "relative_position_keys", "gauss_sigma",
                    "gauss_mask_weight", "weights", "mask_emb", "vars", "step_proj",
-                   "step_bias", "gn_scale", "gn_bias", "lm_bias"})
+                   "step_bias", "gn_scale", "gn_bias", "lm_bias", "symbol_embeddings"})
 # an LSTM's kernels (Berard's): flax ``kernel_ih`` (D, 4H) / ``kernel_hh`` (H, 4H) <->
 # ``weight_ih`` / ``weight_hh``, transposed; a decoder cell's leaves ``cell{i}_<leaf>``
 # <-> the module ``cells.{i}``
@@ -230,7 +230,7 @@ def _flax_leaf(module: str, name: str, arr: np.ndarray):
         return "embedding", arr
     if name != "weight":
         raise KeyError(name)
-    if re.search(r"(embed_tokens|embed_positions|embed_segments|embed\d+|crf\.e[12]|"
+    if re.search(r"(embed_tokens|embed_positions|embed_segments|embed\d+|crf\.e[12]|char_embeddings|"
                  r"^(src|tgt)_embed|^shared(_encoder|_decoder)?_embed)$", module):
         return "embedding", arr
     if module.endswith(".conv") and arr.ndim == 2:  # a lightweight conv's (H, k) kernel

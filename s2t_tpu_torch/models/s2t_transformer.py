@@ -34,7 +34,7 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -176,9 +176,7 @@ class S2TTransformerConfig:
 
 
 # fields the port reads, plus knobs that only act when a switch that must keep its
-# default is on (remat_policy, pipeline_microbatches);
-# encoder_layerdrop > 0 and checkpoint_activations raise when training
-# (_check_trainable); every other field must keep its default
+# default is on (pipeline_microbatches); every other field must keep its default
 _PORTED_FIELDS = frozenset({
     "input_feat_per_channel", "input_channels", "subsampling_layers", "subsampling_filter",
     "subsampling_kernel", "subsampling_stride", "subsampling_activation",
@@ -217,16 +215,13 @@ ITEM12 = "ROADMAP.md section 1 item 12 (parallelism)"
 _FIELD_ITEMS = {"seq_parallel": ITEM12, "pipeline_parallel": ITEM12}
 
 
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+
+
 def _check_trainable(cfg: S2TTransformerConfig) -> None:
-    """Training knobs the port has not ported raise instead of being ignored."""
-    if cfg.encoder_layerdrop > 0:
-        raise NotImplementedError(
-            f"S2TTransformerConfig.encoder_layerdrop={cfg.encoder_layerdrop} is not ported to "
-            "s2t_tpu_torch training")
-    if cfg.checkpoint_activations:
-        raise NotImplementedError(
-            "S2TTransformerConfig.checkpoint_activations=True (remat) is not ported to "
-            "s2t_tpu_torch training")
+    """The training knobs' values (s2t_tpu/models/s2t_transformer.py:89-97)."""
+    if cfg.checkpoint_activations and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} not in {REMAT_POLICIES}")
 
 
 def check_supported(cfg: S2TTransformerConfig) -> None:
@@ -353,7 +348,38 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
 
 # the streams of the host draws, beside the step's generator seed (drop-net's:
 # sate.CrossStreamTextLayer)
-MIXUP_STREAM, ORACLE_STREAM, DROPNET_STREAM = 1, 2, 3
+MIXUP_STREAM, ORACLE_STREAM, DROPNET_STREAM, LAYERDROP_STREAM = 1, 2, 3, 4
+
+
+def draw_layer_keep(n_layers: int, rate: float, seed: int) -> List[bool]:
+    """LayerDrop's keep bits of one step: layer i runs iff its U[0, 1) draw is >=
+    ``rate`` (s2t_tpu/models/s2t_transformer.py:785-790), drawn on the host from the
+    step generator's seed, so the loop knows them without a sync."""
+    u = host_uniform((n_layers,), (seed, LAYERDROP_STREAM))
+    return [bool(x) for x in (u >= rate)]
+
+
+# what a checkpointed layer saves (jax.checkpoint_policies.checkpoint_dots and
+# checkpoint_dots_with_no_batch_dims): the matmul outputs, or those with no batch dim
+_SAVED_OPS = {
+    "dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def remat_context(policy: str):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a remat policy (None: "full",
+    which saves nothing inside the layer)."""
+    if policy == "full":
+        return None
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved = {getattr(torch.ops.aten, name).default for name in _SAVED_OPS[policy]}
+
+    def rule(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, rule)
 
 
 def draw_mixup(B: int, cfg: S2TTransformerConfig, seed: int,
@@ -544,6 +570,35 @@ class S2TTransformerEncoder(nn.Module):
                                 temperature=cfg.pae_ctc_temperature, smooth=cfg.pae_oracle_smooth,
                                 only_mistake=cfg.xctc_pae_ground_truth_only_mistake)
 
+    def _run_layer(self, layer, x, valid, bias, generator, pos_emb):
+        """One encoder layer; with ``checkpoint_activations`` in training it runs under
+        ``torch.utils.checkpoint`` (non-reentrant) with ``remat_policy``'s saved set
+        (s2t_tpu/models/s2t_transformer.py:256-268), drawing its dropout (the fused
+        attention's seed included) from a generator that starts at the step generator's
+        state, which the recompute replays; the step generator then moves on as if the
+        layer had drawn from it, so remat changes no bit."""
+        if generator is None or not self.cfg.checkpoint_activations:
+            return layer(x, valid, bias, generator=generator, pos_emb=pos_emb)
+        from torch.utils.checkpoint import checkpoint
+
+        start, end = generator.get_state(), []
+
+        def run(h):
+            gen = torch.Generator(device=h.device)
+            gen.set_state(start)
+            out = layer(h, valid, bias, generator=gen, pos_emb=pos_emb)
+            if not end:  # the first call's, not the recompute's
+                end.append(gen.get_state())
+            return out
+
+        kw = {}
+        context = remat_context(self.cfg.remat_policy)
+        if context is not None:
+            kw["context_fn"] = context
+        out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **kw)
+        generator.set_state(end[0])
+        return out
+
     def _compress(self, x, logits, lengths, layer):
         """CTC-blank compression (s2t_tpu/models/s2t_transformer.py:595-622): frames whose
         blank probability is >= the threshold go, the rest are left-packed in order
@@ -572,7 +627,10 @@ class S2TTransformerEncoder(nn.Module):
                 transcript_lengths: Optional[torch.Tensor] = None,
                 target: Optional[torch.Tensor] = None,
                 target_lengths: Optional[torch.Tensor] = None,
-                num_updates: Optional[int] = None) -> Dict[str, Any]:
+                num_updates: Optional[int] = None,
+                layer_keep: Optional[Sequence[bool]] = None) -> Dict[str, Any]:
+        """``layer_keep``: LayerDrop's keep bits of this step in place of the draw
+        (``draw_layer_keep``)."""
         cfg = self.cfg
         train = generator is not None
         check_features(features)
@@ -607,6 +665,10 @@ class S2TTransformerEncoder(nn.Module):
         bias = window_bias(valid)
         history = [x] if self.dlcl is not None else None
         inter_ctc, inter_xctc, inter_axctc = [], [], []
+        keep = None
+        if train and cfg.encoder_layerdrop > 0:
+            keep = layer_keep if layer_keep is not None else draw_layer_keep(
+                len(self.layers), cfg.encoder_layerdrop, generator.initial_seed())
         for i, layer in enumerate(self.layers):
             if self.dlcl is not None:
                 x = self.dlcl.combine(history, i)
@@ -615,7 +677,10 @@ class S2TTransformerEncoder(nn.Module):
                 valid = lengths_to_mask(lengths, T)
                 # as in JAX (s2t_transformer.py:781), a window is not rebuilt here
                 bias = None if bias is None else padding_bias(valid, x.dtype)
-            x = layer(x, valid, bias, generator=generator, pos_emb=pos_emb)
+            if keep is None or keep[i]:
+                # a dropped layer is skipped: JAX computes it and keeps x (a where), so
+                # the values are the same and its parameters get zero gradients
+                x = self._run_layer(layer, x, valid, bias, generator, pos_emb)
             if self.layer_out_norms is not None and str(i) in self.layer_out_norms:
                 x = self.layer_out_norms[str(i)](x)
             l = i + 1

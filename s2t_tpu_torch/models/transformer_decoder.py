@@ -43,6 +43,9 @@ from s2t_tpu_torch.modules.positional import fairseq_sinusoidal_encoding
 from s2t_tpu_torch.utils.masking import valid_first
 
 
+ALL_LAYERS = -1  # _features' attn_layer: every layer's cross-attention
+
+
 class TransformerDecoder(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int = 256, ffn_dim: int = 2048,
                  num_layers: int = 6, num_heads: int = 4, activation: str = "relu",
@@ -68,6 +71,10 @@ class TransformerDecoder(nn.Module):
         self.embed_positions = nn.Embedding(max_positions, embed_dim) if learned_pos else None
         self.emb_norm = layer_norm(embed_dim) if layernorm_embedding else None
         self.no_cross_attention = no_cross_attention
+        # criterions/latency.capture_cross_attn: every layer's cross-attention probabilities
+        # of the teacher-forced passes while set
+        self.capture_cross_attn = False
+        self.captured_cross_attn = None
         self.layers = nn.ModuleList([
             TransformerDecoderLayer(embed_dim, ffn_dim, num_heads, activation, normalize_before,
                                     dropout, attention_dropout, activation_dropout,
@@ -119,17 +126,25 @@ class TransformerDecoder(nn.Module):
                               s2_out, s2_valid_mask)[0]
 
     def forward_features_with_attn(self, prev_tokens: torch.Tensor, encoder_out: torch.Tensor,
-                                   encoder_valid_mask: torch.Tensor, layer: int,
+                                   encoder_valid_mask: torch.Tensor, layer: Optional[int] = None,
                                    generator: Optional[torch.Generator] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(``forward_features``, layer ``layer``'s (B, H, U, S) cross-attention
-        probabilities before dropout)."""
+        probabilities before dropout; with ``layer`` None every layer's, concatenated
+        layer-major into (B, H·L, U, S))."""
         return self._features(prev_tokens, encoder_out, encoder_valid_mask, generator,
-                              attn_layer=layer)
+                              attn_layer=ALL_LAYERS if layer is None else layer)
 
     def _features(self, prev_tokens, encoder_out, encoder_valid_mask, generator=None, mix=None,
                   s2_out=None, s2_valid_mask=None, attn_layer: Optional[int] = None):
-        """(hidden states, layer ``attn_layer``'s cross-attention probabilities or None)."""
+        """(hidden states, layer ``attn_layer``'s cross-attention probabilities, every
+        layer's for ``ALL_LAYERS``, or None)."""
+        if self.capture_cross_attn and attn_layer is None:
+            x, attn = self._features(prev_tokens, encoder_out, encoder_valid_mask, generator,
+                                     mix, s2_out, s2_valid_mask, ALL_LAYERS)
+            if self.captured_cross_attn is None:  # the first pass's, as JAX reads its sow
+                self.captured_cross_attn = attn
+            return x, None
         U = prev_tokens.shape[1]
         x = self._embed(prev_tokens, 0)
         tgt_valid = prev_tokens != self.pad_id
@@ -146,18 +161,20 @@ class TransformerDecoder(nn.Module):
             self_valid, key_order = tgt_valid, valid_first(tgt_valid)
         cross_bias = None if self.no_cross_attention else padding_bias(encoder_valid_mask, x.dtype)
         s2_bias = None if s2_valid_mask is None else padding_bias(s2_valid_mask, x.dtype)
-        attn = None
+        attn = []
         for i, layer in enumerate(self.layers):
-            if i == attn_layer:
-                x, attn = layer.forward_with_attn(x, encoder_out, self_bias, cross_bias,
-                                                  generator, self_valid, key_order)
+            if i == attn_layer or (attn_layer == ALL_LAYERS and layer.has_cross_attention):
+                x, a = layer.forward_with_attn(x, encoder_out, self_bias, cross_bias,
+                                               generator, self_valid, key_order,
+                                               s2_out=s2_out, s2_bias=s2_bias)
+                attn.append(a)
             else:
                 x, _ = layer(x, encoder_out, self_bias, cross_bias, generator=generator,
                              s2_out=s2_out, s2_bias=s2_bias, self_valid=self_valid,
                              self_key_order=key_order)
         if self.final_norm is not None:
             x = self.final_norm(x)
-        return x, attn
+        return x, (torch.cat(attn, dim=1) if attn else None)
 
     def forward(self, prev_tokens, encoder_out, encoder_valid_mask,
                 generator: Optional[torch.Generator] = None, mix: Optional[dict] = None,

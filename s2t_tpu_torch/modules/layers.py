@@ -329,13 +329,15 @@ class TransformerDecoderLayer(nn.Module):
     def forward_with_attn(self, x, encoder_out, self_bias=None, cross_bias=None,
                           generator: Optional[torch.Generator] = None,
                           self_valid: Optional[torch.Tensor] = None,
-                          self_key_order: Optional[torch.Tensor] = None
+                          self_key_order: Optional[torch.Tensor] = None,
+                          s2_out: Optional[torch.Tensor] = None,
+                          s2_bias: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """A teacher-forced ``forward``: (output, the cross-attention's (B, H, U, S)
         probabilities before dropout)."""
         x, _, attn = self._forward(x, encoder_out, self_bias, cross_bias, generator=generator,
-                                   self_valid=self_valid, self_key_order=self_key_order,
-                                   need_attn=True)
+                                   s2_out=s2_out, s2_bias=s2_bias, self_valid=self_valid,
+                                   self_key_order=self_key_order, need_attn=True)
         return x, attn
 
     def _forward(self, x, encoder_out, self_bias=None, cross_bias=None, cache=None,

@@ -26,6 +26,10 @@ def setup_task(cfg: TrainConfig) -> "Task":
 
 
 class Task:
+    # where a task runs models of its own while loading data (the reverse model of
+    # semisupervised_translation); cli.train sets it to the training device
+    device = "cuda"
+
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
         self.datasets: Dict[str, Any] = {}

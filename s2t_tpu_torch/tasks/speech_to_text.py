@@ -22,11 +22,11 @@ encoder-decoder through ``SequenceGenerator``, or ``JacobiGenerator`` under
 warning, the sequential engine); a ``generation.lm_path`` ending in ``.arpa``
 gives the CTC generator its n-gram LM (``lm_weight``), and the sequence
 generator takes every generation option of the JAX task (joint CTC decoding,
-sampling, prefix forcing, diverse search, constraints, the int8 cache).  What
-the port does not have raises ``NotImplementedError`` naming it:
-comma-separated multilingual splits, latency-augmented attention capture, and
-decoding a ``use_audio_input`` split (the JAX generator feeds such a batch's
-waveforms to the encoder without an fbank, ROADMAP.md section 3).
+sampling, prefix forcing, diverse search, constraints, the int8 cache).  Under
+``latency_augmented_label_smoothed_cross_entropy`` the adapter's output also
+carries every decoder layer's cross-attention (``criterions/latency.with_cross_attn``).
+Decoding a ``use_audio_input`` split raises as JAX's does (its generator feeds such a
+batch's waveforms to the encoder without an fbank, ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -53,13 +53,6 @@ from s2t_tpu_torch.trainer import fold_in
 
 # the JAX step folds its dropout key with 7 for the feature transforms
 TRANSFORM_FOLD = 7
-
-
-def _check_forward_supported(cfg: TrainConfig) -> None:
-    if cfg.criterion.startswith("latency_augmented"):
-        raise NotImplementedError(
-            f"criterion {cfg.criterion!r}: capturing the decoder's cross-attention is not "
-            "ported to s2t_tpu_torch")
 
 
 def encoder_inputs(mcfg, batch, train: bool) -> dict:
@@ -152,7 +145,6 @@ class SpeechToTextTask(Task):
         cfg = self.cfg
 
         def fwd(model, batch, train: bool = False, generator: Optional[torch.Generator] = None):
-            _check_forward_supported(cfg)
             feats, lengths = batch["features"], batch["feat_lengths"]
             if use_audio:
                 # the fbank inside the step: K5 on the card, its plain version on the CPU
@@ -167,6 +159,11 @@ class SpeechToTextTask(Task):
             return model(feats, lengths, batch["prev_tokens"], train=train, generator=generator,
                          **encoder_inputs(model.cfg, batch, train))
 
+        if cfg.criterion.startswith("latency_augmented"):
+            # the latency penalty reads every decoder layer's cross-attention
+            from s2t_tpu_torch.criterions.latency import with_cross_attn
+
+            return with_cross_attn(fwd)
         return fwd
 
     def build_generator(self, model, gen_cfg=None):

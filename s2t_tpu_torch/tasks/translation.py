@@ -23,9 +23,19 @@ once (a shared dictionary once in all), every source gets its language's tag
 appended after EOS and every target its language's tag prepended; the pretrained
 weights come in through ``checkpoint.finetune_from_model``.
 
-What the port does not have raises naming ROADMAP.md item 11: the latency-augmented
-criterion (it captures every decoder layer's cross-attention) and
-``semisupervised_translation``.
+Under ``latency_augmented_label_smoothed_cross_entropy`` the forward adapter captures
+every decoder layer's cross-attention probabilities as ``cross_attn`` (B, H·L, U, S)
+(``criterions/latency.capture_cross_attn``), as the JAX task stacks the sown ones.
+
+``semisupervised_translation`` (s2t_tpu/tasks/translation.py:170-240) trains on the
+bitext plus online backtranslation of ``mono.<tgt>``: a reverse (tgt -> src) model
+from the port's checkpoint ``task_cfg.bt_checkpoint`` (arch ``bt_arch``, config
+``bt_model`` or the checkpoint's ``model`` metadata, beam ``bt_beam``) generates each
+synthetic batch's sources on ``task.device``; with ``lambda_denoising`` > 0 a third
+stream of noised monolingual text -> clean text (``word_shuffle``,
+``word_dropout_prob``, ``word_blanking_prob``) joins it.  Batches stay single-origin
+(``ConcatHomogeneous``); each carries its ``origin`` (0 bitext, 1 backtranslation,
+2 denoising).
 """
 
 from __future__ import annotations
@@ -42,8 +52,6 @@ from s2t_tpu_torch.data.tokenizer import build_tokenizer
 from s2t_tpu_torch.inference.generator import SequenceGenerator
 from s2t_tpu_torch.registry import register_task
 from s2t_tpu_torch.tasks.base import Task
-
-ITEM_11 = "ROADMAP.md section 1 item 11"
 
 
 @dataclass
@@ -73,10 +81,6 @@ class TranslationTask(Task):
     def __init__(self, cfg: TrainConfig, data_cfg: TransDataConfig, tgt_dict: Dictionary,
                  src_dict: Optional[Dictionary] = None):
         super().__init__(cfg)
-        if cfg.criterion.startswith("latency_augmented"):
-            raise NotImplementedError(
-                f"criterion {cfg.criterion!r} captures the decoder's cross-attention, which is "
-                f"not ported to s2t_tpu_torch ({ITEM_11})")
         self.data_cfg = data_cfg
         self.tgt_dict = tgt_dict
         self.src_dict = src_dict or tgt_dict
@@ -125,8 +129,11 @@ class TranslationTask(Task):
             max_target_positions=self.cfg.dataset.max_target_positions)
 
     def forward_fn(self):
+        from s2t_tpu_torch.criterions.latency import with_cross_attn
         from s2t_tpu_torch.models.transformer import text_forward
 
+        if self.cfg.criterion.startswith("latency_augmented"):
+            return with_cross_attn(text_forward)
         return text_forward
 
     def build_generator(self, model, gen_cfg=None):
@@ -145,18 +152,50 @@ class TranslationTask(Task):
         return self.tgt_dict.string(tokens, bpe_symbol=self.cfg.generation.post_process)
 
 
-def _unported(name: str, needs: str):
-    class Unported(TranslationTask):
-        @classmethod
-        def setup(cls, cfg: TrainConfig):
-            raise NotImplementedError(f"task {name!r} needs {needs}, which is not ported to "
-                                      f"s2t_tpu_torch ({ITEM_11})")
+@register_task("semisupervised_translation")
+class SemisupervisedTranslationTask(TranslationTask):
+    """Bitext + online backtranslation (+ denoising); see the module docstring."""
 
-    Unported.__name__ = Unported.__qualname__ = f"Unported_{name}"
-    return register_task(name)(Unported)
+    def load_dataset(self, split: str, is_train: bool = False):
+        bitext = super().load_dataset(split, is_train)
+        t = self.cfg.task_cfg or {}
+        mono = Path(self.cfg.dataset.data) / f"mono.{self.data_cfg.tgt_lang}"
+        ckpt = t.get("bt_checkpoint")
+        if not is_train or not ckpt or not mono.exists():
+            return bitext
+        from s2t_tpu_torch.data.backtranslation_dataset import (
+            BacktranslationDataset, ConcatHomogeneous, make_backtranslator)
+        from s2t_tpu_torch.models.build import build_model
+        from s2t_tpu_torch.utils.checkpoint import load_checkpoint
 
+        tree, meta = load_checkpoint(ckpt)
+        rev = build_model(
+            t.get("bt_arch", self.cfg.arch or self.default_arch),
+            t.get("bt_model", meta.get("model", {})), device=self.device,
+            seed=self.cfg.common.seed, vocab_size=len(self.src_dict),
+            src_vocab_size=len(self.tgt_dict),
+            max_source_positions=self.cfg.dataset.max_source_positions,
+            max_target_positions=self.cfg.dataset.max_target_positions)
+        rev.load_state_dict(tree.get("params", tree))
+        gen = SequenceGenerator(
+            rev, beam_size=int(t.get("bt_beam", 1)),
+            max_len_b=self.cfg.dataset.max_source_positions, eos_id=self.src_dict.eos(),
+            pad_id=self.src_dict.pad(), max_target_positions=self.cfg.dataset.max_source_positions,
+            input_keys=("src_tokens", "src_lengths"))
+        parts = [bitext, BacktranslationDataset(mono, self.tgt_dict,
+                                                make_backtranslator(rev, gen), tgt_bpe=self.bpe)]
+        if float(t.get("lambda_denoising", 0.0)) > 0:
+            from s2t_tpu_torch.data.wrappers import NoisingDataset
 
-_unported("semisupervised_translation", "online backtranslation")
+            parts.append(NoisingDataset(
+                TranslationDataset(mono, mono, self.tgt_dict, self.tgt_dict, self.bpe, self.bpe),
+                self.tgt_dict, seed=self.cfg.common.seed,
+                max_word_shuffle_distance=float(t.get("word_shuffle", 3)),
+                word_dropout_prob=float(t.get("word_dropout_prob", 0.1)),
+                word_blanking_prob=float(t.get("word_blanking_prob", 0.1))))
+        ds = ConcatHomogeneous(parts)
+        self.datasets[split] = ds
+        return ds
 
 
 @register_task("translation_from_pretrained_bart")

@@ -13,7 +13,11 @@ generator=...)``:
   micro-batches; their summed losses are backpropagated one by one and the
   summed gradients and loss are normalised by the GLOBAL sample size
   (trainer.py:351-355) before the global norm is taken;
-* the optimizer is ``FusedAdamWSkipNonFinite`` under the LR schedule;
+* the optimizer is ``FusedAdamWSkipNonFinite`` under the LR schedule for Adam
+  without ``lr_groups`` and ``SkipNonFiniteChain`` (clip -> optimizer -> the groups'
+  factors -> the lr scale, skipped when non-finite) otherwise, as the JAX trainer
+  picks (trainer.py:131-143); ``lr_groups`` keys are the flax tree's top-level keys
+  of the parameters (``interop/from_flax.flax_path``);
 * it returns ``loss``, ``gnorm``, ``lr`` (the schedule at the step count
   before this update, trainer.py:366-369), ``sample_size`` and the
   criterion's logs, all summed over the micro-batches.
@@ -33,9 +37,11 @@ seeded by the step's seed folded with 0x51AE, as JAX folds its key; a
 
 ``valid_step(batch)`` runs the adapter in eval mode without gradients and
 returns the summed loss, the sample size and the criterion's logs.
+``set_lr_scale(value)`` sets the runtime lr multiplier (reduce_on_plateau).
 ``state_dict()`` / ``load_state_dict()`` carry the float32 master
-parameters, both Adam moments, the Adam and non-finite counters and the step,
-as host tensors and ints (``utils/checkpoint.py`` saves them).
+parameters, the optimizer's state (both Adam moments, or the chain's), its
+counters and lr scale and the step, as host tensors and ints
+(``utils/checkpoint.py`` saves them).
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ from torch import nn
 from s2t_tpu_torch.config import OptimizationConfig, check_supported
 from s2t_tpu_torch.device import resolve_device
 from s2t_tpu_torch.modules.quant_noise import quant_noise_params
-from s2t_tpu_torch.optim.builders import FusedAdamWSkipNonFinite, build_lr_schedule
+from s2t_tpu_torch.optim.builders import (
+    FusedAdamWSkipNonFinite, SkipNonFiniteChain, build_lr_schedule, group_scales)
 
 _MASK64 = (1 << 64) - 1
 QUANT_NOISE_FOLD = 0x51AE  # the JAX step folds its dropout key with this for quant noise
@@ -61,6 +68,23 @@ def fold_in(seed: int, data: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (x ^ (x >> 31)) >> 1
+
+
+def flax_top_key(model) -> Callable[[str], str]:
+    """A parameter name -> the first key of its flax path (``lr_groups``' keys); a
+    decoder table tied to a CTC head is flax's top-level ``shared_embed``."""
+    from s2t_tpu_torch.interop.from_flax import flax_path
+
+    shared = bool(getattr(getattr(model, "cfg", None), "share_ctc_and_embed", False))
+    ndim = {n: p.dim() for n, p in model.named_parameters()}
+
+    def key(name: str) -> str:
+        try:
+            return flax_path(name, ndim[name], shared)[0]
+        except KeyError:
+            return name.split(".")[0]
+
+    return key
 
 
 def s2t_forward(model, batch: Dict[str, torch.Tensor], train: bool = False,
@@ -105,8 +129,16 @@ class Trainer:
         self.opt_cfg = opt_cfg
         self.seed = seed
         self.schedule = build_lr_schedule(opt_cfg)
-        self.optimizer = FusedAdamWSkipNonFinite(params, opt_cfg, self.schedule,
-                                                 max_consecutive_errors=8)
+        if opt_cfg.optimizer in ("adam", "adamw") and not opt_cfg.lr_groups:
+            self.optimizer = FusedAdamWSkipNonFinite(params, opt_cfg, self.schedule,
+                                                     max_consecutive_errors=8)
+        else:
+            scales = None
+            if opt_cfg.lr_groups:
+                names = [n for n, p in model.named_parameters() if p.requires_grad]
+                scales = group_scales(names, opt_cfg.lr_groups, flax_top_key(model))
+            self.optimizer = SkipNonFiniteChain(params, opt_cfg, self.schedule, scales,
+                                                max_consecutive_errors=8)
         self.step = 0  # updates attempted, skipped ones included (the JAX state.step)
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -194,17 +226,19 @@ class Trainer:
         return {"loss": loss.detach().float(),
                 "sample_size": torch.as_tensor(sample_size, dtype=torch.float32), **logs}
 
+    def set_lr_scale(self, value: float) -> None:
+        """The runtime lr multiplier of every later update (the JAX ``set_lr_scale``)."""
+        self.optimizer.lr_scale = float(value)
+
     def state_dict(self) -> Dict[str, Any]:
-        """Host copies of the master parameters, the Adam moments and counters
+        """Host copies of the master parameters, the optimizer's state and counters
         and the step (the JAX ``TrainState``: step, params, opt_state)."""
-        opt = self.optimizer
         return {
             "step": self.step,
             # one host copy each (.cpu() of a card tensor already copies)
             "params": {k: v.detach().to("cpu", copy=True)
                        for k, v in self.model.state_dict().items()},
-            "opt_state": {"mu": opt.mu.to("cpu", copy=True), "nu": opt.nu.to("cpu", copy=True),
-                          "count": int(opt.count), "notfinite_count": int(opt.notfinite_count)},
+            "opt_state": self.optimizer.state_dict(),
         }
 
     def load_state_dict(self, state: Dict[str, Any], params_only: bool = False) -> None:
@@ -213,14 +247,5 @@ class Trainer:
         self.model.load_state_dict(state["params"], strict=True)
         if params_only:
             return
-        opt, dev = self.optimizer, self.device
-        opt_state = state["opt_state"]
-        if opt_state["mu"].shape != opt.mu.shape:
-            raise ValueError(f"optimizer state of {opt_state['mu'].numel()} entries does not fit "
-                             f"the model's {opt.mu.numel()} parameters")
-        opt.mu.copy_(opt_state["mu"])
-        opt.nu.copy_(opt_state["nu"])
-        opt.count = torch.tensor(opt_state["count"], dtype=torch.int32, device=dev)
-        opt.notfinite_count = torch.tensor(opt_state["notfinite_count"], dtype=torch.int32,
-                                           device=dev)
+        self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])

@@ -220,17 +220,31 @@ def test_differentiable_ops_keep_the_graph():
 
 
 def test_training_with_layerdrop_raises():
-    cfg = s2t_transformer_s(vocab_size=16, encoder_layers=1, decoder_layers=1,
+    """LayerDrop trains (it raised before it was ported): a dropped layer is skipped
+    in training only, and the keep bits come from the step generator's seed; an
+    unknown remat policy still raises, as do BMUF and a process group."""
+    cfg = s2t_transformer_s(vocab_size=16, encoder_layers=2, decoder_layers=1,
                             encoder_embed_dim=32, decoder_embed_dim=32,
                             encoder_ffn_embed_dim=32, decoder_ffn_embed_dim=32,
-                            subsampling_filter=32)
-    with pytest.raises(NotImplementedError, match="encoder_layerdrop"):
-        S2TTransformerModel(cfg.replace(encoder_layerdrop=0.2), device="cpu", for_training=True)
-    # a serving model built from the same config may still train-forward: it raises too
-    model = S2TTransformerModel(cfg.replace(encoder_layerdrop=0.2), device="cpu")
-    feats, lens = torch.zeros(1, 16, 80), torch.tensor([16])
-    with pytest.raises(NotImplementedError, match="encoder_layerdrop"):
-        model(feats, lens, torch.tensor([[2, 5]]), train=True, generator=torch.Generator())
+                            subsampling_filter=32, encoder_layerdrop=1.0)
+    model = S2TTransformerModel(cfg, device="cpu", for_training=True)
+    feats, lens = torch.randn(1, 16, 80), torch.tensor([16])
+    out = model(feats, lens, torch.tensor([[2, 5]]), train=True, generator=torch.Generator())
+    out["decoder_logits"].sum().backward()
+    assert all(p.grad is None for p in model.encoder.layers.parameters())  # both dropped
+    assert model.encoder.subsample.convs[0].weight.grad is not None
+    kept = model(feats, lens, torch.tensor([[2, 5]]), train=True, generator=torch.Generator(),
+                 layer_keep=[True, False])["encoder_out"]
+    assert not torch.equal(kept, out["encoder_out"])
+    assert torch.equal(model(feats, lens, torch.tensor([[2, 5]]))["encoder_out"],
+                       model(feats, lens, torch.tensor([[2, 5]]))["encoder_out"])
+    with pytest.raises(ValueError, match="remat_policy"):
+        S2TTransformerModel(cfg.replace(checkpoint_activations=True, remat_policy="x"),
+                            device="cpu", for_training=True)
+    from s2t_tpu_torch.config import from_dict
+    for bad in ({"bmuf": {"active": True}}, {"distributed": {"fsdp": True}}):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            check_train_supported(from_dict(TrainConfig, bad))
 
 
 def test_fbank_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
@@ -248,15 +262,17 @@ def test_training_cli_refuses_unported_settings():
                                  ("common", "profile", True),
                                  ("common", "tensorboard_logdir", "tb"),
                                  ("common", "user_dir", "plugins"),
-                                 ("optimization", "lr_scheduler", "triangular")):
+                                 ("optimization", "rng_impl", "unsafe_rbg")):
         cfg = TrainConfig()
         setattr(getattr(cfg, section), name, value)
-        with pytest.raises(NotImplementedError, match=name if section != "optimization"
-                           else "triangular"):
+        with pytest.raises(NotImplementedError, match=name):
             check_train_supported(cfg)
-    # validation-time decoding, the pretrained-component transplant and quant noise are ported
+    # validation-time decoding, the pretrained-component transplant, quant noise and the
+    # training-loop breadth (schedulers, optimizers, lr_groups) are ported
     cfg = TrainConfig()
     cfg.eval.eval_wer = cfg.eval.eval_bleu = cfg.eval.eval_ctc_wer = True
     cfg.checkpoint.finetune_from_model = cfg.checkpoint.load_pretrained_encoder_from = "x.pt"
     cfg.optimization.quant_noise_p = 0.1
+    cfg.optimization.lr_scheduler, cfg.optimization.optimizer = "triangular", "lamb"
+    cfg.optimization.lr_groups = {"encoder": 0.0}
     check_train_supported(cfg)

@@ -132,7 +132,7 @@ def test_setup_reads_the_data_directory(tmp_path):
     assert len(task.tgt_dict) == len(WORDS) + 4
 
 
-def test_unported_branches_raise_by_name(tasks):
+def test_unported_branches_raise_by_name(tasks, tmp_path_factory):
     task, _, batch = tasks
     # a use_audio_input split decodes its waveforms as collated, as JAX's generator
     # does: an encoder that wants (B, T, C) features raises naming them
@@ -145,7 +145,17 @@ def test_unported_branches_raise_by_name(tasks):
     for arch in ("s2t_dynamic_transformer_s", "convtransformer", "s2t_transformer_s_relative"):
         assert build_model(arch, {"encoder_layers": 1, "decoder_layers": 1},
                            device="cpu").cfg.encoder_layers == 1
-    with pytest.raises(NotImplementedError, match="semisupervised_translation"):
-        setup_task(from_dict(TrainConfig, {"task": "semisupervised_translation"}))
+    # semisupervised_translation is ported (tests/test_torch_backtranslation.py): it sets
+    # up as a translation task and reads its bitext alone without a mono.<tgt> file
+    from s2t_tpu_torch.tasks.translation import SemisupervisedTranslationTask
+    mt = tmp_path_factory.mktemp("mt")
+    (mt / "dict.txt").write_text("a 1\nb 1\n")
+    (mt / "train.en").write_text("a b\n")
+    (mt / "train.de").write_text("b a\n")
+    st = setup_task(from_dict(TrainConfig, {"task": "semisupervised_translation",
+                                            "dataset": {"data": str(mt)},
+                                            "task_cfg": {"bt_checkpoint": "none.pt"}}))
+    assert isinstance(st, SemisupervisedTranslationTask)
+    assert len(st.load_dataset("train", is_train=True)) == 1
     with pytest.raises(KeyError, match="unknown task"):
         setup_task(from_dict(TrainConfig, {"task": "no_such_task"}))

@@ -107,9 +107,12 @@ def test_unported_criteria_and_branches_raise():
     assert build_criterion("label_smoothed_cross_entropy_with_alignment",
                            {"alignment_lambda": 0.05}).cfg.alignment_lambda == 0.05
     assert build_criterion("nat_loss", {"length_loss_factor": 0.2}).cfg.length_loss_factor == 0.2
-    # join_speech_and_text_loss (tests/test_torch_dual.py) and wav2vec v1's CPC loss
-    # (tests/test_torch_wav2vec_v1.py) are ported; the latency-augmented CE is not
-    with pytest.raises(NotImplementedError, match="latency_augmented"):
-        build_criterion("latency_augmented_label_smoothed_cross_entropy")
+    # join_speech_and_text_loss (tests/test_torch_dual.py), wav2vec v1's CPC loss
+    # (tests/test_torch_wav2vec_v1.py) and the latency-augmented CE, composite_loss and
+    # model (tests/test_torch_latency.py) are ported; an unknown name raises
+    assert build_criterion("latency_augmented_label_smoothed_cross_entropy",
+                           {"latency_weight_avg": 0.1}).cfg.latency_weight_avg == 0.1
+    with pytest.raises(NotImplementedError, match="no_such_criterion"):
+        build_criterion("no_such_criterion")
     with pytest.raises(KeyError, match="no_such_field"):
         build_criterion("ctc", {"no_such_field": 1})

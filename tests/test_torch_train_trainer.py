@@ -137,18 +137,31 @@ def test_dropout_step_is_reproducible():
 
 
 def test_training_refuses_unported_knobs():
-    with pytest.raises(NotImplementedError, match="encoder_layerdrop"):
-        tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY, encoder_layerdrop=0.1),
-                                device="cpu", for_training=True)
-    with pytest.raises(NotImplementedError, match="checkpoint_activations"):
-        tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY, checkpoint_activations=True),
-                                device="cpu", for_training=True)
+    # layerdrop, remat, sgd, triangular and lr_groups are ported (their parity cases:
+    # tests/test_torch_optimizers.py): each builds and takes a step
+    for kw in (dict(encoder_layerdrop=0.1), dict(checkpoint_activations=True)):
+        model = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY, **kw), device="cpu",
+                                        for_training=True)
+        Trainer(model, build_criterion(*CRITERION), OptimizationConfig(), device="cpu")
     model = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY), device="cpu",
                                     for_training=True)
-    for bad in (dict(optimizer="sgd"), dict(lr_scheduler="triangular"),
-                dict(lr_groups={"encoder": 0.0}), dict(rng_impl="unsafe_rbg")):
-        with pytest.raises(NotImplementedError, match=next(iter(bad))):
-            Trainer(model, build_criterion(*CRITERION), OptimizationConfig(**bad), device="cpu")
+    for good in (dict(optimizer="sgd"), dict(lr_scheduler="triangular"),
+                 dict(lr_groups={"encoder": 0.0})):
+        trainer = Trainer(model, build_criterion(*CRITERION), OptimizationConfig(**good),
+                          device="cpu")
+        assert np.isfinite(trainer.train_step(make_batch(np.random.default_rng(0)))["loss"].item())
+    # a PRNG implementation the port does not name still raises; BMUF and the
+    # process-group settings raise naming item 12 (the next slice)
+    with pytest.raises(NotImplementedError, match="rng_impl"):
+        Trainer(model, build_criterion(*CRITERION), OptimizationConfig(rng_impl="unsafe_rbg"),
+                device="cpu")
+    from s2t_tpu_torch.config import BMUFConfig, DistributedConfig, TrainConfig, \
+        check_train_supported
+    for bad in (TrainConfig(bmuf=BMUFConfig(active=True)),
+                TrainConfig(distributed=DistributedConfig(data_parallel=2)),
+                TrainConfig(distributed=DistributedConfig(model_parallel=2))):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            check_train_supported(bad)
     serving = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY), device="cpu")
     with pytest.raises(ValueError, match="for_training=True"):
         Trainer(serving, build_criterion(*CRITERION), OptimizationConfig(), device="cpu")
