@@ -302,7 +302,19 @@ Phases (any failure ends the run with a non-zero exit):
              0.1 under torch's deterministic algorithms, bit for bit; cli.train under
              reduce_lr_on_plateau over 2 epochs at lr 0 (the lr scale shrinks at the
              second validation);
-  9. summary the ten slowest phases and the seconds of phases 1-51 and 52-54, the
+ 55. parallel s2t_transformer_s at full width and depth with CTC, fp32, dropout 0, 2 steps
+             at B=8 x T=600: the one-device Trainer's steps (Adam; SGD followed by
+             the port's BMUF block update) as references; pipeline_parallel=2 on one
+             rank (4 microbatches) from the same weights restacked; then, alone on
+             the card, two ranks over gloo on cuda:0 (``--parallel-rank``): DP, TP
+             (H / 2 heads a rank), FSDP and BMUF (SGD, a sync every update with block
+             momentum 0.5 and the NBM lookahead), each held to its reference on the
+             whole batch (loss and norm at the card-vs-CPU rtol, Adam's parameters
+             within 2 sum(lr), BMUF's within 1e-5); each mode's step ms and peak GB;
+ 56. item16   pdss2t_transformer_s_8 under a 192-wide decoder with learned positions
+             over its 256-wide encoder: 2 fp32 steps card vs CPU at the cut depth, one
+             timed bf16 step at full depth;
+  9. summary the ten slowest phases and the seconds of phases 1-54 and 55-56, the
              kernels line, the card's name and power limit, and the final
              {"ok": true, ...} line.
 The launch counters are set to 0 before each main-path run and read after
@@ -341,7 +353,10 @@ Phase 52's text encoders run K1f / K1b once a layer (6 / 6 a step) and the rever
 model's encoder K1f 6 in a BT batch's collate; phase 53's once a layer of the encoder
 (12 / 12 an s2t_transformer_s step, no CTC term under the latency CE); phase 54 counts
 each step's kept layers under LayerDrop and K1f twice a checkpointed layer (the
-recompute), and so does the remat-vs-plain gradient check.
+recompute), and so does the remat-vs-plain gradient check.  Phase 55: K1f / K1b 12 / 12
+and K3 / K4 once a step in every mode and rank (a TP rank runs them on its own heads),
+the pipelined model's K1f / K1b once a layer a microbatch (48 / 48); each gloo rank
+counts its own launches and hands them back; phase 56's PDS encoder once a layer.
 Every kernel and library time is taken twice: ``ms`` with CUDA events around
 back-to-back calls (the call's host work included, which is what a call of a
 few tens of microseconds reads) and ``device_ms``, the device time of the
@@ -5309,7 +5324,7 @@ BART_LAYERS, MBART_LAYERS = 6, 12  # each side's; K1f / K1b each an encoder laye
 BART_SENTENCES = 16  # beam-5 card-vs-CPU lines (20 tokens: GEN_SHORT)
 RNN_CONV_ARCHS = ("lstm_wiseman_iwslt_de_en", "lightconv_iwslt_de_en", "dynamicconv_iwslt_de_en")
 RNN_CONV_TIMED = 2
-NEW_PHASES = ("phase_bt", "phase_latency", "phase_optim")  # the last slice's, timed apart
+NEW_PHASES = ("phase_parallel", "phase_item16")  # the last slice's, timed apart
 BART_CORPUS = {"train": 32, "dev": 8, "test": 8}  # lines of the denoising CLIs' splits
 
 
@@ -6506,10 +6521,264 @@ def phase_optim(root: Path):
             "plateau": plateau}, launches
 
 
+# --------------------------------------------------------------------------- #
+# phases 55-56: item 12's parallelism and BMUF, item 16's settings
+PARALLEL_BATCH = dict(B=8, T=600, U=30, lengths=[600, 580, 520, 480, 440, 400, 360, 300])
+PARALLEL_OPT = dict(lr=2e-3, warmup_updates=3, clip_norm=10.0, adam_eps=1e-6)
+# BMUF with SGD, a sync every update and no clip: when the replicas' sample sizes are
+# equal, their average after an update is SGD's update on the whole batch (JAX's
+# tests/test_bmuf_trainer.py::test_matches_dp_with_sgd_and_every_step_sync), so the
+# reference is that update followed by the block update (``optim/bmuf.py``); block
+# momentum 0.5 and the NBM lookahead move the parameters off plain data parallelism
+PARALLEL_SGD = dict(optimizer="sgd", lr=2e-3, warmup_updates=3, clip_norm=0.0)
+PARALLEL_BMUF = dict(active=True, sync_interval=1, warmup_iterations=0, block_momentum=0.5,
+                     block_lr=1.0, use_nbm=True)
+# SGD moves each entry in proportion to its gradient: float noise stays far below this
+BMUF_PARAM_BOUND = 1e-5
+# mode -> (distributed fields, BMUF fields or None, the reference it is held to); two
+# ranks over gloo, both on cuda:0 (NCCL refuses two ranks on one device; gloo's
+# point-to-point refuses CUDA tensors, so the pipeline and the ring run at world size 1)
+PARALLEL_GLOO_MODES = {"dp": (dict(data_parallel=2), None, "adam"),
+                       "tp": (dict(model_parallel=2), None, "adam"),
+                       "fsdp": (dict(data_parallel=2, fsdp=True), None, "adam"),
+                       "bmuf": (dict(data_parallel=2), PARALLEL_BMUF, "bmuf")}
+PARALLEL_STEPS = 2
+PDS_192 = dict(decoder_embed_dim=192, decoder_ffn_embed_dim=768, decoder_attention_heads=4,
+               decoder_learned_pos=True, vocab_size=10000, max_target_positions=1024)
+
+
+def parallel_cfg(**kw):
+    """s2t_transformer_s at full width and depth with CTC, fp32, dropout 0."""
+    return st_s_cfg(**NO_DROPOUT, **kw)
+
+
+def parallel_batch():
+    b = PARALLEL_BATCH
+    return train_batch(np.random.default_rng(55), b["B"], b["T"], b["U"], 10000, b["lengths"])
+
+
+def parallel_steps(trainer, batch, per_step, tag, after=None):
+    """PARALLEL_STEPS fp32 steps, the launches checked per step, ``after(trainer)`` (if
+    given) after each, untimed; the second step's ms and the peak GB of the process."""
+    torch.cuda.reset_peak_memory_stats()
+    metrics, launches, ms = [], {k: 0 for k in counters()}, 0.0
+    for i in range(PARALLEL_STEPS):
+        reset_counts()  # the main path: one step of the mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        check_counts(counts, {**{k: 0 for k in counters()}, **per_step}, f"{tag} step {i}")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        metrics.append({k: float(m[k]) for k in ("loss", "ctc_loss", "gnorm", "lr")})
+        if after is not None:
+            after(trainer)
+    return {"steps": metrics, "step_ms": ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, launches
+
+
+def parallel_agreement(got, ref_metrics, got_params, ref_params, tag, param_bound,
+                       keys=tuple(TRAIN_RTOL)):
+    """``keys`` of each step (the loss, CTC loss and norm) at TRAIN_RTOL and every
+    parameter within ``param_bound`` of the reference's."""
+    errs = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in keys} for a, b in
+            zip(got["steps"], ref_metrics)]
+    worst = max((got_params[n].float() - ref_params[n].float()).abs().max().item()
+                for n in ref_params)
+    got.update(rel_err=errs, max_param_diff=worst, param_bound=param_bound)
+    if any(not e[k] <= TRAIN_RTOL[k] for e in errs for k in keys) or \
+            not worst <= param_bound:
+        raise AssertionError(f"{tag} disagrees with its one-device reference: {errs}, "
+                             f"max param difference {worst:.3e} (bound {param_bound:.3e})")
+    return got
+
+
+def adam_bound(ref_metrics) -> float:
+    """Adam's first updates are ~lr sign(g): an entry whose gradient is float noise
+    around 0 moves up to 2 lr a step apart, the steps' own lr (``phase_train_parity``)."""
+    return 2 * sum(m["lr"] for m in ref_metrics)
+
+
+def bmuf_reference(model):
+    """The one-device reference of the BMUF mode, as ``parallel_steps``' ``after``: SGD's
+    update on the whole batch (the replicas' average), then the block update from
+    ``model``'s parameters now and the NBM restart, in place."""
+    from s2t_tpu_torch.config import BMUFConfig
+    from s2t_tpu_torch.optim.bmuf import bmuf_init, bmuf_restart_point, bmuf_sync
+
+    cfg = BMUFConfig(**PARALLEL_BMUF)
+    block = list(bmuf_init(dict(model.named_parameters())))
+
+    @torch.no_grad()
+    def after(trainer):
+        named = dict(zip(trainer.param_names, trainer.optimizer.params))
+        block[:] = bmuf_sync(cfg, block[0], {n: p.detach().clone() for n, p in named.items()},
+                             block[1])
+        for n, p in bmuf_restart_point(cfg, *block).items():
+            named[n].copy_(p)
+
+    return after
+
+
+def parallel_trainer(model, opt, dist_kw=None, bmuf_kw=None):
+    from s2t_tpu_torch.config import BMUFConfig, DistributedConfig
+
+    return Trainer(model, make_criterion(CRITERION), OptimizationConfig(**opt), device="cuda",
+                   seed=1, forward_fn=stack_forward,
+                   dist_cfg=None if dist_kw is None else DistributedConfig(**dist_kw),
+                   bmuf_cfg=None if bmuf_kw is None else BMUFConfig(**bmuf_kw))
+
+
+def stacked_state(sd, S, L):
+    """A plain encoder's state dict in the pipelined layout: layer i -> stage i // (L / S)."""
+    per = L // S
+    out = {}
+    for k, v in sd.items():
+        m = re.match(r"encoder\.layers\.(\d+)\.(.*)", k)
+        out[f"encoder.pipe_stages.{int(m.group(1)) // per}.layers.{int(m.group(1)) % per}."
+            f"{m.group(2)}" if m else k] = v
+    return out
+
+
+def parallel_rank_main(in_path: str, out_path: str) -> int:
+    """One of phase 55's two ranks over gloo on cuda:0 (RANK / WORLD_SIZE / MASTER_* in
+    the environment): every mode of PARALLEL_GLOO_MODES from the seeded weights, held to
+    the one-device references that the parent wrote; the results to ``out_path``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    refs = torch.load(in_path, map_location="cpu", weights_only=False)
+    host = S2TTransformerModel(parallel_cfg(), device="cpu", seed=0, for_training=True)
+    batch = nested_to(parallel_batch(), "cuda")
+    out, launches = {}, {k: 0 for k in counters()}
+    for mode, (dist_kw, bmuf_kw, ref) in PARALLEL_GLOO_MODES.items():
+        opt = PARALLEL_SGD if bmuf_kw else PARALLEL_OPT
+        trainer = parallel_trainer(copy.deepcopy(host).to("cuda"), opt, dist_kw, bmuf_kw)
+        res, counts = parallel_steps(trainer, batch, TRAIN_LAUNCHES, f"parallel {mode}")
+        params = trainer.state_dict()["params"]  # every rank: a sharded Trainer gathers
+        res["mesh"] = trainer.mesh.shape
+        # BMUF's norm is the mean of the replicas' own (s2t_tpu/trainer.py:503-511)
+        keys = ("loss", "ctc_loss") if bmuf_kw else tuple(TRAIN_RTOL)
+        bound = BMUF_PARAM_BOUND if bmuf_kw else adam_bound(refs[ref]["metrics"])
+        out[mode] = parallel_agreement(res, refs[ref]["metrics"], params, refs[ref]["params"],
+                                       f"{mode} over 2 gloo ranks", bound, keys)
+        launches = {k: launches[k] + counts[k] for k in launches}
+        del trainer, params
+        torch.cuda.empty_cache()
+    torch.save({"modes": out, "launches": launches}, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(root: Path):
+    """Phase 55: item 12 on the card, s2t_transformer_s at full width and depth with CTC,
+    fp32, dropout 0, PARALLEL_STEPS steps at B=8 x T=600.  The one-device Trainer's steps
+    are the references: Adam, and SGD followed by the block update (``bmuf_reference``).
+    The pipelined model (pipeline_parallel=2, M=4 microbatches, its stages in order on
+    one rank) from the same weights restacked.  Then, with nothing else on the card, two
+    ranks over gloo, both on cuda:0: DP, TP (H / 2 heads a rank through K1f / K1b), FSDP
+    and BMUF, each held to its reference on the whole batch.  Each mode's second step's
+    ms and its process's peak GB (the two ranks' ms are read beside each other)."""
+    host = S2TTransformerModel(parallel_cfg(), device="cpu", seed=0, for_training=True)
+    batch = nested_to(parallel_batch(), "cuda")
+    refs, results, launches = {}, {}, {k: 0 for k in counters()}
+
+    def run(tag, model, opt, per_step=TRAIN_LAUNCHES, after=None):
+        trainer = parallel_trainer(model, opt)
+        res, counts = parallel_steps(trainer, batch, per_step, f"parallel {tag}", after)
+        for k in launches:
+            launches[k] += counts[k]
+        params = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+        return res, params
+
+    res, params = run("one device adam", copy.deepcopy(host).to("cuda"), PARALLEL_OPT)
+    refs["adam"] = {"metrics": res["steps"], "params": params}
+    results["one_device_adam"] = res
+    model = copy.deepcopy(host).to("cuda")
+    res, params = run("one device sgd + block update", model, PARALLEL_SGD,
+                      after=bmuf_reference(model))
+    refs["bmuf"] = {"metrics": res["steps"], "params": params}
+    results["one_device_bmuf"] = res
+    del model  # nothing of a reference on the card beside the modes measured after it
+    torch.cuda.empty_cache()
+    pipe = S2TTransformerModel(parallel_cfg(pipeline_parallel=2), device="cpu", seed=0,
+                               for_training=True)
+    pipe.load_state_dict(stacked_state(host.state_dict(), 2, 12))
+    M = 4  # pipeline_microbatches 0: 2 S
+    res, params = run("pipeline 2 stages one rank", pipe.to("cuda"), PARALLEL_OPT,
+                      per_step={**TRAIN_LAUNCHES, "attention_fwd": 12 * M,
+                                "attention_bwd": 12 * M})
+    want = stacked_state(refs["adam"]["params"], 2, 12)
+    results["pipeline_one_rank"] = parallel_agreement(
+        res, refs["adam"]["metrics"], params, want, "the pipelined model",
+        adam_bound(refs["adam"]["metrics"]))
+    del host, pipe
+    torch.cuda.empty_cache()
+    # the gloo ranks only now: nothing of this process runs beside them
+    ref_path = root / "parallel_refs.pt"
+    torch.save(refs, ref_path)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(ref_path),
+         str(root / f"parallel_rank{r}.pt")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+             "MASTER_PORT": str(port)}) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(text[-6000:])
+            raise AssertionError(f"phase 55's gloo rank {r} exited {p.returncode}")
+    for r in range(2):
+        got = torch.load(root / f"parallel_rank{r}.pt", weights_only=False)
+        for mode, res in got["modes"].items():
+            results[f"{mode}_gloo_rank{r}"] = res
+        for k in launches:
+            launches[k] += got["launches"][k]
+    log(f"[parallel] s2t_transformer_s fp32 at B=8 x T=600, {PARALLEL_STEPS} steps: "
+        f"{json.dumps(results)}")
+    return results, launches
+
+
+def phase_item16():
+    """Phase 56: item 16 on the card, pdss2t_transformer_s_8 (egs/mustc/st's PDS widths)
+    under a 192-wide decoder with learned positions over its 256-wide encoder: 2 fp32
+    steps card vs CPU at the cut depth and one timed bf16 step at full depth."""
+    cfg = pdss2t_transformer_s_8(**PDS_192, **NO_DROPOUT)
+    parity, parity_launches = phase_train_parity(shallow(cfg), PDSS2TTransformerModel,
+                                                 "pds 192 decoder train")
+    speed, speed_launches = phase_train_speed(
+        pdss2t_transformer_s_8(**PDS_192, dtype_str="bfloat16"), PDSS2TTransformerModel,
+        "pds 192 decoder train speed", n_timed=1)
+    launches = {k: parity_launches.get(k, 0) + speed_launches[k] for k in counters()}
+    return {"parity": parity, "speed": speed}, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
+    ap.add_argument("--parallel-rank", nargs=2, help=argparse.SUPPRESS)  # phase 55's ranks
     args = ap.parse_args(argv)
+    if args.parallel_rank:
+        return parallel_rank_main(*args.parallel_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA H100", file=sys.stderr)
         return 2
@@ -6667,6 +6936,15 @@ def main(argv=None) -> int:
         mark("phase_latency")
         optim, optim_launches = phase_optim(Path(tmp))
         mark("phase_optim")
+    # phases 55-56: parallelism and BMUF, item 16's settings
+    with tempfile.TemporaryDirectory(prefix="s2t_chip_smoke_parallel_") as tmp:
+        parallel, parallel_launches = phase_parallel(Path(tmp))
+        mark("phase_parallel")
+    item16, item16_launches = phase_item16()
+    mark("phase_item16")
+    log(f"[main path] parallelism (references, pipeline, two gloo ranks) "
+        f"{json.dumps(parallel_launches)}; PDS under a 192-wide decoder (parity, speed) "
+        f"{json.dumps(item16_launches)}")
     log(f"[main path] semisupervised MT (CLI with BT in the collate, timed BT step, BT beam) "
         f"{json.dumps(bt_launches)}; latency CE (parity, speed, plain CE, MT step) "
         f"{json.dumps(latency_launches)}; optimizers, layerdrop / remat (speed, gradients), "
@@ -6732,7 +7010,8 @@ def main(argv=None) -> int:
         league_launches, item15_launches, mt_launches, mt_ctc_launches, berard_launches,
         emformer_launches, w2v1_launches, fconv_launches, adaptive_lm_launches, align_launches,
         nat_launches, bart_launches, mbart_launches, rnn_conv_launches, multilingual_launches,
-        roberta_launches, gpt2_launches, bt_launches, latency_launches, optim_launches))
+        roberta_launches, gpt2_launches, bt_launches, latency_launches, optim_launches,
+        parallel_launches, item16_launches))
         for k in counters()}
     path_launches["attention_fwd"] += serve_launches + pds_serve_launches + sate_serve_launches
 
@@ -6831,14 +7110,14 @@ def main(argv=None) -> int:
             "emformer": emformer, "w2v1": w2v1, "fconv": fconv, "adaptive_lm": adaptive_lm,
             "align": align, "nat": nat, "bart": bart, "mbart": mbart, "rnn_conv": rnn_conv,
             "multilingual": multilingual, "roberta": roberta, "gpt2": gpt2, "bt": bt,
-            "latency": latency, "optim": optim,
+            "latency": latency, "optim": optim, "parallel": parallel, "item16": item16,
             "path_launches": path_launches, "phase_s": phase_s,
             "nvidia_smi": smi.stdout.strip(), "wall_s": time.perf_counter() - t_start},
             indent=1))
     wall = time.perf_counter() - t_start
     slowest = sorted(phase_s.items(), key=lambda kv: -kv[1])[:10]
-    print(f"[slowest phases] {json.dumps({k: round(v, 1) for k, v in slowest})}; phases 1-51 "
-          f"{sum(v for k, v in phase_s.items() if k not in NEW_PHASES):.1f} s, 52-54 "
+    print(f"[slowest phases] {json.dumps({k: round(v, 1) for k, v in slowest})}; phases 1-54 "
+          f"{sum(v for k, v in phase_s.items() if k not in NEW_PHASES):.1f} s, 55-56 "
           f"{sum(phase_s.get(k, 0.0) for k in NEW_PHASES):.1f} s, total {wall:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0])

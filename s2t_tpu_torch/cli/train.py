@@ -26,6 +26,16 @@ batch's features go to ``encode`` as collated, the waveforms of a
 later update and is logged as ``lr_scale`` (s2t_tpu/cli/train.py:293-297, 358-361).
 Settings the port does not have raise ``NotImplementedError`` before
 anything is built (``config.check_train_supported``).
+
+Under ``torchrun`` (WORLD_SIZE > 1) every process joins the group (NCCL on the
+card, each rank on ``cuda:{LOCAL_RANK}``; gloo with ``--device cpu``) and trains
+on the mesh that ``distributed.*`` factors (``parallel/mesh.py``), with ``bmuf.*``
+as configured; ``distributed.pipeline_parallel`` is copied into the model section
+(s2t_tpu/cli/train.py:178-188) and the batches are a multiple of the data ranks.
+Every rank collates the same batches; only rank 0 logs and writes checkpoints,
+which hold the whole parameters (they load into a one-device run and back).
+Decoding validation runs on every rank over a model with the whole parameters (the
+replica average under BMUF).
 """
 
 from __future__ import annotations
@@ -138,6 +148,7 @@ def validate(cfg, task, trainer, valid_ds, generator=None) -> Dict[str, float]:
     if generator is not None and (cfg.eval.eval_wer or cfg.eval.eval_bleu):
         scorer = build_scorer("wer" if cfg.eval.eval_wer else "sacrebleu")
     wer_counts = {"w_err": 0, "w_len": 0, "c_err": 0, "c_len": 0}
+    ctc_model = decoding_model(task, trainer, trainer.device) if cfg.eval.eval_ctc_wer else None
     for batch in itr:
         logs = trainer.valid_step(step_batch(batch))
         tot["loss"] = tot.get("loss", 0.0) + float(logs["loss"])
@@ -147,7 +158,7 @@ def validate(cfg, task, trainer, valid_ds, generator=None) -> Dict[str, float]:
                 tot[k] = tot.get(k, 0.0) + float(v)
         n += float(logs["sample_size"])
         if cfg.eval.eval_ctc_wer:
-            _accumulate_ctc_wer(task, trainer.model, batch, wer_counts)
+            _accumulate_ctc_wer(task, ctc_model, batch, wer_counts)
         if scorer is not None:
             hyp_toks = generator.generate(batch)[0][:, 0].cpu().numpy()
             for b in range(batch["nsentences"]):
@@ -164,11 +175,24 @@ def validate(cfg, task, trainer, valid_ds, generator=None) -> Dict[str, float]:
     return out
 
 
+def decoding_model(task, trainer, device):
+    """The model that validation decodes with: the Trainer's own, or under a sharded
+    or BMUF Trainer a serving copy with the whole parameters (every rank calls it)."""
+    if trainer.sharded is None and trainer.bmuf is None:
+        return trainer.model
+    params = trainer.state_dict()["params"] if trainer.sharded is not None else \
+        {**trainer.model.state_dict(), **trainer.eval_params()}
+    model = task.build_model(device=device)
+    model.load_state_dict(params, strict=True)
+    return model
+
+
 def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
     """Train as configured.  ``task``: a prebuilt task (for a data config made
     in Python); default ``setup_task(cfg)``.  Returns the validation history,
     the per-step train logs, host-clock timings and the task, model and trainer."""
     from s2t_tpu_torch.config import check_train_supported
+    from s2t_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from s2t_tpu_torch.tasks import setup_task
     from s2t_tpu_torch.trainer import Trainer
     from s2t_tpu_torch.utils.checkpoint import CheckpointManager, load_checkpoint
@@ -176,16 +200,27 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(name)s | %(message)s")
     check_train_supported(cfg)
+    init_distributed(device)
+    if cfg.distributed.pipeline_parallel > 1:
+        # a model-structure choice: the stacked stages (s2t_tpu/cli/train.py:178-188)
+        cfg.model = dict(cfg.model or {})
+        cfg.model.setdefault("pipeline_parallel", cfg.distributed.pipeline_parallel)
+    mesh = make_mesh(cfg.distributed)
+    is_main = mesh.rank == 0
     task = task or setup_task(cfg)
     task.device = device
     train_ds = task.load_dataset(cfg.dataset.train_subset, is_train=True)
     valid_ds = task.load_dataset(cfg.dataset.valid_subset)
     model = task.build_model(device=device, for_training=True)
     trainer = Trainer(model, task.build_criterion(), cfg.optimization, device=device,
-                      seed=cfg.common.seed, forward_fn=task.forward_fn())
+                      seed=cfg.common.seed, forward_fn=task.forward_fn(), mesh=mesh,
+                      dist_cfg=cfg.distributed, bmuf_cfg=cfg.bmuf)
+    if mesh.world_size > 1:
+        logger.info("mesh: %s | rank %d | bmuf %s", mesh.shape, mesh.rank, cfg.bmuf.active)
     epoch_itr = task.get_batch_iterator(
         train_ds, max_tokens=cfg.dataset.max_tokens, seed=cfg.common.seed,
-        shuffle=cfg.dataset.shuffle, buffer_size=cfg.dataset.data_buffer_size)
+        shuffle=cfg.dataset.shuffle, buffer_size=cfg.dataset.data_buffer_size,
+        batch_size_multiple=mesh.size("data"))
     ck = cfg.checkpoint
     ckpt = CheckpointManager(
         ck.save_dir, keep_last_epochs=ck.keep_last_epochs,
@@ -204,12 +239,15 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
     logger.info("arch %s | %s parameters | device %s", cfg.arch,
                 f"{sum(p.numel() for p in model.parameters()):,}", trainer.device)
 
-    generator = None
-    if cfg.eval.eval_wer or cfg.eval.eval_bleu:
-        generator = task.build_generator(model)
+    def build_generator():
+        generator = task.build_generator(decoding_model(task, trainer, device))
         # as the JAX CLI does, on whatever build_generator returned: a CTCGenerator never
         # reads beam_size, so a CTC model validates with generation.beam (ROADMAP.md section 3)
         generator.beam_size = cfg.eval.eval_gen_beam
+        return generator
+
+    generator = None
+    decodes = cfg.eval.eval_wer or cfg.eval.eval_bleu
 
     progress = ProgressLogger(cfg.common.log_format, cfg.common.tensorboard_logdir,
                               cfg.common.wandb_project, cfg.common.azureml_logging)
@@ -228,8 +266,10 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
 
     def save(**kw):
         t0 = time.perf_counter()
-        ckpt.save(trainer.state_dict(), trainer.step, epoch_itr.epoch,
-                  extra_meta={"epoch_itr": epoch_itr.state_dict()}, **kw)
+        state = trainer.state_dict()  # every rank: a sharded Trainer gathers
+        if is_main:
+            ckpt.save(state, trainer.step, epoch_itr.epoch,
+                      extra_meta={"epoch_itr": epoch_itr.state_dict()}, **kw)
         timing["save_s"] += time.perf_counter() - t0
 
     while epoch_itr.epoch <= max_epoch and trainer.step < max_update:
@@ -253,7 +293,7 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
             interval_n += 1
             for k in ("loss", "gnorm"):
                 interval[k] = interval.get(k, 0.0) + row[k]
-            if trainer.step % cfg.common.log_interval == 0:
+            if trainer.step % cfg.common.log_interval == 0 and is_main:
                 ups = interval_n / (time.time() - t_log + 1e-9)
                 progress.log({"loss": interval["loss"] / interval_n,
                               "gnorm": interval["gnorm"] / interval_n, "lr": row["lr"],
@@ -265,6 +305,9 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
                 break
 
         t0 = time.perf_counter()
+        if decodes and (generator is None or trainer.sharded is not None
+                        or trainer.bmuf is not None):
+            generator = build_generator()  # a sharded or BMUF run: this epoch's parameters
         val = validate(cfg, task, trainer, valid_ds, generator)
         timing["valid_s"] += time.perf_counter() - t0
         val_metric = val.get(ck.best_checkpoint_metric, val.get("loss"))
@@ -272,7 +315,8 @@ def main(cfg, task=None, device="cuda") -> Dict[str, Any]:
             scale = plateau.step(float(val.get("loss", val_metric)))
             trainer.set_lr_scale(scale)
             val["lr_scale"] = scale
-        progress.log(val, trainer.step, "valid", epoch_itr.epoch)
+        if is_main:
+            progress.log(val, trainer.step, "valid", epoch_itr.epoch)
         history.append({"epoch": epoch_itr.epoch, "step": trainer.step, **val})
         if not ck.no_save:
             save(val_metric=val_metric)

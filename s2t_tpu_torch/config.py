@@ -7,11 +7,9 @@ result is materialised into the dataclass tree with type coercion.  Unknown
 keys raise.  ``yaml`` is imported inside the functions that read YAML, so
 the tree can be built from Python (``from_dict``) where PyYAML is absent.
 
-The port trains on one device through the plain data-parallel-free step, so
-a non-default value of a setting it does not have raises
+A non-default value of a setting the port does not have raises
 ``NotImplementedError`` naming it (``check_supported`` for the optimisation
-section, ``check_train_supported`` for the rest: BMUF and the ``distributed``
-section name ROADMAP.md item 12).  Settings no branch reads (``stop_min_lr``,
+section, ``check_train_supported`` for the rest).  Settings no branch reads (``stop_min_lr``,
 ``fp16_init_scale``) are kept for config compatibility.
 """
 
@@ -28,10 +26,11 @@ PORTED_OPTIMIZERS = ("adam", "adamw", "adafactor", "adagrad", "sgd", "nag", "ada
 PORTED_SCHEDULERS = ("inverse_sqrt", "tri_stage", "polynomial_decay", "cosine", "fixed",
                      "reduce_lr_on_plateau", "reduce_on_plateau", "pass_through", "manual",
                      "triangular")
-ITEM_12 = "ROADMAP.md section 1 item 12"
-# the JAX rng_impl knob picks a PRNG implementation; the port's bits come from
-# torch.Generators seeded per step, whichever of the two is named
-RNG_IMPLS = ("rbg", "threefry")
+# the JAX rng_impl knob picks a PRNG implementation: jax.random.key takes any
+# registered impl name, and "threefry" or an empty name mean PRNGKey
+# (s2t_tpu/trainer.py:144-150).  The port's bits come from torch.Generators seeded
+# per step, whichever of these is named, so it takes every one of them.
+RNG_IMPLS = ("rbg", "unsafe_rbg", "threefry", "threefry2x32", "")
 
 
 # --------------------------------------------------------------------------- #
@@ -385,19 +384,10 @@ def _raise_if_set(section, name: str, cfg, what: str = "") -> None:
 
 def check_train_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError on the first setting of the training CLI
-    that the port does not have."""
+    that the port does not have.  BMUF and every ``distributed`` setting are
+    ported (``parallel/``, ``optim/bmuf.py``); ``coordinator_address`` /
+    ``num_processes`` / ``process_id`` and ``common.user_dir`` are read by
+    nothing, in JAX as here (torchrun's environment names the processes)."""
     check_supported(cfg.optimization)
-    if cfg.bmuf.active:
-        raise NotImplementedError(
-            f"bmuf.active (BMUF / SlowMo) is not ported to s2t_tpu_torch ({ITEM_12})")
-    dist = cfg.distributed
-    if dist.data_parallel not in (-1, 1):
-        raise NotImplementedError(
-            f"distributed.data_parallel={dist.data_parallel} is not ported to s2t_tpu_torch "
-            f"(one device; {ITEM_12})")
-    for name in ("model_parallel", "seq_parallel", "pipeline_parallel", "fsdp",
-                 "coordinator_address", "num_processes", "process_id"):
-        _raise_if_set("distributed", name, dist, f" (one device; {ITEM_12})")
-    for name in ("profile", "tensorboard_logdir", "wandb_project", "azureml_logging", "user_dir"):
+    for name in ("profile", "tensorboard_logdir", "wandb_project", "azureml_logging"):
         _raise_if_set("common", name, cfg.common)
-

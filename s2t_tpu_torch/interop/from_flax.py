@@ -22,7 +22,9 @@ Module names follow the port: ``layer{i}`` -> ``layers.{i}``, ``conv{i}`` ->
 ``ds{i}`` -> ``downsamplers.{i}``, ``fusion{i}`` -> ``fusion_blocks.{i}``,
 ``final_layer{j}`` -> ``final_layers.{j}`` and its stage taps ``ctc_norm{i}``,
 ``xctc_norm{i}``, ``pae{i}`` and ``ctc{i}`` -> ``ctc_norms.{i}``, ``xctc_norms.{i}``,
-``paes.{i}`` and ``ctc_heads.{i}``, and the tied ``shared_embed`` table -> the
+``paes.{i}`` and ``ctc_heads.{i}``, the pipelined encoder's ``pipe_stages`` (every leaf
+stacked on a leading stage axis S) -> ``pipe_stages.{s}``, one stage a module (its
+``layer{j}`` -> ``layers.{j}``), and the tied ``shared_embed`` table -> the
 decoder's ``embed_tokens``, as is an LM's adaptive input ``adaptive_embed`` (its
 ``embed{k}`` tables and ``proj{k}`` kernels, like the adaptive softmax's ``head``,
 ``proj{k}`` and ``tail{k}``, keep their names); the other names (``encoder/embed_norm``,
@@ -90,7 +92,8 @@ _TO_PORT = ((re.compile(rf"^({_PER_LAYER})(\d+)$"), r"\1s.\2"),
             (re.compile(r"^(senior|textual)(\d+)$"), r"\1_stack.\2"),
             (re.compile(r"^blstm(\d+)_(fwd|bwd)$"), r"blstms.\1.\2"),
             (re.compile(r"^(layer|conv|input|rproj|res|attn_q|attn_o|enc|dec|enc_fw|enc_bw|lstm)(\d+)$"), r"\1s.\2"))
-_TO_FLAX = ((re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
+_TO_FLAX = ((re.compile(r"\bpipe_stages\.\d+\."), "pipe_stages."),
+            (re.compile(rf"\b({_PER_LAYER})s\.(\d+)\b"), r"\1\2"),
             (re.compile(r"\bnorms\.(\d+)\b"), r"norm\1"),
             (re.compile(r"\bstages\.(\d+)\.(\d+)\b"), r"stage\1_layer\2"),
             (re.compile(r"\bdownsamplers\.(\d+)\b"), r"ds\1"),
@@ -171,11 +174,25 @@ def _leaf(name: str, arr: np.ndarray):
     raise KeyError(name)
 
 
+def _unstack_stages(flat: Dict[tuple, np.ndarray]) -> Dict[tuple, np.ndarray]:
+    """The pipelined encoder's ``pipe_stages`` leaves, stacked on a leading stage axis
+    S in flax, as S leaves ``pipe_stages/{s}/...``."""
+    out = {}
+    for path, arr in flat.items():
+        if "pipe_stages" in path:
+            i = path.index("pipe_stages") + 1
+            for s_idx in range(arr.shape[0]):
+                out[(*path[:i], str(s_idx), *path[i:])] = arr[s_idx]
+        else:
+            out[path] = arr
+    return out
+
+
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """Rename and re-layout every leaf; raises on a leaf it cannot map."""
     sd, unmapped = {}, []
     has_decoder = "decoder" in params
-    for path, arr in _fuse_gates(_flatten(params)).items():
+    for path, arr in _unstack_stages(_fuse_gates(_flatten(params))).items():
         cell = _CELL_LEAF.match(path[-1])
         if cell:
             path = (*path[:-1], f"cells.{cell.group(1)}", cell.group(2))
@@ -261,9 +278,20 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor], shared_embed=Fals
     name given (BART's ``"shared"``).  Raises on a leaf it cannot map."""
     tree: Dict = {}
     unmapped = []
+    stages: Dict = {}  # (flax path) -> {stage: array}: stacked on a leading axis below
     for key, val in state_dict.items():
         module, _, name = key.rpartition(".")
         arr = val.detach().float().cpu().numpy()
+        stage = re.search(r"\bpipe_stages\.(\d+)\.", key)
+        if stage:
+            try:
+                leaf, out = _flax_leaf(module, name, arr)
+            except KeyError:
+                unmapped.append(key)
+                continue
+            path = (*_flax_module_path(module, shared_embed), leaf)
+            stages.setdefault(path, {})[int(stage.group(1))] = out
+            continue
         try:
             leaf, out = _flax_leaf(module, name, arr)
         except KeyError:
@@ -281,6 +309,11 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor], shared_embed=Fals
                 node.setdefault(side + g, {})[name] = np.array(part)
             continue
         node[leaf] = np.array(out)
+    for path, by_stage in stages.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.stack([by_stage[i] for i in sorted(by_stage)])
     if unmapped:
         raise KeyError(f"port parameters with no flax counterpart: {unmapped}")
     return tree

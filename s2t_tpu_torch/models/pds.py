@@ -233,11 +233,6 @@ class PDSConfig:
             self.pds_stages - 1)
 
 
-def _unported(field: str, value, item: str):
-    return NotImplementedError(f"PDSConfig.{field}={value!r} is not ported to s2t_tpu_torch "
-                               f"({item})")
-
-
 def check_supported(cfg: PDSConfig) -> None:
     """Raise NotImplementedError on the first field that selects a branch the
     port does not have, naming the field and the ROADMAP.md item that ports it,
@@ -264,17 +259,10 @@ def check_supported(cfg: PDSConfig) -> None:
     if cfg.use_xctc and xdims and cfg.xctc_layer == 0 and xdims != {cfg.out_dim}:
         raise ValueError("the top XCTC head tied to inter_xctc_head needs the tapped stages' "
                          "width at the encoder output")
-    if cfg.decoder_learned_pos:
-        raise _unported("decoder_learned_pos", True, "learned decoder positions")
     if cfg.fusion_stages and cfg.fusion_transform != "conv":
         raise NotImplementedError(
             f"fusion transform {cfg.fusion_transform!r}: only 'conv' is implemented (the "
             "reference's conv2/conv3/pool variants appear in no recipe that enables fusion)")
-    if cfg.decoder_layers > 0 and cfg.out_dim != cfg.decoder_embed_dim:
-        raise NotImplementedError(
-            f"a PDS encoder of width {cfg.out_dim} under a decoder of width "
-            f"{cfg.decoder_embed_dim}: the port's cross-attention projects keys of the "
-            "decoder's width")
 
 
 class Downsampling(nn.Module):
@@ -549,6 +537,11 @@ class PDSS2TTransformerModel(S2TTransformerModel):
         check_supported(cfg)
 
     build_encoder = PDSEncoder
+
+    @staticmethod
+    def encoder_out_dim(cfg: PDSConfig) -> int:
+        return cfg.out_dim
+
     # the JAX PDS model's init_cache / decode_step take neither (s2t_tpu/models/pds.py:651-660)
     kv_int8_cache = False
     lazy_reorder = False

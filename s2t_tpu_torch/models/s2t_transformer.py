@@ -54,6 +54,9 @@ from s2t_tpu_torch.modules.positional import (
     fairseq_sinusoidal_encoding, relative_table, sinusoidal_table)
 from s2t_tpu_torch.modules.subsampling import (
     Conv1dSubsampling, Conv2dSubsampling, check_features)
+from s2t_tpu_torch.parallel.collectives import gather, group_rank, group_size, split
+from s2t_tpu_torch.parallel.context import get_mesh, ring_scope, seq_parallel_enabled
+from s2t_tpu_torch.parallel.pipeline import pipeline_apply
 from s2t_tpu_torch.registry import register_model, register_model_architecture
 from s2t_tpu_torch.utils.masking import lengths_to_mask
 
@@ -209,10 +212,9 @@ _PORTED_FIELDS = frozenset({
     "inter_ctc_layers", "ctc_pae", "use_xctc", "inter_xctc_layers", "xctc_pae",
     "share_xctc_and_embed", "use_axctc", "inter_axctc_layers", "compression_layers",
     "inter_mixup", "layer_out_norm",
+    # learned decoder positions, and the parallel layouts (parallel/)
+    "decoder_learned_pos", "seq_parallel", "pipeline_parallel",
 })
-ITEM12 = "ROADMAP.md section 1 item 12 (parallelism)"
-# the ROADMAP.md item that ports each unported field
-_FIELD_ITEMS = {"seq_parallel": ITEM12, "pipeline_parallel": ITEM12}
 
 
 REMAT_POLICIES = ("full", "dots", "dots_no_batch")
@@ -231,8 +233,7 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
         if f.name not in _PORTED_FIELDS and getattr(cfg, f.name) != f.default:
             raise NotImplementedError(
                 f"S2TTransformerConfig.{f.name}={getattr(cfg, f.name)!r} is not ported "
-                f"to s2t_tpu_torch ({_FIELD_ITEMS.get(f.name, 'not on the ROADMAP.md queue')})"
-            )
+                "to s2t_tpu_torch")
     if cfg.subsampling_type not in ("conv1d", "conv2d"):
         raise NotImplementedError(
             f"S2TTransformerConfig.subsampling_type={cfg.subsampling_type!r} is not ported to "
@@ -252,6 +253,48 @@ def check_supported(cfg: S2TTransformerConfig) -> None:
     if missing:
         raise ValueError(f"compression_layers {missing} need use_ctc=True and a matching entry "
                          "in inter_ctc_layers (the CTC logit source, as in the reference)")
+    check_parallel(cfg)
+
+
+def check_parallel(cfg) -> None:
+    """The JAX encoder's refusals for its pipelined and sequence-parallel stacks
+    (s2t_tpu/models/s2t_transformer.py:373-403, 474-490)."""
+    if cfg.pipeline_parallel > 1:
+        S = cfg.pipeline_parallel
+        incompatible = [
+            ("use_enc_dlcl", cfg.use_enc_dlcl),
+            ("encoder_layerdrop", cfg.encoder_layerdrop > 0),
+            ("seq_parallel", cfg.seq_parallel),
+            ("compression_layers", bool(cfg.compression_layers)),
+            ("inter_mixup_layer>0", cfg.inter_mixup and cfg.inter_mixup_layer > 0),
+            ("inter_ctc_layers", bool(cfg.inter_ctc_layers)),
+            ("inter_xctc_layers", bool(cfg.inter_xctc_layers)),
+            ("inter_axctc_layers", bool(cfg.inter_axctc_layers)),
+            ("layer_out_norm", getattr(cfg, "layer_out_norm", False)),
+            ("per-layer lconv kernels", len(set(cfg.encoder_lconv_kernels)) > 1),
+        ]
+        bad = [n for n, v in incompatible if v]
+        if bad:
+            raise ValueError(
+                f"pipeline_parallel={S} is incompatible with {bad}: "
+                "pipeline stages are homogeneous layer blocks with no "
+                "interior taps (reference PP has the same restriction — "
+                "it only exists for the vanilla transformer)")
+        if cfg.encoder_layers % S:
+            raise ValueError(
+                f"encoder_layers ({cfg.encoder_layers}) must divide "
+                f"evenly into pipeline_parallel={S} stages")
+    if cfg.seq_parallel:
+        if cfg.encoder_attention_window > 0:
+            raise ValueError(
+                "seq_parallel is incompatible with "
+                "encoder_attention_window (ring attention has no "
+                "windowed-bias path)")
+        if cfg.attention_dropout > 0:
+            raise ValueError(
+                "seq_parallel requires attention_dropout=0 (ring "
+                "attention applies no attention-probability dropout; "
+                "set attention_dropout: 0 explicitly)")
 
 
 # the modules whose default init ``init_and_place`` overwrites, weights and biases alike
@@ -349,6 +392,22 @@ def init_and_place(model: nn.Module, cfg: S2TTransformerConfig, device: torch.de
 # the streams of the host draws, beside the step's generator seed (drop-net's:
 # sate.CrossStreamTextLayer)
 MIXUP_STREAM, ORACLE_STREAM, DROPNET_STREAM, LAYERDROP_STREAM = 1, 2, 3, 4
+# the dropout generators of a pipeline stage's microbatch and of a sequence rank's frames
+PIPE_STREAM, SEQ_STREAM = 5, 6
+
+
+def stream_generator(generator: Optional[torch.Generator], *data: int):
+    """A generator of its own for (stream, ...) of the step's ``generator`` (None: none),
+    so that work split over ranks draws the same bits wherever it runs and leaves the
+    step generator as every rank sees it."""
+    if generator is None:
+        return None
+    seed = generator.initial_seed()
+    from s2t_tpu_torch.trainer import fold_in
+
+    for d in data:
+        seed = fold_in(seed, d)
+    return torch.Generator(device=generator.device).manual_seed(seed)
 
 
 def draw_layer_keep(n_layers: int, rate: float, seed: int) -> List[bool]:
@@ -451,6 +510,42 @@ def _taps(layers, n_layers: int, top: bool = False):
     return tuple(l for l in dict.fromkeys(layers) if 1 <= l < n_layers + int(top))
 
 
+def encoder_layer(cfg: S2TTransformerConfig, i: int) -> S2TEncoderLayer:
+    """The encoder's layer i (s2t_tpu/models/s2t_transformer.py:355-372)."""
+    kernels = cfg.encoder_lconv_kernels
+    return S2TEncoderLayer(
+        cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, cfg.encoder_attention_heads,
+        cfg.enc_act, cfg.encoder_normalize_before, cfg.dropout,
+        cfg.attention_dropout, cfg.activation_dropout,
+        cfg.encoder_attention_type, cfg.macaron_style, cfg.use_cnn_module,
+        cfg.cnn_module_kernel, conv_activation=cfg.activation_fn,
+        conv_norm_type=cfg.cnn_module_norm, conv_bias=cfg.conv_module_bias,
+        attention_stride=cfg.encoder_attention_stride,
+        max_relative_length=cfg.max_encoder_relative_length,
+        gauss_mask_sigma=cfg.gauss_mask_sigma,
+        init_mask_weight=cfg.init_mask_weight,
+        # the kernel plan, its last width repeated (s2t_transformer.py:361-368)
+        lconv_kernel=kernels[min(i, len(kernels) - 1)] if kernels else 15)
+
+
+class PipeStageBlock(nn.Module):
+    """One pipeline stage: a contiguous block of ``n_layers`` encoder layers
+    (s2t_tpu/models/s2t_transformer.py:271-299)."""
+
+    def __init__(self, cfg: S2TTransformerConfig, n_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList([encoder_layer(cfg, j) for j in range(n_layers)])
+
+
+def seq_chunkable(layer) -> bool:
+    """A layer that runs on a slice of the frames with the ring in its self-attention:
+    abs attention with every key, no convolution over time, no pooling."""
+    attn = getattr(layer, "self_attn", None)
+    return (getattr(layer, "attention_type", None) == "abs" and layer.conv_module is None
+            and layer.se_fc1 is None and layer.collaboration_mode == "none"
+            and attn.kv_stride == 1 and not attn.gauss)
+
+
 class S2TTransformerEncoder(nn.Module):
     """Speech encoder: conv subsampler -> Transformer / Conformer stack -> CTC heads.
 
@@ -481,22 +576,17 @@ class S2TTransformerEncoder(nn.Module):
                 in_dim, cfg.subsampling_layers, cfg.subsampling_filter, D,
                 cfg.subsampling_kernel, cfg.subsampling_stride, cfg.subsampling_activation,
                 cfg.subsampling_norm, mask_between)
-        kernels = cfg.encoder_lconv_kernels
-        self.layers = nn.ModuleList([
-            S2TEncoderLayer(D, cfg.encoder_ffn_embed_dim, cfg.encoder_attention_heads,
-                            cfg.enc_act, cfg.encoder_normalize_before, cfg.dropout,
-                            cfg.attention_dropout, cfg.activation_dropout,
-                            cfg.encoder_attention_type, cfg.macaron_style, cfg.use_cnn_module,
-                            cfg.cnn_module_kernel, conv_activation=cfg.activation_fn,
-                            conv_norm_type=cfg.cnn_module_norm, conv_bias=cfg.conv_module_bias,
-                            attention_stride=cfg.encoder_attention_stride,
-                            max_relative_length=cfg.max_encoder_relative_length,
-                            gauss_mask_sigma=cfg.gauss_mask_sigma,
-                            init_mask_weight=cfg.init_mask_weight,
-                            # the kernel plan, its last width repeated (s2t_transformer.py:361-368)
-                            lconv_kernel=kernels[min(i, len(kernels) - 1)] if kernels else 15)
-            for i in range(cfg.encoder_layers)
-        ])
+        if cfg.pipeline_parallel > 1:
+            # S stages of encoder_layers / S layers each (s2t_tpu/models/s2t_transformer.py:
+            # 271-299, 404-413); the flax tree stacks them on a leading axis
+            S = cfg.pipeline_parallel
+            self.layers = nn.ModuleList()
+            self.pipe_stages = nn.ModuleList([PipeStageBlock(cfg, cfg.encoder_layers // S)
+                                              for _ in range(S)])
+        else:
+            self.layers = nn.ModuleList([encoder_layer(cfg, i)
+                                         for i in range(cfg.encoder_layers)])
+            self.pipe_stages = None
         self.dlcl = DLCL(cfg.encoder_layers, D) if cfg.use_enc_dlcl else None
         self.embed_norm = layer_norm(D) if cfg.encoder_embed_norm else None
         self.embed_linear = Linear(D, D) if cfg.encoder_embed_linear else None
@@ -599,6 +689,68 @@ class S2TTransformerEncoder(nn.Module):
         generator.set_state(end[0])
         return out
 
+    def _layer(self, i, layer, x, valid, bias, generator, pos_emb):
+        """Encoder layer i.  Under ``seq_parallel`` with a "seq" group in the mesh a layer
+        that ``seq_chunkable`` admits runs on this rank's slice of the frames (padded to a
+        multiple of the group), its self-attention through the ring, its dropout from the
+        rank's own generator, and the slices are gathered after it; any other layer runs
+        whole on every rank (the sum convention keeps its gradients right)."""
+        if not (self.cfg.seq_parallel and seq_parallel_enabled() and bias is None
+                and seq_chunkable(layer)):
+            return self._run_layer(layer, x, valid, bias, generator, pos_emb)
+        group = get_mesh().group("seq")
+        P, T = group_size(group), x.shape[1]
+        pad = (-T) % P
+        xc = split(torch.nn.functional.pad(x, (0, 0, 0, pad)), 1, group)
+        vc = split(torch.nn.functional.pad(valid, (0, pad), value=False), 1, group)
+        gen = stream_generator(generator, SEQ_STREAM, group_rank(group), i)
+        with ring_scope():
+            h = self._run_layer(layer, xc, vc, None, gen, pos_emb)
+        return gather(h, 1, group)[:, :T]
+
+    def _pipe_forward(self, x, valid, bias, pos_emb, generator):
+        """The pipelined stack (s2t_tpu/models/s2t_transformer.py:636-679): the batch in
+        M = ``pipeline_microbatches`` or 2 S microbatches through the S stages, each
+        (stage, microbatch) drawing its dropout from a generator of its own.  With a
+        "pipe" group in the mesh each rank runs its block of stages
+        (``parallel/pipeline.py``); without one the stages run here in order."""
+        cfg = self.cfg
+        S = len(self.pipe_stages)
+        M = cfg.pipeline_microbatches or 2 * S
+        B = x.shape[0]
+        if B % M:
+            raise ValueError(
+                f"batch size {B} must be divisible by pipeline_microbatches "
+                f"({M}); pad the batch or adjust pipeline_microbatches")
+        valids = valid.chunk(M, dim=0)
+        biases = [None] * M if bias is None else (
+            bias.chunk(M, dim=0) if bias.shape[0] == B else [bias] * M)
+
+        def stage(s, m, h):
+            gen = stream_generator(generator, PIPE_STREAM, s, m)
+            for layer in self.pipe_stages[s].layers:
+                h = self._run_layer(layer, h, valids[m], biases[m], gen, pos_emb)
+            return h
+
+        mesh = get_mesh()
+        P = 1 if mesh is None else mesh.size("pipe")
+        if P == 1:
+            return torch.cat([functools.reduce(lambda h, s_: stage(s_, m, h), range(S), xm)
+                              for m, xm in enumerate(x.chunk(M, dim=0))], dim=0)
+        if S % P:
+            raise ValueError(f"pipeline_parallel={S} stages do not divide over the mesh's "
+                             f"{P} pipe ranks")
+        per = S // P
+
+        def run(p, m, h):
+            for s_ in range(p * per, (p + 1) * per):
+                h = stage(s_, m, h)
+            return h
+
+        own = [q for s_ in range(mesh.index("pipe") * per, (mesh.index("pipe") + 1) * per)
+               for q in self.pipe_stages[s_].parameters()]
+        return pipeline_apply(run, x, M, mesh, own)
+
     def _compress(self, x, logits, lengths, layer):
         """CTC-blank compression (s2t_tpu/models/s2t_transformer.py:595-622): frames whose
         blank probability is >= the threshold go, the rest are left-packed in order
@@ -663,6 +815,8 @@ class S2TTransformerEncoder(nn.Module):
             return padding_bias(valid, x.dtype) + local_window_bias(T, window, x.dtype, x.device)
 
         bias = window_bias(valid)
+        if self.pipe_stages is not None:
+            x = self._pipe_forward(x, valid, bias, pos_emb, generator)
         history = [x] if self.dlcl is not None else None
         inter_ctc, inter_xctc, inter_axctc = [], [], []
         keep = None
@@ -680,7 +834,7 @@ class S2TTransformerEncoder(nn.Module):
             if keep is None or keep[i]:
                 # a dropped layer is skipped: JAX computes it and keeps x (a where), so
                 # the values are the same and its parameters get zero gradients
-                x = self._run_layer(layer, x, valid, bias, generator, pos_emb)
+                x = self._layer(i, layer, x, valid, bias, generator, pos_emb)
             if self.layer_out_norms is not None and str(i) in self.layer_out_norms:
                 x = self.layer_out_norms[str(i)](x)
             l = i + 1
@@ -768,6 +922,10 @@ class S2TTransformerModel(nn.Module):
             dropout=dec.dropout,
             attention_dropout=dec.attention_dropout,
             activation_dropout=dec.activation_dropout,
+            learned_pos=dec.decoder_learned_pos,
+            # the cross-attention's keys and values have the encoder's width (flax's
+            # k_proj / v_proj infer it, s2t_tpu/modules/attention.py:136-137)
+            encoder_dim=self.encoder_out_dim(cfg),
             **self.decoder_self_attention(dec),
         )
         init_and_place(self, cfg, device, seed, for_training)
@@ -783,6 +941,11 @@ class S2TTransformerModel(nn.Module):
     def decoder_config(cfg):
         """The config whose decoder fields build the decoder (a subclass's may nest it)."""
         return cfg
+
+    @staticmethod
+    def encoder_out_dim(cfg) -> int:
+        """The width of the encoder's output, which the decoder's cross-attention reads."""
+        return cfg.encoder_embed_dim
 
     @staticmethod
     def decoder_self_attention(dec) -> Dict[str, Any]:

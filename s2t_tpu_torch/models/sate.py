@@ -154,11 +154,6 @@ def check_supported(cfg: SATEConfig, for_training: bool = False) -> None:
             raise ValueError("the PDS final stage dim must equal acoustic.encoder_embed_dim")
         # the PDS config's own decoder fields build nothing here
         pds_mod.check_supported(cfg.pds.replace(decoder_layers=0))
-    if a.decoder_layers > 0 and a.encoder_embed_dim != a.decoder_embed_dim:
-        raise NotImplementedError(
-            f"a SATE encoder of width {a.encoder_embed_dim} under a decoder of width "
-            f"{a.decoder_embed_dim}: the port's cross-attention projects keys of the "
-            "decoder's width")
 
 
 class CrossStreamTextLayer(nn.Module):
@@ -408,6 +403,10 @@ class S2TSATEModel(S2TTransformerModel):
     @staticmethod
     def decoder_config(cfg: SATEConfig) -> S2TTransformerConfig:
         return cfg.acoustic
+
+    @staticmethod
+    def encoder_out_dim(cfg: SATEConfig) -> int:
+        return cfg.acoustic.encoder_embed_dim
 
     build_encoder = S2TSATEEncoder
     decoder_mixup = False  # the JAX SATE model hands its decoder the tokens as they are

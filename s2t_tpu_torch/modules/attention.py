@@ -4,6 +4,8 @@ s2t_tpu/modules/attention.py: ``MultiHeadAttention`` with its abs, rope, Shaw
 relative and Gaussian local types and reduced (strided) keys, and
 ``RelPositionMultiHeadAttention``).
 
+An encoder layer's self-attention over its slice of the frames under ``seq_parallel``
+goes through ``parallel/ring_attention.py`` (``parallel/context.ring_scope``).
 Encoder self-attention (abs or rope) with a pure padding mask goes to the fused kernel
 (``ops/attention_cuda.py``) under the condition of the JAX module
 (attention.py:264-269); there is no sequence-length gate.  It gets the
@@ -37,6 +39,8 @@ from s2t_tpu_torch.modules.cast import Linear
 from s2t_tpu_torch.modules.dropout import dropout as drop
 from s2t_tpu_torch.modules.positional import apply_rope, rope_table
 from s2t_tpu_torch.ops.attention_cuda import fused_attention
+from s2t_tpu_torch.parallel.context import get_mesh, ring_active
+from s2t_tpu_torch.parallel.ring_attention import ring_attention
 
 NEG = -1e9
 
@@ -109,6 +113,13 @@ def kernel_seed(generator: torch.Generator) -> torch.Tensor:
     return torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device)
 
 
+def shard_seed(seed: torch.Tensor, index: int) -> torch.Tensor:
+    """The kernel seed of tensor-parallel rank ``index``'s heads: its high word xored
+    with the rank, so each rank's heads draw their own masks (Megatron's model-parallel
+    stream); rank 0 keeps the step's seed."""
+    return seed ^ (index << 32) if index else seed
+
+
 # the attention types of ``MultiHeadAttention`` (rel_pos is ``RelPositionMultiHeadAttention``),
 # and those that take the fused kernel under a pure padding mask
 ATTENTION_TYPES = ("abs", "rope", "relative", "local")
@@ -148,6 +159,9 @@ class MultiHeadAttention(nn.Module):
         self.kv_stride = kv_stride
         self.max_relative_length = max_relative_length
         self.attention_std_scale = attention_std_scale
+        # (index, count): this module holds tensor-parallel rank index's 1 / count of the
+        # heads (set by ``parallel.tensor_parallel``); its dropout draws are that rank's
+        self.shard: Optional[Tuple[int, int]] = None
         self.q_proj = Linear(embed_dim, embed_dim)
         self.k_proj = Linear(kv_dim or embed_dim, embed_dim)
         self.v_proj = Linear(kv_dim or embed_dim, embed_dim)
@@ -290,6 +304,12 @@ class MultiHeadAttention(nn.Module):
         if self.attention_type == "rope":
             q, k = self._rope(q, k, i)
 
+        if bias is None and valid_mask is not None and cache is None and kv_override is None \
+                and ring_active() and q.shape[1] == k.shape[1]:
+            # an encoder layer's slice of the frames under seq_parallel: the ring over the
+            # "seq" group (s2t_tpu/modules/attention.py:254-262)
+            out = ring_attention(q, k, v, valid_mask, get_mesh().group("seq"))
+            return self.out_proj(self._merge(out)), None, None
         if bias is None and valid_mask is not None and cache is None and kv_override is None:
             if self.attention_type in FUSED_ATTENTION_TYPES and q.shape[1] == k.shape[1] \
                     and self.attention_std_scale == 0:
@@ -303,6 +323,8 @@ class MultiHeadAttention(nn.Module):
                         valid_mask[rows, key_order]
                 rate = self.dropout if generator is not None else 0.0
                 seed = kernel_seed(generator) if rate > 0 else None
+                if seed is not None and self.shard is not None:
+                    seed = shard_seed(seed, self.shard[0])
                 out = fused_attention(q, k, v, valid_mask, rate, seed)
                 return self.out_proj(self._merge(out)), None, None
             # the dense path rebuilds the padding bias, strided as the keys are
@@ -339,7 +361,7 @@ class MultiHeadAttention(nn.Module):
         if self.gauss and cache is None:
             w = self._gauss_mix(w, valid_mask)
         probs = w
-        w = drop(w, self.dropout, generator)
+        w = drop(w, self.dropout, generator, None if self.shard is None else (1, *self.shard))
         out = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out_proj(self._merge(out)), cache, probs
 

@@ -38,9 +38,13 @@ class FeedForward(nn.Module):
         self.fc2 = Linear(ffn_dim, dim)
         self.act = get_activation(activation)
         self.activation_dropout = activation_dropout
+        # (index, count): tensor-parallel rank index's 1 / count of the hidden units
+        # (set by ``parallel.tensor_parallel``); its dropout bits are that slice's
+        self.shard: Optional[Tuple[int, int]] = None
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        h = dropout(self.act(self.fc1(x)), self.activation_dropout, generator)
+        h = dropout(self.act(self.fc1(x)), self.activation_dropout, generator,
+                    None if self.shard is None else (-1, *self.shard))
         return self.fc2(h)
 
 

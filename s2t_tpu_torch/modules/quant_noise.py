@@ -18,7 +18,7 @@ a set over, keyed by the port's parameter name, in the port's layout.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,28 +33,34 @@ def blocked_axis(name: str, shape) -> Optional[int]:
 
 
 def draw_masks(params: Dict[str, torch.Tensor], p: float, block_size: int,
-               generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """One Bernoulli(p) drop mask per eligible parameter, block-repeated along axis 1."""
+               generator: torch.Generator, shards: Optional[Dict[str, Tuple]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One Bernoulli(p) drop mask per eligible parameter, block-repeated along axis 1.
+    ``shards``: name -> (whole shape, whole mask -> this rank's slice) of a parameter
+    held as a tensor-parallel shard, whose mask is drawn whole and sliced."""
     masks = {}
     for name, w in params.items():
-        if blocked_axis(name, w.shape) is None or w.shape[1] % block_size:
+        shape, take = (shards or {}).get(name, (w.shape, None))
+        if blocked_axis(name, shape) is None or shape[1] % block_size:
             continue
-        draw = torch.rand((w.shape[0], w.shape[1] // block_size), generator=generator,
+        draw = torch.rand((shape[0], shape[1] // block_size), generator=generator,
                           device=w.device) < p
-        masks[name] = draw.repeat_interleave(block_size, dim=1)
+        mask = draw.repeat_interleave(block_size, dim=1)
+        masks[name] = mask if take is None else take(mask)
     return masks
 
 
 def quant_noise_params(params: Dict[str, torch.Tensor], p: float, block_size: int = 8,
                        generator: Optional[torch.Generator] = None,
-                       masks: Optional[Dict[str, torch.Tensor]] = None
+                       masks: Optional[Dict[str, torch.Tensor]] = None,
+                       shards: Optional[Dict[str, Tuple]] = None
                        ) -> Dict[str, torch.Tensor]:
     """The noised copies of the eligible entries of ``params`` (name -> tensor);
     the gradient flows back to the originals through the mask."""
     if p <= 0.0:
         return {}
     if masks is None:
-        masks = draw_masks(params, p, block_size, generator)
+        masks = draw_masks(params, p, block_size, generator, shards)
     scale = 1.0 / (1.0 - p)
     return {name: torch.where(mask, 0.0, params[name] * scale)
             for name, mask in masks.items()}

@@ -228,6 +228,7 @@ class FusedAdamWSkipNonFinite:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)  # applied updates
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.lr_scale = 1.0  # the runtime lr scale (set_lr_scale)
+        self.norm_fn = None  # the global norm over shards (a sharded Trainer sets it)
 
     def _flat_grads(self) -> torch.Tensor:
         return _flat_grads(self.params)
@@ -256,9 +257,7 @@ class FusedAdamWSkipNonFinite:
         g = self._flat_grads()
         if grad_divisor is not None:
             g.div_(grad_divisor)
-        # accumulated in float64: a float32 reduction over the m model's 79M entries
-        # is off by 0.2-1 % on the CPU (measured), which moves the clip scale
-        gnorm = torch.linalg.vector_norm(g, dtype=torch.float64).float()
+        gnorm = global_norm(g, self.norm_fn)
         ok = torch.isfinite(gnorm)
         apply_it = ok | (self.notfinite_count >= self.max_consecutive_errors)
         scale = apply_it.float()
@@ -290,6 +289,16 @@ class FusedAdamWSkipNonFinite:
         self.notfinite_count = torch.where(ok, 0, self.notfinite_count + 1).to(torch.int32)
         self.count = count_new
         return gnorm
+
+
+def global_norm(g: torch.Tensor, norm_fn: Optional[Callable] = None) -> torch.Tensor:
+    """The global norm of the flat gradients, accumulated in float64: a float32
+    reduction over the m model's 79M entries is off by 0.2-1 % on the CPU (measured),
+    which moves the clip scale.  ``norm_fn``: the sharded Trainer's, which adds the
+    shards' squares over their groups (``parallel/tensor_parallel.sharded_norm``)."""
+    if norm_fn is not None:
+        return norm_fn(g)
+    return torch.linalg.vector_norm(g, dtype=torch.float64).float()
 
 
 def _flat_grads(params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
@@ -550,6 +559,7 @@ class SkipNonFiniteChain:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)  # applied updates
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.lr_scale = 1.0
+        self.norm_fn = None
 
     def _flat_params(self) -> torch.Tensor:
         return torch.cat([p.detach().reshape(-1) for p in self.params])
@@ -561,7 +571,7 @@ class SkipNonFiniteChain:
         g = _flat_grads(self.params)
         if grad_divisor is not None:
             g.div_(grad_divisor)
-        gnorm = torch.linalg.vector_norm(g, dtype=torch.float64).float()
+        gnorm = global_norm(g, self.norm_fn)
         ok = torch.isfinite(gnorm)
         apply_it = ok | (self.notfinite_count >= self.max_consecutive_errors)
         if self.clip > 0:  # optax's (g / norm) * clip where the norm reaches clip

@@ -378,9 +378,14 @@ def test_conv2d_front_end_post_norm_forward_matches_jax():
     ("pipeline_parallel", 2, "item 12"),
 ])
 def test_unported_conformer_branches_raise_by_name(field, value, item):
-    with pytest.raises(NotImplementedError, match=item) as e:
-        tst.S2TTransformerModel(tst.s2t_conformer(**{**CONFORMER, field: value}), device="cpu")
-    assert f"S2TTransformerConfig.{field}=" in str(e.value)
+    # ``item``: the ROADMAP.md item that ported the branch, which raised naming it before;
+    # the Conformer's pipelined stack builds, and an uneven split raises JAX's error
+    m = tst.S2TTransformerModel(tst.s2t_conformer(**{**CONFORMER, field: value}), device="cpu")
+    assert len(m.encoder.pipe_stages) == value and len(m.encoder.layers) == 0
+    with pytest.raises(ValueError, match="divide evenly") as e:
+        tst.S2TTransformerModel(tst.s2t_conformer(**{**CONFORMER, field: value + 1}),
+                                device="cpu")
+    assert f"pipeline_parallel={value + 1} stages" in str(e.value)
     # subsampling_norm is inert under conv2d and, but for "layer", under conv1d (as in JAX)
     m = tst.S2TTransformerModel(tst.s2t_conformer(**CONFORMER, subsampling_norm="batch2d"),
                                 device="cpu")

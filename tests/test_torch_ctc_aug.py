@@ -349,11 +349,10 @@ def loss_and_grads(jm, params, tm, criterion, b, train, log_keys, ctc=False):
         loss, size, logs = jcrit(jm.apply({"params": p}, *args, **kw), jbatch)
         return loss, logs
 
-    grad_fn = jax.value_and_grad(jax_loss, has_aux=True)
-    if train:  # the oracle's Viterbi scans run far faster compiled than eagerly
-        grad_fn = jax.jit(grad_fn)
+    # compiled whole: the oracle's Viterbi scans run far faster so than eagerly, and the
+    # eager op-by-op compiles of a model over a PDS encoder cost more than one jit
     with jax.default_matmul_precision("highest"):
-        (jloss, jlogs), jgrads = grad_fn(params)
+        (jloss, jlogs), jgrads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(params)
     t = tensors(b)
     targs = [t["features"], t["feat_lengths"]] + ([] if ctc else [t["prev_tokens"]])
     tkw = dict(train=True, generator=torch.Generator().manual_seed(0),

@@ -52,7 +52,7 @@ def feats(seed=0, T=96):
 
 def make_pair(**kw):
     jm = js.EmformerModel(js.EmformerConfig(**{**TINY, **kw}))
-    params = jm.init(jax.random.PRNGKey(0), feats(), LENGTHS)["params"]
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), feats(), LENGTHS)["params"]
     params = perturb(jax.tree.map(np.asarray, params), seed=3)
     tm = load_flax_params(ts.EmformerModel(ts.EmformerConfig(**{**TINY, **kw}), device="cpu",
                                            for_training=True), params)

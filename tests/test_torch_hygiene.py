@@ -222,7 +222,7 @@ def test_differentiable_ops_keep_the_graph():
 def test_training_with_layerdrop_raises():
     """LayerDrop trains (it raised before it was ported): a dropped layer is skipped
     in training only, and the keep bits come from the step generator's seed; an
-    unknown remat policy still raises, as do BMUF and a process group."""
+    unknown remat policy still raises; BMUF and a process group pass the CLI's check."""
     cfg = s2t_transformer_s(vocab_size=16, encoder_layers=2, decoder_layers=1,
                             encoder_embed_dim=32, decoder_embed_dim=32,
                             encoder_ffn_embed_dim=32, decoder_ffn_embed_dim=32,
@@ -242,9 +242,9 @@ def test_training_with_layerdrop_raises():
         S2TTransformerModel(cfg.replace(checkpoint_activations=True, remat_policy="x"),
                             device="cpu", for_training=True)
     from s2t_tpu_torch.config import from_dict
-    for bad in ({"bmuf": {"active": True}}, {"distributed": {"fsdp": True}}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            check_train_supported(from_dict(TrainConfig, bad))
+    # BMUF and FSDP are ported (tests/test_torch_parallel.py)
+    for good in ({"bmuf": {"active": True}}, {"distributed": {"fsdp": True}}):
+        check_train_supported(from_dict(TrainConfig, good))
 
 
 def test_fbank_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
@@ -258,15 +258,23 @@ def test_fbank_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch):
 
 
 def test_training_cli_refuses_unported_settings():
-    for section, name, value in (("bmuf", "active", True), ("distributed", "fsdp", True),
-                                 ("common", "profile", True),
+    for section, name, value in (("common", "profile", True),
                                  ("common", "tensorboard_logdir", "tb"),
-                                 ("common", "user_dir", "plugins"),
-                                 ("optimization", "rng_impl", "unsafe_rbg")):
+                                 ("optimization", "rng_impl", "philox")):
         cfg = TrainConfig()
         setattr(getattr(cfg, section), name, value)
         with pytest.raises(NotImplementedError, match=name):
             check_train_supported(cfg)
+    # BMUF, every distributed setting, common.user_dir (read by nothing, as in JAX) and
+    # every rng_impl JAX takes pass the check
+    for section, name, value in (("bmuf", "active", True), ("distributed", "fsdp", True),
+                                 ("distributed", "seq_parallel", 2),
+                                 ("distributed", "coordinator_address", "host:1234"),
+                                 ("common", "user_dir", "plugins"),
+                                 ("optimization", "rng_impl", "unsafe_rbg")):
+        cfg = TrainConfig()
+        setattr(getattr(cfg, section), name, value)
+        check_train_supported(cfg)
     # validation-time decoding, the pretrained-component transplant, quant noise and the
     # training-loop breadth (schedulers, optimizers, lr_groups) are ported
     cfg = TrainConfig()

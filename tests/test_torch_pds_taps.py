@@ -279,8 +279,8 @@ def test_jacobi_matches_jax_and_beam_1(seed, kw, gen):
     rng = np.random.default_rng(7)
     feats = rng.normal(size=(3, 40, 80)).astype(np.float32)
     lens = np.array([40, 32, 26], np.int32)
-    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed), feats, lens,
-                                              np.zeros((3, 4), np.int32))["params"])
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(seed), feats, lens,
+                                                       np.zeros((3, 4), np.int32))["params"])
     tm = load_flax_params(tst.S2TTransformerModel(tst.S2TTransformerConfig(**JACOBI, **kw),
                                                   device="cpu"), params)
     b = {"features": feats, "feat_lengths": lens}

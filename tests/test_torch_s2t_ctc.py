@@ -111,7 +111,8 @@ def test_ctc_criterion_loss_and_grads_match_jax(variant):
         return loss, (sample_size, logs)
 
     with jax.default_matmul_precision("highest"):
-        (jloss, (jsize, jlogs)), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+        (jloss, (jsize, jlogs)), jgrads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
+            params)
     tm = tctc.S2TCTCModel(tctc.s2t_ctc_base(**kw), device="cpu", for_training=True)
     load_flax_params(tm, params)
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}

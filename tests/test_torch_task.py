@@ -92,10 +92,17 @@ def test_forward_fn_from_raw_audio_matches_jax(tasks):
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jm = jtask.build_model()
     jfwd = jtask.forward_fn()
+    jcrit = jtask.build_criterion()
+
+    def forward_and_loss(p, b):
+        out = jfwd(jm, p, b, deterministic=True)
+        return out, jcrit(out, b)
+
+    # each compiled whole: op by op, every op of the fbank and the model compiles alone
     with jax.default_matmul_precision("highest"):
-        params = jfwd(jm, None, jbatch, True, rngs={"params": jax.random.PRNGKey(0)})["params"]
-        jout = jfwd(jm, params, jbatch, deterministic=True)
-        jloss, _, jlogs = jtask.build_criterion()(jout, jbatch)
+        params = jax.jit(lambda b: jfwd(jm, None, b, True, rngs={"params": jax.random.PRNGKey(0)})
+                         )(jbatch)["params"]
+        jout, (jloss, _, jlogs) = jax.jit(forward_and_loss)(params, jbatch)
     model = load_flax_params(task.build_model(device="cpu"), jax.tree.map(np.asarray, params))
     tbatch = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
     before = fbank_cuda.fbank.launches

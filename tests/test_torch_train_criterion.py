@@ -79,7 +79,8 @@ def test_loss_logs_and_grads_match_jax(transcript):
         return loss, (sample_size, logs)
 
     with jax.default_matmul_precision("highest"):
-        (jloss, (jsize, jlogs)), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+        (jloss, (jsize, jlogs)), jgrads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(
+            params)
 
     tm = tst.S2TTransformerModel(tst.s2t_transformer_s(**cfg_kw), device="cpu",
                                  for_training=True)

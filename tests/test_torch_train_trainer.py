@@ -150,18 +150,26 @@ def test_training_refuses_unported_knobs():
         trainer = Trainer(model, build_criterion(*CRITERION), OptimizationConfig(**good),
                           device="cpu")
         assert np.isfinite(trainer.train_step(make_batch(np.random.default_rng(0)))["loss"].item())
-    # a PRNG implementation the port does not name still raises; BMUF and the
-    # process-group settings raise naming item 12 (the next slice)
+    # every PRNG implementation JAX takes builds (the bits come from torch.Generators);
+    # a name JAX does not know still raises
+    Trainer(model, build_criterion(*CRITERION), OptimizationConfig(rng_impl="unsafe_rbg"),
+            device="cpu")
     with pytest.raises(NotImplementedError, match="rng_impl"):
-        Trainer(model, build_criterion(*CRITERION), OptimizationConfig(rng_impl="unsafe_rbg"),
+        Trainer(model, build_criterion(*CRITERION), OptimizationConfig(rng_impl="philox"),
                 device="cpu")
+    # BMUF and the process-group settings are ported (tests/test_torch_parallel.py):
+    # the CLI's check takes them; BMUF still refuses a mesh with model parallelism
     from s2t_tpu_torch.config import BMUFConfig, DistributedConfig, TrainConfig, \
         check_train_supported
-    for bad in (TrainConfig(bmuf=BMUFConfig(active=True)),
-                TrainConfig(distributed=DistributedConfig(data_parallel=2)),
-                TrainConfig(distributed=DistributedConfig(model_parallel=2))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            check_train_supported(bad)
+    from s2t_tpu_torch.parallel.mesh import make_mesh
+    for good in (TrainConfig(bmuf=BMUFConfig(active=True)),
+                 TrainConfig(distributed=DistributedConfig(data_parallel=2)),
+                 TrainConfig(distributed=DistributedConfig(model_parallel=2))):
+        check_train_supported(good)
+    with pytest.raises(ValueError, match="pure data parallelism"):
+        Trainer(model, build_criterion(*CRITERION), OptimizationConfig(), device="cpu",
+                mesh=make_mesh(DistributedConfig(model_parallel=2), world_size=2),
+                bmuf_cfg=BMUFConfig(active=True))
     serving = tst.S2TTransformerModel(tst.s2t_transformer_s(**TINY), device="cpu")
     with pytest.raises(ValueError, match="for_training=True"):
         Trainer(serving, build_criterion(*CRITERION), OptimizationConfig(), device="cpu")

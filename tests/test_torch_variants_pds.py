@@ -13,6 +13,7 @@
   ``subsampling_norm: layer``: forward.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -64,7 +65,8 @@ PDS_VARIANTS = {
 def efficient():
     jm = jctc.S2TCTCModel(jctc.s2t_ctc_pds(**EFFICIENT))
     feats, lens = rng_batch(0)
-    params = perturb(flax_init(jm, feats, lens))
+    params = perturb(jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), feats,
+                                                               lens)["params"]))
     tm = tctc.S2TCTCModel(tctc.s2t_ctc_pds(**EFFICIENT), device="cpu")
     return jm, params, load_flax_params(tm, params)
 
@@ -72,7 +74,7 @@ def efficient():
 def test_efficient_conformer_forward_matches_jax(efficient):
     jm, params, tm = efficient
     feats, lens = rng_batch(1)
-    ref = jm.apply({"params": params}, feats, lens)
+    ref = jax.jit(lambda p: jm.apply({"params": p}, feats, lens))(params)
     with torch.no_grad():
         out = tm(torch.from_numpy(feats), torch.from_numpy(lens).long())
     # T 40 -> 19 (a valid 3x3 conv at stride 2) -> 10 -> 5: each stride shrinks the lengths
